@@ -1,0 +1,527 @@
+"""Inference engine: continuous batching over warmed (batch, seq) buckets.
+
+The port of ``deeplearning4j_tpu/serving/engine.py``:
+
+* **Continuous batching** — one worker thread drains whatever is queued
+  the moment the device frees, pads the ragged batch to the nearest
+  registered bucket (``datasets.iterator.BucketRegistry``, or the 2-D
+  ``ShapeBuckets`` grid, where rows pad to a batch bucket and the sequence
+  axis to a seq bucket) and runs ONE forward, then slices the real rows
+  and steps back out.
+* **Warmup** — every registered bucket runs once at startup, so the first
+  request pays no kernel build (the CUDA kernels build on first use).
+* **Admission control** — a bounded queue of examples: a full queue
+  rejects at ``submit()`` with :class:`ServingOverloaded`, and requests
+  whose deadline passed while queued are shed before a forward is spent
+  on them.
+
+The forward runs under ``torch.inference_mode()`` on the engine's device
+(``"cuda"`` unless the caller asks for the CPU). Not ported yet: the warm
+AOT manifest and compile cache, metering, causal tracing, telemetry
+metrics, the mesh path and hot swap; dict inputs (the ComputationGraph
+form) raise.
+"""
+
+from __future__ import annotations
+
+import collections
+import queue
+import threading
+import time
+
+import numpy as np
+import torch
+
+from deeplearning4j_tpu_torch.datasets.iterator import BucketRegistry, ShapeBuckets
+from deeplearning4j_tpu_torch.utils.device import resolve_device
+
+
+class ServingOverloaded(RuntimeError):
+    """Request shed by admission control: the bounded queue is full, or the
+    request's deadline passed before the worker picked it up. ``reason``
+    (``"queue_full"`` / ``"deadline"``) is machine-readable. A future
+    re-raised fresh chains ``from`` the original, so the reason survives
+    on ``__cause__``."""
+
+    reason = None
+
+
+def _overloaded(msg, reason):
+    e = ServingOverloaded(msg)
+    e.reason = reason
+    return e
+
+
+class ServingShutdown(RuntimeError):
+    """Request failed because the engine stopped before serving it."""
+
+
+class InferenceFuture:
+    """Future-like holder for one submitted request: ``done()`` polls,
+    ``get()`` blocks, and a failed request raises a FRESH exception chained
+    from the original (re-raising one shared instance across waiter
+    threads would mutate its traceback concurrently)."""
+
+    __slots__ = ("_event", "_value", "_error", "latency_s")
+
+    def __init__(self):
+        self._event = threading.Event()
+        self._value = None
+        self._error = None
+        #: submit-to-result seconds, stamped by the worker on completion
+        self.latency_s = None
+
+    def done(self):
+        """True once a result or error is set (never blocks)."""
+        return self._event.is_set()
+
+    def _set(self, v):
+        self._value = v
+        self._event.set()
+
+    def _set_error(self, e):
+        self._error = e
+        self._event.set()
+
+    def get(self, timeout=None):
+        if not self._event.wait(timeout):
+            raise TimeoutError("inference result not ready")
+        err = self._error
+        if err is not None:
+            try:
+                fresh = type(err)(*err.args)
+            except Exception:
+                fresh = RuntimeError(f"{type(err).__name__}: {err}")
+            raise fresh from err
+        return self._value
+
+
+def _as_input(x):
+    """One request input as a host array. Dict inputs are the
+    ComputationGraph form, which is not ported yet."""
+    if isinstance(x, dict):
+        raise NotImplementedError(
+            "dict inputs (the ComputationGraph multi-input form) are not "
+            "ported to deeplearning4j_tpu_torch yet")
+    return np.asarray(x)
+
+
+def _pad_rows_np(a, target, seq_target=None):
+    """Zero-pad ``a`` to ``target`` rows along axis 0 (host-side). With
+    ``seq_target``, an array with a sequence axis (``ndim >= 2``) is
+    zero-padded along axis 1 as well: the model is causal over time, so
+    the real rows and steps of the padded forward equal the unpadded one."""
+    a = np.asarray(a)
+    n = a.shape[0]
+    if n != target:
+        a = np.concatenate([a, np.zeros((target - n,) + a.shape[1:], a.dtype)])
+    if seq_target is not None and a.ndim >= 2 and a.shape[1] != seq_target:
+        width = [(0, 0)] * a.ndim
+        width[1] = (0, seq_target - a.shape[1])
+        a = np.pad(a, width)
+    return a
+
+
+def _slice_seq(a, padded_seq, real_seq):
+    """Undo the seq-axis pad on a forward's output: slice axis 1 back to
+    ``real_seq`` when axis 1 is the padded length."""
+    if real_seq == padded_seq or a.ndim < 2 or a.shape[1] != padded_seq:
+        return a
+    return a[:, :real_seq]
+
+
+class BucketedForward:
+    """One model's bucketed forward on one device: chunk by the largest
+    batch bucket, pad each chunk to its bucket (both axes on a 2-D grid),
+    run the network, slice real rows and steps back out.
+
+    ``forwards`` counts device forwards (warmup included): each runs every
+    layer once, so a kernel a layer launches once per forward launches
+    ``forwards`` times per such layer."""
+
+    def __init__(self, net, buckets, *, device, dtype=np.float32):
+        self.net = net
+        self.device = device
+        self.buckets = buckets
+        #: 2-D (batch, seq) grid vs the 1-D batch-only registry
+        self.seq_aware = isinstance(buckets, ShapeBuckets)
+        self.dtype = np.dtype(dtype)
+        self._lock = threading.Lock()
+        self._counts = {"warmed": 0, "forwards": 0}
+
+    def warmup(self, input_spec):
+        """Run every registered bucket once (zeros of the per-example
+        ``input_spec`` shape) so kernel builds and first-launch costs land
+        here, not on a request. Returns the wall seconds spent."""
+        if isinstance(input_spec, dict):
+            raise NotImplementedError(
+                "dict input specs (ComputationGraph) are not ported yet")
+        spec = tuple(int(d) for d in input_spec)
+        t0 = time.perf_counter()
+        if self.seq_aware:
+            if not spec:
+                raise ValueError("seq-bucketed serving needs a per-example "
+                                 "input spec with a leading sequence axis")
+            shapes = [(b, s) + spec[1:] for b, s in self.buckets]
+        else:
+            shapes = [(b,) + spec for b in self.buckets]
+        for shape in shapes:
+            self._run(np.zeros(shape, self.dtype))
+            with self._lock:
+                self._counts["warmed"] += 1
+        return time.perf_counter() - t0
+
+    def _run(self, x_padded):
+        """One forward at the padded shape; the result comes back to the
+        host (which waits for the device)."""
+        x = torch.from_numpy(x_padded).to(self.device)
+        with torch.inference_mode():
+            y, _ = self.net.apply_fn(self.net.params, self.net.state, x)
+        with self._lock:
+            self._counts["forwards"] += 1
+        return y.cpu().numpy()
+
+    def stats(self):
+        with self._lock:
+            return dict(self._counts)
+
+    def __call__(self, x):
+        """Padded, bucketed forward of a host batch of any leading size."""
+        x = _as_input(x)
+        n = x.shape[0]
+        seq_in = x.shape[1] if self.seq_aware and x.ndim >= 2 else None
+        if self.seq_aware and seq_in is None:
+            raise ValueError(
+                "seq-bucketed serving requires inputs with a sequence axis "
+                f"([rows, steps, ...]); got shape {tuple(x.shape)}")
+        outs = []
+        step = self.buckets.max
+        for i in range(0, n, step):
+            chunk = np.asarray(x[i:i + step], dtype=self.dtype)
+            real = chunk.shape[0]
+            if self.seq_aware:
+                shape = self.buckets.bucket_for(real, seq_in)
+                if shape is None:
+                    raise ValueError(
+                        f"sequence of {seq_in} steps exceeds the largest "
+                        f"registered seq bucket ({self.buckets.max_seq}); "
+                        "sequences cannot be chunked")
+                bucket, seq_bucket = shape
+            else:
+                bucket, seq_bucket = self.buckets.bucket_for(real), None
+            y = self._run(_pad_rows_np(chunk, bucket, seq_target=seq_bucket))[:real]
+            if seq_bucket is not None:
+                y = _slice_seq(y, seq_bucket, seq_in)
+            outs.append(y)
+        return outs[0] if len(outs) == 1 else np.concatenate(outs)
+
+
+class ServingEngine:
+    """Continuous-batching inference server for ONE named model.
+
+    ``submit()`` is the async request path (bounded admission queue,
+    deadline-aware shedding); ``output()`` is the synchronous direct path
+    (same buckets, no queue). ``stats()`` is the status payload.
+    ``device`` is where the forward runs (``"cuda"`` unless the caller
+    asks for ``"cpu"``); the network is moved there.
+    """
+
+    def __init__(self, net, *, name="default", input_spec=None,
+                 buckets=None, seq_buckets=None, max_batch_size=32,
+                 max_queue=256, default_deadline_s=None, batch_window_s=0.0,
+                 dtype=np.float32, warmup=None, device="cuda"):
+        self.name = name
+        self.device = resolve_device(device)
+        net.to(self.device)
+        self.batch_window_s = batch_window_s
+        self.default_deadline_s = default_deadline_s
+        self._input_spec = input_spec
+        if not isinstance(buckets, ShapeBuckets):
+            if buckets is None:
+                buckets = BucketRegistry.powers_of_two(max_batch_size)
+            elif not isinstance(buckets, BucketRegistry):
+                buckets = BucketRegistry(buckets)
+            if seq_buckets is not None:
+                buckets = ShapeBuckets(buckets, seq_buckets)
+        self._fwd = BucketedForward(net, buckets, device=self.device,
+                                    dtype=dtype)
+        self.max_queue = max_queue
+        self._pending_rows = 0  # queued EXAMPLES (a batched entry is n)
+        self._stop = threading.Event()
+        self._thread = None
+        self._lock = threading.Lock()
+        # one deque PER SEQ BUCKET (a single None key on 1-D registries),
+        # so requests coalesce within a seq bucket and a short sequence is
+        # never padded into a long batch; the condition shares the
+        # admission lock, so enqueue, drain and the bound stay atomic
+        self._queues = {}
+        self._not_empty = threading.Condition(self._lock)
+        self._counts = {"submitted": 0, "served": 0, "shed_queue_full": 0,
+                        "shed_deadline": 0, "errors": 0}
+        self._recent_latencies = []  # bounded ring for p50/p99
+        self._warmup_s = None
+        if warmup is None:
+            warmup = input_spec is not None
+        if warmup:
+            self.warmup()
+
+    # ---- lifecycle ----
+
+    def warmup(self):
+        """Run every registered bucket once now, so no request pays a
+        kernel build. Requires ``input_spec`` (per-example shape)."""
+        if self._input_spec is None:
+            raise ValueError("warmup needs input_spec (per-example feature shape)")
+        self._warmup_s = self._fwd.warmup(self._input_spec)
+        return self._warmup_s
+
+    def start(self):
+        self._thread = threading.Thread(target=self._worker, daemon=True,
+                                        name=f"serving-{self.name}")
+        self._thread.start()
+        return self
+
+    def stop(self):
+        """Stop the worker and FAIL every request it never picked up with
+        :class:`ServingShutdown`; ``submit()`` after stop raises."""
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join(timeout=30)
+            self._thread = None
+        self._fail_pending()
+
+    def _pop_locked(self, dq):
+        """Pop one entry off ``dq`` (caller holds the lock), releasing its
+        admission rows."""
+        entry = dq.popleft()
+        self._pending_rows -= entry[4] or 1
+        return entry
+
+    def _fail_pending(self):
+        err = ServingShutdown(
+            f"serving engine {self.name!r} stopped before serving this request")
+        with self._not_empty:
+            drained = []
+            for dq in self._queues.values():
+                while dq:
+                    drained.append(self._pop_locked(dq))
+        for entry in drained:
+            fut = entry[1]
+            if not fut.done():
+                fut._set_error(err)
+                self._count("errors")
+
+    @property
+    def running(self):
+        return self._thread is not None and self._thread.is_alive()
+
+    # ---- request paths ----
+
+    def output(self, x):
+        """Synchronous direct inference (no queue), through the same
+        buckets as the batched path; counted into ``stats()``."""
+        t0 = time.perf_counter()
+        out = self._fwd(x)
+        self._count("served", out.shape[0])
+        self._note_latencies([time.perf_counter() - t0])
+        return out
+
+    def submit(self, x, deadline_s=None, *, batched=False):
+        """Queue ONE example (or, with ``batched=True``, one multi-example
+        batch, examples on axis 0); returns ONE :class:`InferenceFuture`.
+        A batched future resolves to the stacked ``[n, ...]`` outputs.
+
+        Admission bounds queued EXAMPLES: a batched submit of n rows spends
+        n of the ``max_queue`` slots. A full queue sheds here
+        (:class:`ServingOverloaded`); ``deadline_s`` (or the engine
+        default) sheds the request later if it goes stale while queued."""
+        if self._stop.is_set():
+            raise ServingShutdown(f"serving engine {self.name!r} is stopped")
+        fut = InferenceFuture()
+        now = time.perf_counter()
+        if deadline_s is None:
+            deadline_s = self.default_deadline_s
+        deadline = None if deadline_s is None else now + deadline_s
+        self._count("submitted")
+        item = _as_input(x)
+        if batched:
+            if item.ndim == 0 or item.shape[0] == 0:
+                raise ValueError("batched submit requires at least one example "
+                                 f"on axis 0; got shape {tuple(item.shape)}")
+            nrows = int(item.shape[0])
+            if nrows > self.max_queue:
+                # can never be admitted: a sizing error, not load
+                raise ValueError(
+                    f"batched submit of {nrows} rows exceeds the admission "
+                    f"bound (max_queue={self.max_queue}) and could never be "
+                    "admitted; split the batch or raise max_queue")
+        else:
+            nrows = None
+            item = item[None]
+        seq = skey = None
+        if self._fwd.seq_aware:
+            if item.ndim < 2:
+                raise ValueError(
+                    f"model {self.name!r} serves 2-D (batch, seq) buckets: "
+                    "requests need a sequence axis ([steps, ...] per example)")
+            seq = int(item.shape[1])
+            skey = self._fwd.buckets.seq.bucket_for(seq)
+            if skey is None:
+                raise ValueError(
+                    f"model {self.name!r}: sequence of {seq} steps exceeds the "
+                    f"largest registered seq bucket ({self._fwd.buckets.max_seq})")
+        rows = 1 if nrows is None else nrows
+        try:
+            with self._not_empty:
+                if self._pending_rows + rows > self.max_queue:
+                    raise queue.Full
+                self._pending_rows += rows
+                self._queues.setdefault(skey, collections.deque()).append(
+                    (item, fut, now, deadline, nrows, seq))
+                self._not_empty.notify()
+        except queue.Full:
+            self._count("shed_queue_full")
+            raise _overloaded(
+                f"model {self.name!r}: admission queue full "
+                f"({self.max_queue} pending)", "queue_full") from None
+        if self._stop.is_set():
+            # raced stop(): its drain may already have run, leaving this
+            # request in a queue nobody reads
+            self._fail_pending()
+        return fut
+
+    # ---- worker ----
+
+    def _drain(self):
+        """Block briefly for the first request, take everything queued in
+        the seq bucket whose head has waited longest (so no bucket
+        starves), then, with room left and a batch window set, wait under
+        ONE shared deadline for stragglers in that bucket."""
+        cap = self._fwd.buckets.max
+
+        def oldest_key():
+            # (found, key): the 1-D path queues under key None
+            live = [k for k, dq in self._queues.items() if dq]
+            if not live:
+                return False, None
+            return True, min(live, key=lambda k: self._queues[k][0][2])
+
+        batch, rows = [], 0
+        with self._not_empty:
+            found, skey = oldest_key()
+            if not found:
+                self._not_empty.wait(timeout=0.05)
+                found, skey = oldest_key()
+                if not found:
+                    return []
+            dq = self._queues[skey]
+            while dq and rows < cap:
+                e = self._pop_locked(dq)
+                batch.append(e)
+                rows += e[4] or 1
+            if rows < cap and self.batch_window_s > 0:
+                deadline = time.perf_counter() + self.batch_window_s
+                while rows < cap:
+                    remaining = deadline - time.perf_counter()
+                    if remaining <= 0 or not self._not_empty.wait(timeout=remaining):
+                        break
+                    dq = self._queues.get(skey)
+                    while dq and rows < cap:
+                        e = self._pop_locked(dq)
+                        batch.append(e)
+                        rows += e[4] or 1
+        return batch
+
+    def _worker(self):
+        while not self._stop.is_set():
+            batch = self._drain()
+            if not batch:
+                continue
+            now = time.perf_counter()
+            live = []
+            for entry in batch:
+                _x, fut, t_sub, deadline, _n, _seq = entry
+                if deadline is not None and now > deadline:
+                    self._count("shed_deadline")
+                    fut._set_error(_overloaded(
+                        f"model {self.name!r}: deadline exceeded while queued "
+                        f"({1e3 * (now - t_sub):.1f} ms)", "deadline"))
+                    continue
+                live.append(entry)
+            if not live:
+                continue
+            # a failing forward must fail THESE requests, not the loop
+            try:
+                parts = [e[0] for e in live]
+                batch_seq = None
+                if self._fwd.seq_aware:
+                    # one seq bucket per drain, but real lengths inside it
+                    # vary: pad each entry to the batch max so the concat
+                    # is rectangular
+                    batch_seq = max(e[5] for e in live)
+                    parts = [_pad_rows_np(p, p.shape[0], seq_target=batch_seq)
+                             for p in parts]
+                ys = self._fwd(np.concatenate(parts))
+                done = time.perf_counter()
+                lats, off = [], 0
+                for _x, fut, t_sub, _dl, n, seq in live:
+                    width = n or 1
+                    y = ys[off:off + width]
+                    if batch_seq is not None:
+                        y = _slice_seq(y, batch_seq, seq)
+                    if n is None:
+                        y = y[0]
+                    off += width
+                    lats.append(done - t_sub)
+                    fut.latency_s = done - t_sub
+                    fut._set(y)
+                self._count("served", off)
+                self._note_latencies(lats)
+            except Exception as e:  # noqa: BLE001 — propagate to waiters
+                for entry in live:
+                    if not entry[1].done():
+                        entry[1]._set_error(e)
+                self._count("errors", len(live))
+
+    def _count(self, key, n=1):
+        with self._lock:
+            self._counts[key] += n
+
+    def _note_latencies(self, lats):
+        with self._lock:
+            self._recent_latencies.extend(lats)
+            del self._recent_latencies[:-512]
+
+    # ---- status ----
+
+    def latency_percentiles(self):
+        """(p50_s, p99_s) over the recent-latency ring, or (None, None)."""
+        with self._lock:
+            recent = list(self._recent_latencies)
+        if not recent:
+            return None, None
+        return (float(np.percentile(recent, 50)),
+                float(np.percentile(recent, 99)))
+
+    def stats(self):
+        """The status payload for this model."""
+        with self._lock:
+            counts = dict(self._counts)
+            depth = self._pending_rows
+        p50, p99 = self.latency_percentiles()
+        fwd = self._fwd
+        return {
+            "model": self.name,
+            "running": self.running,
+            "device": str(self.device),
+            "buckets": fwd.buckets.batch.sizes() if fwd.seq_aware else fwd.buckets.sizes(),
+            "seq_buckets": fwd.buckets.seq.sizes() if fwd.seq_aware else None,
+            "max_queue": self.max_queue,
+            "queue_depth": depth,
+            "requests": counts,
+            "forward": fwd.stats(),
+            "warmup_s": self._warmup_s,
+            "latency_ms": {
+                "p50": None if p50 is None else round(1e3 * p50, 3),
+                "p99": None if p99 is None else round(1e3 * p99, 3)},
+        }
