@@ -12,7 +12,11 @@ wrapper takes its plain PyTorch version.
 Ported so far: serving a sequential recurrent network (the GravesLSTM
 char-RNN) through ``serving.ModelRegistry`` and the ``serve`` CLI verb,
 with the LSTM recurrence in a hand-written Hopper kernel
-(``ops/lstm_seq.py`` + ``csrc/lstm_seq.cu``).
+(``ops/lstm_seq.py`` + ``csrc/lstm_seq.cu``); training a sequential
+network through ``MultiLayerNetwork.fit`` (losses, updaters, schedules,
+gradient normalization, constraints), with the transformer LM's
+attention forward in a hand-written Hopper flash kernel
+(``ops/attention.py`` + ``csrc/flash_attn.cu``).
 """
 
 __version__ = "0.1.0"

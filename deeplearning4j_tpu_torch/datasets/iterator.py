@@ -1,15 +1,112 @@
-"""Shape buckets for serving: the finite set of padded shapes a process
-runs.
+"""Minibatch sources and shape buckets.
 
-Host-side, standard library only; the same semantics as the
-JAX package's ``BucketRegistry`` and ``ShapeBuckets``
-(``deeplearning4j_tpu/datasets/iterator.py``). The port warms each bucket
-once at startup, so no request pays a kernel build.
+The same semantics as the JAX package's ``iter_batches``, ``pad_batch``,
+``validity_mask``, ``BucketRegistry`` and ``ShapeBuckets``
+(``deeplearning4j_tpu/datasets/iterator.py``). Arrays may be numpy arrays
+or torch tensors; padding keeps each one's kind (and a tensor's device).
+Serving warms each bucket once at startup, so no request pays a kernel
+build; training pads ragged batches to one shape with a validity mask,
+which the masked-mean losses make exact.
 """
 
 from __future__ import annotations
 
 import bisect
+
+import numpy as np
+import torch
+
+
+def _pad_axis(a, target, axis):
+    """Zero-pad ``a`` to ``target`` along ``axis`` (no-op when it is that
+    long already)."""
+    n = a.shape[axis]
+    if n == target:
+        return a
+    if n > target:
+        raise ValueError(f"{'batch' if axis == 0 else 'sequence'} of {n} exceeds the "
+                         f"bucketed shape {target}")
+    if torch.is_tensor(a):
+        shape = list(a.shape)
+        shape[axis] = target - n
+        return torch.cat([a, a.new_zeros(shape)], dim=axis)
+    width = [(0, 0)] * a.ndim
+    width[axis] = (0, target - n)
+    return np.pad(np.asarray(a), width)
+
+
+def validity_mask(labels, n_valid, target, *, seq_valid=None, seq_target=None):
+    """[target] (or [target, T] for time-distributed labels) float32 numpy
+    mask: 1 for the first ``n_valid`` examples, 0 for padding; with a
+    sequence bucket the steps past ``seq_valid`` are 0 too."""
+    valid = (np.arange(target) < n_valid).astype(np.float32)
+    if labels.ndim >= 3:  # [B, T, ...] labels score per timestep
+        t = int(seq_target) if seq_target else labels.shape[1]
+        mask = np.repeat(valid[:, None], t, axis=1)
+        if seq_valid is not None:
+            mask = mask * (np.arange(t) < seq_valid).astype(np.float32)[None]
+        return mask
+    return valid
+
+
+def pad_batch(x, y, m, target, *, seq_target=None):
+    """Bucket one ``(x, y, mask)`` minibatch to ``target`` examples (and,
+    with ``seq_target``, steps). Returns ``(x, y, mask, n_valid)``; the
+    mask is always present, all ones when nothing was padded."""
+    n = x.shape[0]
+    seq = x.shape[1] if seq_target is not None and x.ndim >= 2 else None
+    x, y_padded = _pad_axis(x, target, 0), _pad_axis(y, target, 0)
+    if seq_target is not None:
+        if x.ndim >= 2:
+            x = _pad_axis(x, seq_target, 1)
+        if y_padded.ndim >= 3:
+            y_padded = _pad_axis(y_padded, seq_target, 1)
+    if m is None:
+        m = validity_mask(y, n, target, seq_valid=seq, seq_target=seq_target)
+        if torch.is_tensor(x):
+            m = torch.from_numpy(m).to(x.device)
+    else:
+        m = _pad_axis(m, target, 0)
+        if seq_target is not None:
+            m = _pad_axis(m, seq_target, 1)
+    return x, y_padded, m, n
+
+
+def iter_batches(data, labels=None, batch_size=None, mask=None, pad_to=None):
+    """Yield ``(x, y, mask)`` minibatches from an iterable of batches
+    (objects with ``features``/``labels``, dicts, 2- or 3-tuples), an
+    ``(x, y)`` pair, or feature and label arrays sliced by ``batch_size``.
+    ``pad_to`` pads every batch to that many examples (``True``: the first
+    batch's size) and always yields a mask."""
+    if pad_to is not None and pad_to is not False:
+        target = None if pad_to is True else int(pad_to)
+        for x, y, m in iter_batches(data, labels, batch_size, mask):
+            if target is None:
+                target = x.shape[0]
+            x, y, m, _ = pad_batch(x, y, m, target)
+            yield x, y, m
+        return
+    if labels is None and hasattr(data, "__iter__") \
+            and not isinstance(data, (tuple, list, np.ndarray, torch.Tensor)):
+        for item in data:
+            if hasattr(item, "features") and hasattr(item, "labels"):
+                yield item.features, item.labels, getattr(item, "features_mask", None)
+            elif isinstance(item, dict):
+                yield item["features"], item["labels"], item.get("mask")
+            elif len(item) == 3:
+                yield item
+            else:
+                yield item[0], item[1], None
+        return
+    if labels is None and hasattr(data, "shape"):
+        raise ValueError("labels are required with array features "
+                         "(pass an iterator or (x, y) pair otherwise)")
+    x, y = (data, labels) if labels is not None else data
+    n = x.shape[0]
+    bs = batch_size or n
+    for i in range(0, n, bs):
+        m = mask[i:i + bs] if mask is not None else None
+        yield x[i:i + bs], y[i:i + bs], m
 
 
 class BucketRegistry:

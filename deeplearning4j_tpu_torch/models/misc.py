@@ -1,8 +1,9 @@
-"""Zoo models ported so far: the GravesLSTM char-RNN.
+"""Zoo models ported so far: the GravesLSTM char-RNN and the transformer
+language model.
 
-``text_generation_lstm`` builds the same configuration as the JAX
-package's (``deeplearning4j_tpu/models/misc.py``), so both serialize to
-the same ``config.json``.
+Each builds the same configuration as the JAX package's
+(``deeplearning4j_tpu/models/misc.py``), so both serialize to the same
+``config.json``.
 """
 
 from __future__ import annotations
@@ -25,7 +26,22 @@ def text_generation_lstm(vocab_size, hidden=256, seq_len=64, updater=None, seed=
     )
 
 
-_MODELS = {"text_generation_lstm": text_generation_lstm}
+def transformer_lm(vocab_size, n_layers=4, d_model=256, n_heads=4,
+                   seq_len=128, mlp_ratio=4, updater=None, seed=12345):
+    """Decoder-only transformer language model: [B, T] (or [B, T, 1]) token
+    ids -> per-timestep vocab softmax trained with cross-entropy. Its
+    attention takes the flash kernel from ``seq_len`` >= MIN_SEQ."""
+    return NeuralNetConfig(seed=seed, updater=updater or U.Adam(learning_rate=3e-4)).list(
+        L.EmbeddingSequenceLayer(n_in=vocab_size, n_out=d_model, add_positional=True),
+        *[L.TransformerBlock(n_out=d_model, n_heads=n_heads, mlp_ratio=mlp_ratio,
+                             causal=True)
+          for _ in range(n_layers)],
+        L.RnnOutputLayer(n_out=vocab_size, loss="mcxent"),
+        input_type=I.RecurrentType(1, seq_len),
+    )
+
+
+_MODELS = {"text_generation_lstm": text_generation_lstm, "transformer_lm": transformer_lm}
 
 
 def get_model(name, **kwargs):

@@ -18,6 +18,7 @@ import torch
 
 from deeplearning4j_tpu_torch.nn import activations as _act
 from deeplearning4j_tpu_torch.nn import initializers as _init
+from deeplearning4j_tpu_torch.nn import losses as _losses
 from deeplearning4j_tpu_torch.nn.conf import inputs as _inputs
 from deeplearning4j_tpu_torch.nn.layers.base import ParamLayer
 from deeplearning4j_tpu_torch.nn.layers.core import matmul
@@ -38,6 +39,9 @@ class LSTM(ParamLayer):
     peephole: bool = False
 
     input_family = _inputs.RecurrentType
+
+    WEIGHT_KEYS = ("Wx", "Wh", "Wp")
+    BIAS_KEYS = ("b",)
 
     def output_type(self, input_type):
         if not isinstance(input_type, _inputs.RecurrentType):
@@ -142,8 +146,8 @@ class GravesLSTM(LSTM):
 @register_config
 @dataclasses.dataclass(frozen=True)
 class RnnOutputLayer(ParamLayer):
-    """Per-timestep dense head: [B,T,F] x [F,O] as one flattened matmul.
-    The loss is carried for the config's sake (training slice)."""
+    """Per-timestep dense head: [B,T,F] x [F,O] as one flattened matmul,
+    scored per timestep by its loss (a [B,T] mask drops padded steps)."""
 
     n_out: int = 0
     loss: object = "mcxent"
@@ -165,3 +169,6 @@ class RnnOutputLayer(ParamLayer):
         b, t, f = x.shape
         z = matmul(x.reshape(b * t, f), params["W"]) + params["b"]
         return self.activation_fn()(z.reshape(b, t, self.n_out)), state
+
+    def compute_loss(self, predictions, labels, mask=None):
+        return _losses.get(self.loss)(predictions, labels, mask)

@@ -1,17 +1,44 @@
-"""Updater and learning-rate schedule configs.
+"""Updaters (optimizers) and learning-rate schedules.
 
-Only the config dataclasses are ported: the same classes, fields and
-defaults as ``deeplearning4j_tpu/nn/updaters.py``, so a ``config.json``
-naming any of them parses and round-trips. The update math arrives with
-the training slice; serving never runs it.
+The same classes, fields, defaults and math as
+``deeplearning4j_tpu/nn/updaters.py``, so a ``config.json`` naming any of
+them parses, round-trips and trains alike. The update math is written by
+hand here, not taken from ``torch.optim``: the JAX package's Adam folds the
+bias correction into the step size (``lr * sqrt(1 - b2^t) / (1 - b1^t)``)
+and adds epsilon to the uncorrected ``sqrt(v)``, with ``t = step + 1``,
+where ``torch.optim.Adam`` adds epsilon after the correction; the others
+differ in similar details.
+
+Each updater has
+  init(params)                           -> state
+  update_(params, grads, state, step)    -> state
+where ``params`` is the network's list of per-layer parameter trees,
+``grads`` a matching list of dicts of tensors, and ``state`` mirrors the
+JAX package's optimizer state: a per-layer tree list, a dict of them
+(``{"m": ..., "v": ...}``), or ``()``. ``update_`` updates the parameters
+and the state in place under ``torch.no_grad()`` (the JAX package returns
+new arrays; updating in place keeps one copy of each on the card). Scalar
+factors (schedules, bias corrections) are computed in float32, as JAX
+computes them.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 import typing
 
+import numpy as np
+import torch
+
 from deeplearning4j_tpu_torch.utils.serde import register_config
+from deeplearning4j_tpu_torch.utils.trees import tree_leaves, tree_like
+
+_F32 = np.float32
+
+
+def _f(x):
+    return _F32(x)
 
 
 @register_config
@@ -19,12 +46,18 @@ from deeplearning4j_tpu_torch.utils.serde import register_config
 class FixedSchedule:
     value: float = 0.1
 
+    def __call__(self, step):
+        return float(_f(self.value))
+
 
 @register_config
 @dataclasses.dataclass(frozen=True)
 class ExponentialSchedule:
     initial: float = 0.1
     gamma: float = 0.99
+
+    def __call__(self, step):
+        return float(_f(self.initial) * _f(self.gamma) ** _f(step))
 
 
 @register_config
@@ -34,6 +67,9 @@ class InverseSchedule:
     gamma: float = 0.99
     power: float = 1.0
 
+    def __call__(self, step):
+        return float(_f(self.initial) / (_f(1) + _f(self.gamma) * _f(step)) ** _f(self.power))
+
 
 @register_config
 @dataclasses.dataclass(frozen=True)
@@ -41,6 +77,10 @@ class PolySchedule:
     initial: float = 0.1
     power: float = 1.0
     max_iter: int = 10000
+
+    def __call__(self, step):
+        frac = np.clip(_f(step) / _f(self.max_iter), _f(0), _f(1))
+        return float(_f(self.initial) * (_f(1) - frac) ** _f(self.power))
 
 
 @register_config
@@ -50,6 +90,10 @@ class SigmoidSchedule:
     gamma: float = 0.99
     step_size: int = 100
 
+    def __call__(self, step):
+        z = -_f(self.gamma) * (_f(step) - _f(self.step_size))
+        return float(_f(self.initial) / (_f(1) + np.exp(z)))
+
 
 @register_config
 @dataclasses.dataclass(frozen=True)
@@ -57,6 +101,10 @@ class StepSchedule:
     initial: float = 0.1
     decay_rate: float = 0.5
     step_size: int = 1000
+
+    def __call__(self, step):
+        n = np.floor(_f(step) / _f(self.step_size))
+        return float(_f(self.initial) * _f(self.decay_rate) ** n)
 
 
 @register_config
@@ -67,9 +115,34 @@ class WarmupCosineSchedule:
     total_steps: int = 10000
     floor: float = 0.0
 
+    def __call__(self, step):
+        s = _f(step)
+        if s < self.warmup_steps:
+            return float(_f(self.peak) * s / _f(max(self.warmup_steps, 1)))
+        span = _f(max(self.total_steps - self.warmup_steps, 1))
+        frac = np.clip((s - _f(self.warmup_steps)) / span, _f(0), _f(1))
+        return float(_f(self.floor) + _f(0.5) * (_f(self.peak) - _f(self.floor))
+                     * (_f(1) + np.cos(_f(math.pi) * frac)))
+
 
 Schedule = typing.Union[float, FixedSchedule, ExponentialSchedule, InverseSchedule,
                         PolySchedule, SigmoidSchedule, StepSchedule, WarmupCosineSchedule]
+
+
+def resolve_lr(lr, step):
+    """The learning rate at ``step``: a schedule's value or the constant."""
+    return lr(step) if callable(lr) else float(_f(lr))
+
+
+def zeros_like_tree(params):
+    """Plain lists and dicts of zeros mirroring ``params``."""
+    return tree_like(params, (torch.zeros_like(p.detach()) for p in tree_leaves(params)))
+
+
+def _bias_powers(b, step):
+    """(b^t, b^(t+1)) in float32 with t = step + 1."""
+    t = _f(step) + _f(1)
+    return _f(b) ** t, _f(b) ** (t + _f(1))
 
 
 @register_config
@@ -77,12 +150,33 @@ Schedule = typing.Union[float, FixedSchedule, ExponentialSchedule, InverseSchedu
 class Sgd:
     learning_rate: Schedule = 0.1
 
+    def init(self, params):
+        return ()
+
+    @torch.no_grad()
+    def update_(self, params, grads, state, step):
+        lr = resolve_lr(self.learning_rate, step)
+        for p, g in zip(tree_leaves(params), tree_leaves(grads)):
+            p.add_(-lr * g)
+        return state
+
 
 @register_config
 @dataclasses.dataclass(frozen=True)
 class Nesterovs:
     learning_rate: Schedule = 0.1
     momentum: float = 0.9
+
+    def init(self, params):
+        return zeros_like_tree(params)
+
+    @torch.no_grad()
+    def update_(self, params, grads, state, step):
+        lr, mu = resolve_lr(self.learning_rate, step), self.momentum
+        for p, g, v in zip(tree_leaves(params), tree_leaves(grads), tree_leaves(state)):
+            v.copy_(mu * v - lr * g)
+            p.add_(mu * v - lr * g)  # look-ahead (ND4J NesterovsUpdater)
+        return state
 
 
 @register_config
@@ -93,6 +187,22 @@ class Adam:
     beta2: float = 0.999
     epsilon: float = 1e-8
 
+    def init(self, params):
+        return {"m": zeros_like_tree(params), "v": zeros_like_tree(params)}
+
+    @torch.no_grad()
+    def update_(self, params, grads, state, step):
+        lr = resolve_lr(self.learning_rate, step)
+        b1, b2 = self.beta1, self.beta2
+        b1t, b2t = _bias_powers(b1, step)[0], _bias_powers(b2, step)[0]
+        lr_t = float(-_f(lr) * (np.sqrt(_f(1) - b2t) / (_f(1) - b1t)))
+        for p, g, m, v in zip(tree_leaves(params), tree_leaves(grads), tree_leaves(state["m"]),
+                              tree_leaves(state["v"])):
+            m.copy_(b1 * m + (1 - b1) * g)
+            v.copy_(b2 * v + (1 - b2) * g * g)
+            p.add_(lr_t * m / (torch.sqrt(v) + self.epsilon))
+        return state
+
 
 @register_config
 @dataclasses.dataclass(frozen=True)
@@ -101,6 +211,21 @@ class AdaMax:
     beta1: float = 0.9
     beta2: float = 0.999
     epsilon: float = 1e-8
+
+    def init(self, params):
+        return {"m": zeros_like_tree(params), "u": zeros_like_tree(params)}
+
+    @torch.no_grad()
+    def update_(self, params, grads, state, step):
+        lr = resolve_lr(self.learning_rate, step)
+        b1, b2 = self.beta1, self.beta2
+        scale = float(_f(lr) / (_f(1) - _bias_powers(b1, step)[0]))
+        for p, g, m, u in zip(tree_leaves(params), tree_leaves(grads), tree_leaves(state["m"]),
+                              tree_leaves(state["u"])):
+            m.copy_(b1 * m + (1 - b1) * g)
+            u.copy_(torch.maximum(b2 * u, g.abs()))
+            p.add_(-scale * m / (u + self.epsilon))
+        return state
 
 
 @register_config
@@ -111,12 +236,43 @@ class Nadam:
     beta2: float = 0.999
     epsilon: float = 1e-8
 
+    def init(self, params):
+        return {"m": zeros_like_tree(params), "v": zeros_like_tree(params)}
+
+    @torch.no_grad()
+    def update_(self, params, grads, state, step):
+        lr = resolve_lr(self.learning_rate, step)
+        b1, b2 = self.beta1, self.beta2
+        b1t, b1t1 = _bias_powers(b1, step)
+        b2t = _bias_powers(b2, step)[0]
+        c_m, c_g = float(_f(1) - b1t1), float(_f(1) - b1t)
+        c_v = float(_f(1) - b2t)
+        for p, g, m, v in zip(tree_leaves(params), tree_leaves(grads), tree_leaves(state["m"]),
+                              tree_leaves(state["v"])):
+            m.copy_(b1 * m + (1 - b1) * g)
+            v.copy_(b2 * v + (1 - b2) * g * g)
+            mhat = b1 * m / c_m + (1 - b1) * g / c_g
+            vhat = v / c_v
+            p.add_(-lr * mhat / (torch.sqrt(vhat) + self.epsilon))
+        return state
+
 
 @register_config
 @dataclasses.dataclass(frozen=True)
 class AdaGrad:
     learning_rate: Schedule = 0.1
     epsilon: float = 1e-6
+
+    def init(self, params):
+        return zeros_like_tree(params)
+
+    @torch.no_grad()
+    def update_(self, params, grads, state, step):
+        lr = resolve_lr(self.learning_rate, step)
+        for p, g, h in zip(tree_leaves(params), tree_leaves(grads), tree_leaves(state)):
+            h.add_(g * g)
+            p.add_(-lr * g / (torch.sqrt(h) + self.epsilon))
+        return state
 
 
 @register_config
@@ -125,6 +281,20 @@ class AdaDelta:
     rho: float = 0.95
     epsilon: float = 1e-6
 
+    def init(self, params):
+        return {"g2": zeros_like_tree(params), "dx2": zeros_like_tree(params)}
+
+    @torch.no_grad()
+    def update_(self, params, grads, state, step):
+        rho, eps = self.rho, self.epsilon
+        for p, g, g2, dx2 in zip(tree_leaves(params), tree_leaves(grads), tree_leaves(state["g2"]),
+                                 tree_leaves(state["dx2"])):
+            g2.copy_(rho * g2 + (1 - rho) * g * g)
+            u = -g * torch.sqrt(dx2 + eps) / torch.sqrt(g2 + eps)
+            dx2.copy_(rho * dx2 + (1 - rho) * u * u)
+            p.add_(u)
+        return state
+
 
 @register_config
 @dataclasses.dataclass(frozen=True)
@@ -132,6 +302,17 @@ class RmsProp:
     learning_rate: Schedule = 1e-3
     decay: float = 0.95
     epsilon: float = 1e-8
+
+    def init(self, params):
+        return zeros_like_tree(params)
+
+    @torch.no_grad()
+    def update_(self, params, grads, state, step):
+        lr, d = resolve_lr(self.learning_rate, step), self.decay
+        for p, g, a in zip(tree_leaves(params), tree_leaves(grads), tree_leaves(state)):
+            a.copy_(d * a + (1 - d) * g * g)
+            p.add_(-lr * g / (torch.sqrt(a) + self.epsilon))
+        return state
 
 
 @register_config
@@ -142,11 +323,31 @@ class AmsGrad:
     beta2: float = 0.999
     epsilon: float = 1e-8
 
+    def init(self, params):
+        return {"m": zeros_like_tree(params), "v": zeros_like_tree(params),
+                "vhat": zeros_like_tree(params)}
+
+    @torch.no_grad()
+    def update_(self, params, grads, state, step):
+        lr = resolve_lr(self.learning_rate, step)
+        b1, b2 = self.beta1, self.beta2
+        for p, g, m, v, vh in zip(tree_leaves(params), tree_leaves(grads), tree_leaves(state["m"]),
+                                  tree_leaves(state["v"]), tree_leaves(state["vhat"])):
+            m.copy_(b1 * m + (1 - b1) * g)
+            v.copy_(b2 * v + (1 - b2) * g * g)
+            torch.maximum(vh, v, out=vh)
+            p.add_(-lr * m / (torch.sqrt(vh) + self.epsilon))
+        return state
+
 
 @register_config
 @dataclasses.dataclass(frozen=True)
 class NoOp:
-    pass
+    def init(self, params):
+        return ()
+
+    def update_(self, params, grads, state, step):
+        return state
 
 
 UPDATERS = {

@@ -31,91 +31,46 @@ rebuilt and a clean checkout builds on its first call.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import pathlib
-import shutil
-import subprocess
 import threading
 
 import torch
 
-_PKG = pathlib.Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "lstm_seq.cu"
-BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+from deeplearning4j_tpu_torch.ops import _build
+
+SOURCE = _build.CSRC / "lstm_seq.cu"
 
 #: kernel launches (wrapper calls that reached the CUDA kernel)
 launches = 0
 _count_lock = threading.Lock()
-_lib = None
-_lib_lock = threading.Lock()
 
 _ENTRY_ARGS = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 
 
-def _nvcc():
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    default = pathlib.Path("/usr/local/cuda/bin/nvcc")
-    if default.exists():
-        return str(default)
-    raise RuntimeError("nvcc not found (neither on PATH nor in /usr/local/cuda/bin): "
-                       "the lstm_seq CUDA kernel cannot be built")
+def _declare(lib):
+    for name in ("lstm_seq_f32", "lstm_seq_bf16"):
+        fn = getattr(lib, name)
+        fn.argtypes = _ENTRY_ARGS
+        fn.restype = ctypes.c_int
+    lib.lstm_seq_split.argtypes = [ctypes.c_int] * 3
+    lib.lstm_seq_split.restype = ctypes.c_int
+    lib.lstm_seq_error_string.argtypes = [ctypes.c_int]
+    lib.lstm_seq_error_string.restype = ctypes.c_char_p
 
 
-def library_path() -> pathlib.Path:
-    """Where the shared library for the current source lives once built."""
-    digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"lstm_seq-{digest}.so"
+_LIB = _build.Library(SOURCE, _declare)
 
 
-def build() -> pathlib.Path:
-    """Compile ``csrc/lstm_seq.cu`` unless the library for this source hash
-    exists. nvcc's output (``-Xptxas -v``: registers, shared memory, spills)
-    is kept beside the library as ``.log``. Returns the library path."""
-    so = library_path()
-    if so.exists():
-        return so
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f"{so.stem}.{os.getpid()}.{threading.get_ident()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}) building {SOURCE}:\n"
-                           f"{proc.stdout}{proc.stderr}")
-    so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, so)  # atomic: a concurrent build sees all or nothing
-    return so
-
-
-def _library():
-    global _lib
-    with _lib_lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            for name in ("lstm_seq_f32", "lstm_seq_bf16"):
-                fn = getattr(lib, name)
-                fn.argtypes = _ENTRY_ARGS
-                fn.restype = ctypes.c_int
-            lib.lstm_seq_split.argtypes = [ctypes.c_int] * 3
-            lib.lstm_seq_split.restype = ctypes.c_int
-            lib.lstm_seq_error_string.argtypes = [ctypes.c_int]
-            lib.lstm_seq_error_string.restype = ctypes.c_char_p
-            _lib = lib
-        return _lib
+def build():
+    """Compile ``csrc/lstm_seq.cu`` unless built; returns the library path."""
+    return _LIB.build()
 
 
 def cluster_split(b, h, device=None):
     """How many blocks of a cluster split the hidden axis at batch ``b``
     and width ``h`` on a CUDA ``device`` (the kernel picks it from B, H and
     the SM count)."""
-    dev = torch.device("cuda" if device is None else device)
-    index = dev.index if dev.index is not None else torch.cuda.current_device()
-    return _library().lstm_seq_split(b, h, index)
+    index = _build.device_index(torch.device("cuda" if device is None else device))
+    return _LIB.get().lstm_seq_split(b, h, index)
 
 
 def lstm_seq_plain(xz, wh, h0, c0, wp=None, mask=None):
@@ -187,18 +142,33 @@ def _check(xz, wh, h0, c0, wp, mask):
         raise ValueError(f"mask must be [T, B] = {(t_len, b)}, got {tuple(mask.shape)}")
 
 
+def refuse_autograd(device_type, *tensors):
+    """Raise when the CUDA kernel would be asked for a gradient: it has no
+    backward yet, and its outputs carry no ``grad_fn``, so the graph would
+    be cut without a word. The CPU plain version stays differentiable."""
+    if device_type != "cuda" or not torch.is_grad_enabled():
+        return
+    if any(t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            "lstm_seq: the CUDA kernel has no backward yet (ROADMAP queue 1, "
+            "\"the LSTM backward\"); run it under torch.no_grad() or "
+            "inference_mode, or train a recurrent net on the CPU")
+
+
 def lstm_seq(xz, wh, h0, c0, wp=None, mask=None):
     """LSTM over T steps: hs, cs [T,B,H] and hT, cT [B,H] (see
     ``lstm_seq_plain`` for the contract). CUDA tensors launch the Hopper
     kernel (f32 or bf16 xz/wh/wp, h0/c0 any float dtype); CPU tensors take
-    the plain version."""
+    the plain version. On CUDA tensors it refuses autograd (see
+    ``refuse_autograd``)."""
     global launches
     if xz.device.type == "cpu":
         return lstm_seq_plain(xz, wh, h0, c0, wp=wp, mask=mask)
     if xz.device.type != "cuda":
         raise ValueError(f"lstm_seq runs on cuda or cpu tensors, got {xz.device}")
+    refuse_autograd(xz.device.type, xz, wh, h0, c0, wp)
     _check(xz, wh, h0, c0, wp, mask)
-    lib = _library()
+    lib = _LIB.get()
     t_len, b, four_h = xz.shape
     hsz = four_h // 4
     dev = xz.device
@@ -216,7 +186,7 @@ def lstm_seq(xz, wh, h0, c0, wp=None, mask=None):
              None if maskf is None else maskf.data_ptr(),
              hs.data_ptr(), cs.data_ptr(), h_last.data_ptr(), c_last.data_ptr(),
              h_state.data_ptr(), c_state.data_ptr(), t_len, b, hsz,
-             dev.index if dev.index is not None else torch.cuda.current_device(),
+             _build.device_index(dev),
              torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         msg = lib.lstm_seq_error_string(err).decode()

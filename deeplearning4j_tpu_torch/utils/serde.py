@@ -22,7 +22,8 @@ _CATALOG_MODULES = ("deeplearning4j_tpu_torch.nn.layers",
                     "deeplearning4j_tpu_torch.nn.conf.inputs",
                     "deeplearning4j_tpu_torch.nn.conf.network",
                     "deeplearning4j_tpu_torch.nn.initializers",
-                    "deeplearning4j_tpu_torch.nn.updaters")
+                    "deeplearning4j_tpu_torch.nn.updaters",
+                    "deeplearning4j_tpu_torch.nn.constraints")
 
 
 def register_config(cls):

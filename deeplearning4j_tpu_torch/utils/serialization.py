@@ -9,16 +9,18 @@ Layout inside the zip (``deeplearning4j_tpu/utils/serialization.py``):
     arrays.npz      flat {path -> ndarray}; paths are jax keystr paths of
                     the params/state/opt_state trees, e.g. params[0]['Wx']
 
-Parameters load into the port's tensors; updater state (``opt...``) and the
-step RNG chain (``rng``) are kept as the raw arrays they are and written
-back unchanged, so a zip passed through the port still resumes in JAX.
+Parameters load into the port's tensors, nested layer trees included
+(``params[1]['mha']['Wqkv']``). Updater state (``opt...``) loads into the
+port's updater state under the same paths (Adam's ``opt['m'][1]['W']``,
+RmsProp's ``opt[0]['W']``) and is written back from it, so a checkpoint
+taken mid-training in either package resumes in the other with its
+moments. The step RNG chain (``rng``) is kept as the raw array it is.
 """
 
 from __future__ import annotations
 
 import io
 import json
-import re
 import zipfile
 
 import numpy as np
@@ -26,25 +28,35 @@ import torch
 
 from deeplearning4j_tpu_torch.nn.conf.network import MultiLayerConfiguration
 from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+from deeplearning4j_tpu_torch.utils.trees import flatten_tree
 
 FORMAT_VERSION = 1
 
-_PARAM_KEY = re.compile(r"^params\[(\d+)\]\['([^'\]]+)'\]$")
 
-
-def param_key(i, name):
-    """The jax keystr path of layer ``i``'s parameter ``name``."""
-    return f"params[{i}]['{name}']"
+def _load_flat(template, arrays, prefix, what):
+    """Copy ``arrays`` (keystr path -> ndarray) into the tensors of
+    ``template`` under ``prefix``; every path and shape must match."""
+    flat = flatten_tree(template, prefix)
+    theirs = {k for k in arrays if k.startswith(prefix)}
+    if set(flat) != theirs:
+        raise ValueError(f"{what}: keys {sorted(theirs - set(flat))} are not in the port's "
+                         f"layout, and {sorted(set(flat) - theirs)} are missing")
+    with torch.no_grad():
+        for key, dst in flat.items():
+            src = np.asarray(arrays[key])
+            if tuple(src.shape) != tuple(dst.shape):
+                raise ValueError(f"{what} {key}: shape {src.shape} != expected "
+                                 f"{tuple(dst.shape)}")
+            dst.copy_(torch.from_numpy(np.array(src)))
 
 
 def _write_model(z, net, save_updater):
-    arrays = {}
-    for i, p in enumerate(net.params or ()):
-        for name, t in p.items():
-            arrays[param_key(i, name)] = t.detach().cpu().numpy()
-    has_updater = bool(save_updater and net.opt_arrays)
+    arrays = {k: t.detach().cpu().numpy()
+              for k, t in flatten_tree(net.params or [], "params").items()}
+    has_updater = bool(save_updater and net.opt_state is not None)
     if has_updater:
-        arrays.update(net.opt_arrays)
+        arrays.update({k: t.detach().cpu().numpy()
+                       for k, t in flatten_tree(net.opt_state, "opt").items()})
     if net.rng is not None:
         arrays["rng"] = net.rng
     meta = {"format_version": FORMAT_VERSION, "kind": "multilayer",
@@ -69,25 +81,16 @@ def save_model(net, path, *, save_updater=True):
 
 def params_from_numpy(net, params):
     """Load per-layer parameters given as the JAX package's ``net.params``
-    (a list of dicts of arrays, numpy or anything ``np.asarray`` takes)
-    into ``net``, on its device. Every key and shape must match the
-    network's own layout. Returns ``net``."""
+    (a list of dicts, nested where the layer nests, of numpy arrays or
+    anything ``np.asarray`` takes) into ``net``, on its device. Every key
+    and shape must match the network's own layout. Returns ``net``."""
     if net.params is None:
         net.init()
     if len(params) != len(net.params):
         raise ValueError(f"{len(params)} parameter dicts for "
                          f"{len(net.params)} layers")
     for i, (mine, theirs) in enumerate(zip(net.params, params)):
-        if set(mine) != set(theirs):
-            raise ValueError(f"layer {i}: parameter keys {sorted(theirs)} != "
-                             f"expected {sorted(mine)}")
-        for name, dst in mine.items():
-            src = np.asarray(theirs[name])
-            if tuple(src.shape) != tuple(dst.shape):
-                raise ValueError(f"layer {i} {name!r}: shape {src.shape} != "
-                                 f"expected {tuple(dst.shape)}")
-            with torch.no_grad():
-                dst.copy_(torch.from_numpy(np.array(src)))
+        _load_flat(mine, flatten_tree(theirs), "", f"layer {i} parameters")
     return net
 
 
@@ -103,17 +106,13 @@ def _read_model(z, device):
     arrays = dict(np.load(io.BytesIO(z.read("arrays.npz"))))
     net = MultiLayerNetwork(conf, device=device)
     net.init()  # template tensors, overwritten below
-    params = [dict() for _ in conf.layers]
-    for key, arr in arrays.items():
-        m = _PARAM_KEY.match(key)
-        if m:
-            params[int(m.group(1))][m.group(2)] = arr
-        elif key.startswith("params") or key.startswith("state"):
-            raise NotImplementedError(f"checkpoint entry {key!r} belongs to a "
-                                      "layer layout not ported yet")
-    params_from_numpy(net, params)
+    if any(k.startswith("state") for k in arrays):
+        raise NotImplementedError("checkpoint carries layer state: stateful layers "
+                                  "are not ported yet")
+    _load_flat(net.params, arrays, "params", "parameters")
     if meta.get("has_updater"):
-        net.opt_arrays = {k: v for k, v in arrays.items() if k.startswith("opt")}
+        net.opt_state = conf.updater.init(net.params)
+        _load_flat(net.opt_state, arrays, "opt", "updater state")
     if meta.get("has_rng"):
         net.rng = arrays["rng"]
     net.iteration = meta.get("iteration", 0)
