@@ -7,8 +7,9 @@ Phases, each printing one JSON line (any failure raises and exits
 nonzero; nothing is caught):
 
 1. env      torch/CUDA versions, the card's name and power limit.
-2. build    nvcc builds of ``csrc/lstm_seq.cu`` and ``csrc/flash_attn.cu``,
-            started together, with their ptxas reports.
+2. build    nvcc builds of ``csrc/lstm_seq.cu``, ``csrc/flash_attn.cu`` and
+            ``csrc/conv_stats.cu``, started together, with their ptxas
+            reports.
 3. kernels  ``lstm_seq`` held against ``lstm_seq_plain`` on the card, f32
             and bf16, with and without peepholes and mask, at the served
             shapes (T=128, H=512, B in {1, 8, 64}), at H=1024 and at a
@@ -22,7 +23,8 @@ nonzero; nothing is caught):
             masked; q, k, v are views of one [B,T,3,H,D] tensor, as the
             fused projection leaves them. Times at the training path's
             shape (T=4096, D=64, causal) beside the bound, the plain
-            version and ``scaled_dot_product_attention`` as a yardstick;
+            version and ``scaled_dot_product_attention`` as a yardstick,
+            forward and forward + backward (with the backward's bound);
             then the kernel against the port's naive attention, forward and
             backward, at T in {256, ..., 4096}: the length crossover.
 5. train    ``transformer_lm`` at the width of the JAX package's long-context
@@ -35,18 +37,38 @@ nonzero; nothing is caught):
             plain attention forward agreeing with the kernel's step.
             After each, one step under ``torch.profiler``: device time by
             family and the device's busy share.
-6. serve    the GravesLSTM char-RNN at full width (vocab 96, 2 x 512,
+6. conv     ``conv_mm_stats`` and ``conv3x3_stats`` held against their plain
+            versions on the card, z and both statistics, f32 and bf16, at
+            all 19 conv geometries of the fused ResNet50 at batch 64 and at
+            edge cases (channels off the tiles, a row count off the row
+            tile, the 7x7 map, stride-2 3x3 on even dims); each path
+            geometry timed beside its bound, the plain version and cuDNN's
+            ``F.conv2d`` on the same z (a yardstick without the statistics),
+            and the sums over one forward's 36 + 16 calls.
+7. resnet   ``resnet50(fused=True)`` at the JAX package's flagship bench
+            width (batch 64, 224x224x3, 1000 classes; 25,557,032 params,
+            random weights from the seed) trained by
+            ``ComputationGraph.fit`` on synthetic labelled images (10 class
+            templates plus noise), under the f32 policy and ``bf16_policy``:
+            2 warm-up steps then 10 timed ones with exactly 36 + 16 conv
+            kernel launches a step, the last loss below the first; under
+            f32 first one step from identical weights through the kernels'
+            plain versions, agreeing with the kernel step within the step's
+            own f32 noise (the plain step on the batch permuted). After each, one
+            step under ``torch.profiler``: device time by family and busy
+            share.
+8. serve    the GravesLSTM char-RNN at full width (vocab 96, 2 x 512,
             seq 128; weights from a numpy seed), round-tripped through
             ``save_model``/``load_model`` and served through
             ``ModelRegistry`` on (batch, seq) buckets: a few hundred
             requests of mixed lengths and batch sizes, every result checked
             against the plain functions on the card, and the kernel's
             launch count checked against the device forwards.
-7. profile  one char-RNN forward at the largest bucket under
+9. profile  one char-RNN forward at the largest bucket under
             ``torch.profiler``: device time by kernel family and busy share.
-8. cli      ``python -m deeplearning4j_tpu_torch serve --smoke 64``.
+10. cli     ``python -m deeplearning4j_tpu_torch serve --smoke 64``.
 
-Then a ``kernels`` line (every kernel of the two paths with its launches on
+Then a ``kernels`` line (every kernel of the paths with its launches on
 its path, error, times and bound), the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``.
 
@@ -59,13 +81,24 @@ atol 1e-5 (one softmax-weighted sum per row, in another order), lse atol
 1e-5 + rtol 1e-6 (lse is ~10 at T=4096, where an f32 ulp is ~1e-6);
 gradients atol 1e-5 + rtol 1e-4 (sums over up to 4096 rows); bf16 2e-2 +
 2e-2·|x| (the kernel rounds p to bf16 against the running max, the plain
-version against the final one; one bf16 ulp is 2^-8). Training: the
+version against the final one; one bf16 ulp is 2^-8). conv kernels: f32 z
+atol 1e-4 (sums of up to 4608 products in another order); bf16 z 2e-2 +
+2e-2·|z| (one bf16 ulp: the two f32 accumulators may round to neighbours);
+each statistic within 1e-5 of the sum of its terms' magnitudes + 1e-3
+(sum z cancels, so its error is measured against sum |z|; sum z^2 against
+itself), in both dtypes, since both take the sums from f32 accumulators of
+the same exact products. Training: the
 kernel step and the plain-attention step agree to loss rtol 1e-4, and
 to updated parameters atol 1e-4 under the f32 policy; under bf16_policy,
 where one-ulp operand flips move near-zero gradient elements by their own
 size and Adam's first step amplifies that to up to 2·lr, each tensor's
 gradient to a relative difference of 1e-2 (parameter difference
-reported).
+reported). ResNet50 (f32): the kernel step agrees with the plain-version
+step to loss rtol 1e-4 and BN running state atol 1e-4; its gradients and
+updated parameters are held against the step's own f32 noise, measured as
+the plain step on the same batch permuted (see ``resnet_step_check``): at
+this init that noise alone is ~3% in the gradients and ~190k parameters
+beyond 1e-4 after Adam's first step.
 """
 
 from __future__ import annotations
@@ -111,6 +144,16 @@ LM_PARAMS = 29_408_256
 WARMUP_STEPS, TIMED_STEPS = 2, 10
 CROSSOVER_T = (256, 512, 1024, 2048, 4096)
 
+# the JAX package's flagship bench: ComputationGraph resnet50(fused=True),
+# batch 64, 224x224x3, 1000 classes
+RN_BATCH, RN_HW, RN_CLASSES, RN_PARAMS = 64, 224, 1000, 25_557_032
+RN_TASK_CLASSES = 10
+RN_WARMUP_STEPS, RN_TIMED_STEPS = 2, 10
+CONV_F32_ZTOL = 1e-4
+CONV_BF16_TOL = 2e-2
+CONV_STATS_RTOL, CONV_STATS_ATOL = 1e-5, 1e-3
+RN_LOSS_RTOL, RN_STATE_ATOL, RN_PARAM_ATOL, RN_NOISE_FACTOR = 1e-4, 1e-4, 1e-4, 1.5
+
 
 def emit(phase, **fields):
     print(json.dumps({"phase": phase, **fields}), flush=True)
@@ -140,6 +183,14 @@ def time_ms(fn, *, iters, reps):
     return statistics.median(out)
 
 
+def roofline(nbytes, ops, dtype):
+    """(least ms, what sets it): ``nbytes`` over the memory rate against
+    ``ops`` over the dtype's peak."""
+    by_bytes = 1e3 * nbytes / PEAK_BYTES_S
+    by_ops = 1e3 * ops / PEAK_OPS_S[dtype]
+    return (by_ops, "operations") if by_ops >= by_bytes else (by_bytes, "bytes")
+
+
 def bound(t, b, h, dtype, peephole, mask):
     """Least time (ms) for one lstm_seq call and what sets it: every input
     read once and every output written once over the memory rate, against
@@ -148,10 +199,7 @@ def bound(t, b, h, dtype, peephole, mask):
     n_in = t * b * 4 * h + h * 4 * h + 2 * b * h + (3 * h if peephole else 0)
     n_out = 2 * t * b * h + 2 * b * h
     nbytes = elt * (n_in + n_out) + (4 * t * b if mask else 0)
-    ops = 2 * t * b * h * 4 * h
-    by_bytes = 1e3 * nbytes / PEAK_BYTES_S
-    by_ops = 1e3 * ops / PEAK_OPS_S[dtype]
-    return (by_ops, "operations") if by_ops >= by_bytes else (by_bytes, "bytes")
+    return roofline(nbytes, 2 * t * b * h * 4 * h, dtype)
 
 
 def lstm_inputs(rs, t, b, h, dtype, peephole, mask):
@@ -270,18 +318,17 @@ def key_mask(rs, b, t):
     return torch.from_numpy((np.arange(t)[None, :] < lens[:, None]).astype(np.float32)).cuda()
 
 
-def flash_bound(b, t, h, d, dtype, causal):
-    """Least time (ms) for one flash forward and what sets it: q, k, v read
-    and out, lse written once over the memory rate, against the two
-    products' operations over the dtype's peak, counting only the query-key
-    pairs the causal mask leaves."""
+def flash_bound(b, t, h, d, dtype, causal, backward=False):
+    """Least time (ms) for one flash forward (or backward) and what sets
+    it: q, k, v read and out, lse written once (backward: q, k, v, out, its
+    cotangent and lse read, dq, dk, dv written) over the memory rate,
+    against the two products' operations (backward: five, 2.5x) over the
+    dtype's peak, counting only the query-key pairs the causal mask
+    leaves."""
     elt = torch.finfo(dtype).bits // 8
-    nbytes = elt * 4 * b * t * h * d + 4 * b * h * t
+    nbytes = elt * (8 if backward else 4) * b * t * h * d + 4 * b * h * t
     pairs = t * (t + 1) // 2 if causal else t * t
-    ops = 4 * b * h * d * pairs
-    by_bytes = 1e3 * nbytes / PEAK_BYTES_S
-    by_ops = 1e3 * ops / PEAK_OPS_S[dtype]
-    return (by_ops, "operations") if by_ops >= by_bytes else (by_bytes, "bytes")
+    return roofline(nbytes, (10 if backward else 4) * b * h * d * pairs, dtype)
 
 
 def check_close(what, got, want, atol, rtol):
@@ -360,13 +407,29 @@ def phase_flash(A):
             library_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
                 qh, kh, vh, is_causal=True), iters=10, reps=5)
         bound_ms, bound_by = flash_bound(b, LM_SEQ, h, d, dtype, True)
+        # forward + backward: the port's path (kernel forward, blockwise
+        # backward) and SDPA, each with the gradients of q, k and v
+        g = torch.randn_like(q)
+        qg, kg, vg = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+        qhg, khg, vhg = (t.detach().clone().requires_grad_(True) for t in (qh, kh, vh))
+        gh = g.transpose(1, 2).contiguous()
+        fwd_bwd_ms = time_ms(lambda: torch.autograd.grad(
+            A.flash_attention(qg, kg, vg, causal=True), (qg, kg, vg), g), iters=3, reps=5)
+        library_fwd_bwd_ms = time_ms(lambda: torch.autograd.grad(
+            torch.nn.functional.scaled_dot_product_attention(qhg, khg, vhg, is_causal=True),
+            (qhg, khg, vhg), gh), iters=3, reps=5)
+        bwd_bound_ms, bwd_bound_by = flash_bound(b, LM_SEQ, h, d, dtype, True, backward=True)
         row = {"B": b, "T": LM_SEQ, "H": h, "D": d, "causal": True,
                "dtype": str(dtype).split(".")[-1], "ms": ms, "plain_ms": plain_ms,
                "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+               "fwd_bwd_ms": fwd_bwd_ms, "library_fwd_bwd_ms": library_fwd_bwd_ms,
+               "bwd_ms_by_difference": fwd_bwd_ms - ms,
+               "library_bwd_ms_by_difference": library_fwd_bwd_ms - library_ms,
+               "bwd_bound_ms": bwd_bound_ms, "bwd_bound_by": bwd_bound_by,
                "card": card_line()}
         timings[dtype] = row
         emit("flash.timing", **row)
-        del q, k, v, qh, kh, vh
+        del q, k, v, qh, kh, vh, qg, kg, vg, qhg, khg, vhg, g, gh
     torch.cuda.empty_cache()
     return timings, path_err
 
@@ -493,28 +556,42 @@ def step_check(A, x, y, seed, policy):
             "max_abs_param_diff": err, "params_beyond_atol": beyond, "params": n}
 
 
-def device_families(prof, wall_ms):
-    """Device time by family from a profile, each kernel counted once:
-    kernels launched inside the attention backward or the updater by their
-    range, the rest by kernel name; and the device's busy share of
-    ``wall_ms`` (union of kernel intervals)."""
-    tags = {"flash_attn.backward": "attention_backward", "updater.step": "optimizer"}
+def lm_family(name):
+    return ("flash_fwd" if "flash_fwd" in name else
+            "gemm" if any(s in name for s in ("gemm", "cutlass", "xmma", "sm90"))
+            else "elementwise_other")
+
+
+def device_families(prof, wall_ms, family=lm_family,
+                    tags=(("flash_attn.backward", "attention_backward"),
+                          ("updater.step", "optimizer"))):
+    """Device time by family from a profile: every device event is named
+    by ``family(kernel name)``, except kernels launched inside a range
+    listed in ``tags`` (found through their CPU op), which count under the
+    range's tag instead; and the device's busy share of ``wall_ms`` (union
+    of device intervals). Events are read from the device side, so kernels
+    the profiler cannot link to a CPU op (cuDNN's) are counted too."""
+    tags = dict(tags)
     by_family = {}
     for e in prof.events():
+        # a record_function range shows on the device timeline too: skip it
+        if e.device_type == torch.autograd.DeviceType.CUDA and e.name not in tags:
+            fam = family(e.name.lower())
+            by_family[fam] = by_family.get(fam, 0.0) + (e.time_range.end - e.time_range.start) / 1e3
         if e.device_type != torch.autograd.DeviceType.CPU or not e.kernels:
             continue
         tag, a = None, e
         while a is not None and tag is None:
             tag = tags.get(a.name)
             a = a.cpu_parent
-        for kern in e.kernels:
-            name = kern.name.lower()
-            fam = tag or ("flash_fwd" if "flash_fwd" in name else
-                          "gemm" if any(s in name for s in ("gemm", "cutlass", "xmma", "sm90"))
-                          else "elementwise_other")
-            by_family[fam] = by_family.get(fam, 0.0) + kern.duration / 1e3
+        if tag is None:
+            continue
+        for kern in e.kernels:  # move the tagged kernel's time to its tag
+            fam = family(kern.name.lower())
+            by_family[fam] = by_family.get(fam, 0.0) - kern.duration / 1e3
+            by_family[tag] = by_family.get(tag, 0.0) + kern.duration / 1e3
     spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
+                   if e.device_type == torch.autograd.DeviceType.CUDA and e.name not in tags)
     busy_us, end = 0.0, None
     for a, b in spans:
         if end is None or a > end:
@@ -773,6 +850,345 @@ def phase_cli(zip_path):
          device=stats["device"], seconds=time.perf_counter() - t0)
 
 
+# ---------------------------------------------------------------------------
+# conv-statistics kernels and the fused ResNet50
+# ---------------------------------------------------------------------------
+
+def resnet_conv_calls():
+    """(kernel, stride, x shape, Cout) of every conv-kernel call in one
+    forward of the fused ResNet50 at the smoke's batch, in graph order."""
+    from deeplearning4j_tpu_torch.models import resnet50
+
+    conf = resnet50(RN_HW, RN_HW, n_classes=RN_CLASSES, fused=True)
+    types = conf.vertex_types()
+    calls = []
+    for v in conf.vertices:
+        if type(v.vertex).__name__ != "FusedConvBNVertex":
+            continue
+        it = types[v.inputs[0]]
+        calls.append((tuple(v.vertex.kernel), tuple(v.vertex.stride),
+                      (RN_BATCH, it.height, it.width, it.channels), v.vertex.n_out))
+    return calls
+
+
+def conv_bound(kernel, stride, shape, cout, dtype):
+    """Least time (ms) for one conv-statistics call and what sets it: the
+    input pixels the conv reads, w, z and the statistics moved once over the
+    memory rate, against 2*M*k*k*Cin*Cout operations over the dtype's peak."""
+    b, h, w, cin = shape
+    ho, wo = -(-h // stride[0]), -(-w // stride[1])
+    m, kk = b * ho * wo, kernel[0] * kernel[1]
+    elt = torch.finfo(dtype).bits // 8
+    x_elems = m * cin if kk == 1 else b * h * w * cin
+    nbytes = elt * (x_elems + kk * cin * cout + m * cout) + 4 * 2 * cout
+    return roofline(nbytes, 2 * m * kk * cin * cout, dtype)
+
+
+def conv_inputs(rs, kernel, shape, cout, dtype):
+    cin = shape[3]
+    x = torch.from_numpy(rs.randn(*shape).astype(np.float32)).to("cuda", dtype)
+    w = rs.randn(*kernel, cin, cout) / np.sqrt(kernel[0] * kernel[1] * cin)
+    return x, torch.from_numpy(w.astype(np.float32)).to("cuda", dtype)
+
+
+def conv_fns(C, kernel, stride, x, w):
+    """The kernel, its plain version and cuDNN's ``F.conv2d`` (NCHW views
+    of the NHWC tensors, channels-last, XLA's SAME pads: z alone, no
+    statistics) on the same inputs."""
+    cin, cout = w.shape[2], w.shape[3]
+    if kernel == (1, 1):
+        w2 = w.reshape(cin, cout)
+        kern = lambda: C.conv_mm_stats(x, w2, stride)  # noqa: E731
+        plain = lambda: C.conv_mm_stats_plain(x, w2, stride)  # noqa: E731
+    else:
+        kern = lambda: C.conv3x3_stats(x, w, stride)  # noqa: E731
+        plain = lambda: C.conv3x3_stats_plain(x, w, stride)  # noqa: E731
+    (hl, hh), (wl, wh) = (C.same_pads(x.shape[1], kernel[0], stride[0]),
+                          C.same_pads(x.shape[2], kernel[1], stride[1]))
+    xn, wn = x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1)
+    if (hl, wl) != (hh, wh):
+        xn, pad = torch.nn.functional.pad(xn, (wl, wh, hl, hh)), (0, 0)
+    else:
+        pad = (hl, wl)
+    library = lambda: torch.nn.functional.conv2d(xn, wn, stride=stride, padding=pad)  # noqa: E731
+    return kern, plain, library
+
+
+def check_conv(C, rs, kernel, stride, shape, cout, dtype):
+    """The kernel against its plain version on the card: z within
+    CONV_F32_ZTOL (f32) or CONV_BF16_TOL + CONV_BF16_TOL·|z| (bf16); each
+    statistic within CONV_STATS_RTOL of the sum of its terms' magnitudes
+    (sum |z| for sum z, which cancels, sum z^2 itself) + CONV_STATS_ATOL.
+    Returns the max |diff| of z and the statistics' largest relative error."""
+    x, w = conv_inputs(rs, kernel, shape, cout, dtype)
+    kern, plain, _ = conv_fns(C, kernel, stride, x, w)
+    (z, st), (zp, sp) = kern(), plain()
+    torch.cuda.synchronize()
+    what = f"conv {kernel} s{stride} {shape}->{cout} {dtype}"
+    if dtype == torch.float32:
+        z_err = check_close(f"{what} z", z, zp, CONV_F32_ZTOL, 0.0)
+    else:
+        z_err = check_close(f"{what} z", z, zp, CONV_BF16_TOL, CONV_BF16_TOL)
+    zf = zp.float().reshape(-1, cout)
+    scale = torch.stack((zf.abs().sum(0), (zf * zf).sum(0)))
+    if not torch.isfinite(st).all():
+        raise AssertionError(f"{what} statistics: not finite")
+    st_rel = ((st - sp).abs() / (scale + CONV_STATS_ATOL / CONV_STATS_RTOL)).max().item()
+    if st_rel > CONV_STATS_RTOL:
+        raise AssertionError(f"{what} statistics differ by {st_rel} of their terms' magnitude "
+                             f"(tolerance {CONV_STATS_RTOL})")
+    return z_err, st_rel
+
+
+def phase_conv(C):
+    """Both kernels against their plain versions at every geometry of the
+    fused ResNet50 at batch 64 and at edge cases, f32 and bf16; then the
+    path geometries timed beside the bound, the plain version and cuDNN."""
+    rs = np.random.RandomState(SEED + 3)
+    calls = resnet_conv_calls()
+    geoms = list(dict.fromkeys(calls))
+    edge = [((1, 1), (1, 1), (3, 7, 7, 48), 96),     # Cin, Cout off the tiles, N = 147
+            ((1, 1), (1, 1), (5, 7, 9, 20), 72),     # Cin off the 16-channel step
+            ((1, 1), (2, 2), (3, 7, 7, 48), 96),     # strided on an odd map
+            ((3, 3), (1, 1), (3, 7, 7, 48), 96),     # the 7x7 map, ragged channels
+            ((3, 3), (2, 2), (RN_BATCH, 56, 56, 64), 64),   # stride 2 on even dims
+            ((3, 3), (2, 2), (2, 10, 12, 40), 70)]
+    cases, path_err = [], 0.0
+    for kernel, stride, shape, cout in geoms + edge:
+        for dtype in (torch.float32, torch.bfloat16):
+            z_err, st_rel = check_conv(C, rs, kernel, stride, shape, cout, dtype)
+            on_path = (kernel, stride, shape, cout) in geoms
+            if on_path and dtype == torch.float32:
+                path_err = max(path_err, z_err)
+            cases.append({"kernel": kernel[0], "stride": stride[0], "x": list(shape), "cout": cout,
+                          "dtype": str(dtype).split(".")[-1], "path": on_path,
+                          "max_abs_err_z": z_err, "stats_rel_err": st_rel})
+    torch.cuda.empty_cache()
+    emit("conv", cases=len(cases), path_geometries=len(geoms), edge_cases=len(edge),
+         f32_z_atol=CONV_F32_ZTOL, bf16_tol=CONV_BF16_TOL, stats_rtol=CONV_STATS_RTOL,
+         stats_atol=CONV_STATS_ATOL,
+         max_abs_err_z_f32=max(c["max_abs_err_z"] for c in cases if c["dtype"] == "float32"),
+         max_abs_err_z_bf16=max(c["max_abs_err_z"] for c in cases if c["dtype"] == "bfloat16"),
+         max_stats_rel_err=max(c["stats_rel_err"] for c in cases))
+
+    rows = []
+    for kernel, stride, shape, cout in geoms:
+        n = calls.count((kernel, stride, shape, cout))
+        for dtype in (torch.float32, torch.bfloat16):
+            x, w = conv_inputs(rs, kernel, shape, cout, dtype)
+            kern, plain, library = conv_fns(C, kernel, stride, x, w)
+            bound_ms, bound_by = conv_bound(kernel, stride, shape, cout, dtype)
+            row = {"kernel": kernel[0], "stride": stride[0], "x": list(shape), "cout": cout,
+                   "dtype": str(dtype).split(".")[-1], "calls_per_forward": n,
+                   "ms": time_ms(kern, iters=5, reps=5),
+                   "plain_ms": time_ms(plain, iters=5, reps=5),
+                   "library_ms": time_ms(library, iters=5, reps=5),
+                   "bound_ms": bound_ms, "bound_by": bound_by}
+            rows.append(row)
+            emit("conv.timing", **row)
+            del x, w
+    torch.cuda.empty_cache()
+    totals = {}
+    for name, ks in (("conv_mm_stats", 1), ("conv3x3_stats", 3)):
+        for dt in ("float32", "bfloat16"):
+            sel = [r for r in rows if r["kernel"] == ks and r["dtype"] == dt]
+            totals[(name, dt)] = {k: sum(r[k] * r["calls_per_forward"] for r in sel)
+                                  for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+            by_ops = sum(r["calls_per_forward"] * r["bound_ms"] for r in sel
+                         if r["bound_by"] == "operations")
+            totals[(name, dt)]["bound_by"] = ("operations" if 2 * by_ops >=
+                                              totals[(name, dt)]["bound_ms"] else "bytes")
+            emit("conv.forward_total", kernel=name, dtype=dt,
+                 calls=sum(r["calls_per_forward"] for r in sel), **totals[(name, dt)],
+                 card=card_line())
+    return totals, path_err
+
+
+def resnet_data(seed, n):
+    """n synthetic labelled images on the card: each of RN_TASK_CLASSES
+    class templates (uniform noise images from the seed) plus noise of half
+    its amplitude, labels one-hot over the 1000 outputs."""
+    rs = np.random.RandomState(seed)
+    templates = torch.from_numpy(rs.rand(RN_TASK_CLASSES, RN_HW, RN_HW, 3).astype(np.float32))
+    labels = torch.from_numpy(rs.randint(0, RN_TASK_CLASSES, size=n)).cuda()
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = templates.cuda()[labels] + 0.5 * torch.rand(n, RN_HW, RN_HW, 3, device="cuda",
+                                                    generator=g)
+    return x, torch.nn.functional.one_hot(labels, RN_CLASSES).float()
+
+
+def make_resnet(seed):
+    from deeplearning4j_tpu_torch.models import resnet50
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+
+    net = ComputationGraph(resnet50(RN_HW, RN_HW, n_classes=RN_CLASSES, fused=True),
+                           device="cuda")
+    net.init(torch.Generator().manual_seed(seed))
+    if net.num_params() != RN_PARAMS:
+        raise AssertionError(f"resnet50 has {net.num_params()} params, expected {RN_PARAMS}")
+    return net
+
+
+@contextlib.contextmanager
+def plain_conv_kernels(C):
+    """Within this block the fused op computes z and its statistics with the
+    kernels' plain versions on the card instead of the kernels."""
+    saved = C.conv_mm_stats, C.conv3x3_stats
+    C.conv_mm_stats, C.conv3x3_stats = C.conv_mm_stats_plain, C.conv3x3_stats_plain
+    try:
+        yield
+    finally:
+        C.conv_mm_stats, C.conv3x3_stats = saved
+
+
+def graph_step(C, seed, x, y, plain=False):
+    """The first step of ``fit`` on a fresh net from ``seed``: gradients and
+    BN state, then the updater from fresh state; with ``plain`` the fused
+    op runs the kernels' plain versions (and must launch no kernel).
+    Returns (loss, {path: gradient}, {path: parameter}, {path: state})."""
+    from deeplearning4j_tpu_torch.utils.trees import flatten_tree
+
+    net = make_resnet(seed)
+    launched = dict(C.launches)
+    with plain_conv_kernels(C) if plain else contextlib.nullcontext():
+        loss, state, grads = net.compute_gradients(net.params, net.state, x, y)
+    if plain and C.launches != launched:
+        raise AssertionError("the plain-version step launched a conv kernel")
+    net.opt_state = net.conf.updater.init(net.params)
+    net.apply_update(net.params, net.opt_state, grads, 0)
+    out = (float(loss), flatten_tree(grads), {k: v.detach() for k, v in
+                                              flatten_tree(net.params).items()},
+           flatten_tree(state))
+    del net
+    return out
+
+
+def step_diff(a, b):
+    """How far step ``a`` is from step ``b``: relative loss difference, the
+    gradients' relative difference (all tensors together, and per tensor),
+    the state's and the parameters' max |diff| and the parameter elements
+    beyond RN_PARAM_ATOL."""
+    rel = {k: ((a[1][k] - b[1][k]).norm() / b[1][k].norm().clamp_min(1e-30)).item() for k in b[1]}
+    num = sum(((a[1][k] - b[1][k]) ** 2).sum() for k in b[1])
+    den = sum((b[1][k] ** 2).sum() for k in b[1])
+    return {"loss_rel": abs(a[0] - b[0]) / abs(b[0]), "grad_rel": (num / den).sqrt().item(),
+            "grad_rel_by_tensor": rel,
+            "state_max_abs": max((a[3][k] - b[3][k]).abs().max().item() for k in b[3]),
+            "param_max_abs": max((a[2][k] - b[2][k]).abs().max().item() for k in b[2]),
+            "params_beyond_atol": sum(int(((a[2][k] - b[2][k]).abs() > RN_PARAM_ATOL).sum())
+                                      for k in b[2])}
+
+
+def resnet_step_check(C, x, y, seed):
+    """One f32 step from identical weights through the kernels (K) and
+    through their plain versions (P), held against the f32 noise of the
+    step itself: the plain step on the same batch in another order (Q),
+    which is the same step mathematically. A freshly initialised ResNet50
+    is so ill-conditioned that Q differs from P by ~3% in its gradients and
+    moves ~190k parameters by more than 1e-4 (Adam's first step is about
+    lr·sign(g)), so a fixed parameter tolerance cannot hold. K must match P
+    in loss (RN_LOSS_RTOL) and BN running state (RN_STATE_ATOL), and be no
+    farther from P than the noise: gradients within RN_NOISE_FACTOR x Q's
+    difference (all tensors together) and 2 x that per tensor (+1e-5), and
+    no more parameters beyond RN_PARAM_ATOL than RN_NOISE_FACTOR x Q's."""
+    k = graph_step(C, seed, x, y)
+    p = graph_step(C, seed, x, y, plain=True)
+    perm = torch.randperm(x.shape[0], generator=torch.Generator().manual_seed(seed)).cuda()
+    q = graph_step(C, seed, x[perm], y[perm], plain=True)
+    kp, qp = step_diff(k, p), step_diff(q, p)
+    torch.cuda.empty_cache()
+    if not kp["loss_rel"] <= RN_LOSS_RTOL:
+        raise AssertionError(f"kernel step loss {k[0]} vs plain step loss {p[0]}")
+    if not kp["state_max_abs"] <= RN_STATE_ATOL:
+        raise AssertionError(f"BN running state differs by {kp['state_max_abs']}")
+    if not kp["grad_rel"] <= RN_NOISE_FACTOR * qp["grad_rel"]:
+        raise AssertionError(f"gradients differ by {kp['grad_rel']} relative, beyond "
+                             f"{RN_NOISE_FACTOR} x the step's own noise {qp['grad_rel']}")
+    worst = max(kp["grad_rel_by_tensor"],
+                key=lambda n: kp["grad_rel_by_tensor"][n] / (qp["grad_rel_by_tensor"][n] + 1e-5))
+    if not kp["grad_rel_by_tensor"][worst] <= 2 * RN_NOISE_FACTOR * \
+            qp["grad_rel_by_tensor"][worst] + 1e-5:
+        raise AssertionError(f"gradient {worst} differs by {kp['grad_rel_by_tensor'][worst]}, "
+                             f"beyond the noise {qp['grad_rel_by_tensor'][worst]}")
+    if not kp["params_beyond_atol"] <= RN_NOISE_FACTOR * qp["params_beyond_atol"]:
+        raise AssertionError(f"{kp['params_beyond_atol']} updated parameters beyond "
+                             f"{RN_PARAM_ATOL}, against {qp['params_beyond_atol']} from noise")
+    summary = {k_: v for k_, v in kp.items() if k_ != "grad_rel_by_tensor"}
+    noise = {k_: v for k_, v in qp.items() if k_ != "grad_rel_by_tensor"}
+    return {"loss_kernel": k[0], "loss_plain": p[0], "kernel_vs_plain": summary,
+            "plain_vs_plain_permuted": noise, "worst_tensor": worst,
+            "worst_tensor_grad_rel": kp["grad_rel_by_tensor"][worst],
+            "worst_tensor_noise": qp["grad_rel_by_tensor"][worst]}
+
+
+def resnet_family(name):
+    if "conv_stats_" in name:  # both kernels and the partials reduction
+        return "conv_stats_kernels"
+    if any(s in name for s in ("conv", "cudnn", "gemm", "cutlass", "xmma", "sm90", "wgrad",
+                               "dgrad", "implicit")):
+        return "library_conv_gemm"
+    return "bn_elementwise_other"
+
+
+def phase_resnet(C, policy, seed):
+    """The full-width fused ResNet50 trained by ``ComputationGraph.fit``
+    under the named policy: the f32 plain-version step check, warm-up,
+    RN_TIMED_STEPS timed steps with the kernels' launches counted, one
+    profiled step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from deeplearning4j_tpu_torch.utils import dtypes
+
+    (dtypes.bf16_policy if policy == "bf16" else dtypes.f32_policy)()
+    try:
+        x, y = resnet_data(seed, RN_BATCH * (RN_WARMUP_STEPS + RN_TIMED_STEPS))
+        check = resnet_step_check(C, x[:RN_BATCH], y[:RN_BATCH], seed) \
+            if policy == "f32" else None
+        net = make_resnet(seed)
+        warm = RN_BATCH * RN_WARMUP_STEPS
+        net.fit(x[:warm], y[:warm], batch_size=RN_BATCH)
+        first_loss = net.score_history[0]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        C.reset_launches()
+        t0 = time.perf_counter()
+        net.fit(x[warm:], y[warm:], batch_size=RN_BATCH)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(C.launches)
+        peak = torch.cuda.max_memory_allocated()
+        losses = net.score_history
+        want = {"conv_mm_stats": 36 * RN_TIMED_STEPS, "conv3x3_stats": 16 * RN_TIMED_STEPS}
+        if launches != want:
+            raise AssertionError(f"conv kernels launched {launches} times in {RN_TIMED_STEPS} "
+                                 f"steps (expected {want}: 36 + 16 a step)")
+        if not all(np.isfinite(losses)) or not losses[-1] < first_loss:
+            raise AssertionError(f"loss did not fall: first {first_loss}, timed steps {losses}")
+        row = {"policy": policy, "params": net.num_params(), "batch": RN_BATCH,
+               "image": [RN_HW, RN_HW, 3], "steps": RN_TIMED_STEPS,
+               "step_ms": 1e3 * wall / RN_TIMED_STEPS,
+               "images_per_s": RN_BATCH * RN_TIMED_STEPS / wall, "peak_mem_gb": peak / 1e9,
+               "loss_first": first_loss, "loss_last": losses[-1], "losses": losses,
+               "conv_launches": launches, "step_check": check, "card": card_line()}
+        emit("resnet", **row)
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            net.fit(x[:RN_BATCH], y[:RN_BATCH])
+            torch.cuda.synchronize()
+            wall_ms = 1e3 * (time.perf_counter() - t0)
+        by_family, busy_ms, share = device_families(prof, wall_ms, resnet_family,
+                                                    {"updater.step": "optimizer"})
+        emit("resnet.profile", policy=policy, wall_ms=wall_ms,
+             wall_unprofiled_ms=row["step_ms"], device_ms_by_family=by_family,
+             device_busy_ms=busy_ms, device_busy_share=share, card=card_line())
+        del net, x, y
+        torch.cuda.empty_cache()
+        return row
+    finally:
+        dtypes.f32_policy()
+
+
 def build_all(libs):
     """Build every kernel library at once (one nvcc each, started together)."""
     from concurrent.futures import ThreadPoolExecutor
@@ -791,7 +1207,7 @@ def build_all(libs):
                   if "Used" in ln or "spill" in ln]} for so, secs in built])
 
 
-PHASES = ("kernels", "flash", "train", "serve")
+PHASES = ("kernels", "flash", "train", "conv", "resnet", "serve")
 
 
 def main(argv=None):
@@ -812,6 +1228,7 @@ def main(argv=None):
     sys.path.insert(0, str(ROOT))
     from deeplearning4j_tpu_torch.nn.layers import attention as TA
     from deeplearning4j_tpu_torch.ops import attention as A
+    from deeplearning4j_tpu_torch.ops import conv_stats as C
     from deeplearning4j_tpu_torch.ops import lstm_seq as L
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -819,7 +1236,7 @@ def main(argv=None):
     card = card_line()
     emit("env", python=sys.version.split()[0], torch=torch.__version__, cuda=torch.version.cuda,
          device=torch.cuda.get_device_name(0), count=torch.cuda.device_count(), card=card)
-    build_all([L, A])
+    build_all([L, A, C])
 
     if "kernels" in only:
         timings, max_err_path = phase_kernels(L)
@@ -828,6 +1245,10 @@ def main(argv=None):
         phase_crossover(TA)
     if "train" in only:
         train_rows = [phase_train(A, policy, args.seed) for policy in ("f32", "bf16")]
+    if "conv" in only:
+        conv_totals, conv_err = phase_conv(C)
+    if "resnet" in only:
+        resnet_rows = {policy: phase_resnet(C, policy, args.seed) for policy in ("f32", "bf16")}
     if "serve" in only:
         shutil.rmtree(WORK, ignore_errors=True)
         WORK.mkdir()
@@ -854,7 +1275,18 @@ def main(argv=None):
         "replaces": "deeplearning4j_tpu/ops/attention_pallas.py:175",
         "launches": train_rows[0]["flash_launches"], "max_abs_err": flash_err,
         "ms": fpath["ms"], "plain_ms": fpath["plain_ms"], "bound_ms": fpath["bound_ms"],
-        "bound_by": fpath["bound_by"], "library_ms": fpath["library_ms"]}]}), flush=True)
+        "bound_by": fpath["bound_by"], "library_ms": fpath["library_ms"]}] + [{
+        # per forward of the fused ResNet50 at batch 64 in f32: the sums over
+        # the kernel's calls; launches over the 10 timed bf16_policy steps
+        "name": name, "route": "cuda", "source": "deeplearning4j_tpu_torch/csrc/conv_stats.cu",
+        "replaces": f"deeplearning4j_tpu/ops/conv_pallas.py:{line}",
+        "launches": resnet_rows["bf16"]["conv_launches"][name], "max_abs_err": conv_err,
+        "ms": conv_totals[(name, "float32")]["ms"],
+        "plain_ms": conv_totals[(name, "float32")]["plain_ms"],
+        "bound_ms": conv_totals[(name, "float32")]["bound_ms"],
+        "bound_by": conv_totals[(name, "float32")]["bound_by"],
+        "library_ms": conv_totals[(name, "float32")]["library_ms"]}
+        for name, line in (("conv_mm_stats", 86), ("conv3x3_stats", 169))]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,14 +1,15 @@
 """Input typing & shape inference.
 
-Two families are ported:
+Three families, as in the JAX package:
 
-- FeedForward: activations [batch, size]
-- Recurrent:   activations [batch, time, size] (batch-major, as in the JAX
-               package)
+- FeedForward:   activations [batch, size]
+- Recurrent:     activations [batch, time, size] (batch-major)
+- Convolutional: activations [batch, height, width, channels] (NHWC, the
+                 JAX package's layout; convolutions hand PyTorch an NCHW
+                 view of it with channels-last strides)
 
-The convolutional family is not ported yet: a config naming it fails to
-parse with the serde registry's "not ported" error, and ``adapt`` raises
-on any conversion other than Recurrent -> FeedForward.
+``adapt`` converts Recurrent and Convolutional activations to FeedForward
+(the sequential network's implicit preprocessors); other conversions raise.
 """
 
 from __future__ import annotations
@@ -42,6 +43,26 @@ class RecurrentType(InputType):
         return (batch, self.timesteps or 1, self.size)
 
 
+@register_config
+@dataclasses.dataclass(frozen=True)
+class ConvolutionalType(InputType):
+    height: int = 0
+    width: int = 0
+    channels: int = 0
+
+    def shape(self, batch=1):
+        return (batch, self.height, self.width, self.channels)
+
+    @property
+    def flat_size(self):
+        return self.height * self.width * self.channels
+
+
+def cnn_to_feed_forward(x):
+    """[B, H, W, C] -> [B, H*W*C], flattened in NHWC order."""
+    return x.reshape(x.shape[0], -1)
+
+
 def rnn_to_feed_forward(x):
     """[B, T, F] -> [B*T, F]"""
     return x.reshape(-1, x.shape[-1])
@@ -52,6 +73,8 @@ def adapt(x, from_type: InputType, to_family: type):
     (the sequential network's implicit preprocessors)."""
     if isinstance(from_type, to_family):
         return x
+    if isinstance(from_type, ConvolutionalType) and to_family is FeedForwardType:
+        return cnn_to_feed_forward(x)
     if isinstance(from_type, RecurrentType) and to_family is FeedForwardType:
         return rnn_to_feed_forward(x)
     raise ValueError(f"No automatic adaptation from {from_type} to "
@@ -62,6 +85,8 @@ def adapted_type(from_type: InputType, to_family: type) -> InputType:
     """Shape-inference companion of ``adapt``."""
     if isinstance(from_type, to_family):
         return from_type
+    if isinstance(from_type, ConvolutionalType) and to_family is FeedForwardType:
+        return FeedForwardType(from_type.flat_size)
     if isinstance(from_type, RecurrentType) and to_family is FeedForwardType:
         return FeedForwardType(from_type.size)
     raise ValueError(f"No automatic adaptation from {from_type} to "

@@ -107,9 +107,10 @@ def pop_aux_losses(loss, states):
     """(loss + popped aux terms, cleaned states): a layer may stash an
     input-dependent loss term in its per-step state under ``"aux_loss"``;
     the network's loss pops it so the persistent state keeps its
-    structure. ``states`` is a list of per-layer dicts."""
-    out = list(states)
-    for i, s in enumerate(states):
+    structure. ``states`` is a list of per-layer dicts, or a dict of
+    per-vertex dicts."""
+    out = dict(states) if isinstance(states, dict) else list(states)
+    for i, s in (states.items() if isinstance(states, dict) else enumerate(states)):
         if isinstance(s, dict) and "aux_loss" in s:
             s = dict(s)
             loss = loss + s.pop("aux_loss")

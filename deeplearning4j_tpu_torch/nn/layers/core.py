@@ -1,5 +1,5 @@
-"""Core layers: Dense, Output, Loss and EmbeddingSequence, and the policy
-matmul."""
+"""Core layers: Dense, Output, Loss, Activation and EmbeddingSequence, and
+the policy matmul."""
 
 from __future__ import annotations
 
@@ -83,6 +83,22 @@ class LossLayer(Layer):
 
     def compute_loss(self, predictions, labels, mask=None):
         return _losses.get(self.loss)(predictions, labels, mask)
+
+
+@register_config
+@dataclasses.dataclass(frozen=True)
+class ActivationLayer(Layer):
+    """An activation function alone, on any input family."""
+
+    activation: object = "relu"
+
+    input_family = None  # accepts any family unchanged
+
+    def output_type(self, input_type):
+        return input_type
+
+    def apply(self, params, state, x, *, train=False):
+        return _act.get(self.activation)(x), state
 
 
 @register_config

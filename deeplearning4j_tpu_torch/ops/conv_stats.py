@@ -1,0 +1,320 @@
+"""Convolution with fused batch-norm statistics: the hand-written Hopper
+kernels, their plain versions, and the fused conv + BN + residual +
+activation op.
+
+Replaces the TPU kernels ``_mm_stats_kernel`` (1x1 convs) and
+``_conv3x3_stats_kernel`` (SAME 3x3 convs) of
+``deeplearning4j_tpu/ops/conv_pallas.py``, with the contract of that
+module's ``fused_conv_bn_act``:
+
+- ``conv_mm_stats(x, w2d, stride)`` and ``conv3x3_stats(x, w, stride)``
+  return ``(z [B,Ho,Wo,Cout] in x's dtype, stats [2,Cout] f32)``: the conv
+  accumulated in f32, z written once, and per-channel ``[sum z, sum z^2]``
+  taken from the unrounded f32 accumulator. On CUDA tensors they launch
+  ``csrc/conv_stats.cu`` (f32 or bf16); on CPU tensors they take
+  ``conv_mm_stats_plain`` / ``conv3x3_stats_plain``. ``launches`` counts
+  the kernel launches of each.
+- ``fused_conv_bn_act`` is the train-mode fused op (one
+  ``torch.autograd.Function``). Forward: the kernel's z and sums, then
+  ``var = max(E[z^2] - mean^2, 0)``, the normalize, affine, residual add
+  and activation in f32, y in z's dtype; the batch mean and variance come
+  back for the caller's running-average update and get no gradient.
+  Backward: the train-mode BN backward to dz (rounded to z's dtype), then
+  dx and dW by ``torch.matmul`` (1x1; a strided conv's dx scattered into
+  zeros at ``::s``) or by the library's conv gradients (3x3), as the JAX
+  package leaves them to XLA.
+
+Layouts are the JAX package's: x NHWC, w HWIO. SAME padding is XLA's: a
+3x3 at stride 1 pads (1, 1), at stride 2 on even H, W it pads (0, 1).
+What bounds the kernels on an H100, and their design, are in the CUDA
+source's header.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import threading
+
+import torch
+import torch.nn.functional as F
+
+from deeplearning4j_tpu_torch.ops import _build
+
+SOURCE = _build.CSRC / "conv_stats.cu"
+
+#: kernel launches (wrapper calls that reached each CUDA kernel)
+launches = {"conv_mm_stats": 0, "conv3x3_stats": 0}
+_count_lock = threading.Lock()
+
+_ENTRY_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+
+
+def _declare(lib):
+    for name in ("conv_mm_stats_f32", "conv_mm_stats_bf16", "conv3x3_stats_f32",
+                 "conv3x3_stats_bf16"):
+        fn = getattr(lib, name)
+        fn.argtypes = _ENTRY_ARGS
+        fn.restype = ctypes.c_int
+    lib.conv_stats_row_tile.argtypes = []
+    lib.conv_stats_row_tile.restype = ctypes.c_int
+    lib.conv_stats_error_string.argtypes = [ctypes.c_int]
+    lib.conv_stats_error_string.restype = ctypes.c_char_p
+
+
+_LIB = _build.Library(SOURCE, _declare)
+
+
+def build():
+    """Compile ``csrc/conv_stats.cu`` unless built; returns the library path."""
+    return _LIB.build()
+
+
+def reset_launches():
+    for k in launches:
+        launches[k] = 0
+
+
+# ---------------------------------------------------------------------------
+# geometry
+# ---------------------------------------------------------------------------
+
+def same_pads(size, kernel, stride):
+    """XLA's SAME padding of one spatial axis: (lo, hi), the extra pad high."""
+    out = -(-size // stride)
+    total = max((out - 1) * stride + kernel - size, 0)
+    return total // 2, total - total // 2
+
+
+def supported(kernel, stride, padding, dilation, act, x_shape=None):
+    """Geometries the kernels cover (the JAX package's ``supported``): 1x1
+    at any stride, SAME 3x3 at stride 1, or at stride 2 on even spatial
+    dims (``x_shape`` [B,H,W,C] must say so; without it stride-2 3x3 is
+    refused). No dilation; relu or identity."""
+    if act not in ("relu", "identity") or tuple(dilation) != (1, 1):
+        return False
+    k, s = tuple(kernel), tuple(stride)
+    if k == (1, 1):
+        return True
+    if k != (3, 3) or padding != "same":
+        return False
+    if s == (1, 1):
+        return True
+    return s == (2, 2) and x_shape is not None and x_shape[1] % 2 == 0 and x_shape[2] % 2 == 0
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+
+def _acc_dtype(dtype):
+    return torch.promote_types(dtype, torch.float32)
+
+
+def _stats(acc2d):
+    return torch.stack((acc2d.sum(0), (acc2d * acc2d).sum(0)))
+
+
+def conv_mm_stats_plain(x, w2d, stride=(1, 1)):
+    """The 1x1 kernel's function: x [B,H,W,Cin] subsampled at ``::stride``
+    times w2d [Cin,Cout], operands rounded to x's dtype and multiplied in
+    f32 by ``torch.matmul``. Returns (z in x's dtype, stats [2,Cout] f32
+    from the f32 product)."""
+    sh, sw = stride
+    xs = x[:, ::sh, ::sw, :]
+    b, ho, wo, cin = xs.shape
+    ad = _acc_dtype(x.dtype)
+    acc = torch.matmul(xs.reshape(-1, cin).to(ad), w2d.to(x.dtype).to(ad))
+    return acc.to(x.dtype).reshape(b, ho, wo, -1), _stats(acc)
+
+
+def conv3x3_stats_plain(x, w, stride=(1, 1)):
+    """The 3x3 kernel's function: an explicitly padded (XLA SAME) library
+    conv of x [B,H,W,Cin] with w [3,3,Cin,Cout], operands rounded to x's
+    dtype and convolved in f32. Returns (z in x's dtype, stats [2,Cout])."""
+    sh, sw = stride
+    _, h, wd, _ = x.shape
+    (hl, hh), (wl, wh) = same_pads(h, 3, sh), same_pads(wd, 3, sw)
+    ad = _acc_dtype(x.dtype)
+    xn = F.pad(x.to(ad).permute(0, 3, 1, 2), (wl, wh, hl, hh))
+    acc = F.conv2d(xn, w.to(x.dtype).to(ad).permute(3, 2, 0, 1), stride=(sh, sw))
+    acc = acc.permute(0, 2, 3, 1)
+    return acc.to(x.dtype).contiguous(), _stats(acc.reshape(-1, acc.shape[-1]))
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
+
+def _check(name, x, w, ks, stride):
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{name} kernel takes float32 or bfloat16, got {x.dtype}")
+    if x.dim() != 4 or w.dim() != 4 or tuple(w.shape[:2]) != (ks, ks) or w.shape[2] != x.shape[3]:
+        raise ValueError(f"{name}: x must be [B,H,W,Cin] and w [{ks},{ks},Cin,Cout], got "
+                         f"{tuple(x.shape)} and {tuple(w.shape)}")
+    if w.dtype != x.dtype or w.device != x.device:
+        raise TypeError(f"{name}: w is {w.dtype} on {w.device}, x is {x.dtype} on {x.device}")
+    if not (x.is_contiguous() and w.is_contiguous()):
+        raise ValueError(f"{name}: x and w must be contiguous (NHWC and HWIO)")
+    if ks == 3 and not supported((3, 3), stride, "same", (1, 1), "identity", x.shape):
+        raise ValueError(f"{name}: stride {tuple(stride)} on a {x.shape[1]}x{x.shape[2]} input "
+                         "is not covered (stride 1, or stride 2 on even H and W)")
+
+
+def _launch(name, x, w, stride):
+    lib = _LIB.get()
+    b, h, wd, cin = x.shape
+    cout = w.shape[3]
+    sh, sw = stride
+    ho, wo = (-(-h // sh), -(-wd // sw))
+    dev = x.device
+    z = torch.empty((b, ho, wo, cout), dtype=x.dtype, device=dev)
+    row_tiles = -(-(b * ho * wo) // lib.conv_stats_row_tile())
+    partials = torch.empty((row_tiles, 2, cout), dtype=torch.float32, device=dev)
+    stats = torch.empty((2, cout), dtype=torch.float32, device=dev)
+    fn = getattr(lib, f"{name}_{'f32' if x.dtype == torch.float32 else 'bf16'}")
+    err = fn(x.data_ptr(), w.data_ptr(), z.data_ptr(), partials.data_ptr(), stats.data_ptr(),
+             b, h, wd, cin, cout, sh, sw, _build.device_index(dev),
+             torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        msg = lib.conv_stats_error_string(err).decode()
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err} ({msg})")
+    with _count_lock:
+        launches[name] += 1
+    return z, stats
+
+
+def conv_mm_stats(x, w2d, stride=(1, 1)):
+    """1x1 conv with fused statistics: ``(z [B,Ho,Wo,Cout], stats [2,Cout]
+    f32)`` for x [B,H,W,Cin] NHWC, w2d [Cin,Cout] and ``stride`` (sh, sw),
+    Ho = ceil(H / sh). CUDA tensors launch the Hopper kernel, which reads
+    the strided input in place; CPU tensors take ``conv_mm_stats_plain``."""
+    stride = tuple(stride)
+    if x.device.type == "cpu":
+        return conv_mm_stats_plain(x, w2d, stride)
+    if x.device.type != "cuda":
+        raise ValueError(f"conv_mm_stats runs on cuda or cpu tensors, got {x.device}")
+    w = w2d.reshape(1, 1, *w2d.shape)
+    _check("conv_mm_stats", x, w, 1, stride)
+    return _launch("conv_mm_stats", x, w, stride)
+
+
+def conv3x3_stats(x, w, stride=(1, 1)):
+    """SAME 3x3 conv with fused statistics: ``(z [B,Ho,Wo,Cout], stats
+    [2,Cout] f32)`` for x [B,H,W,Cin] NHWC and w [3,3,Cin,Cout] HWIO, at
+    stride 1, or 2 on even H and W. CUDA tensors launch the Hopper kernel
+    (shifted reads with bounds checks, no padded copy); CPU tensors take
+    ``conv3x3_stats_plain``."""
+    stride = tuple(stride)
+    if x.device.type == "cpu":
+        return conv3x3_stats_plain(x, w, stride)
+    if x.device.type != "cuda":
+        raise ValueError(f"conv3x3_stats runs on cuda or cpu tensors, got {x.device}")
+    _check("conv3x3_stats", x, w, 3, stride)
+    return _launch("conv3x3_stats", x, w, stride)
+
+
+def conv_z(x, w, stride):
+    """The kernel for the conv geometry: (z, stats) of the 1x1 or 3x3 conv
+    of x with w (HWIO)."""
+    if tuple(w.shape[:2]) == (1, 1):
+        return conv_mm_stats(x, w.reshape(w.shape[2], w.shape[3]), stride)
+    if tuple(w.shape[:2]) != (3, 3):
+        raise ValueError(f"no conv-stats kernel for a {tuple(w.shape[:2])} kernel")
+    return conv3x3_stats(x, w, stride)
+
+
+# ---------------------------------------------------------------------------
+# the fused op
+# ---------------------------------------------------------------------------
+
+def _act(name, z):
+    if name == "relu":
+        return torch.relu(z)
+    if name == "identity":
+        return z
+    raise ValueError(f"fused conv-bn supports relu|identity, got {name!r}")
+
+
+def _conv_grads(x, w, dz, stride):
+    """dx, dW of the conv z = conv(x, w) for the cotangent dz."""
+    sh, sw = stride
+    if tuple(w.shape[:2]) == (1, 1):
+        xs = x[:, ::sh, ::sw, :]
+        cin = xs.shape[3]
+        x2d = xs.reshape(-1, cin)
+        dz2d = dz.reshape(-1, dz.shape[3])
+        dw = torch.matmul(x2d.t(), dz2d).to(w.dtype).reshape(w.shape)
+        dxs = torch.matmul(dz2d, w.reshape(cin, -1).t()).to(x.dtype).reshape(xs.shape)
+        if (sh, sw) == (1, 1):
+            return dxs, dw
+        dx = torch.zeros_like(x)
+        dx[:, ::sh, ::sw, :] = dxs
+        return dx, dw
+    _, h, wd, _ = x.shape
+    (hl, hh), (wl, wh) = same_pads(h, 3, sh), same_pads(wd, 3, sw)
+    xn, wn, dzn = x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1), dz.permute(0, 3, 1, 2)
+    if (hl, wl) == (hh, wh):
+        padding = (hl, wl)
+    else:  # XLA's (lo, hi) pads: pad x itself, then cut the pad's gradient off
+        xn, padding = F.pad(xn, (wl, wh, hl, hh)), (0, 0)
+    dxn = torch.nn.grad.conv2d_input(xn.shape, wn, dzn, stride=(sh, sw), padding=padding)
+    dwn = torch.nn.grad.conv2d_weight(xn, wn.shape, dzn, stride=(sh, sw), padding=padding)
+    if padding == (0, 0) and (hl, hh, wl, wh) != (0, 0, 0, 0):
+        dxn = dxn[:, :, hl:hl + h, wl:wl + wd]
+    return (dxn.permute(0, 2, 3, 1).to(x.dtype).contiguous(),
+            dwn.permute(2, 3, 1, 0).to(w.dtype).contiguous())
+
+
+class _FusedConvBNAct(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, x, w, gamma, beta, residual, stride, eps, act):
+        z, stats = conv_z(x.contiguous(), w.contiguous(), stride)
+        f32 = _acc_dtype(z.dtype)  # f32 (f64 stays f64 on the CPU)
+        n = z.shape[0] * z.shape[1] * z.shape[2]
+        mean = stats[0] / n
+        var = torch.clamp(stats[1] / n - mean * mean, min=0.0)
+        invstd = torch.rsqrt(var + eps)
+        scale = gamma.to(f32) * invstd
+        shift = beta.to(f32) - mean * scale
+        ypre = z.to(f32) * scale + shift
+        if residual is not None:
+            ypre = ypre + residual.to(f32)
+        y = _act(act, ypre).to(z.dtype)
+        ctx.save_for_backward(x, w, gamma, z, mean, invstd, y)
+        ctx.stride, ctx.act, ctx.has_res, ctx.beta_dtype = stride, act, residual is not None, \
+            beta.dtype
+        ctx.mark_non_differentiable(mean, var)
+        return y, mean, var
+
+    @staticmethod
+    def backward(ctx, dy, _dmean, _dvar):
+        x, w, gamma, z, mean, invstd, y = ctx.saved_tensors
+        f32 = _acc_dtype(z.dtype)
+        dy = dy.to(f32)
+        if ctx.act == "relu":
+            dy = dy * (y > 0).to(f32)
+        # dy is now the cotangent of (bn_out + residual)
+        dres = dy.to(z.dtype) if ctx.has_res else None
+        axes = (0, 1, 2)
+        n = z.shape[0] * z.shape[1] * z.shape[2]
+        xhat = (z.to(f32) - mean) * invstd
+        dgamma = (dy * xhat).sum(axes)
+        dbeta = dy.sum(axes)
+        g = gamma.to(f32)
+        # train-mode BN backward: the batch statistics are part of the graph
+        dz = invstd * (dy * g - dbeta * g / n - xhat * (dgamma * g / n))
+        dx, dw = _conv_grads(x, w, dz.to(z.dtype), ctx.stride)
+        return (dx, dw, dgamma.to(gamma.dtype), dbeta.to(ctx.beta_dtype), dres,
+                None, None, None)
+
+
+def fused_conv_bn_act(x, w, gamma, beta, residual=None, stride=(1, 1), eps=1e-5, act="relu"):
+    """Train-mode fused conv + batch-norm + (residual add) + activation.
+
+    x [B,H,W,Cin] NHWC, w HWIO ([1,1,Cin,Cout], or [3,3,Cin,Cout] SAME),
+    gamma/beta [Cout], residual [B,Ho,Wo,Cout] or None. Returns (y, mean,
+    var): y in x's dtype, mean/var the f32 batch statistics (no gradient).
+    The kernels take f32 and bf16; float64 runs only on the CPU, through
+    the plain versions, in float64 throughout."""
+    return _FusedConvBNAct.apply(x, w, gamma, beta, residual, tuple(stride), float(eps), act)

@@ -21,6 +21,8 @@ _REGISTRY: dict[str, type] = {}
 _CATALOG_MODULES = ("deeplearning4j_tpu_torch.nn.layers",
                     "deeplearning4j_tpu_torch.nn.conf.inputs",
                     "deeplearning4j_tpu_torch.nn.conf.network",
+                    "deeplearning4j_tpu_torch.nn.graph",
+                    "deeplearning4j_tpu_torch.nn.fusion",
                     "deeplearning4j_tpu_torch.nn.initializers",
                     "deeplearning4j_tpu_torch.nn.updaters",
                     "deeplearning4j_tpu_torch.nn.constraints")

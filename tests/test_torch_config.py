@@ -93,7 +93,7 @@ def test_schedule_configs_round_trip(name):
 
 
 def test_unported_type_raises_a_clear_error():
-    conf = JNetConf().list(JL.ConvolutionLayer(n_out=4, kernel=(3, 3)),
+    conf = JNetConf().list(JL.LocalResponseNormalization(),
                            JL.OutputLayer(n_out=2),
                            input_type=JIn.ConvolutionalType(8, 8, 1))
     with pytest.raises(KeyError, match="not ported"):
