@@ -9,7 +9,8 @@ nonzero; nothing is caught):
 1. env      torch/CUDA versions, the card's name and power limit.
 2. build    nvcc builds of ``csrc/lstm_seq.cu``, ``csrc/flash_attn.cu`` and
             ``csrc/conv_stats.cu``, started together, with their ptxas
-            reports.
+            reports; the count of HGMMA (wgmma) instructions in the conv
+            library's SASS, where a cuobjdump exists.
 3. kernels  ``lstm_seq`` held against ``lstm_seq_plain`` on the card, f32
             and bf16, with and without peepholes and mask, at the served
             shapes (T=128, H=512, B in {1, 8, 64}), at H=1024 and at a
@@ -41,17 +42,23 @@ nonzero; nothing is caught):
             versions on the card, z and both statistics, f32 and bf16, at
             all 19 conv geometries of the fused ResNet50 at batch 64 and at
             edge cases (channels off the tiles, a row count off the row
-            tile, the 7x7 map, stride-2 3x3 on even dims); each path
-            geometry timed beside its bound, the plain version and cuDNN's
-            ``F.conv2d`` on the same z (a yardstick without the statistics),
-            and the sums over one forward's 36 + 16 calls.
+            tile, the 7x7 map, stride-2 3x3 on even dims), each on the
+            variant its ``plan()`` names (whose shared memory and blocks an
+            SM are checked against the built library); each path geometry
+            timed beside its bound, the plain version and cuDNN's
+            ``F.conv2d`` on the same z (a yardstick without the
+            statistics), back to back (``ms``, host launch cost included
+            where it exceeds the call) and on the card alone
+            (``device_ms``), and the sums over one forward's 36 + 16 calls.
 7. resnet   ``resnet50(fused=True)`` at the JAX package's flagship bench
             width (batch 64, 224x224x3, 1000 classes; 25,557,032 params,
             random weights from the seed) trained by
             ``ComputationGraph.fit`` on synthetic labelled images (10 class
             templates plus noise), under the f32 policy and ``bf16_policy``:
             2 warm-up steps then 10 timed ones with exactly 36 + 16 conv
-            kernel launches a step, the last loss below the first; under
+            kernel launches a step, every one on the Hopper variant
+            (``bf16_wgmma`` or ``f32_pipelined``), the last loss below the
+            first; under
             f32 first one step from identical weights through the kernels'
             plain versions, agreeing with the kernel step within the step's
             own f32 noise (the plain step on the batch permuted). After each, one
@@ -107,6 +114,7 @@ import contextlib
 import json
 import os
 import pathlib
+import re
 import shutil
 import statistics
 import subprocess
@@ -172,6 +180,28 @@ def time_ms(fn, *, iters, reps):
     torch.cuda.synchronize()
     out = []
     for _ in range(reps):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        for _ in range(iters):
+            fn()
+        e1.record()
+        torch.cuda.synchronize()
+        out.append(e0.elapsed_time(e1) / iters)
+    return statistics.median(out)
+
+
+def device_ms(fn, *, iters, reps):
+    """Median over ``reps`` of the mean time of ``iters`` calls on the card
+    alone: a sleep kernel of ~10 ms keeps the card busy while the host
+    queues every call, so the host's launch cost does not show. (time_ms,
+    calls back to back, includes it wherever it exceeds the call's device
+    time.)"""
+    fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(reps):
+        torch.cuda._sleep(20_000_000)
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
         e0.record()
@@ -940,10 +970,30 @@ def check_conv(C, rs, kernel, stride, shape, cout, dtype):
     return z_err, st_rel
 
 
+def check_plan(C, kernel, stride, shape, cout, dtype):
+    """The call's launch plan against the built library: its shared memory
+    as the CUDA source counts it, and at least ``blocks_per_sm`` blocks of
+    it fitting on an SM. Returns the plan."""
+    import ctypes
+
+    pl = C.plan(kernel[0], shape, cout, stride, dtype, C._sm_count(torch.device("cuda")))
+    lib = C._LIB.get()
+    v = C.VARIANTS.index(pl.variant)
+    smem = lib.conv_stats_smem_bytes(v, pl.bm, pl.bn)
+    blocks = ctypes.c_int(0)
+    err = lib.conv_stats_occupancy(v, kernel[0], pl.bm, pl.bn, 0, ctypes.byref(blocks))
+    if err != 0 or smem != pl.smem_bytes or blocks.value < max(pl.blocks_per_sm, 1):
+        raise AssertionError(f"plan {pl} for {kernel} s{stride} {shape}->{cout} {dtype}: the "
+                             f"library counts {smem} bytes and fits {blocks.value} blocks an "
+                             f"SM (error {err})")
+    return pl
+
+
 def phase_conv(C):
     """Both kernels against their plain versions at every geometry of the
-    fused ResNet50 at batch 64 and at edge cases, f32 and bf16; then the
-    path geometries timed beside the bound, the plain version and cuDNN."""
+    fused ResNet50 at batch 64 and at edge cases, f32 and bf16, each on the
+    variant its plan names; then the path geometries timed beside the
+    bound, the plain version and cuDNN."""
     rs = np.random.RandomState(SEED + 3)
     calls = resnet_conv_calls()
     geoms = list(dict.fromkeys(calls))
@@ -956,20 +1006,30 @@ def phase_conv(C):
     cases, path_err = [], 0.0
     for kernel, stride, shape, cout in geoms + edge:
         for dtype in (torch.float32, torch.bfloat16):
+            pl = check_plan(C, kernel, stride, shape, cout, dtype)
+            before = dict(C.launches_by_variant)
             z_err, st_rel = check_conv(C, rs, kernel, stride, shape, cout, dtype)
+            ran = [k for k in before if C.launches_by_variant[k] != before[k]]
+            if ran != [pl.variant]:
+                raise AssertionError(f"{kernel} {shape}->{cout} {dtype} ran {ran}, its plan "
+                                     f"names {pl.variant}")
             on_path = (kernel, stride, shape, cout) in geoms
+            if on_path and pl.variant not in ("bf16_wgmma", "f32_pipelined"):
+                raise AssertionError(f"path geometry {kernel} {shape}->{cout} planned on "
+                                     f"{pl.variant}")
             if on_path and dtype == torch.float32:
                 path_err = max(path_err, z_err)
             cases.append({"kernel": kernel[0], "stride": stride[0], "x": list(shape), "cout": cout,
                           "dtype": str(dtype).split(".")[-1], "path": on_path,
-                          "max_abs_err_z": z_err, "stats_rel_err": st_rel})
+                          "variant": pl.variant, "max_abs_err_z": z_err, "stats_rel_err": st_rel})
     torch.cuda.empty_cache()
     emit("conv", cases=len(cases), path_geometries=len(geoms), edge_cases=len(edge),
          f32_z_atol=CONV_F32_ZTOL, bf16_tol=CONV_BF16_TOL, stats_rtol=CONV_STATS_RTOL,
          stats_atol=CONV_STATS_ATOL,
          max_abs_err_z_f32=max(c["max_abs_err_z"] for c in cases if c["dtype"] == "float32"),
          max_abs_err_z_bf16=max(c["max_abs_err_z"] for c in cases if c["dtype"] == "bfloat16"),
-         max_stats_rel_err=max(c["stats_rel_err"] for c in cases))
+         max_stats_rel_err=max(c["stats_rel_err"] for c in cases),
+         cases_by_variant={v: sum(c["variant"] == v for c in cases) for v in C.VARIANTS})
 
     rows = []
     for kernel, stride, shape, cout in geoms:
@@ -978,11 +1038,16 @@ def phase_conv(C):
             x, w = conv_inputs(rs, kernel, shape, cout, dtype)
             kern, plain, library = conv_fns(C, kernel, stride, x, w)
             bound_ms, bound_by = conv_bound(kernel, stride, shape, cout, dtype)
+            pl = C.plan(kernel[0], shape, cout, stride, dtype, C._sm_count(x.device))
             row = {"kernel": kernel[0], "stride": stride[0], "x": list(shape), "cout": cout,
                    "dtype": str(dtype).split(".")[-1], "calls_per_forward": n,
+                   "plan": {k: getattr(pl, k) for k in ("variant", "bm", "bn", "grid", "tiles")},
                    "ms": time_ms(kern, iters=5, reps=5),
                    "plain_ms": time_ms(plain, iters=5, reps=5),
                    "library_ms": time_ms(library, iters=5, reps=5),
+                   "device_ms": device_ms(kern, iters=10, reps=5),
+                   "plain_device_ms": device_ms(plain, iters=5, reps=3),
+                   "library_device_ms": device_ms(library, iters=10, reps=5),
                    "bound_ms": bound_ms, "bound_by": bound_by}
             rows.append(row)
             emit("conv.timing", **row)
@@ -993,7 +1058,9 @@ def phase_conv(C):
         for dt in ("float32", "bfloat16"):
             sel = [r for r in rows if r["kernel"] == ks and r["dtype"] == dt]
             totals[(name, dt)] = {k: sum(r[k] * r["calls_per_forward"] for r in sel)
-                                  for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+                                  for k in ("ms", "plain_ms", "library_ms", "device_ms",
+                                            "plain_device_ms", "library_device_ms",
+                                            "bound_ms")}
             by_ops = sum(r["calls_per_forward"] * r["bound_ms"] for r in sel
                          if r["bound_by"] == "operations")
             totals[(name, dt)]["bound_by"] = ("operations" if 2 * by_ops >=
@@ -1156,12 +1223,17 @@ def phase_resnet(C, policy, seed):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = dict(C.launches)
+        by_variant = dict(C.launches_by_variant)
         peak = torch.cuda.max_memory_allocated()
         losses = net.score_history
         want = {"conv_mm_stats": 36 * RN_TIMED_STEPS, "conv3x3_stats": 16 * RN_TIMED_STEPS}
         if launches != want:
             raise AssertionError(f"conv kernels launched {launches} times in {RN_TIMED_STEPS} "
                                  f"steps (expected {want}: 36 + 16 a step)")
+        hopper = "bf16_wgmma" if policy == "bf16" else "f32_pipelined"
+        if by_variant != {**dict.fromkeys(C.VARIANTS, 0), hopper: sum(want.values())}:
+            raise AssertionError(f"conv launches by variant {by_variant}: every one of the "
+                                 f"path's launches should be {hopper}")
         if not all(np.isfinite(losses)) or not losses[-1] < first_loss:
             raise AssertionError(f"loss did not fall: first {first_loss}, timed steps {losses}")
         row = {"policy": policy, "params": net.num_params(), "batch": RN_BATCH,
@@ -1169,7 +1241,8 @@ def phase_resnet(C, policy, seed):
                "step_ms": 1e3 * wall / RN_TIMED_STEPS,
                "images_per_s": RN_BATCH * RN_TIMED_STEPS / wall, "peak_mem_gb": peak / 1e9,
                "loss_first": first_loss, "loss_last": losses[-1], "losses": losses,
-               "conv_launches": launches, "step_check": check, "card": card_line()}
+               "conv_launches": launches, "conv_launches_by_variant": by_variant,
+               "step_check": check, "card": card_line()}
         emit("resnet", **row)
 
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1189,6 +1262,31 @@ def phase_resnet(C, policy, seed):
         dtypes.f32_policy()
 
 
+def cuobjdump():
+    """The toolkit's cuobjdump, or the copy Triton's package carries; None
+    where neither exists."""
+    import importlib.util
+
+    found = shutil.which("cuobjdump")
+    candidates = [found] if found else []
+    candidates.append("/usr/local/cuda/bin/cuobjdump")
+    spec = importlib.util.find_spec("triton")
+    if spec is not None and spec.origin:
+        candidates.append(str(pathlib.Path(spec.origin).parent / "backends/nvidia/bin/cuobjdump"))
+    return next((c for c in candidates if c and pathlib.Path(c).exists()), None)
+
+
+def sass_count(so, opcode):
+    """How many ``opcode`` instructions the library's SASS holds, or "not
+    found" without a cuobjdump."""
+    tool = cuobjdump()
+    if tool is None:
+        return "not found"
+    sass = subprocess.run([tool, "-sass", str(so)], capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    return len(re.findall(rf"\b{opcode}\b", sass))
+
+
 def build_all(libs):
     """Build every kernel library at once (one nvcc each, started together)."""
     from concurrent.futures import ThreadPoolExecutor
@@ -1204,7 +1302,11 @@ def build_all(libs):
     emit("build", seconds=time.perf_counter() - t0, libraries=[{
         "library": str(so.relative_to(ROOT)), "seconds": secs,
         "ptxas": [ln.strip() for ln in so.with_suffix(".log").read_text().splitlines()
-                  if "Used" in ln or "spill" in ln]} for so, secs in built])
+                  if "Used" in ln or "spill" in ln or "Compiling entry" in ln]}
+        for so, secs in built])
+    conv = next(so for so, _ in built if so.name.startswith("conv_stats"))
+    emit("build.sass", library=str(conv.relative_to(ROOT)), cuobjdump=cuobjdump() or "not found",
+         HGMMA=sass_count(conv, "HGMMA"))
 
 
 PHASES = ("kernels", "flash", "train", "conv", "resnet", "serve")
@@ -1276,8 +1378,9 @@ def main(argv=None):
         "launches": train_rows[0]["flash_launches"], "max_abs_err": flash_err,
         "ms": fpath["ms"], "plain_ms": fpath["plain_ms"], "bound_ms": fpath["bound_ms"],
         "bound_by": fpath["bound_by"], "library_ms": fpath["library_ms"]}] + [{
-        # per forward of the fused ResNet50 at batch 64 in f32: the sums over
-        # the kernel's calls; launches over the 10 timed bf16_policy steps
+        # per forward of the fused ResNet50 at batch 64 in f32 (the *_bf16
+        # keys: in bf16): the sums over the kernel's calls; launches over the
+        # 10 timed bf16_policy steps
         "name": name, "route": "cuda", "source": "deeplearning4j_tpu_torch/csrc/conv_stats.cu",
         "replaces": f"deeplearning4j_tpu/ops/conv_pallas.py:{line}",
         "launches": resnet_rows["bf16"]["conv_launches"][name], "max_abs_err": conv_err,
@@ -1285,7 +1388,12 @@ def main(argv=None):
         "plain_ms": conv_totals[(name, "float32")]["plain_ms"],
         "bound_ms": conv_totals[(name, "float32")]["bound_ms"],
         "bound_by": conv_totals[(name, "float32")]["bound_by"],
-        "library_ms": conv_totals[(name, "float32")]["library_ms"]}
+        "library_ms": conv_totals[(name, "float32")]["library_ms"],
+        "device_ms": conv_totals[(name, "float32")]["device_ms"],
+        "library_device_ms": conv_totals[(name, "float32")]["library_device_ms"],
+        **{f"{k}_bf16": conv_totals[(name, "bfloat16")][k]
+           for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "device_ms",
+                     "library_device_ms")}}
         for name, line in (("conv_mm_stats", 86), ("conv3x3_stats", 169))]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -13,7 +13,9 @@ module's ``fused_conv_bn_act``:
   taken from the unrounded f32 accumulator. On CUDA tensors they launch
   ``csrc/conv_stats.cu`` (f32 or bf16); on CPU tensors they take
   ``conv_mm_stats_plain`` / ``conv3x3_stats_plain``. ``launches`` counts
-  the kernel launches of each.
+  the kernel launches of each, ``launches_by_variant`` the same launches
+  by kernel variant; ``plan()`` chooses the variant, tile and persistent
+  grid of a call from its shape, before the launch.
 - ``fused_conv_bn_act`` is the train-mode fused op (one
   ``torch.autograd.Function``). Forward: the kernel's z and sums, then
   ``var = max(E[z^2] - mean^2, 0)``, the normalize, affine, residual add
@@ -33,7 +35,9 @@ source's header.
 from __future__ import annotations
 
 import ctypes
+import functools
 import threading
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -44,19 +48,20 @@ SOURCE = _build.CSRC / "conv_stats.cu"
 
 #: kernel launches (wrapper calls that reached each CUDA kernel)
 launches = {"conv_mm_stats": 0, "conv3x3_stats": 0}
+#: the same launches by kernel variant (``plan().variant``)
+VARIANTS = ("bf16_wgmma", "bf16_unaligned", "f32_pipelined", "f32_unaligned")
+launches_by_variant = dict.fromkeys(VARIANTS, 0)
 _count_lock = threading.Lock()
-
-_ENTRY_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
 
 
 def _declare(lib):
-    for name in ("conv_mm_stats_f32", "conv_mm_stats_bf16", "conv3x3_stats_f32",
-                 "conv3x3_stats_bf16"):
-        fn = getattr(lib, name)
-        fn.argtypes = _ENTRY_ARGS
-        fn.restype = ctypes.c_int
-    lib.conv_stats_row_tile.argtypes = []
-    lib.conv_stats_row_tile.restype = ctypes.c_int
+    lib.conv_stats_launch.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 5
+                                      + [ctypes.c_int] * 12 + [ctypes.c_void_p])
+    lib.conv_stats_launch.restype = ctypes.c_int
+    lib.conv_stats_smem_bytes.argtypes = [ctypes.c_int] * 3
+    lib.conv_stats_smem_bytes.restype = ctypes.c_int
+    lib.conv_stats_occupancy.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)]
+    lib.conv_stats_occupancy.restype = ctypes.c_int
     lib.conv_stats_error_string.argtypes = [ctypes.c_int]
     lib.conv_stats_error_string.restype = ctypes.c_char_p
 
@@ -70,8 +75,9 @@ def build():
 
 
 def reset_launches():
-    for k in launches:
-        launches[k] = 0
+    for counts in (launches, launches_by_variant):
+        for k in counts:
+            counts[k] = 0
 
 
 # ---------------------------------------------------------------------------
@@ -100,6 +106,102 @@ def supported(kernel, stride, padding, dilation, act, x_shape=None):
     if s == (1, 1):
         return True
     return s == (2, 2) and x_shape is not None and x_shape[1] % 2 == 0 and x_shape[2] % 2 == 0
+
+
+# ---------------------------------------------------------------------------
+# the launch plan
+# ---------------------------------------------------------------------------
+
+#: shared memory one block may take on sm_90 (bytes)
+SMEM_LIMIT = 232_448
+#: SMs of an H100 SXM: what plan() assumes when no card is asked
+H100_SMS = 132
+
+# the compiled configurations of csrc/conv_stats.cu (its constants, mirrored)
+WG_BM, WG_STAGES, WG_BK = 128, 4, 64
+F32_STAGES, F32_BK = 3, 16
+U_BM, U_BN, U_BK = 128, 64, 32
+
+
+class Plan(NamedTuple):
+    """How one call runs: the kernel variant, its tile (``bm`` output pixels
+    x ``bn`` channels) and ring depth, the persistent grid, the partials
+    buffer's rows and the block's shared memory."""
+    variant: str
+    bm: int
+    bn: int
+    stages: int
+    blocks_per_sm: int  # blocks the grid puts on one SM (0: one tile per block)
+    grid: int
+    row_tiles: int
+    col_tiles: int
+    smem_bytes: int
+
+    @property
+    def tiles(self):
+        return self.row_tiles * self.col_tiles
+
+
+def smem_bytes(variant, bm, bn):
+    """Shared memory (bytes) of one block of ``variant`` at a ``bm`` x
+    ``bn`` tile, as ``csrc/conv_stats.cu`` lays it out."""
+    if variant == "bf16_wgmma":
+        nwg = bm // 64
+        stage = (bm + bn) * WG_BK * 2
+        return (WG_STAGES * stage + nwg * 64 * (bn + 8) * 2 + 4 * nwg * 2 * bn * 4
+                + 2 * WG_STAGES * 8 + 1024)
+    if variant == "bf16_unaligned":
+        tiles = max((U_BM * (U_BK + 8) + U_BK * (U_BN + 8)) * 2, U_BM * (U_BN + 4) * 4)
+        return tiles + 3 * U_BM * 4 + 8 * 2 * U_BN * 4
+    threads = bm * bn // 64
+    return 4 * (F32_STAGES * (bm * (F32_BK + 4) + F32_BK * bn) + threads // 32 * 2 * bn)
+
+
+@functools.lru_cache(maxsize=None)
+def plan(kernel, x_shape, cout, stride, dtype, sms=H100_SMS, aligned=True):
+    """The launch of one conv-statistics call: ``kernel`` 1 or 3, x_shape
+    (B, H, W, Cin), ``stride`` (sh, sw), ``dtype`` float32 or bfloat16,
+    ``sms`` the card's SM count, ``aligned`` whether x and w start on 16
+    bytes. The variant follows from dtype and alignment alone: bf16 with
+    Cin and Cout multiples of 8 takes ``bf16_wgmma``, f32 with Cin and
+    Cout multiples of 4 ``f32_pipelined``, other shapes the unaligned
+    variants. Tiles are 64 channels wide where Cout <= 64, else 128;
+    bf16_wgmma tiles are 128 rows tall, f32 tiles 128 rows or, where that
+    leaves an SM without a tile, 64. The grid is persistent: at most
+    ``blocks_per_sm`` blocks an SM, block i taking tiles i, i + grid, ...
+    (``schedule``)."""
+    b, h, w, cin = x_shape
+    sh, sw = stride
+    m = b * -(-h // sh) * -(-w // sw)
+    narrow = cout <= 64  # a 64-channel tile: no idle half tile
+    if dtype == torch.bfloat16 and aligned and cin % 8 == 0 and cout % 8 == 0:
+        # 128 rows even where fewer tiles than SMs result (the 7x7 stage:
+        # 100 tiles): on the H100 they beat 64-row tiles on every SM
+        variant, bn, bms, stages = "bf16_wgmma", 64 if narrow else 128, (WG_BM,), WG_STAGES
+    elif dtype == torch.bfloat16:
+        variant, bn, bms, stages = "bf16_unaligned", U_BN, (U_BM,), 1
+    elif dtype == torch.float32:
+        variant = ("f32_pipelined" if aligned and cin % 4 == 0 and cout % 4 == 0
+                   else "f32_unaligned")
+        bn, bms, stages = (64, (128,), F32_STAGES) if narrow else (128, (128, 64), F32_STAGES)
+    else:
+        raise TypeError(f"conv-statistics kernels take float32 or bfloat16, got {dtype}")
+    col_tiles = -(-cout // bn)
+    bm = next((c for c in bms if -(-m // c) * col_tiles >= sms), bms[-1])
+    row_tiles = -(-m // bm)
+    tiles = row_tiles * col_tiles
+    # bf16_wgmma: one block an SM; f32: 256 threads an SM (one 128 x 128
+    # block or two of 128 threads); bf16_unaligned: one tile a block
+    per_sm = {"bf16_wgmma": 1, "bf16_unaligned": 0}.get(variant, 256 * 64 // (bm * bn))
+    grid = min(tiles, sms * per_sm) if per_sm else tiles
+    return Plan(variant, bm, bn, stages, per_sm, grid, row_tiles, col_tiles,
+                smem_bytes(variant, bm, bn))
+
+
+def schedule(pl):
+    """The output tiles each block of the plan takes, in order (row tile =
+    tile // col_tiles, column tile = tile % col_tiles)."""
+    return [range(i, pl.tiles, pl.grid) for i in range(pl.grid)]
 
 
 # ---------------------------------------------------------------------------
@@ -160,26 +262,39 @@ def _check(name, x, w, ks, stride):
                          "is not covered (stride 1, or stride 2 on even H and W)")
 
 
+_sm_counts = {}
+
+
+def _sm_count(dev):
+    idx = _build.device_index(dev)
+    if idx not in _sm_counts:
+        _sm_counts[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _sm_counts[idx]
+
+
 def _launch(name, x, w, stride):
     lib = _LIB.get()
     b, h, wd, cin = x.shape
-    cout = w.shape[3]
+    ks, cout = w.shape[0], w.shape[3]
     sh, sw = stride
-    ho, wo = (-(-h // sh), -(-wd // sw))
     dev = x.device
-    z = torch.empty((b, ho, wo, cout), dtype=x.dtype, device=dev)
-    row_tiles = -(-(b * ho * wo) // lib.conv_stats_row_tile())
-    partials = torch.empty((row_tiles, 2, cout), dtype=torch.float32, device=dev)
-    stats = torch.empty((2, cout), dtype=torch.float32, device=dev)
-    fn = getattr(lib, f"{name}_{'f32' if x.dtype == torch.float32 else 'bf16'}")
-    err = fn(x.data_ptr(), w.data_ptr(), z.data_ptr(), partials.data_ptr(), stats.data_ptr(),
-             b, h, wd, cin, cout, sh, sw, _build.device_index(dev),
-             torch.cuda.current_stream(dev).cuda_stream)
+    idx = _build.device_index(dev)
+    aligned = x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0
+    pl = plan(ks, tuple(x.shape), cout, stride, x.dtype, _sm_count(dev), aligned)
+    z = torch.empty((b, -(-h // sh), -(-wd // sw), cout), dtype=x.dtype, device=dev)
+    # one allocation: stats [2, Cout], then the partials [row_tiles, 2, Cout]
+    scratch = torch.empty((pl.row_tiles + 1) * 2 * cout, dtype=torch.float32, device=dev)
+    stats = scratch[:2 * cout].view(2, cout)
+    err = lib.conv_stats_launch(VARIANTS.index(pl.variant), ks, x.data_ptr(), w.data_ptr(),
+                                z.data_ptr(), scratch.data_ptr() + 8 * cout, scratch.data_ptr(),
+                                b, h, wd, cin, cout, sh, sw, pl.bm, pl.bn, pl.stages, pl.grid, idx,
+                                torch._C._cuda_getCurrentRawStream(idx))
     if err != 0:
         msg = lib.conv_stats_error_string(err).decode()
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err} ({msg})")
+        raise RuntimeError(f"{name} kernel launch failed ({pl}): CUDA error {err} ({msg})")
     with _count_lock:
         launches[name] += 1
+        launches_by_variant[pl.variant] += 1
     return z, stats
 
 
