@@ -10,30 +10,44 @@ nonzero; nothing is caught):
 2. build    nvcc builds of ``csrc/lstm_seq.cu``, ``csrc/flash_attn.cu`` and
             ``csrc/conv_stats.cu``, started together, with their ptxas
             reports; the count of HGMMA (wgmma) instructions in the conv
-            library's SASS, where a cuobjdump exists.
+            and flash libraries' SASS and of HMMA (mma.sync) in the flash
+            library's, where a cuobjdump exists.
 3. kernels  ``lstm_seq`` held against ``lstm_seq_plain`` on the card, f32
             and bf16, with and without peepholes and mask, at the served
-            shapes (T=128, H=512, B in {1, 8, 64}), at H=1024 and at a
-            ragged H=100; with the kernel's time, the plain loop's time, the
-            bound and cuDNN's ``torch.nn.LSTM`` as a yardstick.
+            shapes (T=128, H=512, B in {1, 8, 64}), at H=1024 (B=8 and 64)
+            and at a ragged H=100, each on the variant its ``plan()``
+            names (``persistent`` on every served shape; its shared memory
+            and blocks an SM checked against the built library); with the
+            kernel's time back to back (``ms``) and on the card alone
+            (``device_ms``), the plain loop's time, the bound and cuDNN's
+            ``torch.nn.LSTM`` as a yardstick (``library_ms``,
+            ``library_device_ms``); then one call at the served path's
+            shape under ``torch.profiler``: the device's kernel launches by
+            name, one ``lstm_persistent_kernel`` for all 128 steps.
 4. flash    ``flash_attn`` held against ``flash_attention_plain`` on the
             card (out and lse), and the autograd.Function's dq/dk/dv
             against autograd through the plain version: B=4, H=8,
             T in {1000, 4096}, D in {64, 128}, f32 and bf16, causal or not,
             with and without a [B,T] key mask whose last row is fully
             masked; q, k, v are views of one [B,T,3,H,D] tensor, as the
-            fused projection leaves them. Times at the training path's
-            shape (T=4096, D=64, causal) beside the bound, the plain
-            version and ``scaled_dot_product_attention`` as a yardstick,
-            forward and forward + backward (with the backward's bound);
-            then the kernel against the port's naive attention, forward and
-            backward, at T in {256, ..., 4096}: the length crossover.
+            fused projection leaves them (``f32_3xtf32_wgmma`` at D=64,
+            ``f32_3xtf32`` at D=128, ``bf16_wgmma``), and, once each,
+            views with odd strides (the unaligned variants); each case on
+            the variant its ``plan()`` names. Times at the training path's shape (T=4096, D=64,
+            causal) beside the bound, the plain version and
+            ``scaled_dot_product_attention`` as a yardstick, back to back
+            and on the card, forward and forward + backward (with the
+            backward's bound); then the kernel against the port's naive
+            attention, forward and backward, at T in {256, ..., 4096}: the
+            length crossover.
 5. train    ``transformer_lm`` at the width of the JAX package's long-context
             bench (vocab 8192, 6 x 512, 8 heads, seq 4096; 29,408,256
             params, random weights from the seed) trained by
             ``MultiLayerNetwork.fit`` at batch 4 on a learnable synthetic
             sequence, under the f32 policy and ``bf16_policy``: 2 warm-up
-            steps then 10 timed ones, 6 flash launches a step, the last loss
+            steps then 10 timed ones, 6 flash launches a step, all on the
+            planned variant (``f32_3xtf32_wgmma``: q, k, v stay f32 under
+            both policies), the last loss
             below the first; and one step from identical weights with the
             plain attention forward agreeing with the kernel's step.
             After each, one step under ``torch.profiler``: device time by
@@ -70,7 +84,8 @@ nonzero; nothing is caught):
             ``ModelRegistry`` on (batch, seq) buckets: a few hundred
             requests of mixed lengths and batch sizes, every result checked
             against the plain functions on the card, and the kernel's
-            launch count checked against the device forwards.
+            launch count checked against the device forwards, every launch
+            ``persistent``.
 9. profile  one char-RNN forward at the largest bucket under
             ``torch.profiler``: device time by kernel family and busy share.
 10. cli     ``python -m deeplearning4j_tpu_torch serve --smoke 64``.
@@ -130,6 +145,7 @@ WORK = ROOT / "_smoke_work"
 # published H100 SXM peaks (NVIDIA data sheet, dense, at 700 W)
 PEAK_BYTES_S = 3.35e12
 PEAK_OPS_S = {torch.float32: 67e12, torch.bfloat16: 989e12}
+PEAK_TF32_OPS_S = 495e12
 
 F32_ATOL = 1e-4
 BF16_ATOL = BF16_RTOL = 2e-2
@@ -274,18 +290,88 @@ def cudnn_recurrence(wh, h0, c0, t):
     return lambda: mod(x, state)
 
 
+def ran_variants(mod, before):
+    """The variants whose launch counters moved since ``before``."""
+    return [k for k in before if mod.launches_by_variant[k] != before[k]]
+
+
+def sm_count():
+    return torch.cuda.get_device_properties(0).multi_processor_count
+
+
+def check_lstm_plan(L, b, h, dtype):
+    """The call's plan against the built library: a persistent block's
+    shared memory as the CUDA source counts it, and at least one block of
+    it fitting on an SM (so the grid, at most one block an SM, is
+    co-resident). Returns the plan."""
+    import ctypes
+
+    pl = L.plan(b, h, dtype, sm_count())
+    if pl.variant == "persistent":
+        lib = L._LIB.get()
+        blocks = ctypes.c_int(0)
+        err = lib.lstm_seq_occupancy(pl.rt, h, int(dtype == torch.bfloat16), 0,
+                                     ctypes.byref(blocks))
+        smem = lib.lstm_seq_smem_bytes(pl.rt, h)
+        if err != 0 or smem != pl.smem_bytes or blocks.value < 1 or pl.grid > sm_count():
+            raise AssertionError(f"lstm plan {pl} at B={b} H={h} {dtype}: the library counts "
+                                 f"{smem} bytes and fits {blocks.value} blocks an SM (error {err})")
+    elif L.cluster_split(b, h) != pl.split:
+        raise AssertionError(f"lstm plan {pl}: the library's cluster split is "
+                             f"{L.cluster_split(b, h)}")
+    return pl
+
+
+def lstm_launch_profile(L, rs, shapes):
+    """One f32 lstm_seq call (T=SEQ, peepholes) at each (B, H) of ``shapes``,
+    all under one torch.profiler session: the device's events by name.
+    Shows how many kernel launches one call makes (persistent: one;
+    step_cluster: one per step); the rest are the wrapper's setup copies."""
+    from torch.profiler import ProfilerActivity, profile
+
+    calls = []
+    for b, h in shapes:
+        xz, wh, h0, c0, wp, _ = lstm_inputs(rs, SEQ, b, h, torch.float32, True, False)
+        calls.append(lambda xz=xz, wh=wh, h0=h0, c0=c0, wp=wp: L.lstm_seq(xz, wh, h0, c0, wp=wp))
+        calls[-1]()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for call in calls:
+            call()
+        torch.cuda.synchronize()
+    names = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            key = ("lstm_persistent_kernel" if "lstm_persistent_kernel" in e.name else
+                   "lstm_step_kernel" if "lstm_step_kernel" in e.name else e.name[:60])
+            names[key] = names.get(key, 0) + 1
+    return {"T": SEQ, "calls": [{"B": b, "H": h,
+                                 "plan": L.plan(b, h, torch.float32, sm_count())._asdict()}
+                                for b, h in shapes],
+            "device_events": sum(names.values()), "by_name": names}
+
+
 def phase_kernels(L):
     rs = np.random.RandomState(SEED)
     cases, timings, max_err_path = [], [], 0.0
-    shapes = [(SEQ, 1, HIDDEN), (SEQ, 8, HIDDEN), (SEQ, 64, HIDDEN), (SEQ, 8, 1024), (SEQ, 5, 100)]
+    shapes = [(SEQ, 1, HIDDEN), (SEQ, 8, HIDDEN), (SEQ, 64, HIDDEN), (SEQ, 8, 1024),
+              (SEQ, 64, 1024), (SEQ, 5, 100)]
     for t, b, h in shapes:
         for dtype in (torch.float32, torch.bfloat16):
+            pl = check_lstm_plan(L, b, h, dtype)
+            if h == HIDDEN and pl.variant != "persistent":
+                raise AssertionError(f"served shape B={b} H={h} {dtype} planned on {pl.variant}")
             for peephole in (False, True):
                 for mask in (False, True):
                     args = lstm_inputs(rs, t, b, h, dtype, peephole, mask)
+                    before = dict(L.launches_by_variant)
                     got = L.lstm_seq(*args[:4], wp=args[4], mask=args[5])
+                    ran = ran_variants(L, before)
                     want = L.lstm_seq_plain(*args[:4], wp=args[4], mask=args[5])
                     torch.cuda.synchronize()
+                    if ran != [pl.variant]:
+                        raise AssertionError(f"lstm_seq B={b} H={h} {dtype} ran {ran}, its plan "
+                                             f"names {pl.variant}")
                     err = 0.0
                     for name, g, w in zip(("hs", "cs", "hT", "cT"), got, want):
                         g, w = g.float(), w.float()
@@ -303,30 +389,46 @@ def phase_kernels(L):
                     if dtype == torch.float32 and h == HIDDEN:
                         max_err_path = max(max_err_path, err)
                     cases.append({"T": t, "B": b, "H": h, "dtype": str(dtype).split(".")[-1],
-                                  "peephole": peephole, "mask": mask, "max_abs_err": err})
+                                  "peephole": peephole, "mask": mask, "variant": pl.variant,
+                                  "max_abs_err": err})
         # timings in f32: the served variant (peepholes, no mask), and the
         # no-peephole variant beside cuDNN's nn.LSTM on the same inputs
         xz, wh, h0, c0, wp, _ = lstm_inputs(rs, t, b, h, torch.float32, True, False)
         iters = 10
-        ms = time_ms(lambda: L.lstm_seq(xz, wh, h0, c0, wp=wp), iters=iters, reps=5)
+        kern = lambda: L.lstm_seq(xz, wh, h0, c0, wp=wp)  # noqa: E731
+        cudnn = cudnn_lstm(xz, wh, h0, c0)
+        ms = time_ms(kern, iters=iters, reps=5)
         ms_nopeep = time_ms(lambda: L.lstm_seq(xz, wh, h0, c0), iters=iters, reps=5)
         plain_ms = time_ms(lambda: L.lstm_seq_plain(xz, wh, h0, c0, wp=wp), iters=2, reps=3)
-        library_ms = time_ms(cudnn_lstm(xz, wh, h0, c0), iters=iters, reps=5)
+        library_ms = time_ms(cudnn, iters=iters, reps=5)
         recurrence_ms = time_ms(cudnn_recurrence(wh, h0, c0, t), iters=iters, reps=5)
         bound_ms, bound_by = bound(t, b, h, torch.float32, True, False)
-        row = {"T": t, "B": b, "H": h, "dtype": "float32", "cluster_split": L.cluster_split(b, h),
-               "ms": ms, "ms_no_peephole": ms_nopeep,
+        pl = L.plan(b, h, torch.float32, sm_count())
+        row = {"T": t, "B": b, "H": h, "dtype": "float32", "plan": pl._asdict(),
+               "ms": ms, "device_ms": device_ms(kern, iters=iters, reps=5),
+               "ms_no_peephole": ms_nopeep,
                "plain_ms": plain_ms, "library_ms": library_ms,
+               "library_device_ms": device_ms(cudnn, iters=iters, reps=5),
                "library_recurrence_ms": recurrence_ms, "bound_ms": bound_ms,
-               "bound_by": bound_by}
+               "bound_by": bound_by, "card": card_line()}
         timings.append(row)
         emit("kernels.timing", **row)
+    # launch attribution: one call at the served path's shape (persistent)
+    # and one on the step variant, in one profiled session
+    launches = lstm_launch_profile(L, rs, [(64, HIDDEN), (64, 1024)])
+    if [c["plan"]["variant"] for c in launches["calls"]] != ["persistent", "step_cluster"] or \
+            launches["by_name"].get("lstm_persistent_kernel") != 1 or \
+            launches["by_name"].get("lstm_step_kernel") != SEQ:
+        raise AssertionError(f"one persistent call and one step_cluster call launched "
+                             f"{launches['by_name']}: expected 1 persistent kernel and {SEQ} "
+                             "step kernels")
+    emit("kernels.launches", **launches)
     emit("kernels", name="lstm_seq", cases=len(cases), f32_atol=F32_ATOL,
          bf16_atol=BF16_ATOL, bf16_rtol=BF16_RTOL,
          max_abs_err_f32=max(c["max_abs_err"] for c in cases if c["dtype"] == "float32"),
-         max_abs_err_bf16=max(c["max_abs_err"] for c in cases if c["dtype"] == "bfloat16"))
+         max_abs_err_bf16=max(c["max_abs_err"] for c in cases if c["dtype"] == "bfloat16"),
+         cases_by_variant={v: sum(c["variant"] == v for c in cases) for v in L.VARIANTS})
     return timings, max_err_path
-
 
 
 # ---------------------------------------------------------------------------
@@ -374,48 +476,80 @@ def check_close(what, got, want, atol, rtol):
     return err.max().item()
 
 
+def check_flash_plan(A, q, k, v):
+    """The call's plan against the built library: its shared memory as the
+    CUDA source counts it and at least one block of it fitting on an SM.
+    Returns the plan."""
+    import ctypes
+
+    strides = tuple(tuple(x.stride()[:3]) for x in (q, k, v))
+    pl = A.plan(tuple(q.shape), q.dtype, strides, all(x.data_ptr() % 16 == 0 for x in (q, k, v)))
+    lib = A._LIB.get()
+    v_idx = A.VARIANTS.index(pl.variant)
+    blocks = ctypes.c_int(0)
+    err = lib.flash_attn_occupancy(v_idx, pl.dp, 0, ctypes.byref(blocks))
+    smem = lib.flash_attn_smem_bytes(v_idx, pl.dp)
+    if err != 0 or smem != pl.smem_bytes or blocks.value < 1:
+        raise AssertionError(f"flash plan {pl}: the library counts {smem} bytes and fits "
+                             f"{blocks.value} blocks an SM (error {err})")
+    return pl
+
+
+def odd_views(rs, b, t, h, d, dtype, grad=False):
+    """q, k, v as views of a [B,T,3,H,D+1] tensor cut to D: strides off 16
+    bytes, so the plan takes an unaligned variant."""
+    base = torch.from_numpy(rs.randn(b, t, 3, h, d + 1).astype(np.float32)).to("cuda", dtype)
+    base.requires_grad_(grad)
+    qkv = base[..., :d]
+    return qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], base
+
+
 def phase_flash(A):
     rs = np.random.RandomState(SEED + 1)
     b, h = LM_BATCH, LM_HEADS
     cases, path_err = [], None
-    for t in (1000, LM_SEQ):
-        for d in (64, 128):
-            for dtype in (torch.float32, torch.bfloat16):
-                for causal in (False, True):
-                    for masked in (False, True):
-                        f32 = dtype == torch.float32
-                        q, k, v, _ = qkv_views(rs, b, t, h, d, dtype, grad=True)
-                        m = key_mask(rs, b, t) if masked else None
-                        what = f"flash_attn T={t} D={d} {dtype} causal={causal} mask={masked}"
-                        with torch.no_grad():
-                            out_k, lse_k = A.flash_attention_fwd(q, k, v, mask=m, causal=causal)
-                            out_p, lse_p = A.flash_attention_plain(q, k, v, mask=m,
-                                                                   causal=causal)
-                        torch.cuda.synchronize()
-                        tol = (FLASH_F32_ATOL, 0.0) if f32 else (FLASH_BF16_TOL, FLASH_BF16_TOL)
-                        errs = {"out": check_close(f"{what} out", out_k, out_p, *tol),
-                                "lse": check_close(f"{what} lse", lse_k, lse_p,
-                                                   FLASH_LSE_ATOL, FLASH_LSE_RTOL)}
-                        g = torch.from_numpy(rs.randn(b, t, h, d).astype(np.float32)).to(
-                            "cuda", dtype)
-                        got = torch.autograd.grad(
-                            A.flash_attention(q, k, v, mask=m, causal=causal), (q, k, v), g)
-                        want = torch.autograd.grad(
-                            A.flash_attention_plain(q, k, v, mask=m, causal=causal)[0],
-                            (q, k, v), g)
-                        gtol = (FLASH_GRAD_ATOL, FLASH_GRAD_RTOL) if f32 else \
-                            (FLASH_BF16_TOL, FLASH_BF16_TOL)
-                        for name, a, w in zip(("dq", "dk", "dv"), got, want):
-                            errs[name] = check_close(f"{what} {name}", a, w, *gtol)
-                        if masked and (out_k[-1].any() or (lse_k[-1] != A.NEG_INF).any()):
-                            raise AssertionError(f"{what}: the fully masked row is not 0 "
-                                                 "with the lse sentinel")
-                        cases.append({"T": t, "D": d, "dtype": str(dtype).split(".")[-1],
-                                      "causal": causal, "mask": masked, **errs})
-                        if (t, d, f32, causal, masked) == (LM_SEQ, LM_WIDTH // LM_HEADS, True,
-                                                           True, False):
-                            path_err = max(errs.values())
-                        del q, k, v, got, want, out_k, out_p, lse_k, lse_p
+    grid = [(t, d, dtype, causal, masked, False) for t in (1000, LM_SEQ) for d in (64, 128)
+            for dtype in (torch.float32, torch.bfloat16) for causal in (False, True)
+            for masked in (False, True)]
+    grid += [(1000, 64, dtype, True, True, True) for dtype in (torch.float32, torch.bfloat16)]
+    for t, d, dtype, causal, masked, odd in grid:
+        f32 = dtype == torch.float32
+        q, k, v, _ = (odd_views if odd else qkv_views)(rs, b, t, h, d, dtype, grad=True)
+        pl = check_flash_plan(A, q, k, v)
+        want_variant = {(True, False): "f32_3xtf32_wgmma" if d <= 64 else "f32_3xtf32",
+                        (False, False): "bf16_wgmma", (True, True): "f32_3xtf32_unaligned",
+                        (False, True): "bf16_unaligned"}[(f32, odd)]
+        if pl.variant != want_variant:
+            raise AssertionError(f"flash T={t} D={d} {dtype} odd={odd} planned on {pl.variant}")
+        m = key_mask(rs, b, t) if masked else None
+        what = f"flash_attn T={t} D={d} {dtype} causal={causal} mask={masked} {pl.variant}"
+        before = dict(A.launches_by_variant)
+        with torch.no_grad():
+            out_k, lse_k = A.flash_attention_fwd(q, k, v, mask=m, causal=causal)
+            out_p, lse_p = A.flash_attention_plain(q, k, v, mask=m, causal=causal)
+        torch.cuda.synchronize()
+        if ran_variants(A, before) != [pl.variant]:
+            raise AssertionError(f"{what}: ran {ran_variants(A, before)}")
+        tol = (FLASH_F32_ATOL, 0.0) if f32 else (FLASH_BF16_TOL, FLASH_BF16_TOL)
+        errs = {"out": check_close(f"{what} out", out_k, out_p, *tol),
+                "lse": check_close(f"{what} lse", lse_k, lse_p,
+                                   FLASH_LSE_ATOL, FLASH_LSE_RTOL)}
+        g = torch.from_numpy(rs.randn(b, t, h, d).astype(np.float32)).to("cuda", dtype)
+        got = torch.autograd.grad(
+            A.flash_attention(q, k, v, mask=m, causal=causal), (q, k, v), g)
+        want = torch.autograd.grad(
+            A.flash_attention_plain(q, k, v, mask=m, causal=causal)[0], (q, k, v), g)
+        gtol = (FLASH_GRAD_ATOL, FLASH_GRAD_RTOL) if f32 else (FLASH_BF16_TOL, FLASH_BF16_TOL)
+        for name, a, w in zip(("dq", "dk", "dv"), got, want):
+            errs[name] = check_close(f"{what} {name}", a, w, *gtol)
+        if masked and (out_k[-1].any() or (lse_k[-1] != A.NEG_INF).any()):
+            raise AssertionError(f"{what}: the fully masked row is not 0 with the lse sentinel")
+        cases.append({"T": t, "D": d, "dtype": str(dtype).split(".")[-1], "causal": causal,
+                      "mask": masked, "variant": pl.variant, **errs})
+        if (t, d, f32, causal, masked, odd) == (LM_SEQ, LM_WIDTH // LM_HEADS, True, True, False,
+                                                False):
+            path_err = max(errs.values())
+        del q, k, v, got, want, out_k, out_p, lse_k, lse_p
     torch.cuda.empty_cache()
     emit("flash", cases=len(cases), f32_atol=FLASH_F32_ATOL, lse_atol=FLASH_LSE_ATOL,
          lse_rtol=FLASH_LSE_RTOL, grad_atol=FLASH_GRAD_ATOL, grad_rtol=FLASH_GRAD_RTOL,
@@ -423,19 +557,24 @@ def phase_flash(A):
          max_abs_err_f32={k: max(c[k] for c in cases if c["dtype"] == "float32")
                           for k in ("out", "lse", "dq", "dk", "dv")},
          max_abs_err_bf16={k: max(c[k] for c in cases if c["dtype"] == "bfloat16")
-                           for k in ("out", "lse", "dq", "dk", "dv")})
+                           for k in ("out", "lse", "dq", "dk", "dv")},
+         cases_by_variant={v: sum(c["variant"] == v for c in cases) for v in A.VARIANTS})
 
     timings = {}
     d = LM_WIDTH // LM_HEADS
     for dtype in (torch.float32, torch.bfloat16):
         q, k, v, _ = qkv_views(rs, b, LM_SEQ, h, d, dtype)
         qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        kern = lambda: A.flash_attention_fwd(q, k, v, causal=True)  # noqa: E731
+        sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+            qh, kh, vh, is_causal=True)
         with torch.no_grad():
-            ms = time_ms(lambda: A.flash_attention_fwd(q, k, v, causal=True), iters=10, reps=5)
+            ms = time_ms(kern, iters=10, reps=5)
+            dev_ms = device_ms(kern, iters=10, reps=5)
             plain_ms = time_ms(lambda: A.flash_attention_plain(q, k, v, causal=True),
                                iters=10, reps=5)
-            library_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-                qh, kh, vh, is_causal=True), iters=10, reps=5)
+            library_ms = time_ms(sdpa, iters=10, reps=5)
+            library_dev_ms = device_ms(sdpa, iters=10, reps=5)
         bound_ms, bound_by = flash_bound(b, LM_SEQ, h, d, dtype, True)
         # forward + backward: the port's path (kernel forward, blockwise
         # backward) and SDPA, each with the gradients of q, k and v
@@ -449,14 +588,20 @@ def phase_flash(A):
             torch.nn.functional.scaled_dot_product_attention(qhg, khg, vhg, is_causal=True),
             (qhg, khg, vhg), gh), iters=3, reps=5)
         bwd_bound_ms, bwd_bound_by = flash_bound(b, LM_SEQ, h, d, dtype, True, backward=True)
+        pl = A.plan(tuple(q.shape), dtype, tuple(tuple(x.stride()[:3]) for x in (q, k, v)))
         row = {"B": b, "T": LM_SEQ, "H": h, "D": d, "causal": True,
-               "dtype": str(dtype).split(".")[-1], "ms": ms, "plain_ms": plain_ms,
-               "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+               "dtype": str(dtype).split(".")[-1], "plan": pl._asdict(), "ms": ms,
+               "device_ms": dev_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+               "library_device_ms": library_dev_ms, "bound_ms": bound_ms, "bound_by": bound_by,
                "fwd_bwd_ms": fwd_bwd_ms, "library_fwd_bwd_ms": library_fwd_bwd_ms,
                "bwd_ms_by_difference": fwd_bwd_ms - ms,
                "library_bwd_ms_by_difference": library_fwd_bwd_ms - library_ms,
                "bwd_bound_ms": bwd_bound_ms, "bwd_bound_by": bwd_bound_by,
                "card": card_line()}
+        if dtype == torch.float32:
+            # the route taken: three TF32 products per f32 product
+            row["bound_3xtf32_ms"] = 3 * flash_bound(b, LM_SEQ, h, d, dtype, True)[0] * \
+                PEAK_OPS_S[torch.float32] / PEAK_TF32_OPS_S
         timings[dtype] = row
         emit("flash.timing", **row)
         del q, k, v, qh, kh, vh, qg, kg, vg, qhg, khg, vhg, g, gh
@@ -587,7 +732,8 @@ def step_check(A, x, y, seed, policy):
 
 
 def lm_family(name):
-    return ("flash_fwd" if "flash_fwd" in name else
+    return ("flash_fwd" if any(k in name for k in ("flash_mma_kernel", "flash_wgmma_kernel",
+                                                    "flash_tf32_wgmma_kernel")) else
             "gemm" if any(s in name for s in ("gemm", "cutlass", "xmma", "sm90"))
             else "elementwise_other")
 
@@ -652,17 +798,25 @@ def phase_train(A, policy, seed):
         first_loss = net.score_history[0]
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        A.launches = 0
+        A.reset_launches()
         t0 = time.perf_counter()
         net.fit((x[warm:], y[warm:]), batch_size=LM_BATCH)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = A.launches
+        by_variant = dict(A.launches_by_variant)
         peak = torch.cuda.max_memory_allocated()
         losses = net.score_history
         if launches != LM_LAYERS * TIMED_STEPS:
             raise AssertionError(f"flash_attn launched {launches} times in {TIMED_STEPS} steps "
                                  f"of a {LM_LAYERS}-layer model (expected {LM_LAYERS} a step)")
+        # q, k, v stay f32 under both policies (nn/layers/attention.py), as
+        # views of the fused projection: every launch on the f32 path variant
+        planned = A.plan((LM_BATCH, LM_SEQ, LM_HEADS, LM_WIDTH // LM_HEADS), torch.float32,
+                         ((LM_SEQ * 3 * LM_WIDTH, 3 * LM_WIDTH, LM_WIDTH // LM_HEADS),) * 3)
+        if by_variant != {**dict.fromkeys(A.VARIANTS, 0), planned.variant: launches}:
+            raise AssertionError(f"flash launches by variant {by_variant}: every one should be "
+                                 f"{planned.variant}")
         if not all(np.isfinite(losses)) or not losses[-1] < first_loss:
             raise AssertionError(f"loss did not fall: first {first_loss}, timed steps {losses}")
         tokens = TIMED_STEPS * LM_BATCH * LM_SEQ
@@ -670,7 +824,8 @@ def phase_train(A, policy, seed):
                "seq": LM_SEQ, "steps": TIMED_STEPS, "step_ms": 1e3 * wall / TIMED_STEPS,
                "tokens_per_s": tokens / wall, "peak_mem_gb": peak / 1e9,
                "loss_first": first_loss, "loss_last": losses[-1], "losses": losses,
-               "flash_launches": launches, "step_check": check, "card": card_line()}
+               "flash_launches": launches, "flash_launches_by_variant": by_variant,
+               "step_check": check, "card": card_line()}
         emit("train", **row)
 
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -761,7 +916,7 @@ def phase_serve(L, zip_path):
 
     # the main path, from registration (its warmup runs every bucket) to
     # the last result
-    L.launches = 0
+    L.reset_launches()
     registry = get_model_registry()
     t_reg = time.perf_counter()
     engine = registry.register("charnn", net, input_spec=(SEQ, VOCAB), max_batch_size=64,
@@ -784,10 +939,14 @@ def phase_serve(L, zip_path):
     finally:
         registry.stop()
     launches = L.launches
+    by_variant = dict(L.launches_by_variant)
     forwards = stats["forward"]["forwards"]
     if launches == 0 or launches != 2 * forwards:
         raise AssertionError(f"lstm_seq launched {launches} times for {forwards} device "
                              "forwards of a 2-layer LSTM (expected exactly 2 per forward)")
+    if by_variant != {**dict.fromkeys(L.VARIANTS, 0), "persistent": launches}:
+        raise AssertionError(f"lstm_seq launches by variant {by_variant}: every served launch "
+                             "should be persistent")
 
     max_err = 0.0
     tokens = 0
@@ -811,12 +970,13 @@ def phase_serve(L, zip_path):
         "params": net.num_params(), "requests": len(reqs), "rows": stats["requests"]["served"],
         "tokens": tokens, "resubmits_after_queue_full": shed, "device_forwards": forwards,
         "warmup_forwards": stats["forward"]["warmed"], "lstm_seq_launches": launches,
+        "lstm_seq_launches_by_variant": by_variant,
         "register_s": warm_s, "wall_s": wall, "tokens_per_s": tokens / wall,
         "p50_ms": 1e3 * float(np.percentile(lats, 50)),
         "p99_ms": 1e3 * float(np.percentile(lats, 99)),
         "max_abs_err_vs_plain": max_err, "atol": SERVE_ATOL, "card": card_line()}
     emit("serve", **result)
-    return launches, net
+    return result, net
 
 
 def phase_profile(net):
@@ -843,7 +1003,7 @@ def phase_profile(net):
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
         name = e.name.lower()
-        family = ("lstm_seq" if "lstm_step_kernel" in name else
+        family = ("lstm_seq" if "lstm_persistent_kernel" in name or "lstm_step_kernel" in name else
                   "gemm" if any(k in name for k in ("gemm", "cutlass", "matmul", "xmma")) else
                   "copy" if "memcpy" in name or "copy" in name else "other")
         spans.append((e.time_range.start, e.time_range.end))
@@ -1304,9 +1464,11 @@ def build_all(libs):
         "ptxas": [ln.strip() for ln in so.with_suffix(".log").read_text().splitlines()
                   if "Used" in ln or "spill" in ln or "Compiling entry" in ln]}
         for so, secs in built])
-    conv = next(so for so, _ in built if so.name.startswith("conv_stats"))
-    emit("build.sass", library=str(conv.relative_to(ROOT)), cuobjdump=cuobjdump() or "not found",
-         HGMMA=sass_count(conv, "HGMMA"))
+    for so, _ in built:
+        if so.name.startswith(("conv_stats", "flash_attn")):
+            emit("build.sass", library=str(so.relative_to(ROOT)),
+                 cuobjdump=cuobjdump() or "not found", HGMMA=sass_count(so, "HGMMA"),
+                 HMMA=sass_count(so, "HMMA"))
 
 
 PHASES = ("kernels", "flash", "train", "conv", "resnet", "serve")
@@ -1356,7 +1518,7 @@ def main(argv=None):
         WORK.mkdir()
         try:
             zip_path = WORK / "charnn.zip"
-            launches, net = phase_serve(L, zip_path)
+            served, net = phase_serve(L, zip_path)
             phase_profile(net)
             phase_cli(zip_path)
         finally:
@@ -1369,15 +1531,20 @@ def main(argv=None):
     print(json.dumps({"kernels": [{
         "name": "lstm_seq", "route": "cuda", "source": "deeplearning4j_tpu_torch/csrc/lstm_seq.cu",
         "replaces": "deeplearning4j_tpu/ops/lstm_pallas.py:91; deeplearning4j_tpu/ops/lstm_pallas.py:132",
-        "launches": launches, "max_abs_err": max_err_path, "ms": path["ms"],
+        "launches": served["lstm_seq_launches"], "max_abs_err": max_err_path, "ms": path["ms"],
         "plain_ms": path["plain_ms"], "bound_ms": path["bound_ms"], "bound_by": path["bound_by"],
-        "library_ms": path["library_ms"]}, {
+        "library_ms": path["library_ms"], "device_ms": path["device_ms"],
+        "library_device_ms": path["library_device_ms"],
+        "launches_by_variant": served["lstm_seq_launches_by_variant"]}, {
         "name": "flash_attn", "route": "cuda",
         "source": "deeplearning4j_tpu_torch/csrc/flash_attn.cu",
         "replaces": "deeplearning4j_tpu/ops/attention_pallas.py:175",
         "launches": train_rows[0]["flash_launches"], "max_abs_err": flash_err,
         "ms": fpath["ms"], "plain_ms": fpath["plain_ms"], "bound_ms": fpath["bound_ms"],
-        "bound_by": fpath["bound_by"], "library_ms": fpath["library_ms"]}] + [{
+        "bound_by": fpath["bound_by"], "library_ms": fpath["library_ms"],
+        "device_ms": fpath["device_ms"], "library_device_ms": fpath["library_device_ms"],
+        "bound_3xtf32_ms": fpath["bound_3xtf32_ms"],
+        "launches_by_variant": train_rows[0]["flash_launches_by_variant"]}] + [{
         # per forward of the fused ResNet50 at batch 64 in f32 (the *_bf16
         # keys: in bf16): the sums over the kernel's calls; launches over the
         # 10 timed bf16_policy steps

@@ -26,10 +26,11 @@ from deeplearning4j_tpu_torch.utils import dtypes as _dtypes
 from deeplearning4j_tpu_torch.utils.serde import register_config
 
 #: the sequence length from which the kernel path beats the naive path on
-#: an H100 (forward + backward, B=4, H=8, D=64, causal, f32): 1.11x at
-#: T=2048 and 1.33x at 4096, a tie at 1024 and below (chip_smoke's
-#: crossover sweep, PERF.md). ``DL4J_TPU_FUSED_ATTENTION_MIN_SEQ`` or
-#: ``min_seq=`` override it, as in the JAX package.
+#: an H100 (forward + backward, B=4, H=8, D=64, causal, f32): 1.26x at
+#: T=2048 and 1.51x at 4096; at 1024 a tie within the host's spread (0.85x
+#: and 1.12x in two runs), slower below (chip_smoke's crossover sweep,
+#: PERF.md). ``DL4J_TPU_FUSED_ATTENTION_MIN_SEQ`` or ``min_seq=`` override
+#: it, as in the JAX package.
 MIN_SEQ = 2048
 #: the largest head width the kernel takes
 MAX_HEAD_DIM = 128

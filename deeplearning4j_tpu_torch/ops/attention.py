@@ -9,9 +9,27 @@ shared by the heads, causal masking, f32 softmax state, products in the
 input dtype with f32 accumulation, fully masked rows emitting 0.
 
 - ``flash_attention_fwd`` returns ``(out [B,T,H,D], lse [B,H,T] f32)``: on
-  CUDA tensors it launches ``csrc/flash_attn.cu`` (f32 or bf16, D <= 128),
-  on CPU tensors it takes ``flash_attention_plain``. ``launches`` counts the
-  kernel launches.
+  CUDA tensors it launches ``csrc/flash_attn.cu`` (f32 or bf16, D <= 128)
+  on the variant ``plan()`` names from the shape, strides, dtype and
+  alignment; on CPU tensors it takes ``flash_attention_plain``.
+  ``launches`` counts the kernel launches, ``launches_by_variant`` the same
+  launches by variant:
+
+  - ``f32_3xtf32_wgmma`` (D <= 64) and ``f32_3xtf32`` (D <= 128): tensor
+    cores with every operand split into two TF32 halves and each product
+    taken as lo.hi + hi.lo + hi.hi, which keeps the f32 contract (out
+    within 1e-5); one-pass TF32 would not, and is never used on f32
+    inputs. The first runs ``wgmma`` on halves split into shared memory
+    (V transposed: TF32 ``wgmma`` reads only K-major operands), the second
+    ``mma.sync``; K and V stream through a ``cp.async`` ring.
+    ``f32_3xtf32_unaligned``: the ``mma.sync`` body with 4-byte copies, for
+    views whose pointers or strides are off 16 bytes.
+  - ``bf16_wgmma``: TMA ring over 4-D tensor maps of the views, ``wgmma``
+    for both products, P fed from registers. ``bf16_unaligned``: the
+    ``mma.sync`` body in one TF32 pass, exact on bf16 operands.
+
+  ``tf32_round`` and ``matmul_3xtf32`` emulate the split on the CPU, for
+  the tests that hold its accuracy.
 - ``flash_attention`` is the differentiable entry point (one
   ``torch.autograd.Function``): its forward is ``flash_attention_fwd`` and
   keeps ``lse``; its backward is the port of the JAX package's
@@ -27,8 +45,10 @@ source's header.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 import threading
+from typing import NamedTuple
 
 import torch
 
@@ -43,17 +63,22 @@ BLOCK_K = 512
 
 #: kernel launches (wrapper calls that reached the CUDA kernel)
 launches = 0
+#: the same launches by kernel variant (``plan().variant``)
+VARIANTS = ("f32_3xtf32", "f32_3xtf32_unaligned", "bf16_wgmma", "bf16_unaligned",
+            "f32_3xtf32_wgmma")
+launches_by_variant = dict.fromkeys(VARIANTS, 0)
 _count_lock = threading.Lock()
-
-_ENTRY_ARGS = ([ctypes.c_void_p] * 6 + [ctypes.c_longlong] * 9 + [ctypes.c_int] * 5
-               + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 
 
 def _declare(lib):
-    for name in ("flash_attn_fwd_f32", "flash_attn_fwd_bf16"):
-        fn = getattr(lib, name)
-        fn.argtypes = _ENTRY_ARGS
-        fn.restype = ctypes.c_int
+    lib.flash_attn_launch.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 6
+                                      + [ctypes.c_longlong] * 9 + [ctypes.c_int] * 5
+                                      + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    lib.flash_attn_launch.restype = ctypes.c_int
+    lib.flash_attn_smem_bytes.argtypes = [ctypes.c_int] * 2
+    lib.flash_attn_smem_bytes.restype = ctypes.c_int
+    lib.flash_attn_occupancy.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+    lib.flash_attn_occupancy.restype = ctypes.c_int
     lib.flash_attn_error_string.argtypes = [ctypes.c_int]
     lib.flash_attn_error_string.restype = ctypes.c_char_p
 
@@ -65,6 +90,110 @@ def build():
     """Compile ``csrc/flash_attn.cu`` unless built; returns the library path."""
     return _LIB.build()
 
+
+def reset_launches():
+    global launches
+    launches = 0
+    for k in launches_by_variant:
+        launches_by_variant[k] = 0
+
+
+# ---------------------------------------------------------------------------
+# the launch plan
+# ---------------------------------------------------------------------------
+
+#: shared memory one block may take on sm_90 (bytes)
+SMEM_LIMIT = 232_448
+
+# the compiled configurations of csrc/flash_attn.cu (its constants, mirrored):
+# the mma.sync body takes 8 warps of 16 query rows at DP = 64, with K and V
+# split once a tile in shared memory, and 4 warps at DP = 128, without
+MMA_KEYS = 64
+MMA_WARPS = {64: 8, 128: 4}
+WG_ROWS, WG_KEYS, WG_THREADS = 128, 64, 288
+WG_STAGES = {64: 8, 128: 5}  # the K/V ring's depth by feature width
+# f32_3xtf32_wgmma (DP = 64 only): two warpgroups of 64 rows; Q, K and V^T
+# halves in 128-byte swizzled boxes, a 2-stage raw ring of rows of 68 floats
+TF_ROWS, TF_KEYS, TF_THREADS = 128, 64, 256
+WIDTHS = (64, 128)
+
+
+class Plan(NamedTuple):
+    """How one call runs: the kernel variant, the feature width ``dp`` it is
+    compiled for (D rides it with a zero-filled tail), query rows and keys
+    per tile, ring depth, threads and grid (query tiles, B*H) of a block,
+    and the block's shared memory."""
+    variant: str
+    dp: int
+    block_q: int
+    block_k: int
+    stages: int
+    threads: int
+    grid: tuple
+    smem_bytes: int
+
+
+def smem_bytes(variant, dp):
+    """Shared memory (bytes) of one block of ``variant`` at feature width
+    ``dp``, as ``csrc/flash_attn.cu`` lays it out."""
+    if variant == "bf16_wgmma":
+        nb = dp // 64
+        return (nb * WG_ROWS * 128 + WG_STAGES[dp] * 2 * nb * WG_KEYS * 128
+                + (1 + 2 * WG_STAGES[dp]) * 8 + 1024)
+    if variant == "f32_3xtf32_wgmma":  # Q, K, V^T halves; raw ring; valid flags; slack
+        return (2 * 2 * TF_ROWS * 128 + 2 * 2 * 2 * TF_KEYS * 128 + 2 * 2 * TF_KEYS * 68 * 4
+                + 2 * TF_KEYS * 4 + 1024)
+    ld, rows = dp + 4, 16 * MMA_WARPS[dp]
+    presplit = MMA_WARPS[dp] == 8
+    return 4 * (2 * rows * ld + (6 if presplit else 4) * MMA_KEYS * ld + 2 * MMA_KEYS)
+
+
+def _width(d):
+    return next(w for w in WIDTHS if d <= w)
+
+
+@functools.lru_cache(maxsize=None)
+def plan(shape, dtype, strides=None, aligned=True):
+    """The launch of one flash forward: ``shape`` (B, T, H, D), ``dtype``
+    float32 or bfloat16, ``strides`` the (batch, time, head) element
+    strides of q, k and v (three triples; None: each contiguous), and
+    ``aligned`` whether q, k and v start on 16 bytes. f32 takes
+    ``f32_3xtf32_wgmma`` (D <= 64) or ``f32_3xtf32`` (D > 64) where the
+    pointers are aligned and D and every stride are multiples of 4 elements
+    (16 bytes), else ``f32_3xtf32_unaligned``;
+    bf16 takes ``bf16_wgmma`` where the pointers are aligned and every
+    stride is a multiple of 8 elements and the strides nest (head inside
+    time inside batch, as TMA's maps walk them), else ``bf16_unaligned``."""
+    b, t, h, d = shape
+    if strides is None:
+        strides = ((t * h * d, h * d, d),) * 3
+    flat = [s for triple in strides for s in triple]
+    if dtype == torch.float32:
+        vec = aligned and d % 4 == 0 and all(s % 4 == 0 for s in flat)
+        variant = (("f32_3xtf32_wgmma" if d <= 64 else "f32_3xtf32") if vec
+                   else "f32_3xtf32_unaligned")
+    elif dtype == torch.bfloat16:
+        nested = all(sh >= d and st >= h * sh and sb >= t * st for sb, st, sh in strides)
+        tma = aligned and nested and all(s % 8 == 0 for s in flat)
+        variant = "bf16_wgmma" if tma else "bf16_unaligned"
+    else:
+        raise TypeError(f"flash_attn kernel takes float32 or bfloat16, got {dtype}")
+    if variant == "bf16_wgmma":
+        dp = _width(d)
+        rows, keys, stages, threads = WG_ROWS, WG_KEYS, WG_STAGES[dp], WG_THREADS
+    elif variant == "f32_3xtf32_wgmma":
+        dp = 64
+        rows, keys, stages, threads = TF_ROWS, TF_KEYS, 2, TF_THREADS
+    else:
+        dp = _width(d)
+        rows, keys, stages, threads = 16 * MMA_WARPS[dp], MMA_KEYS, 2, 32 * MMA_WARPS[dp]
+    return Plan(variant, dp, rows, keys, stages, threads, (-(-t // rows), b * h),
+                smem_bytes(variant, dp))
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
 
 def _scale(scale, d):
     return 1.0 / math.sqrt(d) if scale is None else float(scale)
@@ -102,6 +231,31 @@ def flash_attention_plain(q, k, v, *, mask=None, causal=False, scale=None):
     return out.permute(0, 2, 1, 3).to(q.dtype), lse
 
 
+def tf32_round(x):
+    """f32 ``x`` rounded to TF32 as ``cvt.rna.tf32.f32`` does: the low 13
+    of the 23 mantissa bits cleared, to nearest, ties away from zero (half
+    an ulp added to the magnitude bits, whatever the sign)."""
+    bits = x.to(torch.float32).contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def matmul_3xtf32(a, b):
+    """a @ b as the f32 kernel's tensor cores take it: each operand split
+    into x = hi + lo with hi = tf32(x), lo = tf32(x - hi), and the product
+    as lo.hi + hi.lo + hi.hi, the TF32 products exact and the sums in f32
+    (in that order). A CPU emulation for the tests of the split's
+    accuracy; the port's forward never calls it."""
+    def split(x):
+        hi = tf32_round(x)
+        return hi, tf32_round(x.float() - hi)
+    (ah, al), (bh, bl) = split(a), split(b)
+    return torch.matmul(al, bh) + torch.matmul(ah, bl) + torch.matmul(ah, bh)
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
+
 def _check(q, k, v, mask):
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"flash_attn kernel takes float32 or bfloat16, got {q.dtype}")
@@ -136,21 +290,24 @@ def flash_attention_fwd(q, k, v, *, mask=None, causal=False, scale=None):
     _check(q, k, v, mask)
     lib = _LIB.get()
     b, t, h, d = q.shape
+    strides = tuple(tuple(x.stride()[:3]) for x in (q, k, v))
+    pl = plan(tuple(q.shape), q.dtype, strides,
+              all(x.data_ptr() % 16 == 0 for x in (q, k, v)))
     out = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
     maskf = None if mask is None else mask.to(torch.float32).contiguous()
-    fn = lib.flash_attn_fwd_f32 if q.dtype == torch.float32 else lib.flash_attn_fwd_bf16
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-             None if maskf is None else maskf.data_ptr(), out.data_ptr(), lse.data_ptr(),
-             q.stride(0), q.stride(1), q.stride(2), k.stride(0), k.stride(1), k.stride(2),
-             v.stride(0), v.stride(1), v.stride(2), b, h, t, d, int(bool(causal)),
-             _scale(scale, d), _build.device_index(q.device),
-             torch.cuda.current_stream(q.device).cuda_stream)
+    err = lib.flash_attn_launch(
+        VARIANTS.index(pl.variant), pl.dp, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        None if maskf is None else maskf.data_ptr(), out.data_ptr(), lse.data_ptr(),
+        *(s for triple in strides for s in triple), b, h, t, d, int(bool(causal)),
+        _scale(scale, d), _build.device_index(q.device),
+        torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         msg = lib.flash_attn_error_string(err).decode()
-        raise RuntimeError(f"flash_attn kernel launch failed: CUDA error {err} ({msg})")
+        raise RuntimeError(f"flash_attn kernel launch failed ({pl}): CUDA error {err} ({msg})")
     with _count_lock:
         launches += 1
+        launches_by_variant[pl.variant] += 1
     return out, lse
 
 
