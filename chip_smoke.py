@@ -21,9 +21,14 @@ nonzero; nothing is caught):
             kernel's time back to back (``ms``) and on the card alone
             (``device_ms``), the plain loop's time, the bound and cuDNN's
             ``torch.nn.LSTM`` as a yardstick (``library_ms``,
-            ``library_device_ms``); then one call at the served path's
-            shape under ``torch.profiler``: the device's kernel launches by
-            name, one ``lstm_persistent_kernel`` for all 128 steps.
+            ``library_device_ms``); the f32 final state (what a caller
+            carries on) checked against the plain version's and against
+            the hT/cT it rounds to, and one sequence run in two calls
+            from the first call's final state against the whole run
+            (``kernels.carry``, persistent and step_cluster); then one
+            call at the served path's shape under ``torch.profiler``: the
+            device's kernel launches by name, one
+            ``lstm_persistent_kernel`` for all 128 steps.
 4. flash    ``flash_attn`` held against ``flash_attention_plain`` on the
             card (out and lse), and the autograd.Function's dq/dk/dv
             against autograd through the plain version: B=4, H=8,
@@ -89,10 +94,31 @@ nonzero; nothing is caught):
 9. profile  one char-RNN forward at the largest bucket under
             ``torch.profiler``: device time by kernel family and busy share.
 10. cli     ``python -m deeplearning4j_tpu_torch serve --smoke 64``.
+11. charnn  the same char-RNN (3,398,752 params, random weights from the
+            seed) trained by ``MultiLayerNetwork.fit`` on one-hot
+            sequences of ids[t+1] = (5 ids[t] + 3) mod 96 from random
+            starts, under the f32 policy and ``bf16_policy``: one step from
+            identical weights through the plain forward (the same backward,
+            ``lstm_seq_bwd``) held against the kernel step; 2 warm-up then
+            10 timed steps at batch 64 x 128, two persistent ``lstm_seq``
+            launches a step, then 28 more, the mean loss of the last 5 of
+            the 40 below the first step's; one profiled step (device
+            time by family: lstm_fwd, lstm_bwd, gemm, elementwise,
+            optimizer; busy share); TBPTT over 3 batches of 64 x 512 in
+            chunks of 128 (iteration + 12, 2 launches a chunk, the loss
+            falling); ``rnn_time_step`` over 16 single steps against the
+            full forward of the same steps; ``lstm_seq_bwd`` timed at
+            B=64, T=128, H=512 beside its bound and cuDNN's ``nn.LSTM``
+            backward (no peepholes).
 
 Then a ``kernels`` line (every kernel of the paths with its launches on
 its path, error, times and bound), the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``.
+
+cuDNN's TF32 is off only around the kernel checks (their plain versions and
+library yardsticks) and the library timings; the training and serving
+phases run as a user's call does, under the port's policy
+(``utils/dtypes.policy_precision``: TF32 off under f32).
 
 Tolerances: lstm_seq f32 kernel vs plain, atol 1e-4 (the two sum the
 recurrent product in different orders over 128 dependent steps); bf16
@@ -120,7 +146,14 @@ step to loss rtol 1e-4 and BN running state atol 1e-4; its gradients and
 updated parameters are held against the step's own f32 noise, measured as
 the plain step on the same batch permuted (see ``resnet_step_check``): at
 this init that noise alone is ~3% in the gradients and ~190k parameters
-beyond 1e-4 after Adam's first step.
+beyond 1e-4 after Adam's first step. Char-RNN: the kernel step against the
+plain-forward step, f32 loss rtol 1e-5, each gradient within 1e-4 of its
+norm, parameters after RmsProp's first step atol 1e-4; bf16 loss rtol
+1e-3, each gradient within 2e-2 of its norm, at most 1% of the parameters
+beyond 1e-4 (see ``charnn_step_check``);
+``rnn_time_step`` against the full forward atol 1e-5 in f32 (the same
+kernel, one launch a step from the carried f32 state), 2e-2 in bf16; the
+split ``lstm_seq`` run against the whole one, atol 1e-4.
 """
 
 from __future__ import annotations
@@ -178,6 +211,16 @@ CONV_BF16_TOL = 2e-2
 CONV_STATS_RTOL, CONV_STATS_ATOL = 1e-5, 1e-3
 RN_LOSS_RTOL, RN_STATE_ATOL, RN_PARAM_ATOL, RN_NOISE_FACTOR = 1e-4, 1e-4, 1e-4, 1.5
 
+# the char-RNN trained at its full width (BASELINE config 4): batch 64 x 128,
+# TBPTT over 4 chunks of 128, streaming over 16 steps
+CHARNN_BATCH, CHARNN_TBPTT_CHUNKS, CHARNN_TBPTT_BATCHES, STREAM_STEPS = 64, 4, 3, 16
+CHARNN_LOSS_RTOL, CHARNN_GRAD_RTOL, CHARNN_PARAM_ATOL = 1e-5, 1e-4, 1e-4
+CHARNN_BF16_LOSS_RTOL, CHARNN_BF16_GRAD_RTOL, CHARNN_BF16_PARAM_SHARE = 1e-3, 2e-2, 1e-2
+# steps after the timed ones before the loss is held to have fallen (RmsProp's
+# first steps move every weight by ~lr/sqrt(1 - decay) and the loss swings)
+CHARNN_MORE_STEPS, CHARNN_LOSS_WINDOW = 28, 5
+STREAM_F32_ATOL = 1e-5
+
 
 def emit(phase, **fields):
     print(json.dumps({"phase": phase, **fields}), flush=True)
@@ -207,17 +250,17 @@ def time_ms(fn, *, iters, reps):
     return statistics.median(out)
 
 
-def device_ms(fn, *, iters, reps):
+def device_ms(fn, *, iters, reps, sleep_cycles=20_000_000):
     """Median over ``reps`` of the mean time of ``iters`` calls on the card
-    alone: a sleep kernel of ~10 ms keeps the card busy while the host
-    queues every call, so the host's launch cost does not show. (time_ms,
-    calls back to back, includes it wherever it exceeds the call's device
-    time.)"""
+    alone: a sleep kernel (~10 ms at the default ``sleep_cycles``) keeps
+    the card busy while the host queues every call, so the host's launch
+    cost does not show. (time_ms, calls back to back, includes it wherever
+    it exceeds the call's device time.)"""
     fn()
     torch.cuda.synchronize()
     out = []
     for _ in range(reps):
-        torch.cuda._sleep(20_000_000)
+        torch.cuda._sleep(sleep_cycles)
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
         e0.record()
@@ -227,6 +270,20 @@ def device_ms(fn, *, iters, reps):
         torch.cuda.synchronize()
         out.append(e0.elapsed_time(e1) / iters)
     return statistics.median(out)
+
+
+@contextlib.contextmanager
+def library_precision():
+    """Full f32 in cuDNN (TF32 off) within this block, the old value back
+    after it: around the kernel checks' plain versions and the library
+    yardsticks, so both compute what the f32 kernels do. The training
+    phases run under the port's own policy (``utils.dtypes``)."""
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
 
 
 def roofline(nbytes, ops, dtype):
@@ -351,6 +408,28 @@ def lstm_launch_profile(L, rs, shapes):
             "device_events": sum(names.values()), "by_name": names}
 
 
+def check_carry(L, rs, b, h, dtype):
+    """One sequence in one call against the same sequence in two calls, the
+    second starting from the first's f32 final state (what TBPTT and
+    rnn_time_step carry): the split run must agree with the whole one
+    (F32_ATOL; the same sums in the same order, so expected exact)."""
+    xz, wh, h0, c0, wp, _ = lstm_inputs(rs, SEQ, b, h, dtype, True, False)
+    half = SEQ // 2
+    whole = L.lstm_seq(xz, wh, h0, c0, wp=wp)
+    first = L.lstm_seq(xz[:half], wh, h0, c0, wp=wp)
+    second = L.lstm_seq(xz[half:], wh, first.h_state, first.c_state, wp=wp)
+    torch.cuda.synchronize()
+    pairs = ((torch.cat([first.hs, second.hs]), whole.hs), (second.h_state, whole.h_state),
+             (second.c_state, whole.c_state))
+    err = max((g.float() - w.float()).abs().max().item() for g, w in pairs)
+    if not err <= F32_ATOL:
+        raise AssertionError(f"lstm_seq carried across two calls differs from one call by {err} "
+                             f"at B={b} H={h} {dtype}")
+    return {"B": b, "H": h, "dtype": str(dtype).split(".")[-1],
+            "variant": L.plan(b, h, dtype, sm_count()).variant, "max_abs_err": err,
+            "exact": all(torch.equal(g, w) for g, w in pairs)}
+
+
 def phase_kernels(L):
     rs = np.random.RandomState(SEED)
     cases, timings, max_err_path = [], [], 0.0
@@ -372,8 +451,12 @@ def phase_kernels(L):
                     if ran != [pl.variant]:
                         raise AssertionError(f"lstm_seq B={b} H={h} {dtype} ran {ran}, its plan "
                                              f"names {pl.variant}")
+                    if not (torch.equal(got.h_state.to(dtype), got.h_last)
+                            and torch.equal(got.c_state.to(dtype), got.c_last)):
+                        raise AssertionError(f"lstm_seq's f32 final state does not round to its "
+                                             f"hT/cT at B={b} H={h} {dtype}")
                     err = 0.0
-                    for name, g, w in zip(("hs", "cs", "hT", "cT"), got, want):
+                    for name, g, w in zip(L.SeqOut._fields, got, want):
                         g, w = g.float(), w.float()
                         if not torch.isfinite(g).all():
                             raise AssertionError(f"lstm_seq {name} not finite at {(t, b, h, dtype)}")
@@ -413,6 +496,9 @@ def phase_kernels(L):
                "bound_by": bound_by, "card": card_line()}
         timings.append(row)
         emit("kernels.timing", **row)
+    carries = [check_carry(L, rs, b, h, dtype) for b, h in ((64, HIDDEN), (64, 1024))
+               for dtype in (torch.float32, torch.bfloat16)]
+    emit("kernels.carry", cases=carries)
     # launch attribution: one call at the served path's shape (persistent)
     # and one on the step variant, in one profiled session
     launches = lstm_launch_profile(L, rs, [(64, HIDDEN), (64, 1024)])
@@ -1041,6 +1127,302 @@ def phase_cli(zip_path):
 
 
 # ---------------------------------------------------------------------------
+# training the char-RNN (the LSTM backward, TBPTT, streaming)
+# ---------------------------------------------------------------------------
+
+def charnn_data(rs, n, t):
+    """n one-hot sequences of ids[t+1] = (5 ids[t] + 3) mod V from random
+    starts: x [n,t,V] and its next-character labels y, on the card."""
+    ids = np.zeros((n, t + 1), np.int64)
+    ids[:, 0] = rs.randint(0, VOCAB, size=n)
+    for i in range(t):
+        ids[:, i + 1] = (5 * ids[:, i] + 3) % VOCAB
+    ids = torch.from_numpy(ids).cuda()
+    one_hot = torch.nn.functional.one_hot(ids, VOCAB).float()
+    return one_hot[:, :t].contiguous(), one_hot[:, 1:].contiguous()
+
+
+def make_charnn(seed):
+    from deeplearning4j_tpu_torch.models.misc import text_generation_lstm
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+
+    net = MultiLayerNetwork(text_generation_lstm(VOCAB, hidden=HIDDEN, seq_len=SEQ),
+                            device="cuda")
+    net.init(torch.Generator().manual_seed(seed))
+    if net.num_params() != N_PARAMS:
+        raise AssertionError(f"char-RNN has {net.num_params()} params, expected {N_PARAMS}")
+    return net
+
+
+@contextlib.contextmanager
+def plain_lstm_forward(L):
+    """Within this block the LSTM's autograd.Function computes its forward
+    with ``lstm_seq_plain`` on the card instead of the kernel (the backward,
+    ``lstm_seq_bwd``, is the same)."""
+    saved = L.lstm_seq_fwd
+
+    def plain(xz, wh, h0, c0, wp=None, mask=None):
+        with torch.no_grad():
+            return L.lstm_seq_plain(xz, wh, h0, c0, wp=wp, mask=mask)
+    L.lstm_seq_fwd = plain
+    try:
+        yield
+    finally:
+        L.lstm_seq_fwd = saved
+
+
+def charnn_step_check(L, x, y, seed, policy):
+    """One step from identical weights through the kernel forward and
+    through the plain forward, the same backward after both. f32: loss
+    within rtol 1e-5, each gradient within 1e-4 of its norm, parameters
+    after RmsProp's first step within atol 1e-4. bf16: the two forwards
+    round h to bf16 after sums taken in different orders, so an output can
+    sit one bf16 ulp apart and the gradients follow: loss within rtol 1e-3,
+    each gradient within 2e-2 of its norm, at most 1% of the parameters
+    beyond atol 1e-4 (RmsProp's first step is about lr/sqrt(1 - decay)
+    sign(g), so a gradient element near zero may take either sign)."""
+    from deeplearning4j_tpu_torch.utils.trees import tree_leaves
+
+    kern = make_charnn(seed)
+    before = L.launches
+    lk, gk = one_step(kern, x, y)
+    kern_launches = L.launches - before
+    with plain_lstm_forward(L):
+        plain = make_charnn(seed)
+        before = L.launches
+        lp, gp = one_step(plain, x, y)
+        if L.launches != before:
+            raise AssertionError("the plain-forward step launched lstm_seq")
+    if kern_launches != 2:
+        raise AssertionError(f"the kernel step launched lstm_seq {kern_launches} times, not 2")
+    f32 = policy == "f32"
+    loss_rtol, grad_rtol = (CHARNN_LOSS_RTOL, CHARNN_GRAD_RTOL) if f32 else \
+        (CHARNN_BF16_LOSS_RTOL, CHARNN_BF16_GRAD_RTOL)
+    if not abs(lk - lp) <= loss_rtol * abs(lp):
+        raise AssertionError(f"kernel step loss {lk} vs plain-forward step loss {lp} ({policy})")
+    err, beyond, grad_rel = 0.0, 0, 0.0
+    for a, b, ga, gb in zip(tree_leaves(kern.params), tree_leaves(plain.params), gk, gp):
+        grad_rel = max(grad_rel, ((ga - gb).norm() / gb.norm().clamp_min(1e-30)).item())
+        diff = (a - b).abs()
+        err = max(err, diff.max().item())
+        beyond += int((diff > CHARNN_PARAM_ATOL).sum())
+    if not grad_rel <= grad_rtol:
+        raise AssertionError(f"gradients differ by {grad_rel} relative between the kernel step "
+                             f"and the plain-forward step ({policy})")
+    if f32 and not err <= CHARNN_PARAM_ATOL:
+        raise AssertionError(f"updated parameters differ by {err} between the kernel step and "
+                             "the plain-forward step")
+    n = sum(g.numel() for g in gp)
+    if not f32 and not beyond <= CHARNN_BF16_PARAM_SHARE * n:
+        raise AssertionError(f"{beyond} of {n} updated parameters differ by more than "
+                             f"{CHARNN_PARAM_ATOL} between the kernel and plain-forward steps")
+    del kern, plain, gk, gp
+    torch.cuda.empty_cache()
+    return {"loss_kernel": lk, "loss_plain": lp, "max_grad_rel_diff": grad_rel,
+            "max_abs_param_diff": err, "params_beyond_atol": beyond, "params": n,
+            "param_atol": CHARNN_PARAM_ATOL, "loss_rtol": loss_rtol, "grad_rtol": grad_rtol}
+
+
+def charnn_family(name):
+    return ("lstm_fwd" if "lstm_persistent_kernel" in name or "lstm_step_kernel" in name else
+            "gemm" if any(s in name for s in ("gemm", "cutlass", "xmma", "sm90", "matmul"))
+            else "elementwise_other")
+
+
+def bwd_bound(t, b, h, dtype):
+    """Least time (ms) for one lstm_seq_bwd call and what sets it: its
+    inputs (xz, Wh, Wp, h0, c0, hs, cs, dhs) read once and outputs (dxz,
+    dWh, dWp, dh0, dc0) written once, against three products a step the
+    size of the forward's (the gate recompute, dz.Wh^T and dWh) over the
+    dtype's peak."""
+    elt = torch.finfo(dtype).bits // 8
+    n_in = t * b * 4 * h + h * 4 * h + 3 * h + 2 * b * h + 3 * t * b * h
+    n_out = t * b * 4 * h + h * 4 * h + 3 * h + 2 * b * h
+    return roofline(elt * (n_in + n_out), 3 * 2 * t * b * h * 4 * h, dtype)
+
+
+def cudnn_lstm_train(xz, wh, h0, c0):
+    """torch.nn.LSTM on the same xz as ``cudnn_lstm`` (no peepholes, no
+    mask), with gradients: (forward, forward + backward)."""
+    h = wh.shape[0]
+    mod = torch.nn.LSTM(4 * h, h, bias=False).to("cuda", xz.dtype)
+    with torch.no_grad():
+        mod.weight_ih_l0.copy_(torch.eye(4 * h, device="cuda", dtype=xz.dtype))
+        mod.weight_hh_l0.copy_(wh.t())
+    xg = xz.detach().clone().requires_grad_(True)
+    state = (h0.to(xz.dtype)[None].contiguous(), c0.to(xz.dtype)[None].contiguous())
+    dy = torch.randn(xz.shape[0], xz.shape[1], h, device="cuda", dtype=xz.dtype)
+
+    def fwd():
+        with torch.enable_grad():
+            return mod(xg, state)[0]
+
+    def fwd_bwd():
+        with torch.enable_grad():
+            torch.autograd.grad(mod(xg, state)[0], (xg, mod.weight_hh_l0), dy)
+    return fwd, fwd_bwd
+
+
+def bwd_timing(L, dtype):
+    """``lstm_seq_bwd`` at the path's shape (T=128, B=64, H=512, peepholes)
+    in ``dtype``: back to back, on the card alone, its bound, and cuDNN's
+    nn.LSTM backward (its forward + backward less its forward, TF32 off;
+    cuDNN's LSTM has no peepholes)."""
+    rs = np.random.RandomState(SEED + 6)
+    b = CHARNN_BATCH
+    xz, wh, h0, c0, wp, _ = lstm_inputs(rs, SEQ, b, HIDDEN, dtype, True, False)
+    fwd = L.lstm_seq(xz, wh, h0, c0, wp=wp)
+    dhs = torch.randn_like(fwd.hs)
+    bwd = lambda: L.lstm_seq_bwd(xz, wh, wp, h0, c0, None, fwd.hs, fwd.cs, dhs,  # noqa: E731
+                                 None, None)
+    ms = time_ms(bwd, iters=5, reps=5)
+    # one call a timing: its ~900 launches stay within the launch queue, so
+    # all of them wait behind the sleep kernel
+    dev_ms = device_ms(bwd, iters=1, reps=5, sleep_cycles=200_000_000)
+    with library_precision():
+        lib_fwd, lib_fwd_bwd = cudnn_lstm_train(xz, wh, h0, c0)
+        lib_fwd_ms = time_ms(lib_fwd, iters=5, reps=5)
+        lib_fwd_bwd_ms = time_ms(lib_fwd_bwd, iters=5, reps=5)
+    bound_ms, bound_by = bwd_bound(SEQ, b, HIDDEN, dtype)
+    return {"T": SEQ, "B": b, "H": HIDDEN, "dtype": str(dtype).split(".")[-1], "ms": ms,
+            "device_ms": dev_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": lib_fwd_bwd_ms - lib_fwd_ms, "library_fwd_ms": lib_fwd_ms,
+            "library_fwd_bwd_ms": lib_fwd_bwd_ms, "library_note": "cuDNN nn.LSTM backward "
+            "(forward + backward less forward), no peepholes", "card": card_line()}
+
+
+def phase_charnn(L, policy, seed):
+    """The full-width char-RNN trained by ``MultiLayerNetwork.fit`` under
+    the named policy: the step check, warm-up, TIMED_STEPS timed steps (2
+    persistent lstm_seq launches a step), one profiled step, CHARNN_MORE_STEPS
+    more after which the mean of the last CHARNN_LOSS_WINDOW losses must be
+    below the first step's, TBPTT over sequences of 4 x SEQ, rnn_time_step
+    against the full forward, and the backward's times. Returns the summary
+    row."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from deeplearning4j_tpu_torch.utils import dtypes
+
+    (dtypes.bf16_policy if policy == "bf16" else dtypes.f32_policy)()
+    try:
+        rs = np.random.RandomState(seed + 7)
+        n = CHARNN_BATCH * (WARMUP_STEPS + TIMED_STEPS + CHARNN_MORE_STEPS)
+        x, y = charnn_data(rs, n, SEQ)
+        check = charnn_step_check(L, x[:CHARNN_BATCH], y[:CHARNN_BATCH], seed, policy)
+        net = make_charnn(seed)
+        warm = CHARNN_BATCH * WARMUP_STEPS
+        net.fit((x[:warm], y[:warm]), batch_size=CHARNN_BATCH)
+        first_loss = net.score_history[0]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        timed = slice(warm, warm + CHARNN_BATCH * TIMED_STEPS)
+        L.reset_launches()
+        t0 = time.perf_counter()
+        net.fit((x[timed], y[timed]), batch_size=CHARNN_BATCH)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches, by_variant = L.launches, dict(L.launches_by_variant)
+        peak = torch.cuda.max_memory_allocated()
+        losses = net.score_history
+        if launches != 2 * TIMED_STEPS or \
+                by_variant != {**dict.fromkeys(L.VARIANTS, 0), "persistent": launches}:
+            raise AssertionError(f"lstm_seq launched {by_variant} in {TIMED_STEPS} steps "
+                                 "(expected 2 persistent launches a step)")
+        L.reset_launches()
+        net.fit((x[timed.stop:], y[timed.stop:]), batch_size=CHARNN_BATCH)
+        more_launches = L.launches
+        later = net.score_history
+        late_mean = float(np.mean(later[-CHARNN_LOSS_WINDOW:]))
+        if not all(np.isfinite(losses + later)) or not late_mean < first_loss or \
+                more_launches != 2 * CHARNN_MORE_STEPS:
+            raise AssertionError(f"loss did not fall: first {first_loss}, timed steps {losses}, "
+                                 f"then {later} ({more_launches} lstm_seq launches)")
+        row = {"policy": policy, "params": net.num_params(), "batch": CHARNN_BATCH,
+               "seq": SEQ, "steps": TIMED_STEPS, "step_ms": 1e3 * wall / TIMED_STEPS,
+               "tokens_per_s": TIMED_STEPS * CHARNN_BATCH * SEQ / wall,
+               "peak_mem_gb": peak / 1e9, "loss_first": first_loss, "loss_last": losses[-1],
+               "losses": losses, "steps_in_all": WARMUP_STEPS + TIMED_STEPS + CHARNN_MORE_STEPS,
+               "loss_last_mean": late_mean, "losses_after": later, "lstm_launches": launches,
+               "lstm_launches_by_variant": by_variant, "step_check": check,
+               "card": card_line()}
+        emit("charnn", **row)
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            net.fit((x[:CHARNN_BATCH], y[:CHARNN_BATCH]))
+            torch.cuda.synchronize()
+            wall_ms = 1e3 * (time.perf_counter() - t0)
+        by_family, busy_ms, share = device_families(
+            prof, wall_ms, charnn_family,
+            (("lstm_seq.backward", "lstm_bwd"), ("updater.step", "optimizer")))
+        kernels = sum(e.device_type == torch.autograd.DeviceType.CUDA
+                      and e.name not in ("lstm_seq.backward", "updater.step")
+                      for e in prof.events())
+        emit("charnn.profile", policy=policy, wall_ms=wall_ms,
+             wall_unprofiled_ms=row["step_ms"], device_ms_by_family=by_family,
+             device_busy_ms=busy_ms, device_busy_share=share,
+             device_busy_share_unprofiled=busy_ms / row["step_ms"],
+             device_events_per_step=kernels, card=card_line())
+
+        # TBPTT: sequences of 4 x SEQ in chunks of SEQ, from fresh weights
+        xt, yt = charnn_data(rs, CHARNN_BATCH * CHARNN_TBPTT_BATCHES, CHARNN_TBPTT_CHUNKS * SEQ)
+        tnet = make_charnn(seed + 1)
+        it0 = tnet.iteration
+        L.reset_launches()
+        t0 = time.perf_counter()
+        tnet.fit((xt, yt), batch_size=CHARNN_BATCH)
+        torch.cuda.synchronize()
+        tb_wall = time.perf_counter() - t0
+        tb_launches, tb_variant = L.launches, dict(L.launches_by_variant)
+        chunks = CHARNN_TBPTT_CHUNKS * CHARNN_TBPTT_BATCHES
+        tb_losses = tnet.score_history
+        if tnet.iteration - it0 != chunks:
+            raise AssertionError(f"TBPTT advanced iteration by {tnet.iteration - it0}, "
+                                 f"expected {chunks}")
+        if tb_launches != 2 * chunks or tb_variant["persistent"] != tb_launches:
+            raise AssertionError(f"TBPTT launched lstm_seq {tb_variant} for {chunks} chunks "
+                                 "(expected 2 persistent launches a chunk)")
+        if len(tb_losses) != CHARNN_TBPTT_BATCHES or not all(np.isfinite(tb_losses)) or \
+                not tb_losses[-1] < tb_losses[0]:
+            raise AssertionError(f"TBPTT losses {tb_losses}: one a batch, falling")
+        del tnet, xt, yt
+
+        # streaming: rnn_time_step over STREAM_STEPS single steps against the
+        # full forward of the same steps
+        xs = x[:CHARNN_BATCH, :STREAM_STEPS]
+        L.reset_launches()
+        full = net.output(xs)
+        net.rnn_clear_previous_state()
+        stream = torch.stack([net.rnn_time_step(xs[:, i]) for i in range(STREAM_STEPS)], 1)
+        torch.cuda.synchronize()
+        st_launches = L.launches
+        stream_err = (stream.float() - full.float()).abs().max().item()
+        stream_tol = STREAM_F32_ATOL if policy == "f32" else BF16_ATOL
+        if stream.shape != full.shape or not torch.isfinite(stream).all() or \
+                not stream_err <= stream_tol:
+            raise AssertionError(f"rnn_time_step differs from the full forward by {stream_err} "
+                                 f"({policy})")
+        if st_launches != 2 * (STREAM_STEPS + 1):
+            raise AssertionError(f"streaming launched lstm_seq {st_launches} times, expected "
+                                 f"{2 * (STREAM_STEPS + 1)}")
+        emit("charnn.tbptt", policy=policy, batch=CHARNN_BATCH, seq=CHARNN_TBPTT_CHUNKS * SEQ,
+             chunk=SEQ, batches=CHARNN_TBPTT_BATCHES, iterations=chunks,
+             ms_per_chunk=1e3 * tb_wall / chunks,
+             tokens_per_s=CHARNN_BATCH * CHARNN_TBPTT_CHUNKS * SEQ * CHARNN_TBPTT_BATCHES
+             / tb_wall, losses=tb_losses, lstm_launches=tb_launches,
+             stream_steps=STREAM_STEPS, stream_max_abs_err=stream_err, stream_atol=stream_tol,
+             stream_launches=st_launches, card=card_line())
+        bwd = bwd_timing(L, torch.float32 if policy == "f32" else torch.bfloat16)
+        emit("charnn.backward", **bwd)
+        del net, x, y
+        torch.cuda.empty_cache()
+        return {**row, "path_launches": launches + more_launches + tb_launches + st_launches,
+                "bwd": bwd}
+    finally:
+        dtypes.f32_policy()
+
+
+# ---------------------------------------------------------------------------
 # conv-statistics kernels and the fused ResNet50
 # ---------------------------------------------------------------------------
 
@@ -1275,9 +1657,13 @@ def graph_step(C, seed, x, y, plain=False):
     Returns (loss, {path: gradient}, {path: parameter}, {path: state})."""
     from deeplearning4j_tpu_torch.utils.trees import flatten_tree
 
+    from deeplearning4j_tpu_torch.utils import dtypes
+
     net = make_resnet(seed)
     launched = dict(C.launches)
-    with plain_conv_kernels(C) if plain else contextlib.nullcontext():
+    # the policy's precision, as fit runs it (cuDNN without TF32 under f32)
+    with plain_conv_kernels(C) if plain else contextlib.nullcontext(), \
+            dtypes.policy_precision():
         loss, state, grads = net.compute_gradients(net.params, net.state, x, y)
     if plain and C.launches != launched:
         raise AssertionError("the plain-version step launched a conv kernel")
@@ -1471,7 +1857,7 @@ def build_all(libs):
                  HMMA=sass_count(so, "HMMA"))
 
 
-PHASES = ("kernels", "flash", "train", "conv", "resnet", "serve")
+PHASES = ("kernels", "flash", "train", "conv", "resnet", "serve", "charnn")
 
 
 def main(argv=None):
@@ -1495,22 +1881,24 @@ def main(argv=None):
     from deeplearning4j_tpu_torch.ops import conv_stats as C
     from deeplearning4j_tpu_torch.ops import lstm_seq as L
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False  # PyTorch's default, stated
     card = card_line()
     emit("env", python=sys.version.split()[0], torch=torch.__version__, cuda=torch.version.cuda,
          device=torch.cuda.get_device_name(0), count=torch.cuda.device_count(), card=card)
     build_all([L, A, C])
 
     if "kernels" in only:
-        timings, max_err_path = phase_kernels(L)
+        with library_precision():
+            timings, max_err_path = phase_kernels(L)
     if "flash" in only:
-        flash_timings, flash_err = phase_flash(A)
+        with library_precision():
+            flash_timings, flash_err = phase_flash(A)
         phase_crossover(TA)
     if "train" in only:
         train_rows = [phase_train(A, policy, args.seed) for policy in ("f32", "bf16")]
     if "conv" in only:
-        conv_totals, conv_err = phase_conv(C)
+        with library_precision():
+            conv_totals, conv_err = phase_conv(C)
     if "resnet" in only:
         resnet_rows = {policy: phase_resnet(C, policy, args.seed) for policy in ("f32", "bf16")}
     if "serve" in only:
@@ -1523,6 +1911,8 @@ def main(argv=None):
             phase_cli(zip_path)
         finally:
             shutil.rmtree(WORK, ignore_errors=True)
+    if "charnn" in only:
+        charnn_rows = {policy: phase_charnn(L, policy, args.seed) for policy in ("f32", "bf16")}
     if only != set(PHASES):
         return
 
@@ -1531,11 +1921,21 @@ def main(argv=None):
     print(json.dumps({"kernels": [{
         "name": "lstm_seq", "route": "cuda", "source": "deeplearning4j_tpu_torch/csrc/lstm_seq.cu",
         "replaces": "deeplearning4j_tpu/ops/lstm_pallas.py:91; deeplearning4j_tpu/ops/lstm_pallas.py:132",
-        "launches": served["lstm_seq_launches"], "max_abs_err": max_err_path, "ms": path["ms"],
+        # launches over the served path and the char-RNN's training paths
+        # (timed steps, TBPTT, streaming) under both policies; the bwd_*
+        # keys are lstm_seq_bwd's (PyTorch, no kernel yet) at B=64, f32
+        # (and *_bf16), beside cuDNN's nn.LSTM backward
+        "launches": served["lstm_seq_launches"] + sum(r["path_launches"]
+                                                      for r in charnn_rows.values()),
+        "launches_serve": served["lstm_seq_launches"],
+        "launches_train": {p: r["path_launches"] for p, r in charnn_rows.items()},
+        "max_abs_err": max_err_path, "ms": path["ms"],
         "plain_ms": path["plain_ms"], "bound_ms": path["bound_ms"], "bound_by": path["bound_by"],
         "library_ms": path["library_ms"], "device_ms": path["device_ms"],
         "library_device_ms": path["library_device_ms"],
-        "launches_by_variant": served["lstm_seq_launches_by_variant"]}, {
+        "launches_by_variant": served["lstm_seq_launches_by_variant"],
+        **{f"bwd_{k}{sfx}": charnn_rows[p]["bwd"][k] for p, sfx in (("f32", ""), ("bf16", "_bf16"))
+           for k in ("ms", "device_ms", "bound_ms", "bound_by", "library_ms")}}, {
         "name": "flash_attn", "route": "cuda",
         "source": "deeplearning4j_tpu_torch/csrc/flash_attn.cu",
         "replaces": "deeplearning4j_tpu/ops/attention_pallas.py:175",

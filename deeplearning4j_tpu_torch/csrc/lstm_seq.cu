@@ -15,7 +15,8 @@
 //   h, c   = m*h + (1-m)*h_prev, m*c + (1-m)*c_prev   with m = mask[t, b]
 // Gate order i|f|g|o along the 4H axis. round() casts the f32 state to Wh's
 // dtype (bf16 operands meet in bf16). h and c are carried in f32; hs, cs, hT
-// and cT are written in the input dtype. wp and mask may be null.
+// and cT are written in the input dtype, and the final h and c in f32 too (a
+// caller carries those into its next call). wp and mask may be null.
 //
 // What bounds it on an H100 SXM: per step a [B,H] x [H,4H] product; over a
 // sequence 2*T*B*H*4H operations against T*B*4H inputs read and 2*T*B*H
@@ -264,8 +265,8 @@ struct SeqParams {
   void* cs;
   void* h_last;
   void* c_last;
-  float* h_buf;       // [2][B][H] f32, h0 in the first half
-  const float* c0;    // [B][H] f32
+  float* h_buf;       // [2][B][H] f32, h0 in the first half; the final h in half T % 2
+  float* c_state;     // [B][H] f32: c0 in, the final c out
   unsigned* sync;     // the grid barrier's counter, zeroed before the launch
   int T, B, H, KP, kc;  // KP = 8 kc >= H: K padded to whole float4 steps per warp
 };
@@ -358,7 +359,7 @@ __global__ void __launch_bounds__(kPThreads, 1) lstm_persistent_kernel(SeqParams
   const size_t at = static_cast<size_t>(b) * H + j;
   float c = 0.0f, h = 0.0f, p_i = 0.0f, p_f = 0.0f, p_o = 0.0f;
   if (mine) {
-    c = p.c0[at];
+    c = p.c_state[at];
     h = p.h_buf[at];
     if (p.wp != nullptr) {
       const T* wp = static_cast<const T*>(p.wp);
@@ -489,6 +490,7 @@ __global__ void __launch_bounds__(kPThreads, 1) lstm_persistent_kernel(SeqParams
       if (t == p.T - 1) {
         static_cast<T*>(p.h_last)[at] = from_f32<T>(h);
         static_cast<T*>(p.c_last)[at] = from_f32<T>(c);
+        p.c_state[at] = c;  // the f32 state a caller carries on (h is in h_next)
       }
     }
     if (t + 1 < p.T) grid_barrier(p.sync, blocks, target);
@@ -582,7 +584,7 @@ cudaError_t run(int variant, int rt, int split, const void* xz, const void* wh, 
   }
   const int kc = ((H / 4 + kPWarps - 1) / kPWarps) * 4;
   SeqParams p{xz, wh, wp, static_cast<const float*>(mask), hs, cs, h_last, c_last,
-              static_cast<float*>(h_state), static_cast<const float*>(c_state),
+              static_cast<float*>(h_state), static_cast<float*>(c_state),
               static_cast<unsigned*>(sync), steps, B, H, kPWarps * kc, kc};
   const int groups = (B + 8 * rt - 1) / (8 * rt);
   return dispatch_persistent<T>(p, rt, groups, s);
@@ -605,8 +607,9 @@ cudaError_t occupancy_of(K kernel, int threads, int smem, int* blocks) {
 // or 1 (step_cluster, cluster size `split` in 1, 2, 4, 8). xz [T,B,4H], wh
 // [H,4H], wp [3,H] or null, f32 or bf16 (`bf16` 0 or 1); mask [T,B] f32 or
 // null; hs, cs [T,B,H] and h_last, c_last [B,H] in that dtype; h_state
-// [2,B,H] f32 with h0 in its first half; c_state [B,H] f32 holding c0
-// (updated in place by step_cluster); sync one 4-byte word of scratch.
+// [2,B,H] f32 with h0 in its first half; c_state [B,H] f32 holding c0; both
+// variants leave the final f32 h in h_state[T % 2] and the final f32 c in
+// c_state; sync one 4-byte word of scratch.
 // Returns the first cudaError_t met (0 on success); nothing is launched on
 // a refusal.
 extern "C" int lstm_seq_launch(int variant, int rt, int split, int bf16, const void* xz,

@@ -13,12 +13,20 @@ The functional core mirrors the JAX package's: ``apply_fn``, ``loss_fn``,
 ``make_train_step``; ``fit``, ``score`` and ``output`` wrap it. ``fit`` is
 a plain loop, one step per batch, the loss fetched one step late.
 
-Ported vertices: ``LayerVertex``, ``ElementWiseVertex`` and
-``nn/fusion.py FusedConvBNVertex``. The other vertex classes parse and
-round-trip, but a graph using one raises ``NotImplementedError`` when it is
-built; so do training a graph with ``checkpoint_scope`` or
-``gradient_checkpointing`` set, TBPTT, ``steps_per_dispatch > 1`` and
-``pad_ragged``.
+Truncated BPTT and streaming follow the MultiLayerNetwork's contract: with
+``backprop_type="tbptt"`` a batch whose [B, T, ...] input is longer than
+``tbptt_fwd_length`` trains in chunks (static [B, F] entries and 2-d
+labels pass whole into every chunk), the recurrent LayerVertices' carries
+threaded through ``_forward_pass`` and detached at each boundary;
+``rnn_time_step`` streams with the same carries. Bidirectional layers
+refuse both.
+
+Ported vertices: ``LayerVertex``, ``ElementWiseVertex``,
+``LastTimeStepVertex`` and ``nn/fusion.py FusedConvBNVertex``. The other
+vertex classes parse and round-trip, but a graph using one raises
+``NotImplementedError`` when it is built; so do training a graph with
+``checkpoint_scope`` or ``gradient_checkpointing`` set,
+``steps_per_dispatch > 1`` and ``pad_ragged``.
 """
 
 from __future__ import annotations
@@ -35,7 +43,9 @@ from deeplearning4j_tpu_torch.nn import gradnorm as _gradnorm
 from deeplearning4j_tpu_torch.nn import updaters as _updaters
 from deeplearning4j_tpu_torch.nn.conf import inputs as _inputs
 from deeplearning4j_tpu_torch.nn.layers import base as _base
-from deeplearning4j_tpu_torch.nn.multilayer import _as_tensor, _param_tree
+from deeplearning4j_tpu_torch.nn.layers.rnn import (Bidirectional, GravesBidirectionalLSTM,
+                                                    last_time_step)
+from deeplearning4j_tpu_torch.nn.multilayer import _as_tensor, _detach, _param_tree
 from deeplearning4j_tpu_torch.utils import dtypes as _dtypes
 from deeplearning4j_tpu_torch.utils import serde
 from deeplearning4j_tpu_torch.utils.device import resolve_device
@@ -119,6 +129,16 @@ class LayerVertex(GraphVertex):
 
     def regularization_penalty(self, params):
         return self.layer.regularization_penalty(params) if len(params) else 0.0
+
+    # the recurrent carry (TBPTT, rnn_time_step), delegated to the layer
+    def has_carry(self):
+        return hasattr(self.layer, "apply_with_carry")
+
+    def zero_carry(self, batch, dtype=torch.float32, device=None):
+        return self.layer.zero_carry(batch, dtype, device)
+
+    def apply_with_carry(self, params, carry, xs, *, mask=None):
+        return self.layer.apply_with_carry(params, carry, xs[0], mask=mask)
 
 
 @serde.register_config
@@ -218,8 +238,15 @@ class ReshapeVertex(_NotPortedVertex):
 
 @serde.register_config
 @dataclasses.dataclass(frozen=True)
-class LastTimeStepVertex(_NotPortedVertex):
-    pass
+class LastTimeStepVertex(GraphVertex):
+    """[B,T,F] -> [B,F], the last valid step under a [B, T] mask
+    (reference: rnn/LastTimeStepVertex.java)."""
+
+    def output_type(self, input_types):
+        return _inputs.FeedForwardType(input_types[0].size)
+
+    def apply(self, params, state, xs, *, train=False, mask=None):
+        return last_time_step(xs[0], mask), state
 
 
 @serde.register_config
@@ -392,6 +419,7 @@ class ComputationGraph(nn.Module):
         self.epoch = 0
         self.score_value = None
         self.score_history = []
+        self._rnn_stream_state = None
 
     @property
     def device(self) -> torch.device:
@@ -444,19 +472,29 @@ class ComputationGraph(nn.Module):
                                           "\"Rest of the training core\")")
 
     def _forward_pass(self, params, state, inputs, *, train, mask=None, labels=None,
-                      label_masks=None):
+                      label_masks=None, carries=None):
         """The topological traversal every forward entry point shares.
         Returns (acts, new_state, loss); ``loss`` sums the output vertices'
-        losses when ``labels`` is given, else it is None."""
+        losses when ``labels`` is given, else it is None. With ``carries``
+        ({vertex name: carry}) the recurrent LayerVertices run
+        ``apply_with_carry`` and the updated carries come back as a fourth
+        element."""
         if not isinstance(inputs, dict):
             inputs = {self.conf.inputs[0]: inputs}
         acts = dict(inputs)
         new_state = dict(state)
+        new_carries = None if carries is None else dict(carries)
         loss = 0.0 if labels is not None else None
         for name in self._order:
             v = self._defs[name]
-            acts[name], new_state[name] = v.vertex.apply(
-                params[name], state[name], [acts[i] for i in v.inputs], train=train, mask=mask)
+            xs = [acts[i] for i in v.inputs]
+            if new_carries is not None and isinstance(v.vertex, LayerVertex) \
+                    and v.vertex.has_carry():
+                acts[name], new_carries[name] = v.vertex.apply_with_carry(
+                    params[name], new_carries.get(name), xs, mask=mask)
+            else:
+                acts[name], new_state[name] = v.vertex.apply(
+                    params[name], state[name], xs, train=train, mask=mask)
             if labels is not None and name in self.conf.outputs:
                 head = v.vertex.layer if isinstance(v.vertex, LayerVertex) else v.vertex
                 if not hasattr(head, "compute_loss"):
@@ -465,6 +503,8 @@ class ComputationGraph(nn.Module):
                 if lm is None:
                     lm = _loss_mask_for(mask, labels[name])
                 loss = loss + head.compute_loss(acts[name], labels[name], lm)
+        if carries is not None:
+            return acts, new_state, loss, new_carries
         return acts, new_state, loss
 
     def apply_fn(self, params, state, inputs, *, train=False, mask=None):
@@ -479,31 +519,47 @@ class ComputationGraph(nn.Module):
         return {o: acts[o] for o in self.conf.outputs}, new_state
 
     def loss_fn(self, params, state, inputs, labels, *, train=True, mask=None,
-                label_masks=None):
+                label_masks=None, carries=None):
         """Sum of the output vertices' losses + L1/L2 penalties. Returns
-        (loss, (new_state, outputs))."""
+        (loss, (new_state, outputs)); with ``carries`` (TBPTT chunks) the
+        updated carries join them: (loss, (new_state, outputs, carries))."""
         if not isinstance(labels, dict):
             labels = {self.conf.outputs[0]: labels}
         if train:
             self._check_trainable()
         with torch.enable_grad() if train else torch.inference_mode():
-            acts, new_state, loss = self._forward_pass(params, state, inputs, train=train,
-                                                       mask=mask, labels=labels,
-                                                       label_masks=label_masks)
+            fwd = self._forward_pass(params, state, inputs, train=train, mask=mask,
+                                     labels=labels, label_masks=label_masks, carries=carries)
+            acts, new_state, loss = fwd[:3]
             for name in self._order:
                 if len(params[name]):
                     loss = loss + self._defs[name].vertex.regularization_penalty(params[name])
             loss, new_state = _base.pop_aux_losses(loss, new_state)
-        return loss, (new_state, {o: acts[o] for o in self.conf.outputs})
+        outs = {o: acts[o] for o in self.conf.outputs}
+        if carries is not None:
+            return loss, (new_state, outs, fwd[3])
+        return loss, (new_state, outs)
 
-    def compute_gradients(self, params, state, inputs, labels, *, mask=None):
-        """Loss and normalized gradients. Returns (loss, new_state, grads)
-        with ``grads`` a dict of per-vertex dicts shaped as ``params``. A
-        parameter the loss does not reach gets zeros."""
+    # ------------------------------------------------------------------
+    # truncated BPTT and streaming inference (reference:
+    # ComputationGraph.doTruncatedBPTT:2595, rnnTimeStep)
+    # ------------------------------------------------------------------
+
+    def _zero_carries(self, batch, dtype, device):
+        for v in self.conf.vertices:
+            if isinstance(getattr(v.vertex, "layer", None),
+                          (Bidirectional, GravesBidirectionalLSTM)):
+                # the backward direction needs the whole future sequence
+                raise ValueError(f"vertex {v.name!r}: bidirectional layers do not "
+                                 "support TBPTT / rnn_time_step streaming")
+        sd = torch.promote_types(dtype, torch.float32)
+        return {v.name: v.vertex.zero_carry(batch, sd, device) for v in self.conf.vertices
+                if isinstance(v.vertex, LayerVertex) and v.vertex.has_carry()}
+
+    def _grads(self, loss, params):
+        """Gradients of ``loss`` shaped as ``params`` (zeros where the loss
+        does not reach), normalized per vertex by the configured mode."""
         leaves = list(tree_leaves(params))
-        for p in leaves:
-            p.requires_grad_(True)
-        loss, (new_state, _) = self.loss_fn(params, state, inputs, labels, train=True, mask=mask)
         gs = torch.autograd.grad(loss, leaves, allow_unused=True)
         grads = tree_like(params, iter([torch.zeros_like(p) if g is None else g
                                         for p, g in zip(leaves, gs)]))
@@ -512,7 +568,93 @@ class ComputationGraph(nn.Module):
             grads = {k: _gradnorm.normalize_layer_grads(
                 mode, g, self.conf.gradient_normalization_threshold) if g else g
                 for k, g in grads.items()}
-        return loss.detach(), new_state, grads
+        return grads
+
+    def make_tbptt_step(self):
+        """One TBPTT chunk: (params, state, opt_state, carries, inputs,
+        labels, step, mask) -> (params, state, opt_state, carries, loss),
+        the carries detached coming in and going out."""
+        def tbptt_step(params, state, opt_state, carries, inputs, labels, step, mask=None):
+            carries = {k: _detach(c) for k, c in carries.items()}
+            for p in tree_leaves(params):
+                p.requires_grad_(True)
+            loss, (new_state, _, new_carries) = self.loss_fn(
+                params, state, inputs, labels, train=True, mask=mask, carries=carries)
+            grads = self._grads(loss, params)
+            params, opt_state = self.apply_update(params, opt_state, grads, step)
+            return (params, new_state, opt_state, {k: _detach(c) for k, c in new_carries.items()},
+                    loss.detach())
+        return tbptt_step
+
+    @staticmethod
+    def _chunk_time(tree, t0, t1):
+        """[B, T, ...] entries sliced along time; static [B, F] entries (and
+        the 2-d labels of a LastTimeStep head) pass whole."""
+        return {k: v[:, t0:t1] if v.dim() == 3 else v for k, v in tree.items()}
+
+    @staticmethod
+    def _time_major(inputs):
+        """The [B, T, ...] entry that sets the chunking (a multi-input graph
+        may list a static [B, F] input first)."""
+        for v in inputs.values():
+            if np.ndim(v) == 3:
+                return v
+        return None
+
+    def _fit_tbptt(self, inputs, labels, mask):
+        """One batch in chunks of ``tbptt_fwd_length`` steps; ``iteration``
+        advances once a chunk. Returns the mean chunk loss (a device
+        scalar)."""
+        step_fn = self.make_tbptt_step()
+        first = self._time_major(inputs)
+        length = self.conf.tbptt_fwd_length
+        carries = self._zero_carries(first.shape[0], first.dtype, first.device)
+        total, n_chunks = 0.0, 0
+        for t0 in range(0, first.shape[1], length):
+            cm = None if mask is None else mask[:, t0:t0 + length]
+            _, self.state, self.opt_state, carries, loss = step_fn(
+                self.params, self.state, self.opt_state, carries,
+                self._chunk_time(inputs, t0, t0 + length),
+                self._chunk_time(labels, t0, t0 + length), self.iteration, cm)
+            total = total + loss
+            n_chunks += 1
+            self.iteration += 1
+        return total / max(n_chunks, 1)
+
+    def rnn_clear_previous_state(self):
+        self._rnn_stream_state = None
+
+    def rnn_time_step(self, inputs):
+        """One timestep [B, F] (or a short [B, T, F] chunk) of streaming
+        inference, carrying the recurrent state between calls; one tensor
+        for a single-output graph, else a dict."""
+        if self.params is None:
+            self.init()
+        inputs = self._named(inputs, self.conf.inputs)
+        squeeze = next(iter(inputs.values())).dim() == 2
+        if squeeze:
+            inputs = {k: v[:, None, :] for k, v in inputs.items()}
+        first = next(iter(inputs.values()))
+        carries = self._rnn_stream_state
+        if carries is None:
+            carries = self._zero_carries(first.shape[0], first.dtype, first.device)
+        with _dtypes.policy_precision(), torch.inference_mode():
+            acts, _, _, carries = self._forward_pass(self.params, self.state, inputs,
+                                                     train=False, carries=carries)
+        self._rnn_stream_state = carries
+        # a LastTimeStep-style head already gives [B, C]: only [B, T, C] squeezes
+        outs = {o: acts[o][:, 0] if squeeze and acts[o].dim() == 3 else acts[o]
+                for o in self.conf.outputs}
+        return next(iter(outs.values())) if len(outs) == 1 else outs
+
+    def compute_gradients(self, params, state, inputs, labels, *, mask=None):
+        """Loss and normalized gradients. Returns (loss, new_state, grads)
+        with ``grads`` a dict of per-vertex dicts shaped as ``params``. A
+        parameter the loss does not reach gets zeros."""
+        for p in tree_leaves(params):
+            p.requires_grad_(True)
+        loss, (new_state, _) = self.loss_fn(params, state, inputs, labels, train=True, mask=mask)
+        return loss.detach(), new_state, self._grads(loss, params)
 
     def apply_update(self, params, opt_state, grads, step):
         """The updater, in place; the graph has no constraint pass.
@@ -560,30 +702,35 @@ class ComputationGraph(nn.Module):
             inputs = {self.conf.inputs[0]: inputs}
         if not isinstance(labels, dict):
             labels = {self.conf.outputs[0]: labels}
-        if self.conf.backprop_type == "tbptt" and any(
-                np.ndim(v) == 3 and v.shape[1] > self.conf.tbptt_fwd_length
-                for v in inputs.values()):
-            raise NotImplementedError(f"truncated BPTT {_NOT_PORTED}")
+        tm = self._time_major(inputs)
+        use_tbptt = (self.conf.backprop_type == "tbptt" and tm is not None
+                     and tm.shape[1] > self.conf.tbptt_fwd_length)
         step_fn = self.make_train_step()
         dev = self.device
         n = next(iter(inputs.values())).shape[0]
         bs = batch_size or n
         self.score_history = []
-        for _ in range(epochs):
-            pending = None
-            for i in range(0, n, bs):
-                bi = {k: _as_tensor(v[i:i + bs], dev) for k, v in inputs.items()}
-                bl = {k: _as_tensor(v[i:i + bs], dev) for k, v in labels.items()}
-                bm = _as_tensor(mask[i:i + bs], dev) if mask is not None else None
-                _, self.state, self.opt_state, loss = step_fn(
-                    self.params, self.state, self.opt_state, bi, bl, self.iteration, bm)
-                self.iteration += 1
+        with _dtypes.policy_precision():
+            for _ in range(epochs):
+                pending = None
+                for i in range(0, n, bs):
+                    bi = {k: _as_tensor(v[i:i + bs], dev) for k, v in inputs.items()}
+                    bl = {k: _as_tensor(v[i:i + bs], dev) for k, v in labels.items()}
+                    bm = _as_tensor(mask[i:i + bs], dev) if mask is not None else None
+                    if use_tbptt:
+                        # one entry a batch: the mean of its chunks' losses
+                        loss = self._fit_tbptt(bi, bl, bm)
+                    else:
+                        _, self.state, self.opt_state, loss = step_fn(
+                            self.params, self.state, self.opt_state, bi, bl, self.iteration,
+                            bm)
+                        self.iteration += 1
+                    if pending is not None:
+                        self.score_history.append(float(pending))
+                    pending = loss
                 if pending is not None:
                     self.score_history.append(float(pending))
-                pending = loss
-            if pending is not None:
-                self.score_history.append(float(pending))
-            self.epoch += 1
+                self.epoch += 1
         if self.score_history:
             self.score_value = self.score_history[-1]
         return self
@@ -593,8 +740,10 @@ class ComputationGraph(nn.Module):
         if self.params is None:
             self.init()
         dev = self.device
-        outs, _ = self.apply_fn(self.params, self.state, self._named(inputs, self.conf.inputs),
-                                mask=_as_tensor(mask, dev))
+        with _dtypes.policy_precision():
+            outs, _ = self.apply_fn(self.params, self.state,
+                                    self._named(inputs, self.conf.inputs),
+                                    mask=_as_tensor(mask, dev))
         return outs[self.conf.outputs[0]] if len(outs) == 1 else outs
 
     def forward(self, inputs, mask=None):
@@ -604,9 +753,11 @@ class ComputationGraph(nn.Module):
         """The loss on (inputs, labels) without training (inference forward)."""
         if self.params is None:
             self.init()
-        loss, _ = self.loss_fn(self.params, self.state, self._named(inputs, self.conf.inputs),
-                               self._named(labels, self.conf.outputs), train=False,
-                               mask=_as_tensor(mask, self.device))
+        with _dtypes.policy_precision():
+            loss, _ = self.loss_fn(self.params, self.state,
+                                   self._named(inputs, self.conf.inputs),
+                                   self._named(labels, self.conf.outputs), train=False,
+                                   mask=_as_tensor(mask, self.device))
         return float(loss)
 
     def num_params(self):

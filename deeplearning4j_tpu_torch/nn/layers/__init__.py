@@ -6,6 +6,7 @@ from deeplearning4j_tpu_torch.nn.layers.core import (  # noqa: F401
 from deeplearning4j_tpu_torch.nn.layers.conv import (  # noqa: F401
     BatchNormalization, ConvolutionLayer, GlobalPoolingLayer, SubsamplingLayer)
 from deeplearning4j_tpu_torch.nn.layers.rnn import (  # noqa: F401
-    LSTM, GravesLSTM, RnnOutputLayer)
+    LSTM, Bidirectional, GravesBidirectionalLSTM, GravesLSTM, LastTimeStep, RnnLossLayer,
+    RnnOutputLayer, SimpleRnn)
 from deeplearning4j_tpu_torch.nn.layers.attention import (  # noqa: F401
     LayerNormalization, MultiHeadAttention, TransformerBlock)

@@ -49,11 +49,17 @@ class LayerNormalization(ParamLayer):
     WEIGHT_KEYS = ("gamma",)
     BIAS_KEYS = ("beta",)
 
+    def _nfeat(self, input_type):
+        """The normalized axis' width: channels for a convolutional input."""
+        if isinstance(input_type, _inputs.ConvolutionalType):
+            return input_type.channels
+        return input_type.size
+
     def output_type(self, input_type):
         return input_type
 
     def init(self, generator, input_type, dtype=torch.float32):
-        n = input_type.size
+        n = self._nfeat(input_type)
         dev = generator.device
         return {"gamma": torch.ones((n,), dtype=dtype, device=dev),
                 "beta": torch.zeros((n,), dtype=dtype, device=dev)}

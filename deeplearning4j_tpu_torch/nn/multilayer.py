@@ -13,16 +13,28 @@ are created with ``requires_grad=False`` (serving needs no graph);
 ``compute_gradients`` turns it on. The updater changes parameters and its
 state in place. ``fit`` is a plain loop: one step per batch, the loss
 fetched one step late so the host never waits on the step it just issued.
-Input dropout, weight noise and truncated BPTT are not ported yet: training
-a network that needs them raises ``NotImplementedError``.
+``gradient_checkpointing`` recomputes each layer's forward in the backward
+(``torch.utils.checkpoint``), as the JAX package's ``jax.checkpoint``.
+
+Truncated BPTT (``backprop_type="tbptt"``): a batch of 3-d features and
+labels longer than ``tbptt_fwd_length`` trains in chunks of that length,
+one updater step a chunk, with the recurrent layers' (h, c) carried from
+chunk to chunk and detached at each boundary (``_apply_rnn``,
+``make_tbptt_step``, ``_fit_tbptt``). ``rnn_time_step`` streams inference
+one step (or a short chunk) at a time with the same carries;
+``rnn_clear_previous_state`` drops them. Input dropout and weight noise are
+not ported yet: training a network that needs them raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
 
+import functools
 import inspect
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from deeplearning4j_tpu_torch.datasets.iterator import iter_batches
@@ -47,6 +59,11 @@ def _param_tree(d, device):
         k: _param_tree(v, device) if isinstance(v, dict)
         else nn.Parameter(v.to(device), requires_grad=False)
         for k, v in d.items()})
+
+
+def _detach(carry):
+    """A carry (a tensor or a tuple of them) cut from the graph."""
+    return tuple(c.detach() for c in carry) if isinstance(carry, tuple) else carry.detach()
 
 
 def _as_tensor(a, device, dtype=None):
@@ -75,6 +92,7 @@ class MultiLayerNetwork(nn.Module):
         self.epoch = 0
         self.score_value = None
         self.score_history = []
+        self._rnn_stream_state = None
 
     @property
     def device(self) -> torch.device:
@@ -139,7 +157,14 @@ class MultiLayerNetwork(nn.Module):
                 # reach mask-aware layers
                 if self._mask_aware[i] and mask is not None and mask.dim() >= 2:
                     kwargs["mask"] = mask
-                x, new_state[i] = layer.apply(params[i], state[i], x, train=train, **kwargs)
+                if train and self.conf.gradient_checkpointing:
+                    # remat: keep the layer's input, recompute its activations
+                    # in the backward (memory for operations)
+                    x, new_state[i] = torch.utils.checkpoint.checkpoint(
+                        functools.partial(layer.apply, train=train, **kwargs),
+                        params[i], state[i], x, use_reentrant=False)
+                else:
+                    x, new_state[i] = layer.apply(params[i], state[i], x, train=train, **kwargs)
                 cur_type = layer.output_type(cur_type)
         return x, new_state
 
@@ -164,16 +189,20 @@ class MultiLayerNetwork(nn.Module):
         """Loss and normalized/clipped gradients. Returns (loss, new_state,
         grads) with ``grads`` a list of per-layer dicts shaped as
         ``params``. A parameter the loss does not reach gets zeros."""
-        leaves = list(tree_leaves(params))
-        for p in leaves:
+        for p in tree_leaves(params):
             p.requires_grad_(True)
         loss, (new_state, _) = self.loss_fn(params, state, x, y, train=True, mask=mask)
+        return loss.detach(), new_state, self._grads(loss, params)
+
+    def _grads(self, loss, params):
+        """Gradients of ``loss`` shaped as ``params`` (zeros where the loss
+        does not reach), normalized or clipped as configured."""
+        leaves = list(tree_leaves(params))
         gs = torch.autograd.grad(loss, leaves, allow_unused=True)
-        gs = iter([torch.zeros_like(p) if g is None else g for p, g in zip(leaves, gs)])
-        grads = tree_like(params, gs)
-        grads = _gradnorm.normalize_grads(self.conf.gradient_normalization, grads,
-                                          self.conf.gradient_normalization_threshold)
-        return loss.detach(), new_state, grads
+        grads = tree_like(params, iter([torch.zeros_like(p) if g is None else g
+                                        for p, g in zip(leaves, gs)]))
+        return _gradnorm.normalize_grads(self.conf.gradient_normalization, grads,
+                                         self.conf.gradient_normalization_threshold)
 
     def apply_update(self, params, opt_state, grads, step):
         """updater -> parameter add -> constraints, all in place. Returns
@@ -196,6 +225,110 @@ class MultiLayerNetwork(nn.Module):
         return train_step
 
     # ------------------------------------------------------------------
+    # truncated BPTT and streaming inference (reference: doTruncatedBPTT,
+    # MultiLayerNetwork.java:1252-1254, and RecurrentLayer.rnnTimeStep)
+    # ------------------------------------------------------------------
+
+    def _zero_carries(self, batch, dtype, device):
+        """A zero carry for each recurrent layer (None for the others), in
+        f32 (f64 for f64 inputs)."""
+        sd = torch.promote_types(dtype, torch.float32)
+        return [l.zero_carry(batch, sd, device) if hasattr(l, "zero_carry") else None
+                for l in self.conf.layers]
+
+    def _apply_rnn(self, params, state, x, carries, *, train=False, mask=None):
+        """Forward pass threading the recurrent layers' carries. Returns
+        (y, new_state, new_carries)."""
+        if train:
+            self._check_trainable()
+        new_state = list(state)
+        new_carries = list(carries)
+        cur_type = self.conf.input_type
+        for i, layer in enumerate(self.conf.layers):
+            fam = layer.input_family
+            if fam is not None and not isinstance(cur_type, fam):
+                x = _inputs.adapt(x, cur_type, fam)
+                cur_type = _inputs.adapted_type(cur_type, fam)
+            if hasattr(layer, "apply_with_carry"):
+                x, new_carries[i] = layer.apply_with_carry(params[i], carries[i], x, mask=mask)
+            else:
+                kwargs = {"mask": mask} if (self._mask_aware[i] and mask is not None) else {}
+                x, new_state[i] = layer.apply(params[i], state[i], x, train=train, **kwargs)
+            cur_type = layer.output_type(cur_type)
+        return x, new_state, new_carries
+
+    def make_tbptt_step(self):
+        """One TBPTT chunk: (params, state, opt_state, carries, x, y, step,
+        mask) -> (params, state, opt_state, carries, loss). The carries come
+        in detached (the truncation), the chunk's loss takes the feature
+        mask as its label mask, and the updater runs without the constraint
+        pass, as in the JAX package's TBPTT step."""
+        conf = self.conf
+
+        def tbptt_step(params, state, opt_state, carries, x, y, step, mask=None):
+            carries = [None if c is None else _detach(c) for c in carries]
+            for p in tree_leaves(params):
+                p.requires_grad_(True)
+            with torch.enable_grad():
+                preds, new_state, new_carries = self._apply_rnn(params, state, x, carries,
+                                                                train=True, mask=mask)
+                loss = conf.layers[-1].compute_loss(preds, y, mask)
+                for layer, p in zip(conf.layers, params):
+                    if len(p):
+                        loss = loss + layer.regularization_penalty(p)
+                loss, new_state = _base.pop_aux_losses(loss, new_state)
+            grads = self._grads(loss, params)
+            with torch.profiler.record_function("updater.step"):
+                opt_state = conf.updater.update_(params, grads, opt_state, step)
+            new_carries = [None if c is None else _detach(c) for c in new_carries]
+            return params, new_state, opt_state, new_carries, loss.detach()
+
+        return tbptt_step
+
+    def _fit_tbptt(self, x, y, mask):
+        """One batch in chunks of ``tbptt_fwd_length`` steps, carries from
+        zeros; ``iteration`` advances once a chunk. Returns the mean of the
+        chunks' losses (a device scalar)."""
+        step_fn = self.make_tbptt_step()
+        length = self.conf.tbptt_fwd_length
+        carries = self._zero_carries(x.shape[0], x.dtype, x.device)
+        total, n_chunks = 0.0, 0
+        for t0 in range(0, x.shape[1], length):
+            cm = None if mask is None else mask[:, t0:t0 + length]
+            _, self.state, self.opt_state, carries, loss = step_fn(
+                self.params, self.state, self.opt_state, carries, x[:, t0:t0 + length],
+                y[:, t0:t0 + length], self.iteration, cm)
+            total = total + loss  # summed on the device: no sync per chunk
+            n_chunks += 1
+            self.iteration += 1
+        return total / max(n_chunks, 1)
+
+    def _tbptt_applies(self, x, y):
+        """The JAX package's gate: a 3-d batch longer than the window."""
+        return (self.conf.backprop_type == "tbptt" and x.dim() == 3 and y.dim() == 3
+                and x.shape[1] > self.conf.tbptt_fwd_length)
+
+    def rnn_clear_previous_state(self):
+        self._rnn_stream_state = None
+
+    def rnn_time_step(self, x):
+        """One timestep [B, F] (or a short [B, T, F] chunk) of streaming
+        inference, carrying the recurrent state between calls."""
+        if self.params is None:
+            self.init()
+        x = _as_tensor(x, self.device)
+        squeeze = x.dim() == 2
+        if squeeze:
+            x = x[:, None, :]
+        carries = self._rnn_stream_state
+        if carries is None:
+            carries = self._zero_carries(x.shape[0], x.dtype, x.device)
+        with _dtypes.policy_precision(), torch.inference_mode():
+            y, _, carries = self._apply_rnn(self.params, self.state, x, carries)
+        self._rnn_stream_state = carries
+        return y[:, 0] if squeeze else y
+
+    # ------------------------------------------------------------------
     # convenience (stateful) API
     # ------------------------------------------------------------------
 
@@ -215,23 +348,25 @@ class MultiLayerNetwork(nn.Module):
         step_fn = self.make_train_step()
         dev = self.device
         self.score_history = []
-        for _ in range(epochs):
-            pending = None
-            for x, y, m in iter_batches(data, labels, batch_size, mask,
-                                        pad_to=True if pad_ragged else None):
-                x, y, m = _as_tensor(x, dev), _as_tensor(y, dev), _as_tensor(m, dev)
-                if (self.conf.backprop_type == "tbptt" and x.dim() == 3 and y.dim() == 3
-                        and x.shape[1] > self.conf.tbptt_fwd_length):
-                    raise NotImplementedError(f"truncated BPTT {_NOT_PORTED}")
-                _, self.state, self.opt_state, loss = step_fn(
-                    self.params, self.state, self.opt_state, x, y, self.iteration, m)
-                self.iteration += 1
+        with _dtypes.policy_precision():
+            for _ in range(epochs):
+                pending = None
+                for x, y, m in iter_batches(data, labels, batch_size, mask,
+                                            pad_to=True if pad_ragged else None):
+                    x, y, m = _as_tensor(x, dev), _as_tensor(y, dev), _as_tensor(m, dev)
+                    if self._tbptt_applies(x, y):
+                        # one entry a batch: the mean of its chunks' losses
+                        loss = self._fit_tbptt(x, y, m)
+                    else:
+                        _, self.state, self.opt_state, loss = step_fn(
+                            self.params, self.state, self.opt_state, x, y, self.iteration, m)
+                        self.iteration += 1
+                    if pending is not None:
+                        self.score_history.append(float(pending))
+                    pending = loss
                 if pending is not None:
                     self.score_history.append(float(pending))
-                pending = loss
-            if pending is not None:
-                self.score_history.append(float(pending))
-            self.epoch += 1
+                self.epoch += 1
         if self.score_history:
             self.score_value = self.score_history[-1]
         return self
@@ -241,8 +376,9 @@ class MultiLayerNetwork(nn.Module):
         if self.params is None:
             self.init()
         dev = self.device
-        loss, _ = self.loss_fn(self.params, self.state, _as_tensor(x, dev), _as_tensor(y, dev),
-                               train=False, mask=_as_tensor(mask, dev))
+        with _dtypes.policy_precision():
+            loss, _ = self.loss_fn(self.params, self.state, _as_tensor(x, dev),
+                                   _as_tensor(y, dev), train=False, mask=_as_tensor(mask, dev))
         return float(loss)
 
     def forward(self, x, mask=None):
@@ -254,7 +390,8 @@ class MultiLayerNetwork(nn.Module):
         if self.params is None:
             self.init()
         dev = self.device
-        return self.forward(_as_tensor(x, dev), mask=_as_tensor(mask, dev))
+        with _dtypes.policy_precision():
+            return self.forward(_as_tensor(x, dev), mask=_as_tensor(mask, dev))
 
     def num_params(self):
         return sum(int(p.numel()) for p in self.parameters())

@@ -1,4 +1,5 @@
-"""LSTM sequence forward: the hand-written Hopper kernel and its plain version.
+"""LSTM sequence op: the hand-written Hopper forward kernel, its plain version,
+and the backward.
 
 Replaces the TPU kernels ``_lstm_seq_kernel`` (resident Wh, H <= 512) and
 ``_lstm_seq_kernel_tiled`` (Wh streamed in column tiles, H > 512) of
@@ -31,6 +32,17 @@ the source for the layouts.
 calls that launched the kernel (one per layer per device batch, however
 many step launches ``step_cluster`` issues), ``launches_by_variant`` the
 same calls by variant.
+
+The backward is ``lstm_seq_bwd``, a port of the JAX package's
+``lstm_pallas._bwd``, which is XLA there, not Pallas: PyTorch on both
+devices. When a gradient is asked for, ``lstm_seq`` runs through an
+``autograd.Function`` whose forward is the kernel (CUDA tensors) or the
+plain version (CPU tensors) and whose backward is ``lstm_seq_bwd``. All the
+forward's states are known in the backward, so the gate recompute is one
+``[T*B, H] x [H, 4H]`` product and elementwise math over every step at
+once, and ``dWh`` one product after the loop; only the dh/dc recurrence
+runs step by step (a few elementwise launches and ``dh_prev = dz . Wh^T``
+a step).
 
 The shared library is built with ``nvcc`` from ``csrc/`` at first use into
 ``_build/`` beside it, named by the source's hash, so an edited source is
@@ -170,13 +182,28 @@ def plan(b, h, dtype, sms=H100_SMS, smem_limit=SMEM_LIMIT):
                 4 * (S_ROWS * 256 + 8 * 4 * S_ROWS * S_UNITS + 4 * S_ROWS * S_UNITS))
 
 
+class SeqOut(NamedTuple):
+    """One ``lstm_seq`` call's results: ``hs``, ``cs`` [T,B,H] and the last
+    step's ``h_last``, ``c_last`` [B,H] in xz's dtype, and the final state
+    ``h_state``, ``c_state`` [B,H] in the dtype it is carried in (f32; f64
+    stays f64): what a caller carries into its next call (TBPTT chunks,
+    ``rnn_time_step``), so that a bf16 run does not round the cell state at
+    a chunk boundary when it does not inside a sequence."""
+    hs: torch.Tensor
+    cs: torch.Tensor
+    h_last: torch.Tensor
+    c_last: torch.Tensor
+    h_state: torch.Tensor
+    c_state: torch.Tensor
+
+
 def lstm_seq_plain(xz, wh, h0, c0, wp=None, mask=None):
     """The contract of ``lstm_seq`` as a PyTorch time loop.
 
     xz [T,B,4H] (x.Wx + b, time-major, gates i|f|g|o), wh [H,4H], h0/c0
     [B,H], wp [3,H] (i|f|o peepholes) or None, mask [T,B] (1 = valid) or
     None. State is carried in f32 (f64 stays f64); h meets Wh in Wh's
-    dtype. Returns hs, cs [T,B,H] and hT, cT [B,H] in xz's dtype."""
+    dtype. Returns a ``SeqOut``."""
     t_len, _, four_h = xz.shape
     hsz = four_h // 4
     sd = torch.promote_types(xz.dtype, torch.float32)
@@ -204,8 +231,7 @@ def lstm_seq_plain(xz, wh, h0, c0, wp=None, mask=None):
         hs.append(h)
         cs.append(c)
     out = xz.dtype
-    return (torch.stack(hs).to(out), torch.stack(cs).to(out), h.to(out),
-            c.to(out))
+    return SeqOut(torch.stack(hs).to(out), torch.stack(cs).to(out), h.to(out), c.to(out), h, c)
 
 
 def _check(xz, wh, h0, c0, wp, mask):
@@ -239,20 +265,9 @@ def _check(xz, wh, h0, c0, wp, mask):
         raise ValueError(f"mask must be [T, B] = {(t_len, b)}, got {tuple(mask.shape)}")
 
 
-def refuse_autograd(device_type, *tensors):
-    """Raise when the CUDA kernel would be asked for a gradient: it has no
-    backward yet, and its outputs carry no ``grad_fn``, so the graph would
-    be cut without a word. The CPU plain version stays differentiable."""
-    if device_type != "cuda" or not torch.is_grad_enabled():
-        return
-    if any(t is not None and t.requires_grad for t in tensors):
-        raise RuntimeError(
-            "lstm_seq: the CUDA kernel has no backward yet (ROADMAP queue 1, "
-            "\"the LSTM backward\"); run it under torch.no_grad() or "
-            "inference_mode, or train a recurrent net on the CPU")
-
-
 _sm_counts = {}
+#: K chunks of the backward's per-step dh_prev product (see lstm_seq_bwd)
+BWD_SPLIT_K = 16
 
 
 def _sm_count(idx):
@@ -261,18 +276,16 @@ def _sm_count(idx):
     return _sm_counts[idx]
 
 
-def lstm_seq(xz, wh, h0, c0, wp=None, mask=None):
-    """LSTM over T steps: hs, cs [T,B,H] and hT, cT [B,H] (see
-    ``lstm_seq_plain`` for the contract). CUDA tensors launch the Hopper
-    kernel (f32 or bf16 xz/wh/wp, h0/c0 any float dtype); CPU tensors take
-    the plain version. On CUDA tensors it refuses autograd (see
-    ``refuse_autograd``)."""
+def lstm_seq_fwd(xz, wh, h0, c0, wp=None, mask=None):
+    """The forward alone, outside autograd: CUDA tensors launch the Hopper
+    kernel (f32 or bf16 xz/wh/wp, h0/c0 any float dtype), CPU tensors take
+    the plain version. Returns a ``SeqOut``."""
     global launches
     if xz.device.type == "cpu":
-        return lstm_seq_plain(xz, wh, h0, c0, wp=wp, mask=mask)
+        with torch.no_grad():
+            return lstm_seq_plain(xz, wh, h0, c0, wp=wp, mask=mask)
     if xz.device.type != "cuda":
         raise ValueError(f"lstm_seq runs on cuda or cpu tensors, got {xz.device}")
-    refuse_autograd(xz.device.type, xz, wh, h0, c0, wp)
     _check(xz, wh, h0, c0, wp, mask)
     lib = _LIB.get()
     t_len, b, four_h = xz.shape
@@ -302,4 +315,167 @@ def lstm_seq(xz, wh, h0, c0, wp=None, mask=None):
     with _count_lock:
         launches += 1
         launches_by_variant[pl.variant] += 1
-    return hs, cs, h_last, c_last
+    # both variants leave the final f32 state in h_state[T % 2] and c_state
+    return SeqOut(hs, cs, h_last, c_last, h_state[t_len % 2], c_state)
+
+
+# ---------------------------------------------------------------------------
+# the backward
+# ---------------------------------------------------------------------------
+
+def lstm_seq_bwd(xz, wh, wp, h0, c0, mask, hs, cs, dhs, dhT, dcT, *, dcs=None):
+    """Gradients of one ``lstm_seq`` call: (dxz, dwh, dwp, dh0, dc0) from
+    its inputs, its saved ``hs``/``cs`` (xz's dtype) and the cotangents of
+    ``hs`` (``dhs``), of the final h and c (``dhT``, ``dcT``) and of ``cs``
+    (``dcs``), each None when zero. Port of ``lstm_pallas._bwd``:
+
+    - the gates are recomputed from ``[h0; hs[:-1]]`` (rounded to Wh's
+      dtype, as the forward's product takes it) and ``[c0; cs[:-1]]``;
+      under a mask the pre-mask candidate cell is recomputed, without one
+      ``cs`` is read; the o-gate peephole reads that candidate;
+    - a masked step passes ``(1 - m) dh`` and ``(1 - m) dc`` through to the
+      step before; the i/f peepholes feed ``dc_prev``;
+    - every product runs on f32 (f64 for f64 inputs) operands: bf16
+      values widened exactly, dz rounded to xz's dtype first (the JAX
+      package's ``preferred_element_type=f32`` on bf16 operands), so dh is
+      never rounded in the chain;
+    - ``dxz`` comes back in xz's dtype, ``dwh`` summed in f32 and cast to
+      Wh's dtype, ``dwp`` from the unrounded f32 gate cotangents."""
+    t_len, b, four_h = xz.shape
+    hsz = four_h // 4
+    sd = torch.promote_types(xz.dtype, torch.float32)
+    dev = xz.device
+    with torch.no_grad(), torch.profiler.record_function("lstm_seq.backward"):
+        h_prev = torch.cat([h0.to(wh.dtype)[None], hs[:-1].to(wh.dtype)]).to(sd)
+        c_prev = torch.cat([c0.to(sd)[None], cs[:-1].to(sd)])
+        whf = wh.to(sd)
+        z = torch.addmm(xz.reshape(-1, four_h).to(sd), h_prev.view(-1, hsz), whf)
+        zi, zf, zg, zo = z.view(t_len, b, four_h).split(hsz, dim=-1)
+        wpf = None if wp is None else wp.to(sd)
+        if wpf is not None:
+            zi = zi + wpf[0] * c_prev
+            zf = zf + wpf[1] * c_prev
+        ig, fg, gg = torch.sigmoid(zi), torch.sigmoid(zf), torch.tanh(zg)
+        # cs holds the post-mask cell; under a mask the candidate is recomputed
+        c_cand = cs.to(sd) if mask is None else fg * c_prev + ig * gg
+        og = torch.sigmoid(zo if wpf is None else zo + wpf[2] * c_cand)
+        tc = torch.tanh(c_cand)
+        del z, zi, zf, zg, zo
+        # the step's chain written as factors of dh_cand and dc:
+        #   dz_o = dh_cand * ko, dc = dh_cand * kc + dc_cand,
+        #   dz_{i,f,g} = dc * k3, dc_prev = dc * kp + (1 - m) dc_total
+        ko = tc * og * (1 - og)
+        kc = og * (1 - tc * tc)
+        k3 = torch.stack([gg * ig * (1 - ig), c_prev * fg * (1 - fg), ig * (1 - gg * gg)],
+                         dim=2)  # [T, B, 3, H]
+        kp = fg
+        if wpf is not None:
+            kc = kc + ko * wpf[2]
+            kp = fg + k3[:, :, 0] * wpf[0] + k3[:, :, 1] * wpf[1]
+        del ig, fg, gg, og, tc
+
+        dz = torch.empty((t_len, b, four_h), dtype=xz.dtype, device=dev)  # dxz
+        dc_all = torch.empty((t_len, b, 1, hsz), dtype=sd, device=dev)  # dc of each step
+        dh_all = torch.empty((t_len, b, hsz), dtype=sd, device=dev)  # dh_cand of each step
+        # dh_prev = dz . Wh^T with K = 4H split in BWD_SPLIT_K chunks, one batch of
+        # a batched product each, summed after: at B=64 the single [B, 4H] x
+        # [4H, H] product keeps only a few blocks busy for its whole K
+        split = BWD_SPLIT_K if four_h % BWD_SPLIT_K == 0 else 1
+        kq = four_h // split
+        wh_tk = whf.t().contiguous().view(split, kq, hsz)
+        parts = torch.empty((split, b, hsz), dtype=sd, device=dev)
+        # every step's operands as views made once (the loop is host-bound)
+        kc_s, ko_s, kp_s = (t.unsqueeze(2).unbind(0) for t in (kc, ko, kp))
+        k3_s = k3.unbind(0)
+        dz4 = dz.view(t_len, b, 4, hsz)
+        dz3_s, dzo_s = dz4[:, :, :3].unbind(0), dz4[:, :, 3:].unbind(0)
+        dzk_s = dz.view(t_len, b, split, kq).transpose(1, 2).unbind(0)  # [split, B, kq]
+        dc_s = dc_all.unbind(0)
+        dh2_s, dh3_s = dh_all.unbind(0), dh_all.unsqueeze(2).unbind(0)
+        dhs_s = None if dhs is None else dhs.to(sd).unsqueeze(2).unbind(0)
+        dcs_s = None if dcs is None else dcs.to(sd).unsqueeze(2).unbind(0)
+        m_s = None if mask is None else mask.to(sd)[:, :, None, None].unbind(0)
+
+        dh = dhs_s[-1].clone() if dhs_s is not None else \
+            torch.zeros((b, 1, hsz), dtype=sd, device=dev)
+        if dhT is not None:
+            dh += dhT.to(sd).unsqueeze(1)
+        dc = torch.zeros((b, 1, hsz), dtype=sd, device=dev) if dcT is None else \
+            dcT.to(sd).unsqueeze(1)
+        if m_s is None:
+            dh3_s[-1].copy_(dh)
+        for i in range(t_len - 1, -1, -1):
+            if dcs_s is not None:
+                dc = dc + dcs_s[i]
+            if m_s is None:
+                dh_c, dc_c = dh3_s[i], dc
+            else:
+                dh_c = torch.mul(dh, m_s[i], out=dh3_s[i])
+                dc_c = dc * m_s[i]
+            dcc = torch.addcmul(dc_c, dh_c, kc_s[i], out=dc_s[i])
+            torch.mul(k3_s[i], dcc, out=dz3_s[i])
+            torch.mul(ko_s[i], dh_c, out=dzo_s[i])
+            dzk = dzk_s[i] if dz.dtype == sd else dzk_s[i].to(sd)
+            torch.bmm(dzk, wh_tk, out=parts)
+            if m_s is None:
+                if i == 0:
+                    dh = parts.sum(0)
+                else:
+                    torch.sum(parts, 0, out=dh2_s[i - 1])
+                    if dhs_s is not None:
+                        dh3_s[i - 1].add_(dhs_s[i - 1])
+                dc = dcc * kp_s[i]
+            else:
+                pass_h = (1 - m_s[i]) * dh
+                if i > 0 and dhs_s is not None:
+                    pass_h += dhs_s[i - 1]
+                dh = pass_h + parts.sum(0).unsqueeze(1)
+                dc = torch.addcmul((1 - m_s[i]) * dc, dcc, kp_s[i])
+        dh = dh.view(b, hsz)
+        dc = dc.view(b, hsz)
+        dc_all = dc_all.view(t_len, b, hsz)
+        dz_f = dz.view(-1, four_h) if dz.dtype == sd else dz.view(-1, four_h).to(sd)
+        dwh = torch.mm(h_prev.view(-1, hsz).t(), dz_f).to(wh.dtype)
+        dwp = None
+        if wpf is not None:
+            dwp = torch.stack([(dc_all * k3[:, :, 0] * c_prev).sum((0, 1)),
+                               (dc_all * k3[:, :, 1] * c_prev).sum((0, 1)),
+                               (dh_all * ko * c_cand).sum((0, 1))]).to(wp.dtype)
+    return dz, dwh, dwp, dh.to(h0.dtype), dc.to(c0.dtype)
+
+
+class LstmSeqFunction(torch.autograd.Function):
+    """``lstm_seq`` under autograd: the forward is ``lstm_seq_fwd`` (the
+    kernel on CUDA tensors, the plain version on CPU tensors), the backward
+    ``lstm_seq_bwd`` on both. Outputs hs, cs, h_state, c_state; it saves
+    xz, wh, wp, h0, c0, mask and the forward's own hs and cs (xz's dtype),
+    as the JAX package's ``_fwd`` does."""
+
+    @staticmethod
+    def forward(ctx, xz, wh, wp, h0, c0, mask):
+        out = lstm_seq_fwd(xz, wh, h0, c0, wp=wp, mask=mask)
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(xz, wh, wp, h0, c0, mask, out.hs, out.cs)
+        return out.hs, out.cs, out.h_state, out.c_state
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dhs, dcs, dh_state, dc_state):
+        xz, wh, wp, h0, c0, mask, hs, cs = ctx.saved_tensors
+        dxz, dwh, dwp, dh0, dc0 = lstm_seq_bwd(xz, wh, wp, h0, c0, mask, hs, cs, dhs,
+                                               dh_state, dc_state, dcs=dcs)
+        return dxz, dwh, dwp, dh0, dc0, None
+
+
+def lstm_seq(xz, wh, h0, c0, wp=None, mask=None):
+    """LSTM over T steps (see ``lstm_seq_plain`` for the contract); returns
+    a ``SeqOut``. CUDA tensors launch the Hopper kernel, CPU tensors take
+    the plain version. When a gradient is asked for (grad mode on and an
+    input that requires it) the call runs through ``LstmSeqFunction``, and
+    ``h_last``/``c_last`` are the final state cast to xz's dtype (the
+    values the kernel writes)."""
+    if not (torch.is_grad_enabled()
+            and any(t is not None and t.requires_grad for t in (xz, wh, wp, h0, c0))):
+        return lstm_seq_fwd(xz, wh, h0, c0, wp=wp, mask=mask)
+    hs, cs, h_state, c_state = LstmSeqFunction.apply(xz, wh, wp, h0, c0, mask)
+    return SeqOut(hs, cs, h_state.to(xz.dtype), c_state.to(xz.dtype), h_state, c_state)

@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from deeplearning4j_tpu_torch.datasets.iterator import BucketRegistry, ShapeBuckets
+from deeplearning4j_tpu_torch.utils import dtypes as _dtypes
 from deeplearning4j_tpu_torch.utils.device import resolve_device
 
 
@@ -175,7 +176,7 @@ class BucketedForward:
         """One forward at the padded shape; the result comes back to the
         host (which waits for the device)."""
         x = torch.from_numpy(x_padded).to(self.device)
-        with torch.inference_mode():
+        with _dtypes.policy_precision(), torch.inference_mode():
             y, _ = self.net.apply_fn(self.net.params, self.net.state, x)
         with self._lock:
             self._counts["forwards"] += 1

@@ -2,11 +2,18 @@
 
 The default is all float32. ``bf16_policy`` keeps float32 parameters and
 accumulation with bfloat16 matmul operands. float64 inputs stay float64.
+
+``policy_precision`` is the context the networks' entry points run in: under
+a float32 compute dtype it turns cuDNN's TF32 off (PyTorch leaves it on by
+default), so a float32 convolution runs in full float32 as the JAX
+package's do; under bf16 it leaves the flag as it is.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import threading
 
 import torch
 
@@ -53,3 +60,33 @@ def bf16_policy() -> DtypePolicy:
 def f32_policy() -> DtypePolicy:
     return set_policy(param_dtype=torch.float32, compute_dtype=torch.float32,
                       accum_dtype=torch.float32)
+
+
+_tf32_lock = threading.Lock()
+_tf32_depth = 0
+_tf32_saved = None
+
+
+@contextlib.contextmanager
+def policy_precision():
+    """Within this block cuDNN's TF32 is off when the policy computes in
+    float32; the value it had comes back when the outermost such block
+    ends (blocks nest and may run on several threads at once).
+    ``torch.backends.cudnn.flags`` is not used: it also resets
+    ``benchmark`` and ``deterministic`` to its own defaults."""
+    global _tf32_depth, _tf32_saved
+    if get_policy().compute_dtype != torch.float32:
+        yield
+        return
+    with _tf32_lock:
+        if _tf32_depth == 0:
+            _tf32_saved = torch.backends.cudnn.allow_tf32
+            torch.backends.cudnn.allow_tf32 = False
+        _tf32_depth += 1
+    try:
+        yield
+    finally:
+        with _tf32_lock:
+            _tf32_depth -= 1
+            if _tf32_depth == 0:
+                torch.backends.cudnn.allow_tf32 = _tf32_saved

@@ -22,6 +22,7 @@ from deeplearning4j_tpu.nn.layers import attention as JA
 from deeplearning4j_tpu.nn.conf import inputs as JI
 from deeplearning4j_tpu.ops import attention_pallas as jfa
 from deeplearning4j_tpu.utils import dtypes as jdt
+from deeplearning4j_tpu_torch.nn.conf import inputs as TI
 from deeplearning4j_tpu_torch.nn.layers import attention as TA
 from deeplearning4j_tpu_torch.ops import attention as tfa
 from deeplearning4j_tpu_torch.utils import dtypes as tdt
@@ -225,6 +226,22 @@ def test_layer_normalization_matches_jax():
     params = {"gamma": rs.randn(12).astype(np.float32), "beta": rs.randn(12).astype(np.float32)}
     y_j, _ = JA.LayerNormalization(eps=1e-3).apply(_tree_j(params), {}, _j(x))
     y_t, _ = TA.LayerNormalization(eps=1e-3).apply(_tree_t(params), {}, _t(x))
+    np.testing.assert_allclose(y_t.numpy(), np.asarray(y_j), atol=1e-5)
+
+
+def test_layer_normalization_on_a_convolutional_input_matches_jax():
+    """On a convolutional input the layer normalizes over the channels:
+    gamma and beta of shape (channels,), as the JAX layer's ``_nfeat``."""
+    in_j, in_t = JI.ConvolutionalType(4, 4, 8), TI.ConvolutionalType(4, 4, 8)
+    p_j = JA.LayerNormalization().init(jax.random.PRNGKey(0), in_j, jnp.float32)
+    p_t = TA.LayerNormalization().init(torch.Generator().manual_seed(0), in_t)
+    assert {k: v.shape for k, v in p_t.items()} == {k: v.shape for k, v in p_j.items()} \
+        == {"gamma": (8,), "beta": (8,)}
+    rs = np.random.RandomState(6)
+    x = (1.0 + rs.randn(2, 4, 4, 8)).astype(np.float32)  # NHWC
+    params = {"gamma": rs.randn(8).astype(np.float32), "beta": rs.randn(8).astype(np.float32)}
+    y_j, _ = JA.LayerNormalization().apply(_tree_j(params), {}, _j(x))
+    y_t, _ = TA.LayerNormalization().apply(_tree_t(params), {}, _t(x))
     np.testing.assert_allclose(y_t.numpy(), np.asarray(y_j), atol=1e-5)
 
 
