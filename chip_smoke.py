@@ -110,6 +110,27 @@ nonzero; nothing is caught):
             full forward of the same steps; ``lstm_seq_bwd`` timed at
             B=64, T=128, H=512 beside its bound and cuDNN's ``nn.LSTM``
             backward (no peepholes).
+12. zoo     from the zoo registry at full width, random weights from the
+            seed, on 10 class templates plus noise: Inception-ResNet v1
+            with the FaceNet head (``get_model("inceptionresnetv1")``,
+            160x160x3, 1001 classes, blocks 5/10/5, 16,863,161 params,
+            RmsProp 0.1) at batch 64 under both policies: 2 warm-up and 10
+            timed steps, the mean loss of the last 5 below the first, the
+            centers moved, unit embeddings from ``feed_forward``, one
+            profiled step (library convs, BN/elementwise, merge
+            concatenations, LRN/pooling, optimizer); one f32 step on the
+            card against the same step in float64 on the CPU at batch 8
+            (``irv1_step_check``); a checkpoint saved on the card and
+            restored on the CPU. GoogLeNet (224x224x3, 1000 classes,
+            8,048,152 params, fc1's dropout 0.4 live) likewise under f32,
+            with two eval-mode outputs equal and rows summing to 1. The
+            fused ResNet50 with ``checkpoint_scope="prefix"`` under both
+            policies: its first step against the plain step (within the
+            plain step's own noise), peak memory of a step with and without
+            remat, 10 timed steps with the conv launches the segments give
+            (every fused vertex sits in a group: forward and recompute, 104
+            a step) on the planned variants. ``resnet50_mln`` trained one
+            step at batch 2 on the card, saved, restored on the CPU.
 
 Then a ``kernels`` line (every kernel of the paths with its launches on
 its path, error, times and bound), the card's name and power limit, and
@@ -153,7 +174,12 @@ norm, parameters after RmsProp's first step atol 1e-4; bf16 loss rtol
 beyond 1e-4 (see ``charnn_step_check``);
 ``rnn_time_step`` against the full forward atol 1e-5 in f32 (the same
 kernel, one launch a step from the carried f32 state), 2e-2 in bf16; the
-split ``lstm_seq`` run against the whole one, atol 1e-4.
+split ``lstm_seq`` run against the whole one, atol 1e-4. Zoo: the card's
+Inception-ResNet v1 step against float64 within 1.5x the f32 step's noise
+(see ``irv1_step_check``), embeddings' norms 1 within 1e-5 (f32), the
+restored checkpoints' outputs within 1e-4 (f32; resnet50_mln's pooled
+features too, relative to their largest); the remat step against the plain
+one as ``resnet_step_check`` holds the kernel step, under each policy.
 """
 
 from __future__ import annotations
@@ -220,6 +246,13 @@ CHARNN_BF16_LOSS_RTOL, CHARNN_BF16_GRAD_RTOL, CHARNN_BF16_PARAM_SHARE = 1e-3, 2e
 # first steps move every weight by ~lr/sqrt(1 - decay) and the loss swings)
 CHARNN_MORE_STEPS, CHARNN_LOSS_WINDOW = 28, 5
 STREAM_F32_ATOL = 1e-5
+
+# the zoo phase: Inception-ResNet v1 with the FaceNet head and GoogLeNet at
+# the zoo's widths (inception.py defaults), the fused ResNet50 with remat
+IR_BATCH, IR_HW, IR_CLASSES, IR_PARAMS = 64, 160, 1001, 16_863_161
+GN_BATCH, GN_HW, GN_CLASSES, GN_PARAMS = 64, 224, 1000, 8_048_152
+ZOO_WARMUP_STEPS, ZOO_TIMED_STEPS, ZOO_LOSS_WINDOW = 2, 10, 5
+ZOO_CHECK_BATCH, ZOO_CKPT_ATOL = 8, 1e-4
 
 
 def emit(phase, **fields):
@@ -1613,25 +1646,24 @@ def phase_conv(C):
     return totals, path_err
 
 
-def resnet_data(seed, n):
+def resnet_data(seed, n, hw=RN_HW, n_out=RN_CLASSES):
     """n synthetic labelled images on the card: each of RN_TASK_CLASSES
     class templates (uniform noise images from the seed) plus noise of half
-    its amplitude, labels one-hot over the 1000 outputs."""
+    its amplitude, labels one-hot over the ``n_out`` outputs."""
     rs = np.random.RandomState(seed)
-    templates = torch.from_numpy(rs.rand(RN_TASK_CLASSES, RN_HW, RN_HW, 3).astype(np.float32))
+    templates = torch.from_numpy(rs.rand(RN_TASK_CLASSES, hw, hw, 3).astype(np.float32))
     labels = torch.from_numpy(rs.randint(0, RN_TASK_CLASSES, size=n)).cuda()
     g = torch.Generator(device="cuda").manual_seed(seed)
-    x = templates.cuda()[labels] + 0.5 * torch.rand(n, RN_HW, RN_HW, 3, device="cuda",
-                                                    generator=g)
-    return x, torch.nn.functional.one_hot(labels, RN_CLASSES).float()
+    x = templates.cuda()[labels] + 0.5 * torch.rand(n, hw, hw, 3, device="cuda", generator=g)
+    return x, torch.nn.functional.one_hot(labels, n_out).float()
 
 
-def make_resnet(seed):
+def make_resnet(seed, scope=None):
     from deeplearning4j_tpu_torch.models import resnet50
     from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
 
-    net = ComputationGraph(resnet50(RN_HW, RN_HW, n_classes=RN_CLASSES, fused=True),
-                           device="cuda")
+    net = ComputationGraph(resnet50(RN_HW, RN_HW, n_classes=RN_CLASSES, fused=True,
+                                    checkpoint_scope=scope), device="cuda")
     net.init(torch.Generator().manual_seed(seed))
     if net.num_params() != RN_PARAMS:
         raise AssertionError(f"resnet50 has {net.num_params()} params, expected {RN_PARAMS}")
@@ -1650,16 +1682,17 @@ def plain_conv_kernels(C):
         C.conv_mm_stats, C.conv3x3_stats = saved
 
 
-def graph_step(C, seed, x, y, plain=False):
-    """The first step of ``fit`` on a fresh net from ``seed``: gradients and
-    BN state, then the updater from fresh state; with ``plain`` the fused
-    op runs the kernels' plain versions (and must launch no kernel).
-    Returns (loss, {path: gradient}, {path: parameter}, {path: state})."""
+def graph_step(C, seed, x, y, plain=False, scope=None):
+    """The first step of ``fit`` on a fresh net from ``seed`` (remat with
+    ``scope="prefix"``): gradients and BN state, then the updater from
+    fresh state; with ``plain`` the fused op runs the kernels' plain
+    versions (and must launch no kernel). Returns (loss, {path: gradient},
+    {path: parameter}, {path: state})."""
     from deeplearning4j_tpu_torch.utils.trees import flatten_tree
 
     from deeplearning4j_tpu_torch.utils import dtypes
 
-    net = make_resnet(seed)
+    net = make_resnet(seed, scope)
     launched = dict(C.launches)
     # the policy's precision, as fit runs it (cuDNN without TF32 under f32)
     with plain_conv_kernels(C) if plain else contextlib.nullcontext(), \
@@ -1708,10 +1741,23 @@ def resnet_step_check(C, x, y, seed):
     p = graph_step(C, seed, x, y, plain=True)
     perm = torch.randperm(x.shape[0], generator=torch.Generator().manual_seed(seed)).cuda()
     q = graph_step(C, seed, x[perm], y[perm], plain=True)
-    kp, qp = step_diff(k, p), step_diff(q, p)
     torch.cuda.empty_cache()
+    return within_noise(k, p, q, "kernel", "plain")
+
+
+def within_noise(k, p, q, k_name, p_name):
+    """Hold step ``k`` against step ``p`` within the noise of ``q`` (``p``'s
+    step on the batch permuted), as ``resnet_step_check`` states."""
+    return noise_check(k, p, step_diff(k, p), step_diff(q, p), k_name, p_name,
+                       f"{p_name}_vs_{p_name}_permuted")
+
+
+def noise_check(k, p, kp, qp, k_name, p_name, noise_name, per_tensor=True):
+    """Hold ``kp`` (step_diff of step ``k`` from step ``p``) within the noise
+    ``qp`` (a step_diff of the same kind); ``per_tensor=False`` reports the
+    worst tensor's gradient difference without holding it."""
     if not kp["loss_rel"] <= RN_LOSS_RTOL:
-        raise AssertionError(f"kernel step loss {k[0]} vs plain step loss {p[0]}")
+        raise AssertionError(f"{k_name} step loss {k[0]} vs {p_name} step loss {p[0]}")
     if not kp["state_max_abs"] <= RN_STATE_ATOL:
         raise AssertionError(f"BN running state differs by {kp['state_max_abs']}")
     if not kp["grad_rel"] <= RN_NOISE_FACTOR * qp["grad_rel"]:
@@ -1719,7 +1765,7 @@ def resnet_step_check(C, x, y, seed):
                              f"{RN_NOISE_FACTOR} x the step's own noise {qp['grad_rel']}")
     worst = max(kp["grad_rel_by_tensor"],
                 key=lambda n: kp["grad_rel_by_tensor"][n] / (qp["grad_rel_by_tensor"][n] + 1e-5))
-    if not kp["grad_rel_by_tensor"][worst] <= 2 * RN_NOISE_FACTOR * \
+    if per_tensor and not kp["grad_rel_by_tensor"][worst] <= 2 * RN_NOISE_FACTOR * \
             qp["grad_rel_by_tensor"][worst] + 1e-5:
         raise AssertionError(f"gradient {worst} differs by {kp['grad_rel_by_tensor'][worst]}, "
                              f"beyond the noise {qp['grad_rel_by_tensor'][worst]}")
@@ -1728,8 +1774,8 @@ def resnet_step_check(C, x, y, seed):
                              f"{RN_PARAM_ATOL}, against {qp['params_beyond_atol']} from noise")
     summary = {k_: v for k_, v in kp.items() if k_ != "grad_rel_by_tensor"}
     noise = {k_: v for k_, v in qp.items() if k_ != "grad_rel_by_tensor"}
-    return {"loss_kernel": k[0], "loss_plain": p[0], "kernel_vs_plain": summary,
-            "plain_vs_plain_permuted": noise, "worst_tensor": worst,
+    return {f"loss_{k_name}": k[0], f"loss_{p_name}": p[0], f"{k_name}_vs_{p_name}": summary,
+            noise_name: noise, "worst_tensor": worst,
             "worst_tensor_grad_rel": kp["grad_rel_by_tensor"][worst],
             "worst_tensor_noise": qp["grad_rel_by_tensor"][worst]}
 
@@ -1808,6 +1854,337 @@ def phase_resnet(C, policy, seed):
         dtypes.f32_policy()
 
 
+# ---------------------------------------------------------------------------
+# zoo: the Inception graphs and the remat'd fused ResNet50
+# ---------------------------------------------------------------------------
+
+def zoo_family(name):
+    """Device-kernel families of the Inception and remat steps (LRN's
+    forward is tagged by its range, see ``tagged_ranges``)."""
+    if "catarraybatchedcopy" in name or "cat_" in name:
+        return "merge_concat"
+    if "pool" in name:
+        return "lrn_pooling"
+    return resnet_family(name)
+
+
+@contextlib.contextmanager
+def tagged_ranges():
+    """Within this block every LocalResponseNormalization forward runs in a
+    ``record_function("lrn")`` range, so a profile counts its kernels (a
+    pad, a windowed sum and a power) under ``lrn_pooling``; the layer is
+    left as it was afterwards."""
+    from deeplearning4j_tpu_torch.nn.layers import LocalResponseNormalization as LRN
+
+    apply = LRN.apply
+
+    def ranged(self, *a, **k):
+        with torch.profiler.record_function("lrn"):
+            return apply(self, *a, **k)
+
+    LRN.apply = ranged
+    try:
+        yield
+    finally:
+        LRN.apply = apply
+
+
+ZOO_TAGS = {"updater.step": "optimizer", "lrn": "lrn_pooling"}
+
+
+def zoo_profile(net, x, y, name, policy, step_ms):
+    """One fit step under torch.profiler: device time by family and busy share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with tagged_ranges(), profile(activities=[ProfilerActivity.CPU,
+                                              ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        net.fit(x, y)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    by_family, busy_ms, share = device_families(prof, wall_ms, zoo_family, ZOO_TAGS)
+    emit("zoo.profile", model=name, policy=policy, wall_ms=wall_ms, wall_unprofiled_ms=step_ms,
+         device_ms_by_family=by_family, device_busy_ms=busy_ms, device_busy_share=share,
+         device_busy_share_unprofiled=busy_ms / step_ms, card=card_line())
+
+
+def zoo_train(net, x, y, batch, name, policy, extra=None, before_timed=None):
+    """ZOO_WARMUP_STEPS warm-up steps, then the timed fit steps over the rest
+    of (x, y) (``before_timed`` called just before them); the loss must fall
+    (the mean of the last ZOO_LOSS_WINDOW timed steps below the first
+    warm-up step's). Returns the row to print."""
+    warm = batch * ZOO_WARMUP_STEPS
+    net.fit(x[:warm], y[:warm], batch_size=batch)
+    first_loss = net.score_history[0]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    if before_timed is not None:
+        before_timed()
+    t0 = time.perf_counter()
+    net.fit(x[warm:], y[warm:], batch_size=batch)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    losses = net.score_history
+    tail = float(np.mean(losses[-ZOO_LOSS_WINDOW:]))
+    if not all(np.isfinite(losses)) or not tail < first_loss:
+        raise AssertionError(f"{name}: loss did not fall: first {first_loss}, timed steps {losses}")
+    steps = len(losses)
+    row = {"model": name, "policy": policy, "params": net.num_params(), "batch": batch,
+           "image": list(x.shape[1:]), "steps": steps, "step_ms": 1e3 * wall / steps,
+           "images_per_s": batch * steps / wall, "peak_mem_gb": peak / 1e9,
+           "loss_first": first_loss, f"loss_mean_last{ZOO_LOSS_WINDOW}": tail, "losses": losses,
+           **(extra or {}), "card": card_line()}
+    return row
+
+
+def irv1_step(net, x, y):
+    """The first step of ``fit`` from ``net``'s weights: (loss, {path:
+    gradient}, {path: parameter after RmsProp's first step}, {path: state:
+    BN statistics and centers})."""
+    from deeplearning4j_tpu_torch.utils.trees import flatten_tree
+
+    from deeplearning4j_tpu_torch.utils import dtypes
+
+    with dtypes.policy_precision():
+        loss, state, grads = net.compute_gradients(net.params, net.state, {"input": x},
+                                                   {"lossLayer": y})
+    net.opt_state = net.conf.updater.init(net.params)
+    net.apply_update(net.params, net.opt_state, grads, 0)
+    return (float(loss), flatten_tree(grads),
+            {k: v.detach() for k, v in flatten_tree(net.params).items()}, flatten_tree(state))
+
+
+def irv1_step_check(seed, x, y):
+    """Inception-ResNet v1 at full width: one f32 step on the card (K) and
+    the same step on the CPU from identical weights in float64 (R, the
+    truth). K must be no farther from R than RN_NOISE_FACTOR x the f32
+    step's own noise in loss (RN_LOSS_RTOL), gradients (all tensors
+    together), state (BN statistics and the centers, RN_STATE_ATOL) and
+    parameters beyond RN_PARAM_ATOL after RmsProp's first step. The noise
+    is the largest, measure by measure, of three f32 samples: the step in
+    f32 on the CPU (P) and on the batch permuted (P') against R, and K's
+    step on the batch permuted (Q) against K. Q alone cannot be it: a conv
+    computes each image's outputs in the same order whatever the batch
+    order, so Q repeats K's per-element rounding (on an H100, Q was 2.8e-6
+    from K in a BN beta gradient that K and R put 0.6% apart).
+    The worst single tensor is reported, not held: two f32 runs on the CPU
+    put single tensors 0.0003x to 5.6x as far from float64 as each other
+    (Inception-ResNet v1 at 96², batch 8), where the total moves 0.75x to
+    1.2x."""
+    from deeplearning4j_tpu_torch.models import get_model
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.utils import serialization
+
+    def card_net():
+        return get_model("inceptionresnetv1").build(device="cuda", seed=seed)
+
+    net = card_net()
+    perm = torch.randperm(x.shape[0], generator=torch.Generator().manual_seed(seed)).cuda()
+    cpu_steps, cpu_s = {}, {}
+    for name, dt, order in (("f64", torch.float64, None), ("f32", torch.float32, None),
+                            ("f32_permuted", torch.float32, perm)):
+        ref = ComputationGraph(get_model("inceptionresnetv1").builder(seed=seed), device="cpu")
+        ref.init(dtype=dt)
+        serialization.params_from_numpy(
+            ref, {k: {n: t.detach().cpu().to(dt) for n, t in d.items()}
+                  for k, d in net.params.items()},
+            state={k: {n: t.cpu().to(dt) for n, t in d.items()} for k, d in net.state.items()})
+        xs, ys = (x, y) if order is None else (x[order], y[order])
+        t0 = time.perf_counter()
+        step = irv1_step(ref, xs.cpu().to(dt), ys.cpu().to(dt))
+        cpu_s[name] = time.perf_counter() - t0
+        cpu_steps[name] = (step[0],) + tuple({k: v.float().cuda() for k, v in d.items()}
+                                             for d in step[1:])
+        del ref
+    r = cpu_steps["f64"]
+    k = irv1_step(net, x, y)
+    q = irv1_step(card_net(), x[perm], y[perm])
+    kr, qk = step_diff(k, r), step_diff(q, k)
+    samples = {"cpu_f32_vs_cpu_f64": step_diff(cpu_steps["f32"], r),
+               "cpu_f32_permuted_vs_cpu_f64": step_diff(cpu_steps["f32_permuted"], r),
+               "card_f32_permuted_vs_card_f32": qk}
+    noise = {m: (max(d[m] for d in samples.values()) if m != "grad_rel_by_tensor" else
+                 {t: max(d[m][t] for d in samples.values()) for t in kr[m]}) for m in kr}
+    emit("zoo.irv1_step_diffs", card_f32_vs_cpu_f64={m: v for m, v in kr.items()
+                                                     if m != "grad_rel_by_tensor"},
+         **{n: {m: v for m, v in d.items() if m != "grad_rel_by_tensor"}
+            for n, d in samples.items()}, cpu_step_s=cpu_s)
+    out = noise_check(k, r, kr, noise, "card_f32", "cpu_f64", "f32_noise", per_tensor=False)
+    out["centers_max_abs_change"] = k[3]["['lossLayer']['centers']"].abs().max().item()
+    out["cpu_step_s"] = cpu_s
+    del net
+    torch.cuda.empty_cache()
+    return out
+
+
+def conv_launches_planned(net):
+    """The conv kernel launches of one remat step from the segments: a
+    fused vertex inside a group launches twice (forward and recompute), a
+    single once."""
+    from deeplearning4j_tpu_torch.nn.fusion import FusedConvBNVertex
+
+    want = {"conv_mm_stats": 0, "conv3x3_stats": 0}
+    for seg in net._segments:
+        names, times = (seg[1], 2) if seg[0] == "group" else ((seg[1],), 1)
+        for n in names:
+            v = net._defs[n].vertex
+            if isinstance(v, FusedConvBNVertex):
+                want["conv_mm_stats" if tuple(v.kernel) == (1, 1) else "conv3x3_stats"] += times
+    return want
+
+
+def remat_resnet(C, policy, seed):
+    """The fused ResNet50 with ``checkpoint_scope="prefix"``: its first step
+    against the plain step from the same weights (within the plain step's
+    own noise, under this policy), peak memory of one step with and without
+    remat, the timed steps with their conv launches against the count from
+    the segments, every launch on the planned variant."""
+    x, y = resnet_data(seed, RN_BATCH * (ZOO_WARMUP_STEPS + ZOO_TIMED_STEPS))
+    xb, yb = x[:RN_BATCH], y[:RN_BATCH]
+    perm = torch.randperm(RN_BATCH, generator=torch.Generator().manual_seed(seed)).cuda()
+    check = within_noise(graph_step(C, seed, xb, yb, scope="prefix"),
+                         graph_step(C, seed, xb, yb), graph_step(C, seed, xb[perm], yb[perm]),
+                         "remat", "plain")
+    peaks = {}
+    for scope in (None, "prefix"):
+        net = make_resnet(seed, scope)
+        net.fit(xb, yb)  # updater state made, first-step allocations done
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        net.fit(xb, yb)
+        torch.cuda.synchronize()
+        peaks["remat" if scope else "plain"] = torch.cuda.max_memory_allocated() / 1e9
+        del net
+        torch.cuda.empty_cache()
+    if not peaks["remat"] < peaks["plain"]:
+        raise AssertionError(f"remat step peak {peaks['remat']} GB is not below the plain "
+                             f"step's {peaks['plain']} GB")
+    net = make_resnet(seed, "prefix")
+    planned = conv_launches_planned(net)
+    row = zoo_train(net, x, y, RN_BATCH, "resnet50_fused_remat", policy,
+                    before_timed=C.reset_launches)
+    launches, by_variant = dict(C.launches), dict(C.launches_by_variant)
+    want = {k: v * ZOO_TIMED_STEPS for k, v in planned.items()}
+    if launches != want:
+        raise AssertionError(f"remat conv launches {launches} in {ZOO_TIMED_STEPS} steps, "
+                             f"expected {want} from the segments ({planned} a step)")
+    hopper = "bf16_wgmma" if policy == "bf16" else "f32_pipelined"
+    if by_variant != {**dict.fromkeys(C.VARIANTS, 0), hopper: sum(want.values())}:
+        raise AssertionError(f"remat conv launches by variant {by_variant}: every one should "
+                             f"be {hopper}")
+    row.update(conv_launches=launches, conv_launches_planned_a_step=planned,
+               conv_launches_by_variant=by_variant, peak_step_gb=peaks, step_check=check)
+    emit("zoo.remat", **row)
+    zoo_profile(net, xb, yb, "resnet50_fused_remat", policy, row["step_ms"])
+    del net, x, y
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_zoo(C, seed):
+    """Inception-ResNet v1 (FaceNet head) and GoogLeNet from the zoo
+    registry at full width, the remat'd fused ResNet50, and checkpoints
+    saved on the card and loaded on the CPU."""
+    from deeplearning4j_tpu_torch.models import get_model, resnet50_mln
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.utils import dtypes, serialization
+
+    rows = {}
+    n = IR_BATCH * (ZOO_WARMUP_STEPS + ZOO_TIMED_STEPS)
+    x, y = resnet_data(seed, n, IR_HW, IR_CLASSES)
+    for policy in ("f32", "bf16"):
+        (dtypes.bf16_policy if policy == "bf16" else dtypes.f32_policy)()
+        try:
+            net = get_model("inceptionresnetv1").build(device="cuda", seed=seed)
+            if net.num_params() != IR_PARAMS:
+                raise AssertionError(f"inception_resnet_v1 has {net.num_params()} params, "
+                                     f"expected {IR_PARAMS}")
+            centers0 = net.state["lossLayer"]["centers"].clone()
+            row = zoo_train(net, x, y, IR_BATCH, "inception_resnet_v1", policy)
+            change = (net.state["lossLayer"]["centers"] - centers0).abs()
+            if not (torch.isfinite(change).all() and change.max() > 0):
+                raise AssertionError(f"the centers did not move: max change {change.max()}")
+            emb = net.feed_forward(x[:IR_BATCH])["embeddings"].float().norm(dim=1)
+            norm_err = (emb - 1).abs().max().item()
+            if policy == "f32" and not norm_err <= 1e-5:
+                raise AssertionError(f"embedding norms off 1 by {norm_err}")
+            row.update(centers_max_abs_change=change.max().item(), embedding_norm_err=norm_err)
+            emit("zoo.irv1", **row)
+            rows[("irv1", policy)] = row
+            zoo_profile(net, x[:IR_BATCH], y[:IR_BATCH], "inception_resnet_v1", policy,
+                        row["step_ms"])
+            if policy == "f32":
+                ckpt = WORK / "irv1.zip"
+                serialization.save_model(net, ckpt)
+                back = serialization.load_model(ckpt, device="cpu")
+                xs = x[:4]
+                with dtypes.policy_precision():
+                    diff = (back.output(xs.cpu()) - net.output(xs).cpu()).abs().max().item()
+                if not diff <= ZOO_CKPT_ATOL:
+                    raise AssertionError(f"Inception-ResNet v1 on the CPU differs by {diff}")
+                emit("zoo.checkpoint", model="inception_resnet_v1", batch=4, max_abs_diff=diff,
+                     zip_mb=ckpt.stat().st_size / 1e6)
+            del net
+            torch.cuda.empty_cache()
+        finally:
+            dtypes.f32_policy()
+    rows["irv1_step_check"] = irv1_step_check(seed, x[:ZOO_CHECK_BATCH], y[:ZOO_CHECK_BATCH])
+    emit("zoo.irv1_step_check", **rows["irv1_step_check"], card=card_line())
+    del x, y
+
+    x, y = resnet_data(seed, GN_BATCH * (ZOO_WARMUP_STEPS + ZOO_TIMED_STEPS), GN_HW, GN_CLASSES)
+    net = get_model("googlenet").build(device="cuda", seed=seed)
+    if net.num_params() != GN_PARAMS:
+        raise AssertionError(f"googlenet has {net.num_params()} params, expected {GN_PARAMS}")
+    fc1 = net.conf.vertices[[v.name for v in net.conf.vertices].index("fc1")].vertex.layer
+    row = zoo_train(net, x, y, GN_BATCH, "googlenet", "f32", {"fc1_dropout": fc1.dropout})
+    a, b = net.output(x[:GN_BATCH]), net.output(x[:GN_BATCH])
+    if not torch.equal(a, b):
+        raise AssertionError("googlenet output differs between two eval-mode calls")
+    row_sum_err = (a.sum(dim=1) - 1).abs().max().item()
+    if not row_sum_err <= 1e-5:
+        raise AssertionError(f"googlenet softmax rows sum to 1 +- {row_sum_err}")
+    row["eval_row_sum_err"] = row_sum_err
+    emit("zoo.googlenet", **row)
+    rows[("googlenet", "f32")] = row
+    zoo_profile(net, x[:GN_BATCH], y[:GN_BATCH], "googlenet", "f32", row["step_ms"])
+    del net, x, y
+    torch.cuda.empty_cache()
+
+    for policy in ("f32", "bf16"):
+        (dtypes.bf16_policy if policy == "bf16" else dtypes.f32_policy)()
+        try:
+            rows[("remat", policy)] = remat_resnet(C, policy, seed)
+        finally:
+            dtypes.f32_policy()
+
+    mln = MultiLayerNetwork(resnet50_mln(), device="cuda")
+    mln.init(torch.Generator().manual_seed(seed))
+    xm, ym = resnet_data(seed, 2)
+    mln.fit(xm, ym)
+    ckpt = WORK / "resnet50_mln.zip"
+    serialization.save_model(mln, ckpt)
+    back = serialization.load_model(ckpt, device="cpu")
+    with dtypes.policy_precision():
+        diff = (back.output(xm.cpu()) - mln.output(xm).cpu()).abs().max().item()
+        # the pooled features too: after one step the eval-mode softmax may
+        # saturate, where the output alone would hide a state mismatch
+        last = len(mln.conf.layers) - 1
+        feats = mln.apply_fn(mln.params, mln.state, xm, layer_limit=last)[0].cpu()
+        feats_back = back.apply_fn(back.params, back.state, xm.cpu(), layer_limit=last)[0]
+    feat_rel = ((feats_back - feats).abs().max() / feats.abs().max()).item()
+    if not (diff <= ZOO_CKPT_ATOL and feat_rel <= ZOO_CKPT_ATOL):
+        raise AssertionError(f"resnet50_mln restored on the CPU differs by {diff} (output), "
+                             f"{feat_rel} relative (pooled features)")
+    emit("zoo.checkpoint", model="resnet50_mln", batch=2, max_abs_diff=diff,
+         features_max_rel_diff=feat_rel, state_tensors=sum(len(s) for s in back.state),
+         zip_mb=ckpt.stat().st_size / 1e6)
+    del mln
+    torch.cuda.empty_cache()
+    return rows
+
+
 def cuobjdump():
     """The toolkit's cuobjdump, or the copy Triton's package carries; None
     where neither exists."""
@@ -1857,7 +2234,7 @@ def build_all(libs):
                  HMMA=sass_count(so, "HMMA"))
 
 
-PHASES = ("kernels", "flash", "train", "conv", "resnet", "serve", "charnn")
+PHASES = ("kernels", "flash", "train", "conv", "resnet", "serve", "charnn", "zoo")
 
 
 def main(argv=None):
@@ -1913,6 +2290,13 @@ def main(argv=None):
             shutil.rmtree(WORK, ignore_errors=True)
     if "charnn" in only:
         charnn_rows = {policy: phase_charnn(L, policy, args.seed) for policy in ("f32", "bf16")}
+    if "zoo" in only:
+        shutil.rmtree(WORK, ignore_errors=True)
+        WORK.mkdir()
+        try:
+            zoo_rows = phase_zoo(C, args.seed)
+        finally:
+            shutil.rmtree(WORK, ignore_errors=True)
     if only != set(PHASES):
         return
 
@@ -1947,10 +2331,16 @@ def main(argv=None):
         "launches_by_variant": train_rows[0]["flash_launches_by_variant"]}] + [{
         # per forward of the fused ResNet50 at batch 64 in f32 (the *_bf16
         # keys: in bf16): the sums over the kernel's calls; launches over the
-        # 10 timed bf16_policy steps
+        # 10 timed bf16_policy steps of the resnet phase and the 10 timed
+        # steps of the remat'd ResNet50 under each policy (zoo phase)
         "name": name, "route": "cuda", "source": "deeplearning4j_tpu_torch/csrc/conv_stats.cu",
         "replaces": f"deeplearning4j_tpu/ops/conv_pallas.py:{line}",
-        "launches": resnet_rows["bf16"]["conv_launches"][name], "max_abs_err": conv_err,
+        "launches": resnet_rows["bf16"]["conv_launches"][name]
+        + sum(zoo_rows[("remat", p)]["conv_launches"][name] for p in ("f32", "bf16")),
+        "launches_resnet": resnet_rows["bf16"]["conv_launches"][name],
+        "launches_remat": {p: zoo_rows[("remat", p)]["conv_launches"][name]
+                           for p in ("f32", "bf16")},
+        "max_abs_err": conv_err,
         "ms": conv_totals[(name, "float32")]["ms"],
         "plain_ms": conv_totals[(name, "float32")]["plain_ms"],
         "bound_ms": conv_totals[(name, "float32")]["bound_ms"],

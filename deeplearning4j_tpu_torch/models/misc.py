@@ -1,9 +1,10 @@
-"""Zoo models ported so far: the GravesLSTM char-RNN and the transformer
-language model.
+"""Smaller zoo models: SimpleCNN, AlexNet, Darknet19, the GravesLSTM
+char-RNN and the transformer language model (reference: SimpleCNN.java,
+AlexNet.java, Darknet19.java, TextGenerationLSTM.java).
 
 Each builds the same configuration as the JAX package's
 (``deeplearning4j_tpu/models/misc.py``), so both serialize to the same
-``config.json``.
+``config.json``. TinyYOLO waits for ``nn/layers/objdetect.py``.
 """
 
 from __future__ import annotations
@@ -12,6 +13,83 @@ from deeplearning4j_tpu_torch.nn import layers as L
 from deeplearning4j_tpu_torch.nn import updaters as U
 from deeplearning4j_tpu_torch.nn.conf import inputs as I
 from deeplearning4j_tpu_torch.nn.conf.network import NeuralNetConfig
+
+
+def simple_cnn(height=48, width=48, channels=3, n_classes=10, updater=None, seed=12345):
+    """(reference: SimpleCNN.java)"""
+    return NeuralNetConfig(seed=seed, updater=updater or U.AdaDelta()).list(
+        L.ConvolutionLayer(n_out=16, kernel=(3, 3), padding="same", activation="relu"),
+        L.BatchNormalization(),
+        L.ConvolutionLayer(n_out=16, kernel=(3, 3), padding="same", activation="relu"),
+        L.BatchNormalization(),
+        L.SubsamplingLayer(kernel=(2, 2), stride=(2, 2)),
+        L.DropoutLayer(rate=0.25),
+        L.ConvolutionLayer(n_out=32, kernel=(3, 3), padding="same", activation="relu"),
+        L.BatchNormalization(),
+        L.ConvolutionLayer(n_out=32, kernel=(3, 3), padding="same", activation="relu"),
+        L.BatchNormalization(),
+        L.SubsamplingLayer(kernel=(2, 2), stride=(2, 2)),
+        L.DropoutLayer(rate=0.25),
+        L.DenseLayer(n_out=256, activation="relu"),
+        L.DropoutLayer(rate=0.5),
+        L.OutputLayer(n_out=n_classes, loss="mcxent"),
+        input_type=I.ConvolutionalType(height, width, channels),
+    )
+
+
+def alexnet(height=224, width=224, channels=3, n_classes=1000, updater=None, seed=12345):
+    """(reference: AlexNet.java: an 11/5/3 conv stack with LRN)"""
+    return NeuralNetConfig(seed=seed, updater=updater or U.Nesterovs(learning_rate=0.01)).list(
+        L.ConvolutionLayer(n_out=96, kernel=(11, 11), stride=(4, 4), activation="relu"),
+        L.LocalResponseNormalization(),
+        L.SubsamplingLayer(kernel=(3, 3), stride=(2, 2)),
+        L.ConvolutionLayer(n_out=256, kernel=(5, 5), padding="same", activation="relu"),
+        L.LocalResponseNormalization(),
+        L.SubsamplingLayer(kernel=(3, 3), stride=(2, 2)),
+        L.ConvolutionLayer(n_out=384, kernel=(3, 3), padding="same", activation="relu"),
+        L.ConvolutionLayer(n_out=384, kernel=(3, 3), padding="same", activation="relu"),
+        L.ConvolutionLayer(n_out=256, kernel=(3, 3), padding="same", activation="relu"),
+        L.SubsamplingLayer(kernel=(3, 3), stride=(2, 2)),
+        L.DenseLayer(n_out=4096, activation="relu", dropout=0.5),
+        L.DenseLayer(n_out=4096, activation="relu", dropout=0.5),
+        L.OutputLayer(n_out=n_classes, loss="mcxent"),
+        input_type=I.ConvolutionalType(height, width, channels),
+    )
+
+
+def _darknet_conv(n_out, kernel):
+    return [L.ConvolutionLayer(n_out=n_out, kernel=kernel, padding="same", has_bias=False,
+                               weight_init="relu"),
+            L.BatchNormalization(activation="leakyrelu")]
+
+
+def darknet19(height=224, width=224, channels=3, n_classes=1000, updater=None, seed=12345):
+    """(reference: Darknet19.java: a conv / BN / leaky-relu backbone)"""
+    pool = [L.SubsamplingLayer(kernel=(2, 2), stride=(2, 2))]
+    layers = _darknet_conv(32, (3, 3)) + pool + _darknet_conv(64, (3, 3)) + pool
+    layers += _darknet_conv(128, (3, 3)) + _darknet_conv(64, (1, 1)) + _darknet_conv(128, (3, 3))
+    layers += pool
+    layers += _darknet_conv(256, (3, 3)) + _darknet_conv(128, (1, 1)) + _darknet_conv(256, (3, 3))
+    layers += pool
+    layers += (_darknet_conv(512, (3, 3)) + _darknet_conv(256, (1, 1)) +
+               _darknet_conv(512, (3, 3)) + _darknet_conv(256, (1, 1)) +
+               _darknet_conv(512, (3, 3)))
+    layers += pool
+    layers += (_darknet_conv(1024, (3, 3)) + _darknet_conv(512, (1, 1)) +
+               _darknet_conv(1024, (3, 3)) + _darknet_conv(512, (1, 1)) +
+               _darknet_conv(1024, (3, 3)))
+    layers += [L.ConvolutionLayer(n_out=n_classes, kernel=(1, 1), padding="same"),
+               L.GlobalPoolingLayer(mode="avg"),
+               L.LossLayer(loss="mcxent", activation="softmax")]
+    return NeuralNetConfig(seed=seed, updater=updater or U.Adam(learning_rate=1e-3)).list(
+        *layers, input_type=I.ConvolutionalType(height, width, channels))
+
+
+def tiny_yolo(*args, **kwargs):
+    """TinyYOLO (reference: TinyYOLO.java) needs Yolo2OutputLayer
+    (``nn/layers/objdetect.py``), which is not ported yet."""
+    raise NotImplementedError("tiny_yolo needs nn/layers/objdetect.py Yolo2OutputLayer, which "
+                              "is not ported yet (ROADMAP queue 1, \"Left out of slice 3\")")
 
 
 def text_generation_lstm(vocab_size, hidden=256, seq_len=64, updater=None, seed=12345):
@@ -39,17 +117,3 @@ def transformer_lm(vocab_size, n_layers=4, d_model=256, n_heads=4,
         L.RnnOutputLayer(n_out=vocab_size, loss="mcxent"),
         input_type=I.RecurrentType(1, seq_len),
     )
-
-
-_MODELS = {"text_generation_lstm": text_generation_lstm, "transformer_lm": transformer_lm}
-
-
-def get_model(name, **kwargs):
-    """The configuration of the zoo model ``name``, built with ``kwargs``."""
-    try:
-        fn = _MODELS[name]
-    except KeyError:
-        raise KeyError(f"zoo model {name!r} is not ported yet; ported: "
-                       f"{sorted(_MODELS)}") from None
-    return fn(**kwargs)
-

@@ -1,6 +1,7 @@
-"""ResNet50 as a ComputationGraph: the same configuration, vertex names
-included, as ``deeplearning4j_tpu/models/resnet.py``, so both packages
-serialize it to the same ``config.json``.
+"""ResNet50 as a ComputationGraph, and as a MultiLayerNetwork of
+ResidualBottleneck layers (``resnet50_mln``): the same configurations,
+vertex names included, as ``deeplearning4j_tpu/models/resnet.py``, so both
+packages serialize them to the same ``config.json``.
 
 NHWC, stride-2 downsampling on the first 1x1 conv of a stage and its
 projection shortcut, BatchNormalization with running statistics in state.
@@ -14,6 +15,7 @@ from __future__ import annotations
 from deeplearning4j_tpu_torch.nn import layers as L
 from deeplearning4j_tpu_torch.nn import updaters as U
 from deeplearning4j_tpu_torch.nn.conf import inputs as I
+from deeplearning4j_tpu_torch.nn.conf.network import NeuralNetConfig
 from deeplearning4j_tpu_torch.nn.fusion import FusedConvBNVertex
 from deeplearning4j_tpu_torch.nn.graph import ElementWiseVertex, GraphBuilder
 
@@ -58,9 +60,9 @@ def _bottleneck(g, name, inp, filters, stride=(1, 1), project=False, fused=False
 def resnet50(height=224, width=224, channels=3, n_classes=1000, updater=None, seed=12345,
              checkpoint_scope=None, fused=False):
     """ResNet50 (reference: ResNet50.java, BASELINE.md config #2):
-    25,557,032 parameters at 224x224x3 and 1000 classes. A graph built with
-    ``checkpoint_scope`` parses and serves, but does not train in the port
-    yet."""
+    25,557,032 parameters at 224x224x3 and 1000 classes.
+    ``checkpoint_scope="prefix"`` recomputes each bottleneck block (and the
+    stem) in the backward, keeping only the blocks' boundary activations."""
     g = GraphBuilder(updater=updater or U.Adam(learning_rate=1e-3), seed=seed,
                      checkpoint_scope=checkpoint_scope)
     g.add_inputs("input")
@@ -79,3 +81,26 @@ def resnet50(height=224, width=224, channels=3, n_classes=1000, updater=None, se
                 "avgpool")
     g.set_outputs("fc")
     return g.build()
+
+
+def resnet50_mln(height=224, width=224, channels=3, n_classes=1000, updater=None, seed=12345,
+                 stages=None, stem_filters=64):
+    """ResNet50 as a flat MultiLayerNetwork of ResidualBottleneck layers, the
+    geometry of ``resnet50`` with the shortcuts inside the blocks.
+    ``stages`` overrides the (filters, blocks, stride) table for cut-down
+    variants."""
+    stages = stages if stages is not None else [
+        (64, 3, (1, 1)), (128, 4, (2, 2)), (256, 6, (2, 2)), (512, 3, (2, 2))]
+    layers = [
+        L.ConvolutionLayer(n_out=stem_filters, kernel=(7, 7), stride=(2, 2), padding="same",
+                           has_bias=False, weight_init="relu"),
+        L.BatchNormalization(activation="relu"),
+        L.SubsamplingLayer(kernel=(3, 3), stride=(2, 2), padding="same", mode="max"),
+    ]
+    for filters, blocks, stride in stages:
+        layers += [L.ResidualBottleneck(filters=filters, stride=stride if bi == 0 else (1, 1),
+                                        project=bi == 0) for bi in range(blocks)]
+    layers += [L.GlobalPoolingLayer(mode="avg"),
+               L.OutputLayer(n_out=n_classes, loss="mcxent", weight_init="xavier")]
+    return NeuralNetConfig(seed=seed, updater=updater or U.Adam(learning_rate=1e-3)).list(
+        *layers, input_type=I.ConvolutionalType(height, width, channels))

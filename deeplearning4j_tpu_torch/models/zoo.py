@@ -1,0 +1,126 @@
+"""The zoo registry and pretrained-weight loading (reference: ZooModel.java;
+the JAX package's ``deeplearning4j_tpu/models/zoo.py``).
+
+``get_model(name)`` returns a ``ZooModel``: ``build(device=...)`` makes a
+freshly initialised network from the registered builder,
+``init_pretrained`` restores the pretrained checkpoint from the local data
+directory after its md5 check (``datasets/cacheable.py``; the port never
+downloads). The registry holds the JAX package's names less ``tinyyolo``,
+which waits for ``nn/layers/objdetect.py``. ``restore_checkpoint`` reads
+the framework's own zip (format v1); a DL4J ModelSerializer zip
+(``configuration.json`` + ``coefficients.bin``) and a Keras HDF5 file raise
+``NotImplementedError`` until ``modelimport/`` is ported.
+"""
+
+from __future__ import annotations
+
+import os
+import zipfile
+
+from deeplearning4j_tpu_torch.datasets import cacheable as _cache
+from deeplearning4j_tpu_torch.models import inception as _inc
+from deeplearning4j_tpu_torch.models import misc as _misc
+from deeplearning4j_tpu_torch.models import resnet as _resnet
+from deeplearning4j_tpu_torch.models import vgg as _vgg
+from deeplearning4j_tpu_torch.models.lenet import lenet as _lenet
+
+_MODELIMPORT = ("is not ported yet: it needs modelimport/ (ROADMAP queue 1, item 4, "
+                "\"NLP and domain libraries\")")
+
+
+class PretrainedType:
+    """Reference: org.deeplearning4j.zoo.PretrainedType."""
+    IMAGENET = "imagenet"
+    MNIST = "mnist"
+    CIFAR10 = "cifar10"
+    VGGFACE = "vggface"
+
+
+class ZooModel:
+    """One registry entry: a configuration builder and its pretrained
+    artifacts ({PretrainedType: (url, md5)})."""
+
+    def __init__(self, name, builder, pretrained=None, graph=True):
+        self.name = name
+        self.builder = builder
+        self.pretrained = pretrained or {}
+        self.graph = graph
+
+    def build(self, device="cuda", **kw):
+        """A freshly initialised network on ``device``; ``kw`` go to the
+        builder."""
+        from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+        from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+
+        conf = self.builder(**kw)
+        net = (ComputationGraph if self.graph else MultiLayerNetwork)(conf, device=device)
+        net.init()
+        return net
+
+    def pretrained_available(self, pretrained_type=PretrainedType.IMAGENET):
+        return pretrained_type in self.pretrained
+
+    def init_pretrained(self, pretrained_type=PretrainedType.IMAGENET, device="cuda"):
+        """The pretrained network from ``zoo/<name>_<type>.zip`` under the
+        data directory, md5-checked, on ``device``."""
+        if pretrained_type not in self.pretrained:
+            raise ValueError(f"Model {self.name} has no pretrained weights for "
+                             f"{pretrained_type!r} (available: {sorted(self.pretrained)})")
+        url, md5 = self.pretrained[pretrained_type]
+        path = _cache.ensure_file(os.path.join("zoo", f"{self.name}_{pretrained_type}.zip"),
+                                  url=url, md5=md5)
+        return restore_checkpoint(path, device=device)
+
+
+def restore_checkpoint(path, device="cuda"):
+    """Restore a model file by its format: the framework's own zip loads
+    through ``utils/serialization.load_model``; a DL4J ModelSerializer zip
+    and a Keras HDF5 file raise."""
+    with open(path, "rb") as f:
+        magic = f.read(8)
+    if magic.startswith(b"\x89HDF"):
+        raise NotImplementedError(f"{path}: Keras HDF5 import {_MODELIMPORT}")
+    with zipfile.ZipFile(path) as zf:
+        names = set(zf.namelist())
+        if "configuration.json" in names and "coefficients.bin" in names:
+            raise NotImplementedError(f"{path}: the DL4J ModelSerializer format {_MODELIMPORT}")
+    from deeplearning4j_tpu_torch.utils.serialization import load_model
+    return load_model(path, device=device)
+
+
+_REGISTRY = {}
+
+
+def register_model(name, builder, pretrained=None, graph=True):
+    _REGISTRY[name] = ZooModel(name, builder, pretrained=pretrained, graph=graph)
+    return _REGISTRY[name]
+
+
+def model_names():
+    return sorted(_REGISTRY)
+
+
+def get_model(name) -> ZooModel:
+    try:
+        return _REGISTRY[name]
+    except KeyError:
+        raise KeyError(f"Unknown zoo model {name!r}; known: {model_names()}") from None
+
+
+def init_pretrained(name, pretrained_type=PretrainedType.IMAGENET, device="cuda"):
+    return get_model(name).init_pretrained(pretrained_type, device=device)
+
+
+# the JAX package's registry, less tinyyolo (nn/layers/objdetect.py); entries
+# ship without pretrained artifacts, as there
+register_model("lenet", _lenet, graph=False)
+register_model("simplecnn", _misc.simple_cnn, graph=False)
+register_model("alexnet", _misc.alexnet, graph=False)
+register_model("darknet19", _misc.darknet19, graph=False)
+register_model("textgenlstm", _misc.text_generation_lstm, graph=False)
+register_model("vgg16", _vgg.vgg16, graph=False)
+register_model("vgg19", _vgg.vgg19, graph=False)
+register_model("resnet50", _resnet.resnet50)
+register_model("googlenet", _inc.googlenet)
+register_model("inceptionresnetv1", _inc.inception_resnet_v1)
+register_model("facenetnn4small2", _inc.facenet_nn4_small2)

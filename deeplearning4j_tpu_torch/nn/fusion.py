@@ -83,7 +83,7 @@ class FusedConvBNVertex(GraphVertex):
                     "var": self.decay * state["var"]
                     + (1 - self.decay) * var.to(state["var"].dtype)}
 
-    def apply(self, params, state, xs, *, train=False, mask=None):
+    def apply(self, params, state, xs, *, train=False, mask=None, rng=None):
         x = xs[0]
         r = xs[1] if self.residual else None
         if train and conv_stats.supported(_pair(self.kernel), _pair(self.stride), self.padding,

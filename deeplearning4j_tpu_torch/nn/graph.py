@@ -21,28 +21,37 @@ threaded through ``_forward_pass`` and detached at each boundary;
 ``rnn_time_step`` streams with the same carries. Bidirectional layers
 refuse both.
 
-Ported vertices: ``LayerVertex``, ``ElementWiseVertex``,
-``LastTimeStepVertex`` and ``nn/fusion.py FusedConvBNVertex``. The other
-vertex classes parse and round-trip, but a graph using one raises
-``NotImplementedError`` when it is built; so do training a graph with
-``checkpoint_scope`` or ``gradient_checkpointing`` set,
-``steps_per_dispatch > 1`` and ``pad_ragged``.
+Every vertex class of the JAX package is ported (``nn/fusion.py`` holds
+``FusedConvBNVertex``). An output layer with ``loss_from_features``
+(``CenterLossOutputLayer``) sees its input activation and the labels.
+``feed_forward`` returns every vertex's activation.
+
+Random draws (input dropout, ``DropoutLayer``) take a seed a train step
+(``nn/layers/base.py step_seed``), split into one seed a vertex before the
+traversal starts, as the JAX package splits its key. Remat:
+``checkpoint_scope="prefix"`` runs each group of consecutive vertices that
+share a name prefix (``s0b0_a_bn``, ``s0b0_b_bn``, ... -> ``s0b0``) under
+``torch.utils.checkpoint``, the JAX package's segments;
+``gradient_checkpointing`` checkpoints every other vertex on its own. Weight
+noise, ``steps_per_dispatch > 1`` and ``pad_ragged`` raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
-import inspect
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from deeplearning4j_tpu_torch.nn import gradnorm as _gradnorm
 from deeplearning4j_tpu_torch.nn import updaters as _updaters
 from deeplearning4j_tpu_torch.nn.conf import inputs as _inputs
 from deeplearning4j_tpu_torch.nn.layers import base as _base
+from deeplearning4j_tpu_torch.nn.layers.base import dropout_mask, split_seed, step_seed
 from deeplearning4j_tpu_torch.nn.layers.rnn import (Bidirectional, GravesBidirectionalLSTM,
                                                     last_time_step)
 from deeplearning4j_tpu_torch.nn.multilayer import _as_tensor, _detach, _param_tree
@@ -72,7 +81,8 @@ def _loss_mask_for(mask, label):
 
 @dataclasses.dataclass(frozen=True)
 class GraphVertex:
-    """Base: a function over a list of input activations."""
+    """Base: a function over a list of input activations. ``rng`` is the
+    vertex's seed in a train step (None outside one)."""
 
     def output_type(self, input_types):
         if len(input_types) != 1:
@@ -85,7 +95,7 @@ class GraphVertex:
     def init_state(self, input_types, dtype=torch.float32):
         return {}
 
-    def apply(self, params, state, xs, *, train=False, mask=None):
+    def apply(self, params, state, xs, *, train=False, mask=None, rng=None):
         return xs[0], state
 
     def regularization_penalty(self, params):
@@ -115,17 +125,16 @@ class LayerVertex(GraphVertex):
     def init_state(self, input_types, dtype=torch.float32):
         return self.layer.init_state(self._adapted(input_types), dtype)
 
-    def apply(self, params, state, xs, *, train=False, mask=None):
+    def apply(self, params, state, xs, *, train=False, mask=None, rng=None):
         x = xs[0]
         if self.layer.input_family is _inputs.FeedForwardType and x.dim() > 2:
             x = x.reshape(x.shape[0], -1)
         kwargs = {}
         # a 1-d mask marks valid examples; only [batch, time] masks reach
         # mask-aware layers
-        if mask is not None and mask.dim() >= 2 \
-                and "mask" in inspect.signature(type(self.layer).apply).parameters:
+        if mask is not None and mask.dim() >= 2 and _base.takes(type(self.layer), "mask"):
             kwargs["mask"] = mask
-        return self.layer.apply(params, state, x, train=train, **kwargs)
+        return _base.apply_layer(self.layer, params, state, x, train=train, rng=rng, **kwargs)
 
     def regularization_penalty(self, params):
         return self.layer.regularization_penalty(params) if len(params) else 0.0
@@ -143,6 +152,25 @@ class LayerVertex(GraphVertex):
 
 @serde.register_config
 @dataclasses.dataclass(frozen=True)
+class MergeVertex(GraphVertex):
+    """Concatenation on the feature/channel axis (the last: activations are
+    NHWC), so a merged map feeds the next conv as a channels-last view."""
+
+    def output_type(self, input_types):
+        t0 = input_types[0]
+        if isinstance(t0, _inputs.ConvolutionalType):
+            return _inputs.ConvolutionalType(t0.height, t0.width,
+                                             sum(t.channels for t in input_types))
+        if isinstance(t0, _inputs.RecurrentType):
+            return _inputs.RecurrentType(sum(t.size for t in input_types), t0.timesteps)
+        return _inputs.FeedForwardType(sum(t.size for t in input_types))
+
+    def apply(self, params, state, xs, *, train=False, mask=None, rng=None):
+        return torch.cat(xs, dim=-1), state
+
+
+@serde.register_config
+@dataclasses.dataclass(frozen=True)
 class ElementWiseVertex(GraphVertex):
     """add | subtract | product | average | max over the inputs."""
 
@@ -151,7 +179,7 @@ class ElementWiseVertex(GraphVertex):
     def output_type(self, input_types):
         return input_types[0]
 
-    def apply(self, params, state, xs, *, train=False, mask=None):
+    def apply(self, params, state, xs, *, train=False, mask=None, rng=None):
         if self.op == "add":
             return functools.reduce(torch.add, xs), state
         if self.op == "subtract":
@@ -167,73 +195,114 @@ class ElementWiseVertex(GraphVertex):
         raise ValueError(f"Unknown elementwise op {self.op!r}")
 
 
-@dataclasses.dataclass(frozen=True)
-class _NotPortedVertex(GraphVertex):
-    """A vertex class whose config parses and round-trips but whose
-    function is not ported: building a graph that uses it raises."""
-
-    def output_type(self, input_types):
-        raise NotImplementedError(f"{type(self).__name__} {_NOT_PORTED}")
-
-    def apply(self, params, state, xs, *, train=False, mask=None):
-        raise NotImplementedError(f"{type(self).__name__} {_NOT_PORTED}")
-
-
 @serde.register_config
 @dataclasses.dataclass(frozen=True)
-class MergeVertex(_NotPortedVertex):
-    pass
+class SubsetVertex(GraphVertex):
+    """The feature range [from_idx, to_idx], both ends included."""
 
-
-@serde.register_config
-@dataclasses.dataclass(frozen=True)
-class SubsetVertex(_NotPortedVertex):
     from_idx: int = 0
     to_idx: int = 0
 
+    def output_type(self, input_types):
+        n = self.to_idx - self.from_idx + 1
+        t = input_types[0]
+        if isinstance(t, _inputs.RecurrentType):
+            return _inputs.RecurrentType(n, t.timesteps)
+        if isinstance(t, _inputs.ConvolutionalType):
+            return _inputs.ConvolutionalType(t.height, t.width, n)
+        return _inputs.FeedForwardType(n)
+
+    def apply(self, params, state, xs, *, train=False, mask=None, rng=None):
+        return xs[0][..., self.from_idx:self.to_idx + 1], state
+
 
 @serde.register_config
 @dataclasses.dataclass(frozen=True)
-class StackVertex(_NotPortedVertex):
-    pass
+class StackVertex(GraphVertex):
+    """The inputs stacked on the batch axis."""
+
+    def output_type(self, input_types):
+        return input_types[0]  # the batch is not part of an InputType
+
+    def apply(self, params, state, xs, *, train=False, mask=None, rng=None):
+        return torch.cat(xs, dim=0), state
 
 
 @serde.register_config
 @dataclasses.dataclass(frozen=True)
-class UnstackVertex(_NotPortedVertex):
+class UnstackVertex(GraphVertex):
+    """Slice ``index`` of ``stack_size`` equal slices of the batch."""
+
     index: int = 0
     stack_size: int = 1
 
+    def apply(self, params, state, xs, *, train=False, mask=None, rng=None):
+        x = xs[0]
+        step = x.shape[0] // self.stack_size
+        return x[self.index * step:(self.index + 1) * step], state
+
 
 @serde.register_config
 @dataclasses.dataclass(frozen=True)
-class ScaleVertex(_NotPortedVertex):
+class ScaleVertex(GraphVertex):
     factor: float = 1.0
 
+    def apply(self, params, state, xs, *, train=False, mask=None, rng=None):
+        return xs[0] * self.factor, state
+
 
 @serde.register_config
 @dataclasses.dataclass(frozen=True)
-class ShiftVertex(_NotPortedVertex):
+class ShiftVertex(GraphVertex):
     amount: float = 0.0
 
+    def apply(self, params, state, xs, *, train=False, mask=None, rng=None):
+        return xs[0] + self.amount, state
+
 
 @serde.register_config
 @dataclasses.dataclass(frozen=True)
-class L2NormalizeVertex(_NotPortedVertex):
+class L2NormalizeVertex(GraphVertex):
+    """x / (||x|| + eps), the norm over all non-batch axes (eps outside the
+    square root, unlike ``F.normalize``)."""
+
     eps: float = 1e-8
 
+    def apply(self, params, state, xs, *, train=False, mask=None, rng=None):
+        x = xs[0]
+        norm = (x * x).sum(dim=tuple(range(1, x.dim())), keepdim=True).sqrt()
+        return x / (norm + self.eps), state
+
 
 @serde.register_config
 @dataclasses.dataclass(frozen=True)
-class L2Vertex(_NotPortedVertex):
+class L2Vertex(GraphVertex):
+    """The L2 distance between two inputs, sqrt(sum d^2 + eps): [B, 1]."""
+
     eps: float = 1e-8
 
+    def output_type(self, input_types):
+        return _inputs.FeedForwardType(1)
+
+    def apply(self, params, state, xs, *, train=False, mask=None, rng=None):
+        a, b = xs
+        d = (a - b).reshape(a.shape[0], -1)
+        return ((d * d).sum(dim=1, keepdim=True) + self.eps).sqrt(), state
+
 
 @serde.register_config
 @dataclasses.dataclass(frozen=True)
-class ReshapeVertex(_NotPortedVertex):
+class ReshapeVertex(GraphVertex):
+    """The non-batch axes reshaped to ``shape``."""
+
     shape: tuple = ()
     output_input_type: object = None
+
+    def output_type(self, input_types):
+        return self.output_input_type or input_types[0]
+
+    def apply(self, params, state, xs, *, train=False, mask=None, rng=None):
+        return xs[0].reshape((xs[0].shape[0],) + tuple(self.shape)), state
 
 
 @serde.register_config
@@ -245,30 +314,77 @@ class LastTimeStepVertex(GraphVertex):
     def output_type(self, input_types):
         return _inputs.FeedForwardType(input_types[0].size)
 
-    def apply(self, params, state, xs, *, train=False, mask=None):
+    def apply(self, params, state, xs, *, train=False, mask=None, rng=None):
         return last_time_step(xs[0], mask), state
 
 
 @serde.register_config
 @dataclasses.dataclass(frozen=True)
-class DuplicateToTimeSeriesVertex(_NotPortedVertex):
+class DuplicateToTimeSeriesVertex(GraphVertex):
+    """[B,F] -> [B,T,F], the input repeated over ``timesteps`` steps."""
+
     timesteps: int = 1
 
+    def output_type(self, input_types):
+        return _inputs.RecurrentType(input_types[0].size, self.timesteps)
+
+    def apply(self, params, state, xs, *, train=False, mask=None, rng=None):
+        x = xs[0]
+        return x[:, None, :].expand(x.shape[0], self.timesteps, x.shape[-1]), state
+
 
 @serde.register_config
 @dataclasses.dataclass(frozen=True)
-class PoolHelperVertex(_NotPortedVertex):
-    pass
+class PoolHelperVertex(GraphVertex):
+    """The first row and column cut off (GoogLeNet import compatibility)."""
+
+    def output_type(self, input_types):
+        t = input_types[0]
+        return _inputs.ConvolutionalType(t.height - 1, t.width - 1, t.channels)
+
+    def apply(self, params, state, xs, *, train=False, mask=None, rng=None):
+        return xs[0][:, 1:, 1:, :], state
 
 
 @serde.register_config
 @dataclasses.dataclass(frozen=True)
-class PreprocessorVertex(_NotPortedVertex):
+class PreprocessorVertex(GraphVertex):
+    """An explicit change of input family: cnn_to_ff | ff_to_cnn |
+    rnn_to_ff | ff_to_rnn | cnn_to_rnn."""
+
     kind: str = "cnn_to_ff"
     height: int = 0
     width: int = 0
     channels: int = 0
     timesteps: int = 0
+
+    def output_type(self, input_types):
+        t = input_types[0]
+        if self.kind == "cnn_to_ff":
+            return _inputs.FeedForwardType(t.flat_size)
+        if self.kind == "ff_to_cnn":
+            return _inputs.ConvolutionalType(self.height, self.width, self.channels)
+        if self.kind == "rnn_to_ff":
+            return _inputs.FeedForwardType(t.size)
+        if self.kind == "ff_to_rnn":
+            return _inputs.RecurrentType(t.size, self.timesteps)
+        if self.kind == "cnn_to_rnn":
+            return _inputs.RecurrentType(t.width * t.channels, t.height)
+        raise ValueError(f"Unknown preprocessor kind {self.kind!r}")
+
+    def apply(self, params, state, xs, *, train=False, mask=None, rng=None):
+        x = xs[0]
+        if self.kind == "cnn_to_ff":
+            return x.reshape(x.shape[0], -1), state
+        if self.kind == "ff_to_cnn":
+            return x.reshape(x.shape[0], self.height, self.width, self.channels), state
+        if self.kind == "rnn_to_ff":
+            return x.reshape(-1, x.shape[-1]), state
+        if self.kind == "ff_to_rnn":
+            return x.reshape(-1, self.timesteps, x.shape[-1]), state
+        if self.kind == "cnn_to_rnn":
+            return x.reshape(x.shape[0], x.shape[1], -1), state
+        raise ValueError(f"Unknown preprocessor kind {self.kind!r}")
 
 
 # --------------------------------------------------------------------------
@@ -385,6 +501,15 @@ class GraphBuilder:
         self._outputs.extend(names)
         return self
 
+    def add_module(self, module, layer_name, input_size, config, input_layer):
+        """Append a reusable fragment through the ``GraphBuilderModule``
+        interface (reference: GraphBuilderModule.updateBuilder)."""
+        return module.update_builder(self, layer_name, input_size, config, input_layer)
+
+    def last_vertex_name(self):
+        """The most recently added vertex (a module adds its output last)."""
+        return self._vertices[-1].name if self._vertices else None
+
     def build(self) -> GraphConfiguration:
         conf = GraphConfiguration(inputs=tuple(self._inputs),
                                   input_types=tuple(self._input_types),
@@ -409,11 +534,13 @@ class ComputationGraph(nn.Module):
         self._defs = {v.name: v for v in conf.vertices}
         self._order = conf.topological_order()
         self._types = conf.vertex_types()
+        self._pos = {name: i for i, name in enumerate(self._order)}
+        self._segments = self._build_segments() if conf.checkpoint_scope == "prefix" else None
         self.vertex_params = nn.ModuleDict()
         self.state = None
         self.opt_state = None
-        # the JAX package's step RNG chain, carried through checkpoints
-        # unused (no ported vertex draws random numbers)
+        # the JAX package's step RNG chain, carried through checkpoints; the
+        # port's draws come from ``_base.step_seed(conf.seed, iteration)``
         self.rng = None
         self.iteration = 0
         self.epoch = 0
@@ -460,54 +587,147 @@ class ComputationGraph(nn.Module):
         return self.params
 
     def _check_trainable(self):
-        if self.conf.checkpoint_scope is not None or self.conf.gradient_checkpointing:
-            raise NotImplementedError(f"activation checkpointing (checkpoint_scope / "
-                                      f"gradient_checkpointing) {_NOT_PORTED}")
         for v in self.conf.vertices:
-            layer = getattr(v.vertex, "layer", None)
-            if layer is not None and (layer.dropout > 0.0
-                                      or getattr(layer, "weight_noise", None) is not None):
-                raise NotImplementedError(f"vertex {v.name!r}: input dropout and weight noise "
-                                          "in train mode are not ported yet (ROADMAP queue 1, "
-                                          "\"Rest of the training core\")")
+            if getattr(getattr(v.vertex, "layer", None), "weight_noise", None) is not None:
+                raise NotImplementedError(f"vertex {v.name!r}: weight noise in train mode is "
+                                          "not ported yet (ROADMAP queue 1, \"Rest of the "
+                                          "training core\")")
 
-    def _forward_pass(self, params, state, inputs, *, train, mask=None, labels=None,
+    def _build_segments(self):
+        """The ``checkpoint_scope="prefix"`` partition of the topological
+        order, the JAX package's: a maximal run of >= 2 consecutive vertices
+        whose names share the prefix before the first '_' becomes
+        ("group", names, external inputs, boundary outputs); output
+        vertices and loss-from-features heads stay ("single", name). Only a
+        group's boundary outputs are kept for the backward; its interior is
+        recomputed."""
+        dependents = {}
+        for v in self.conf.vertices:
+            for inp in v.inputs:
+                dependents.setdefault(inp, set()).add(v.name)
+
+        def scope_of(name):
+            if name in self.conf.outputs:
+                return None
+            if hasattr(getattr(self._defs[name].vertex, "layer", None), "loss_from_features"):
+                return None
+            return name.split("_", 1)[0] if "_" in name else None
+
+        segments, order, i = [], self._order, 0
+        while i < len(order):
+            sc = scope_of(order[i])
+            j = i + 1
+            while sc is not None and j < len(order) and scope_of(order[j]) == sc:
+                j += 1
+            if sc is None or j - i < 2:
+                segments.append(("single", order[i]))
+                i += 1
+                continue
+            names = order[i:j]
+            produced, ext = set(names), []
+            for n in names:
+                for inp in self._defs[n].inputs:
+                    if inp not in produced and inp not in ext:
+                        ext.append(inp)
+            after = set(order[j:])
+            bnd = [n for n in names if n in self.conf.outputs or dependents.get(n, set()) & after]
+            segments.append(("group", tuple(names), tuple(ext), tuple(bnd)))
+            i = j
+        return segments
+
+    def _run_group(self, seg, params, state, acts, new_state, seeds, mask, train):
+        """One checkpoint group: its vertices run under
+        ``torch.utils.checkpoint``, which keeps only the group's inputs and
+        recomputes the interior in the backward. Each vertex's seed is drawn
+        before the group runs, so the recompute draws the same masks (the
+        checkpoint's own RNG restore covers the global generator only).
+        Only the boundary outputs land in ``acts``."""
+        _, names, ext, bnd = seg
+
+        def run(gp, gs, ext_vals, m):
+            local = dict(zip(ext, ext_vals))
+            ns = {}
+            for n in names:
+                v = self._defs[n]
+                local[n], ns[n] = v.vertex.apply(gp[n], gs[n], [local[i] for i in v.inputs],
+                                                 train=train, mask=m, rng=seeds[self._pos[n]])
+            return [local[n] for n in bnd], ns
+
+        outs, ns = torch.utils.checkpoint.checkpoint(
+            run, {n: params[n] for n in names}, {n: state[n] for n in names},
+            [acts[i] for i in ext], mask, use_reentrant=False, preserve_rng_state=False)
+        acts.update(zip(bnd, outs))
+        new_state.update(ns)
+
+    def _forward_pass(self, params, state, inputs, *, train, rng=None, mask=None, labels=None,
                       label_masks=None, carries=None):
         """The topological traversal every forward entry point shares.
         Returns (acts, new_state, loss); ``loss`` sums the output vertices'
-        losses when ``labels`` is given, else it is None. With ``carries``
-        ({vertex name: carry}) the recurrent LayerVertices run
-        ``apply_with_carry`` and the updated carries come back as a fourth
-        element."""
+        losses when ``labels`` is given, else it is None (an output layer
+        with ``loss_from_features`` gets its input activation and the
+        labels). ``rng`` is the step's seed, split into one seed a vertex
+        before any vertex runs. With ``carries`` ({vertex name: carry}) the
+        recurrent LayerVertices run ``apply_with_carry`` and the updated
+        carries come back as a fourth element. Remat (``checkpoint_scope``,
+        ``gradient_checkpointing``) applies where autograd records, on the
+        loss path without carries."""
         if not isinstance(inputs, dict):
             inputs = {self.conf.inputs[0]: inputs}
         acts = dict(inputs)
         new_state = dict(state)
         new_carries = None if carries is None else dict(carries)
         loss = 0.0 if labels is not None else None
-        for name in self._order:
+        seeds = (split_seed(rng, len(self._order)) if rng is not None
+                 else [None] * len(self._order))
+        remat = labels is not None and carries is None and torch.is_grad_enabled()
+        walk = (self._segments if remat and self._segments is not None
+                else [("single", n) for n in self._order])
+        for seg in walk:
+            if seg[0] == "group":
+                self._run_group(seg, params, state, acts, new_state, seeds, mask, train)
+                continue
+            name = seg[1]
             v = self._defs[name]
+            seed = seeds[self._pos[name]]
             xs = [acts[i] for i in v.inputs]
+            layer = getattr(v.vertex, "layer", None)
+            lm = None
+            if labels is not None and name in self.conf.outputs:
+                lm = (label_masks or {}).get(name)
+                if lm is None:
+                    lm = _loss_mask_for(mask, labels[name])
+            if labels is not None and name in self.conf.outputs \
+                    and hasattr(layer, "loss_from_features"):
+                x = xs[0]
+                if layer.input_family is _inputs.FeedForwardType and x.dim() > 2:
+                    x = x.reshape(x.shape[0], -1)
+                if train and seed is not None and layer.dropout > 0.0:
+                    x = dropout_mask(split_seed(seed, 2)[0], x, layer.dropout)
+                l_i, acts[name], new_state[name] = layer.loss_from_features(
+                    params[name], state[name], x, labels[name], lm, train=train)
+                loss = loss + l_i
+                continue
             if new_carries is not None and isinstance(v.vertex, LayerVertex) \
                     and v.vertex.has_carry():
                 acts[name], new_carries[name] = v.vertex.apply_with_carry(
                     params[name], new_carries.get(name), xs, mask=mask)
+            elif remat and self.conf.gradient_checkpointing:
+                acts[name], new_state[name] = torch.utils.checkpoint.checkpoint(
+                    functools.partial(v.vertex.apply, train=train, rng=seed), params[name],
+                    state[name], xs, mask=mask, use_reentrant=False, preserve_rng_state=False)
             else:
                 acts[name], new_state[name] = v.vertex.apply(
-                    params[name], state[name], xs, train=train, mask=mask)
+                    params[name], state[name], xs, train=train, mask=mask, rng=seed)
             if labels is not None and name in self.conf.outputs:
-                head = v.vertex.layer if isinstance(v.vertex, LayerVertex) else v.vertex
+                head = layer if layer is not None else v.vertex
                 if not hasattr(head, "compute_loss"):
                     raise ValueError(f"Output vertex {name!r} has no loss")
-                lm = (label_masks or {}).get(name)
-                if lm is None:
-                    lm = _loss_mask_for(mask, labels[name])
                 loss = loss + head.compute_loss(acts[name], labels[name], lm)
         if carries is not None:
             return acts, new_state, loss, new_carries
         return acts, new_state, loss
 
-    def apply_fn(self, params, state, inputs, *, train=False, mask=None):
+    def apply_fn(self, params, state, inputs, *, train=False, mask=None, rng=None):
         """Forward pass over a dict of inputs (or one tensor for a
         single-input graph). Returns ({output name: activation},
         new_state). ``train=False`` runs under ``torch.inference_mode()``."""
@@ -515,11 +735,24 @@ class ComputationGraph(nn.Module):
             self._check_trainable()
         with torch.enable_grad() if train else torch.inference_mode():
             acts, new_state, _ = self._forward_pass(params, state, inputs, train=train,
-                                                    mask=mask)
+                                                    mask=mask, rng=rng)
         return {o: acts[o] for o in self.conf.outputs}, new_state
 
+    def feed_forward(self, inputs, *, train=False, mask=None):
+        """The activation of every vertex, {name: tensor} (reference:
+        ComputationGraph.feedForward), inputs included."""
+        if self.params is None:
+            self.init()
+        dev = self.device
+        with _dtypes.policy_precision(), \
+                torch.enable_grad() if train else torch.inference_mode():
+            acts, _, _ = self._forward_pass(self.params, self.state,
+                                            self._named(inputs, self.conf.inputs), train=train,
+                                            mask=_as_tensor(mask, dev))
+        return acts
+
     def loss_fn(self, params, state, inputs, labels, *, train=True, mask=None,
-                label_masks=None, carries=None):
+                label_masks=None, carries=None, rng=None):
         """Sum of the output vertices' losses + L1/L2 penalties. Returns
         (loss, (new_state, outputs)); with ``carries`` (TBPTT chunks) the
         updated carries join them: (loss, (new_state, outputs, carries))."""
@@ -528,7 +761,7 @@ class ComputationGraph(nn.Module):
         if train:
             self._check_trainable()
         with torch.enable_grad() if train else torch.inference_mode():
-            fwd = self._forward_pass(params, state, inputs, train=train, mask=mask,
+            fwd = self._forward_pass(params, state, inputs, train=train, mask=mask, rng=rng,
                                      labels=labels, label_masks=label_masks, carries=carries)
             acts, new_state, loss = fwd[:3]
             for name in self._order:
@@ -572,14 +805,15 @@ class ComputationGraph(nn.Module):
 
     def make_tbptt_step(self):
         """One TBPTT chunk: (params, state, opt_state, carries, inputs,
-        labels, step, mask) -> (params, state, opt_state, carries, loss),
-        the carries detached coming in and going out."""
-        def tbptt_step(params, state, opt_state, carries, inputs, labels, step, mask=None):
+        labels, step, mask, rng) -> (params, state, opt_state, carries,
+        loss), the carries detached coming in and going out."""
+        def tbptt_step(params, state, opt_state, carries, inputs, labels, step, mask=None,
+                       rng=None):
             carries = {k: _detach(c) for k, c in carries.items()}
             for p in tree_leaves(params):
                 p.requires_grad_(True)
             loss, (new_state, _, new_carries) = self.loss_fn(
-                params, state, inputs, labels, train=True, mask=mask, carries=carries)
+                params, state, inputs, labels, train=True, mask=mask, carries=carries, rng=rng)
             grads = self._grads(loss, params)
             params, opt_state = self.apply_update(params, opt_state, grads, step)
             return (params, new_state, opt_state, {k: _detach(c) for k, c in new_carries.items()},
@@ -615,7 +849,8 @@ class ComputationGraph(nn.Module):
             _, self.state, self.opt_state, carries, loss = step_fn(
                 self.params, self.state, self.opt_state, carries,
                 self._chunk_time(inputs, t0, t0 + length),
-                self._chunk_time(labels, t0, t0 + length), self.iteration, cm)
+                self._chunk_time(labels, t0, t0 + length), self.iteration, cm,
+                step_seed(self.conf.seed, self.iteration))
             total = total + loss
             n_chunks += 1
             self.iteration += 1
@@ -647,13 +882,15 @@ class ComputationGraph(nn.Module):
                 for o in self.conf.outputs}
         return next(iter(outs.values())) if len(outs) == 1 else outs
 
-    def compute_gradients(self, params, state, inputs, labels, *, mask=None):
+    def compute_gradients(self, params, state, inputs, labels, *, mask=None, rng=None):
         """Loss and normalized gradients. Returns (loss, new_state, grads)
         with ``grads`` a dict of per-vertex dicts shaped as ``params``. A
-        parameter the loss does not reach gets zeros."""
+        parameter the loss does not reach gets zeros. ``rng``, the step's
+        seed, turns on the random draws (dropout)."""
         for p in tree_leaves(params):
             p.requires_grad_(True)
-        loss, (new_state, _) = self.loss_fn(params, state, inputs, labels, train=True, mask=mask)
+        loss, (new_state, _) = self.loss_fn(params, state, inputs, labels, train=True, mask=mask,
+                                            rng=rng)
         return loss.detach(), new_state, self._grads(loss, params)
 
     def apply_update(self, params, opt_state, grads, step):
@@ -668,10 +905,10 @@ class ComputationGraph(nn.Module):
 
     def make_train_step(self):
         """The train step: (params, state, opt_state, inputs, labels, step,
-        mask) -> (params, state, opt_state, loss)."""
-        def train_step(params, state, opt_state, inputs, labels, step, mask=None):
+        mask, rng) -> (params, state, opt_state, loss)."""
+        def train_step(params, state, opt_state, inputs, labels, step, mask=None, rng=None):
             loss, new_state, grads = self.compute_gradients(params, state, inputs, labels,
-                                                            mask=mask)
+                                                            mask=mask, rng=rng)
             params, opt_state = self.apply_update(params, opt_state, grads, step)
             return params, new_state, opt_state, loss
         return train_step
@@ -723,7 +960,7 @@ class ComputationGraph(nn.Module):
                     else:
                         _, self.state, self.opt_state, loss = step_fn(
                             self.params, self.state, self.opt_state, bi, bl, self.iteration,
-                            bm)
+                            bm, step_seed(self.conf.seed, self.iteration))
                         self.iteration += 1
                     if pending is not None:
                         self.score_history.append(float(pending))
@@ -762,3 +999,21 @@ class ComputationGraph(nn.Module):
 
     def num_params(self):
         return sum(int(p.numel()) for p in self.parameters())
+
+
+class GraphBuilderModule:
+    """A reusable graph fragment (reference: nn/conf/module/
+    GraphBuilderModule.java): ``update_builder`` appends a named sub-graph
+    (an inception block, say) to a ``GraphBuilder``, its output vertex
+    last, and returns the builder."""
+
+    def module_name(self):
+        """Lowercase module name, the prefix of the vertices it adds."""
+        raise NotImplementedError
+
+    def update_builder(self, builder, layer_name, input_size, config, input_layer):
+        """Append this module's vertices to ``builder``: ``layer_name`` is
+        their base name, ``input_size`` the channel count of
+        ``input_layer``'s activations, ``config`` the module's own table.
+        Returns the builder."""
+        raise NotImplementedError

@@ -1,5 +1,6 @@
 """Convolutional layers: ConvolutionLayer, SubsamplingLayer,
-BatchNormalization and GlobalPoolingLayer.
+BatchNormalization, LocalResponseNormalization, ResidualBottleneck and
+GlobalPoolingLayer.
 
 Activations stay logically NHWC and kernels HWIO, as in the JAX package, so
 parameters and checkpoints need no transpose. A library convolution gets an
@@ -12,7 +13,11 @@ kernel as an OIHW view. Padding follows XLA: "same" pads
 (an average divides by the full window, pads included). BatchNormalization
 updates its running variance with the biased batch variance,
 ``decay * old + (1 - decay) * batch``; torch's ``F.batch_norm`` would take
-the unbiased one.
+the unbiased one. LocalResponseNormalization divides by
+``(k + alpha * sum x^2)^beta`` over a channel window padded (n//2,
+n-1-n//2), as the JAX package's ``reduce_window``; torch's
+``local_response_norm`` divides alpha by n and centres the window
+otherwise.
 """
 
 from __future__ import annotations
@@ -231,6 +236,122 @@ class BatchNormalization(ParamLayer):
         if self.use_gamma_beta:
             y = y * params["gamma"] + params["beta"]
         return self.activation_fn()(y).to(out_dtype), new_state
+
+
+@register_config
+@dataclasses.dataclass(frozen=True)
+class LocalResponseNormalization(Layer):
+    """Cross-channel LRN (reference: LocalResponseNormalization.java;
+    defaults k=2, n=5, alpha=1e-4, beta=0.75, the AlexNet formulation)."""
+
+    k: float = 2.0
+    n: int = 5
+    alpha: float = 1e-4
+    beta: float = 0.75
+
+    input_family = _inputs.ConvolutionalType
+
+    def output_type(self, input_type):
+        return input_type
+
+    def apply(self, params, state, x, *, train=False):
+        half = self.n // 2
+        sq = F.pad(x * x, (half, self.n - 1 - half))  # the channel (last) axis
+        ssum = sq.unfold(-1, self.n, 1).sum(-1)
+        return x / (self.k + self.alpha * ssum) ** self.beta, state
+
+
+@register_config
+@dataclasses.dataclass(frozen=True)
+class ResidualBottleneck(ParamLayer):
+    """ResNet-v1 bottleneck (1x1 reduce -> 3x3 -> 1x1 expand 4x, shortcut
+    add, relu) as one layer of a MultiLayerNetwork, the geometry of
+    ``models/resnet.py _bottleneck``: filters f -> (f, f, 4f), the stride
+    on the first 1x1, a projection shortcut (1x1 stride conv + BN) whenever
+    the shortcut's shape changes or ``project`` is set. Parameters and
+    state nest by sublayer (``a_conv``, ``a_bn``, ..., ``proj_bn``)."""
+
+    filters: int = 64
+    stride: tuple = (1, 1)
+    project: bool = False  # a projection shortcut (automatic when shapes differ)
+    decay: float = 0.9  # BN running-average momentum
+    eps: float = 1e-5
+
+    input_family = _inputs.ConvolutionalType
+
+    def _needs_proj(self, input_type):
+        return (self.project or input_type.channels != 4 * self.filters
+                or _pair(self.stride) != (1, 1))
+
+    def _plan(self, input_type):
+        """[(name, sublayer, its input type)]: the main chain, then the shortcut."""
+        f = self.filters
+        subs, t = [], input_type
+        for tag, k, s, act, nout in (("a", (1, 1), self.stride, "relu", f),
+                                     ("b", (3, 3), (1, 1), "relu", f),
+                                     ("c", (1, 1), (1, 1), "identity", 4 * f)):
+            cl = ConvolutionLayer(n_out=nout, kernel=k, stride=s, padding="same",
+                                  has_bias=False, weight_init="relu")
+            subs.append((f"{tag}_conv", cl, t))
+            t = cl.output_type(t)
+            subs.append((f"{tag}_bn", BatchNormalization(decay=self.decay, eps=self.eps,
+                                                         activation=act), t))
+        if self._needs_proj(input_type):
+            pc = ConvolutionLayer(n_out=4 * f, kernel=(1, 1), stride=self.stride,
+                                  padding="same", has_bias=False, weight_init="relu")
+            subs.append(("proj_conv", pc, input_type))
+            subs.append(("proj_bn", BatchNormalization(decay=self.decay, eps=self.eps,
+                                                       activation="identity"),
+                         pc.output_type(input_type)))
+        return subs
+
+    def output_type(self, input_type):
+        if not isinstance(input_type, _inputs.ConvolutionalType):
+            raise ValueError(f"{type(self).__name__} needs CNN input, got {input_type}")
+        sh, sw = _pair(self.stride)
+        return _inputs.ConvolutionalType(-(-input_type.height // sh),
+                                         -(-input_type.width // sw), 4 * self.filters)
+
+    def init(self, generator, input_type, dtype=torch.float32):
+        out = {}
+        for name, sub, t in self._plan(input_type):
+            p = sub.init(generator, t, dtype)
+            if p:
+                out[name] = p
+        return out
+
+    def init_state(self, input_type, dtype=torch.float32):
+        return {name: sub.init_state(t, dtype) for name, sub, t in self._plan(input_type)
+                if isinstance(sub, BatchNormalization)}
+
+    def apply(self, params, state, x, *, train=False):
+        it = _inputs.ConvolutionalType(x.shape[1], x.shape[2], x.shape[3])
+        new_state = dict(state)
+        h, shortcut = x, x
+        for name, sub, _ in self._plan(it):
+            on_shortcut = name.startswith("proj")
+            y, st = sub.apply(params.get(name, {}), state.get(name, {}),
+                              shortcut if on_shortcut else h, train=train)
+            if name in state:
+                new_state[name] = st
+            if on_shortcut:
+                shortcut = y
+            else:
+                h = y
+        return torch.relu(h + shortcut), new_state
+
+    def regularization_penalty(self, params):
+        """L1/L2 on the conv kernels only (BN's gamma and beta are not
+        regularized, the reference's default)."""
+        pen = 0.0
+        for name, sub in params.items():
+            if name.endswith("_conv"):
+                w = sub["W"]
+                if self.l1:
+                    pen = pen + self.l1 * w.abs().sum()
+                if self.l2:
+                    pen = pen + 0.5 * self.l2 * (w * w).sum()
+        return pen
 
 
 @register_config

@@ -1,5 +1,5 @@
-"""Core layers: Dense, Output, Loss, Activation and EmbeddingSequence, and
-the policy matmul."""
+"""Core layers: Dense, Output, Loss, Activation, Dropout and
+EmbeddingSequence, and the policy matmul."""
 
 from __future__ import annotations
 
@@ -11,7 +11,7 @@ from deeplearning4j_tpu_torch.nn import activations as _act
 from deeplearning4j_tpu_torch.nn import initializers as _init
 from deeplearning4j_tpu_torch.nn import losses as _losses
 from deeplearning4j_tpu_torch.nn.conf import inputs as _inputs
-from deeplearning4j_tpu_torch.nn.layers.base import Layer, ParamLayer
+from deeplearning4j_tpu_torch.nn.layers.base import Layer, ParamLayer, dropout_mask
 from deeplearning4j_tpu_torch.utils import dtypes as _dtypes
 from deeplearning4j_tpu_torch.utils.serde import register_config
 
@@ -99,6 +99,43 @@ class ActivationLayer(Layer):
 
     def apply(self, params, state, x, *, train=False):
         return _act.get(self.activation)(x), state
+
+
+@register_config
+@dataclasses.dataclass(frozen=True)
+class DropoutLayer(Layer):
+    """Standalone dropout in train mode (reference: DropoutLayer.java):
+    ``kind`` dropout (inverted) | alpha (SELU-preserving) |
+    gaussian_dropout (multiplicative N(1, rate/(1-rate))) | gaussian_noise
+    (additive N(0, rate^2)). The identity in eval mode or without a seed."""
+
+    rate: float = 0.5
+    kind: str = "dropout"
+
+    input_family = None  # accepts any family unchanged
+
+    def output_type(self, input_type):
+        return input_type
+
+    def apply(self, params, state, x, *, train=False, rng=None):
+        if not train or self.rate <= 0.0 or rng is None:
+            return x, state
+        if self.kind == "dropout":
+            return dropout_mask(rng, x, self.rate), state
+        g = torch.Generator(device=x.device).manual_seed(int(rng))
+        if self.kind == "alpha":
+            alpha_p = -1.7580993408473766
+            keep = 1.0 - self.rate
+            a = (keep + alpha_p ** 2 * keep * (1 - keep)) ** -0.5
+            b = -a * alpha_p * (1 - keep)
+            kept = torch.rand(x.shape, generator=g, device=x.device) < keep
+            return a * torch.where(kept, x, torch.full_like(x, alpha_p)) + b, state
+        noise = torch.randn(x.shape, generator=g, device=x.device).to(x.dtype)
+        if self.kind == "gaussian_dropout":
+            return x * (1.0 + (self.rate / (1.0 - self.rate)) ** 0.5 * noise), state
+        if self.kind == "gaussian_noise":
+            return x + self.rate * noise, state
+        raise ValueError(f"Unknown dropout kind {self.kind!r}")
 
 
 @register_config

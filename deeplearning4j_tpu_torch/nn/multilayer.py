@@ -22,15 +22,21 @@ one updater step a chunk, with the recurrent layers' (h, c) carried from
 chunk to chunk and detached at each boundary (``_apply_rnn``,
 ``make_tbptt_step``, ``_fit_tbptt``). ``rnn_time_step`` streams inference
 one step (or a short chunk) at a time with the same carries;
-``rnn_clear_previous_state`` drops them. Input dropout and weight noise are
-not ported yet: training a network that needs them raises
+``rnn_clear_previous_state`` drops them.
+
+Layer state (BatchNormalization's running statistics, also nested, as in
+ResidualBottleneck) is a list of per-layer dicts of plain tensors, replaced
+by each train step. An output layer with ``loss_from_features``
+(``CenterLossOutputLayer``) gets its input activation and the labels.
+Input dropout and ``DropoutLayer`` draw from a seed a train step
+(``nn/layers/base.py step_seed``), split into one seed a layer. Weight
+noise is not ported yet: training a network that needs it raises
 ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import functools
-import inspect
 
 import numpy as np
 import torch
@@ -42,15 +48,12 @@ from deeplearning4j_tpu_torch.nn import gradnorm as _gradnorm
 from deeplearning4j_tpu_torch.nn.conf import inputs as _inputs
 from deeplearning4j_tpu_torch.nn.conf.network import MultiLayerConfiguration
 from deeplearning4j_tpu_torch.nn.layers import base as _base
+from deeplearning4j_tpu_torch.nn.layers.base import apply_layer, split_seed, step_seed
 from deeplearning4j_tpu_torch.utils import dtypes as _dtypes
 from deeplearning4j_tpu_torch.utils.device import resolve_device
 from deeplearning4j_tpu_torch.utils.trees import tree_leaves, tree_like
 
 _NOT_PORTED = "is not ported yet (ROADMAP queue 1, \"Rest of the training core\")"
-
-
-def _accepts_mask(layer):
-    return "mask" in inspect.signature(type(layer).apply).parameters
 
 
 def _param_tree(d, device):
@@ -59,6 +62,12 @@ def _param_tree(d, device):
         k: _param_tree(v, device) if isinstance(v, dict)
         else nn.Parameter(v.to(device), requires_grad=False)
         for k, v in d.items()})
+
+
+def _to_device(d, device):
+    """A (nested) dict of tensors on ``device``."""
+    return {k: _to_device(v, device) if isinstance(v, dict) else v.to(device)
+            for k, v in d.items()}
 
 
 def _detach(carry):
@@ -81,12 +90,12 @@ class MultiLayerNetwork(nn.Module):
         self.conf = conf
         self._device = resolve_device(device)
         self.layer_inputs, self.output_type = conf.layer_input_types()
-        self._mask_aware = [_accepts_mask(l) for l in conf.layers]
+        self._mask_aware = [_base.takes(type(l), "mask") for l in conf.layers]
         self.layer_params = nn.ModuleList()
         self.state = [{} for _ in conf.layers]
         self.opt_state = None
-        # the JAX package's step RNG chain, carried through checkpoints
-        # unused (no ported layer draws random numbers)
+        # the JAX package's step RNG chain, carried through checkpoints; the
+        # port's draws come from ``step_seed(conf.seed, iteration)``
         self.rng = None
         self.iteration = 0
         self.epoch = 0
@@ -111,43 +120,40 @@ class MultiLayerNetwork(nn.Module):
 
     def init(self, generator=None, dtype=None):
         """Initialize parameters from ``generator`` (default: a CPU
-        generator seeded with ``conf.seed``), move them to the network's
-        device; the updater state is made at the first ``fit``. Returns
-        the per-layer parameter dicts."""
+        generator seeded with ``conf.seed``) and layer state, on the
+        network's device; the updater state is made at the first ``fit``.
+        Returns the per-layer parameter dicts."""
         if generator is None:
             generator = torch.Generator().manual_seed(self.conf.seed)
         dtype = dtype or _dtypes.get_policy().param_dtype
-        dicts = []
+        dicts, state = [], []
         for layer, in_type in zip(self.conf.layers, self.layer_inputs):
-            p = layer.init(generator, in_type, dtype)
-            if layer.init_state(in_type, dtype):
-                raise NotImplementedError(
-                    f"{type(layer).__name__} carries state; stateful layers "
-                    "are not ported yet")
-            dicts.append(_param_tree(p, self._device))
+            dicts.append(_param_tree(layer.init(generator, in_type, dtype), self._device))
+            state.append(_to_device(layer.init_state(in_type, dtype), self._device))
         self.layer_params = nn.ModuleList(dicts)
-        self.state = [{} for _ in self.conf.layers]
+        self.state = state
         self.opt_state = None
         return self.params
 
     def _check_trainable(self):
         for layer in self.conf.layers:
-            if layer.dropout > 0.0:
-                raise NotImplementedError(
-                    f"{type(layer).__name__}: input dropout in train mode {_NOT_PORTED}")
             if getattr(layer, "weight_noise", None) is not None:
                 raise NotImplementedError(
                     f"{type(layer).__name__}: weight noise in train mode {_NOT_PORTED}")
 
-    def apply_fn(self, params, state, x, *, train=False, mask=None):
-        """Forward pass. Returns (output, new_state). ``train=False`` runs
-        under ``torch.inference_mode()``; ``train=True`` builds the graph."""
+    def apply_fn(self, params, state, x, *, train=False, mask=None, rng=None, layer_limit=None):
+        """Forward pass through the first ``layer_limit`` layers (all by
+        default). Returns (output, new_state). ``train=False`` runs under
+        ``torch.inference_mode()``; ``train=True`` builds the graph. ``rng``
+        is the step's seed (None: no random draws)."""
         if train:
             self._check_trainable()
         new_state = list(state)
         cur_type = self.conf.input_type
+        n = len(self.conf.layers) if layer_limit is None else layer_limit
+        seeds = split_seed(rng, n) if rng is not None else [None] * n
         with torch.enable_grad() if train else torch.inference_mode():
-            for i, layer in enumerate(self.conf.layers):
+            for i, layer in enumerate(self.conf.layers[:n]):
                 fam = layer.input_family
                 if fam is not None and not isinstance(cur_type, fam):
                     x = _inputs.adapt(x, cur_type, fam)
@@ -159,39 +165,52 @@ class MultiLayerNetwork(nn.Module):
                     kwargs["mask"] = mask
                 if train and self.conf.gradient_checkpointing:
                     # remat: keep the layer's input, recompute its activations
-                    # in the backward (memory for operations)
+                    # in the backward (memory for operations); the seed makes
+                    # the recompute draw the same masks
                     x, new_state[i] = torch.utils.checkpoint.checkpoint(
-                        functools.partial(layer.apply, train=train, **kwargs),
-                        params[i], state[i], x, use_reentrant=False)
+                        functools.partial(apply_layer, layer, train=train, rng=seeds[i],
+                                          **kwargs),
+                        params[i], state[i], x, use_reentrant=False, preserve_rng_state=False)
                 else:
-                    x, new_state[i] = layer.apply(params[i], state[i], x, train=train, **kwargs)
+                    x, new_state[i] = apply_layer(layer, params[i], state[i], x, train=train,
+                                                  rng=seeds[i], **kwargs)
                 cur_type = layer.output_type(cur_type)
         return x, new_state
 
-    def loss_fn(self, params, state, x, y, *, train=True, mask=None, label_mask=None):
+    def loss_fn(self, params, state, x, y, *, train=True, mask=None, label_mask=None,
+                rng=None):
         """Score = output-layer loss + L1/L2 penalties. Returns
-        (loss, (new_state, predictions))."""
+        (loss, (new_state, predictions)). An output layer with
+        ``loss_from_features`` computes the loss from its input."""
         out_layer = self.conf.layers[-1]
-        if not hasattr(out_layer, "compute_loss"):
+        lm = label_mask if label_mask is not None else mask
+        from_features = hasattr(out_layer, "loss_from_features")
+        if not from_features and not hasattr(out_layer, "compute_loss"):
             raise ValueError("Last layer must be an output/loss layer, got "
                              f"{type(out_layer).__name__}")
-        lm = label_mask if label_mask is not None else mask
-        preds, new_state = self.apply_fn(params, state, x, train=train, mask=mask)
+        n = len(self.conf.layers) - 1 if from_features else None
+        out, new_state = self.apply_fn(params, state, x, train=train, mask=mask, rng=rng,
+                                       layer_limit=n)
         with torch.enable_grad() if train else torch.inference_mode():
-            loss = out_layer.compute_loss(preds, y, lm)
+            if from_features:
+                loss, preds, new_state[-1] = out_layer.loss_from_features(
+                    params[-1], state[-1], out, y, lm, train=train)
+            else:
+                preds, loss = out, out_layer.compute_loss(out, y, lm)
             for layer, p in zip(self.conf.layers, params):
                 if len(p):
                     loss = loss + layer.regularization_penalty(p)
             loss, new_state = _base.pop_aux_losses(loss, new_state)
         return loss, (new_state, preds)
 
-    def compute_gradients(self, params, state, x, y, *, mask=None):
+    def compute_gradients(self, params, state, x, y, *, mask=None, rng=None):
         """Loss and normalized/clipped gradients. Returns (loss, new_state,
         grads) with ``grads`` a list of per-layer dicts shaped as
-        ``params``. A parameter the loss does not reach gets zeros."""
+        ``params``. A parameter the loss does not reach gets zeros.
+        ``rng``, the step's seed, turns on the random draws (dropout)."""
         for p in tree_leaves(params):
             p.requires_grad_(True)
-        loss, (new_state, _) = self.loss_fn(params, state, x, y, train=True, mask=mask)
+        loss, (new_state, _) = self.loss_fn(params, state, x, y, train=True, mask=mask, rng=rng)
         return loss.detach(), new_state, self._grads(loss, params)
 
     def _grads(self, loss, params):
@@ -216,10 +235,11 @@ class MultiLayerNetwork(nn.Module):
                 for l, p in zip(self.conf.layers, params)]
 
     def make_train_step(self):
-        """The train step: (params, state, opt_state, x, y, step, mask) ->
-        (params, state, opt_state, loss)."""
-        def train_step(params, state, opt_state, x, y, step, mask=None):
-            loss, new_state, grads = self.compute_gradients(params, state, x, y, mask=mask)
+        """The train step: (params, state, opt_state, x, y, step, mask, rng)
+        -> (params, state, opt_state, loss)."""
+        def train_step(params, state, opt_state, x, y, step, mask=None, rng=None):
+            loss, new_state, grads = self.compute_gradients(params, state, x, y, mask=mask,
+                                                            rng=rng)
             params, opt_state = self.apply_update(params, opt_state, grads, step)
             return params, new_state, opt_state, loss
         return train_step
@@ -236,14 +256,16 @@ class MultiLayerNetwork(nn.Module):
         return [l.zero_carry(batch, sd, device) if hasattr(l, "zero_carry") else None
                 for l in self.conf.layers]
 
-    def _apply_rnn(self, params, state, x, carries, *, train=False, mask=None):
+    def _apply_rnn(self, params, state, x, carries, *, train=False, mask=None, rng=None):
         """Forward pass threading the recurrent layers' carries. Returns
-        (y, new_state, new_carries)."""
+        (y, new_state, new_carries). As in the JAX package, a layer that
+        draws (``DropoutLayer``) gets its seed; input dropout is off here."""
         if train:
             self._check_trainable()
         new_state = list(state)
         new_carries = list(carries)
         cur_type = self.conf.input_type
+        seeds = split_seed(rng, len(self.conf.layers)) if rng is not None else None
         for i, layer in enumerate(self.conf.layers):
             fam = layer.input_family
             if fam is not None and not isinstance(cur_type, fam):
@@ -253,25 +275,27 @@ class MultiLayerNetwork(nn.Module):
                 x, new_carries[i] = layer.apply_with_carry(params[i], carries[i], x, mask=mask)
             else:
                 kwargs = {"mask": mask} if (self._mask_aware[i] and mask is not None) else {}
+                if seeds is not None and _base.takes(type(layer), "rng"):
+                    kwargs["rng"] = seeds[i]
                 x, new_state[i] = layer.apply(params[i], state[i], x, train=train, **kwargs)
             cur_type = layer.output_type(cur_type)
         return x, new_state, new_carries
 
     def make_tbptt_step(self):
         """One TBPTT chunk: (params, state, opt_state, carries, x, y, step,
-        mask) -> (params, state, opt_state, carries, loss). The carries come
+        mask, rng) -> (params, state, opt_state, carries, loss). The carries come
         in detached (the truncation), the chunk's loss takes the feature
         mask as its label mask, and the updater runs without the constraint
         pass, as in the JAX package's TBPTT step."""
         conf = self.conf
 
-        def tbptt_step(params, state, opt_state, carries, x, y, step, mask=None):
+        def tbptt_step(params, state, opt_state, carries, x, y, step, mask=None, rng=None):
             carries = [None if c is None else _detach(c) for c in carries]
             for p in tree_leaves(params):
                 p.requires_grad_(True)
             with torch.enable_grad():
                 preds, new_state, new_carries = self._apply_rnn(params, state, x, carries,
-                                                                train=True, mask=mask)
+                                                                train=True, mask=mask, rng=rng)
                 loss = conf.layers[-1].compute_loss(preds, y, mask)
                 for layer, p in zip(conf.layers, params):
                     if len(p):
@@ -297,7 +321,7 @@ class MultiLayerNetwork(nn.Module):
             cm = None if mask is None else mask[:, t0:t0 + length]
             _, self.state, self.opt_state, carries, loss = step_fn(
                 self.params, self.state, self.opt_state, carries, x[:, t0:t0 + length],
-                y[:, t0:t0 + length], self.iteration, cm)
+                y[:, t0:t0 + length], self.iteration, cm, step_seed(self.conf.seed, self.iteration))
             total = total + loss  # summed on the device: no sync per chunk
             n_chunks += 1
             self.iteration += 1
@@ -359,7 +383,8 @@ class MultiLayerNetwork(nn.Module):
                         loss = self._fit_tbptt(x, y, m)
                     else:
                         _, self.state, self.opt_state, loss = step_fn(
-                            self.params, self.state, self.opt_state, x, y, self.iteration, m)
+                            self.params, self.state, self.opt_state, x, y, self.iteration, m,
+                            step_seed(self.conf.seed, self.iteration))
                         self.iteration += 1
                     if pending is not None:
                         self.score_history.append(float(pending))

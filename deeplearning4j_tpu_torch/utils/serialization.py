@@ -10,9 +10,11 @@ Layout inside the zip (``deeplearning4j_tpu/utils/serialization.py``):
                     the params/state/opt_state trees, e.g. params[0]['Wx']
 
 Both kinds are read and written: a MultiLayerNetwork's parameters are a
-list of per-layer dicts (``params[1]['mha']['Wqkv']``), a
+list of per-layer dicts (``params[1]['mha']['Wqkv']``) with per-layer
+state beside them (``state[1]['mean']``, ``state[4]['a_bn']['var']``), a
 ComputationGraph's a dict of per-vertex dicts (``params['stem_conv']['W']``)
-with per-vertex state beside them (``state['stem_bn']['mean']``).
+with per-vertex state (``state['stem_bn']['mean']``,
+``state['lossLayer']['centers']``).
 Parameters and state load into the port's tensors. Updater state (``opt...``) loads into the
 port's updater state under the same paths (Adam's ``opt['m'][1]['W']``,
 RmsProp's ``opt[0]['W']``) and is written back from it, so a checkpoint
@@ -58,9 +60,8 @@ def _write_model(z, net, save_updater):
     graph = isinstance(net, ComputationGraph)
     arrays = {k: t.detach().cpu().numpy()
               for k, t in flatten_tree(net.params or [], "params").items()}
-    if graph:
-        arrays.update({k: t.detach().cpu().numpy()
-                       for k, t in flatten_tree(net.state, "state").items()})
+    arrays.update({k: t.detach().cpu().numpy()
+                   for k, t in flatten_tree(net.state, "state").items()})
     has_updater = bool(save_updater and net.opt_state is not None)
     if has_updater:
         arrays.update({k: t.detach().cpu().numpy()
@@ -91,9 +92,10 @@ def params_from_numpy(net, params, state=None):
     """Load parameters given as the JAX package's ``net.params`` (a list of
     per-layer dicts for a MultiLayerNetwork, a dict of per-vertex dicts for
     a ComputationGraph, nested where a layer nests, of numpy arrays or
-    anything ``np.asarray`` takes) into ``net``, on its device, and a
-    graph's ``state`` the same way. Every key and shape must match the
-    network's own layout. Returns ``net``."""
+    anything ``np.asarray`` takes) into ``net``, on its device, and its
+    ``state`` (BatchNormalization's running statistics, center-loss
+    centers) the same way. Every key and shape must match the network's
+    own layout. Returns ``net``."""
     if net.params is None:
         net.init()
     if isinstance(net, ComputationGraph):
@@ -101,13 +103,13 @@ def params_from_numpy(net, params, state=None):
         if state is not None:
             _load_flat(net.state, flatten_tree(state, "s"), "s", "state")
         return net
-    if state is not None and any(len(s) for s in state):
-        raise NotImplementedError("layer state in a MultiLayerNetwork is not ported yet")
-    if len(params) != len(net.params):
-        raise ValueError(f"{len(params)} parameter dicts for "
-                         f"{len(net.params)} layers")
-    for i, (mine, theirs) in enumerate(zip(net.params, params)):
-        _load_flat(mine, flatten_tree(theirs), "", f"layer {i} parameters")
+    for what, mine, theirs in (("parameter", net.params, params), ("state", net.state, state)):
+        if theirs is None:
+            continue
+        if len(theirs) != len(mine):
+            raise ValueError(f"{len(theirs)} {what} dicts for {len(mine)} layers")
+        for i, (m, t) in enumerate(zip(mine, theirs)):
+            _load_flat(m, flatten_tree(t), "", f"layer {i} {what}")
     return net
 
 
@@ -117,18 +119,13 @@ def _read_model(z, device):
         raise ValueError(f"Checkpoint format {meta['format_version']} is newer "
                          f"than supported {FORMAT_VERSION}")
     arrays = dict(np.load(io.BytesIO(z.read("arrays.npz"))))
+    conf_json = z.read("config.json").decode()
     if meta["kind"] == "graph":
-        net = ComputationGraph(GraphConfiguration.from_json(z.read("config.json").decode()),
-                               device=device)
-        net.init()  # template tensors, overwritten below
-        _load_flat(net.state, arrays, "state", "state")
+        net = ComputationGraph(GraphConfiguration.from_json(conf_json), device=device)
     else:
-        conf = MultiLayerConfiguration.from_json(z.read("config.json").decode())
-        net = MultiLayerNetwork(conf, device=device)
-        net.init()
-        if any(k.startswith("state") for k in arrays):
-            raise NotImplementedError("checkpoint carries layer state: stateful layers in a "
-                                      "MultiLayerNetwork are not ported yet")
+        net = MultiLayerNetwork(MultiLayerConfiguration.from_json(conf_json), device=device)
+    net.init()  # template tensors, overwritten below
+    _load_flat(net.state, arrays, "state", "state")
     _load_flat(net.params, arrays, "params", "parameters")
     if meta.get("has_updater"):
         net.opt_state = net.conf.updater.init(net.params)

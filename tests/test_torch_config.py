@@ -43,7 +43,7 @@ def test_charnn_config_round_trips_both_ways(kwargs):
     assert t_conf.to_json() == j_json
     assert json.loads(t_conf.to_json()) == json.loads(j_json)
     assert t_charnn(**kwargs).to_json() == j_json
-    assert get_model("text_generation_lstm", **kwargs).to_json() == j_json
+    assert get_model("textgenlstm").builder(**kwargs).to_json() == j_json
     assert JConf.from_json(t_charnn(**kwargs).to_json()).to_json() == j_json
 
 
@@ -93,7 +93,7 @@ def test_schedule_configs_round_trip(name):
 
 
 def test_unported_type_raises_a_clear_error():
-    conf = JNetConf().list(JL.LocalResponseNormalization(),
+    conf = JNetConf().list(JL.ZeroPaddingLayer(),
                            JL.OutputLayer(n_out=2),
                            input_type=JIn.ConvolutionalType(8, 8, 1))
     with pytest.raises(KeyError, match="not ported"):

@@ -122,6 +122,9 @@ def test_resnet50_config_json_round_trips_both_ways(fused):
 
 
 def test_unported_vertices_parse_round_trip_and_refuse_to_build():
+    """The graph that once refused to build (Scale, Subset and Preprocessor
+    were not ported) round-trips its JSON and computes the JAX package's
+    output and loss from the same weights."""
     conf = (JG.GraphBuilder().add_inputs("a", "b")
             .set_input_types(JI.FeedForwardType(3), JI.FeedForwardType(3))
             .add_vertex("sum", JG.ElementWiseVertex(op="average"), "a", "b")
@@ -131,8 +134,15 @@ def test_unported_vertices_parse_round_trip_and_refuse_to_build():
             .add_layer("out", JL.OutputLayer(n_out=2), "pre").set_outputs("out").build())
     t_conf = TG.GraphConfiguration.from_json(conf.to_json())
     assert t_conf.to_json() == conf.to_json()
-    with pytest.raises(NotImplementedError, match="ScaleVertex is not ported yet"):
-        TG.ComputationGraph(t_conf, device="cpu")
+    jnet = JG.ComputationGraph(conf)
+    jnet.init()
+    tnet = TG.ComputationGraph(t_conf, device="cpu")
+    tser.params_from_numpy(tnet, jnet.params, state=jnet.state)
+    rs = np.random.RandomState(0)
+    x = {"a": rs.randn(4, 3).astype(np.float32), "b": rs.randn(4, 3).astype(np.float32)}
+    y = np.eye(2, dtype=np.float32)[rs.randint(0, 2, 4)]
+    np.testing.assert_allclose(tnet.output(x).numpy(), np.asarray(jnet.output(x)), atol=1e-6)
+    np.testing.assert_allclose(tnet.score(x, y), jnet.score(x, y), rtol=1e-6)
 
 
 def test_elementwise_vertex_matches_jax():
@@ -159,15 +169,32 @@ def test_full_width_resnet50_has_the_reference_parameter_count():
 
 
 def test_training_what_is_not_ported_raises():
-    net = TG.ComputationGraph(t_resnet50(HW, HW, n_classes=CLASSES, checkpoint_scope="prefix"),
-                              device="cpu")
-    x, y = _data(2, 0)
-    assert net.output(x).shape == (2, CLASSES)  # inference does not need remat
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        net.fit(x, y)
+    """``checkpoint_scope="prefix"`` trains now: from the same weights the
+    remat step equals the plain one in float64 (loss, gradients, BN state),
+    and every fused vertex, all inside a block group, runs its conv twice
+    (forward and recompute). ``steps_per_dispatch > 1`` still raises."""
+    x, y = (torch.from_numpy(a).double() for a in _data(2, 0))
+    nets, calls = [], []
+    for scope in (None, "prefix"):
+        net = TG.ComputationGraph(t_resnet50(HW, HW, n_classes=CLASSES, fused=True,
+                                             checkpoint_scope=scope), device="cpu")
+        net.init(torch.Generator().manual_seed(0), dtype=torch.float64)
+        counted = []
+        conv_z = C.conv_z
+        C.conv_z = lambda *a, **k: counted.append(1) or conv_z(*a, **k)
+        try:
+            nets.append(net.compute_gradients(net.params, net.state, {"input": x}, {"fc": y}))
+        finally:
+            C.conv_z = conv_z
+        calls.append(len(counted))
+    (l0, s0, g0), (l1, s1, g1) = nets
+    assert float(l1) == float(l0)
+    _assert_trees(g1, g0, rtol=1e-12, atol=1e-15)
+    _assert_trees(s1, s0, rtol=0, atol=0)
+    assert calls == [52, 104]
     net = TG.ComputationGraph(t_resnet50(HW, HW, n_classes=CLASSES), device="cpu")
     with pytest.raises(NotImplementedError, match="steps_per_dispatch"):
-        net.fit(x, y, steps_per_dispatch=4)
+        net.fit(*_data(2, 0), steps_per_dispatch=4)
 
 
 def test_graph_fits_dict_inputs_with_two_heads():

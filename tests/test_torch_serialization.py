@@ -100,8 +100,8 @@ def test_params_from_numpy_rejects_a_wrong_layout(jax_net):
 
 
 def test_graph_checkpoints_are_not_ported_yet(tmp_path):
-    """A graph checkpoint loads unless its config uses a vertex class that
-    is not ported: then loading raises and names it."""
+    """A JAX graph checkpoint whose config uses a MergeVertex (once
+    refused) loads in the port and computes the same output."""
     from deeplearning4j_tpu.nn import graph as jg
     from deeplearning4j_tpu.nn import layers as JL
     from deeplearning4j_tpu.nn.conf import inputs as JI
@@ -114,5 +114,8 @@ def test_graph_checkpoints_are_not_ported_yet(tmp_path):
     net.init()
     path = tmp_path / "graph.zip"
     jser.save_model(net, str(path))
-    with pytest.raises(NotImplementedError, match="MergeVertex is not ported yet"):
-        tser.load_model(path, device="cpu")
+    tnet = tser.load_model(path, device="cpu")
+    assert tnet.conf.to_json() == conf.to_json()
+    rs = np.random.RandomState(0)
+    x = {"a": rs.randn(4, 3).astype(np.float32), "b": rs.randn(4, 2).astype(np.float32)}
+    np.testing.assert_allclose(tnet.output(x).numpy(), np.asarray(net.output(x)), atol=1e-6)

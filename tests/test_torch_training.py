@@ -462,14 +462,34 @@ def test_char_rnn_gradients_on_the_cpu_match_jax():
 @pytest.mark.parametrize("change", [{"dropout": 0.1}, {"weight_noise": object()}],
                          ids=["dropout", "weight_noise"])
 def test_dropout_and_weight_noise_raise_in_train_mode(change):
+    """Weight noise still raises in train mode. Input dropout trains: its
+    step differs from the dropout-free step from the same weights and
+    repeats to the bit from the same seed and iteration. Inference ignores
+    both."""
     conf = t_lm(VOCAB, n_layers=1, d_model=8, n_heads=2, seq_len=8)
-    layers = conf.layers[:-1] + (dataclasses.replace(conf.layers[-1], **change),)
-    net = TNet(dataclasses.replace(conf, layers=layers), device="cpu")
-    net.init()
-    x, y = np.zeros((2, 8, 1), np.float32), np.full((2, 8, VOCAB), 1.0 / VOCAB, np.float32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        net.fit((x, y))
+
+    def net_with(ch):
+        layers = conf.layers[:-1] + (dataclasses.replace(conf.layers[-1], **ch),)
+        net = TNet(dataclasses.replace(conf, layers=layers), device="cpu")
+        net.init()
+        return net
+
+    net = net_with(change)
+    rs = np.random.RandomState(0)
+    x = rs.randint(0, VOCAB, (2, 8, 1)).astype(np.float32)
+    y = np.eye(VOCAB, dtype=np.float32)[rs.randint(0, VOCAB, (2, 8))]
+    if "weight_noise" in change:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            net.fit((x, y))
+    else:
+        plain, again = net_with({}), net_with(change)
+        for n in (net, plain, again):
+            n.fit((x, y))
+        _assert_trees(again.params, net.params, rtol=0, atol=0)
+        assert not torch.equal(net.params[-1]["W"], plain.params[-1]["W"])
+        assert np.isfinite(net.score_value)
     assert net.output(x).shape == (2, 8, VOCAB)  # inference ignores both
+    np.testing.assert_array_equal(net.output(x).numpy(), net.output(x).numpy())
 
 
 def test_tbptt_raises():
