@@ -131,6 +131,42 @@ nonzero; nothing is caught):
             (every fused vertex sits in a group: forward and recompute, 104
             a step) on the planned variants. ``resnet50_mln`` trained one
             step at batch 2 on the card, saved, restored on the CPU.
+13. finetune the fused ResNet50 at the flagship shape trained 2 steps,
+            saved and restored through ``models.zoo.restore_checkpoint``,
+            then ``TransferLearningGraph``: frozen up to ``s2b5_relu`` (45
+            vertices), a fresh 5-way head, Adam 1e-3 (23,518,277 params,
+            14,974,981 trained) on 5 class templates plus noise, batch 64,
+            under both policies: under f32 first one step from identical
+            weights against the same step with exactly rounded stage-3
+            convs, within 3x the distance of the kernels' plain versions
+            (on the card, on the batch permuted, on the CPU) from it; 2
+            warm-up steps, then 10 timed steps five times,
+            without and with ScoreIteration, Performance and CollectScores
+            listeners in turns (the listener runs within the plain runs'
+            spread plus 10% of their median, by the listener runs'
+            median), 7 ``conv_mm_stats`` and 3
+            ``conv3x3_stats`` launches a step on the planned variant (the
+            frozen fused vertices run in inference mode and launch none),
+            the frozen parameters and BN state bit-identical to the restored
+            source, the loss falling. ``evaluate`` and ``evaluate_roc`` on
+            640 held-out images plus an ``EvaluationCalibration``: accuracy
+            at least 0.6 (chance 0.2), the confusion matrix equal to the
+            argmax counts of ``output()``. Under f32 then
+            ``EarlyStoppingTrainer`` over 3 epochs scored by the held-out
+            loss (the restored best scores the recorded best), and the
+            network served from its checkpoint through the registry on
+            batch buckets 1-64: 256 requests of 1 to 16 images, one in four
+            batched, every other one in the dict form, each result against
+            ``output()``; then the ``serve`` and ``eval`` verbs on the
+            checkpoint. Tiny YOLO from the registry at its defaults
+            (416x416, 20 classes, 5 anchors, 15,861,773 params) at batch 32
+            on synthetic images with 1-4 boxes, both policies, the loss
+            falling; its detections and NMS from the card's output equal to
+            the same on the output moved to the CPU; one f32 step at batch
+            4, 224x224, against float64 on the CPU as ``irv1_step_check``
+            holds Inception-ResNet v1's. The ten conv layers this slice
+            ports, forward and backward at 56x56x128 (1-D: 3136 x 128),
+            against float64 on the CPU.
 
 Then a ``kernels`` line (every kernel of the paths with its launches on
 its path, error, times and bound), the card's name and power limit, and
@@ -180,6 +216,22 @@ Inception-ResNet v1 step against float64 within 1.5x the f32 step's noise
 restored checkpoints' outputs within 1e-4 (f32; resnet50_mln's pooled
 features too, relative to their largest); the remat step against the plain
 one as ``resnet_step_check`` holds the kernel step, under each policy.
+Fine-tune: the kernel step against the step whose stage-3 convs are
+exactly rounded (the plain versions in float64), as ``noise_check`` holds
+the zoo's card-vs-float64 step: loss, gradients all together and updated
+parameters within 3x (FT_NOISE_FACTOR) the f32 noise, the largest distance
+from it of the plain-version step on the card, on the batch permuted and
+on the CPU (a permutation alone leaves each image's conv sums as they
+were; the kernel's one-chain sums ran 1.0-1.4x the library's); BN state
+relative to each tensor's magnitude (stage 3 sees activations far from
+unit scale behind the source's frozen statistics); single tensors
+reported; served rows against ``output()`` at batch 64
+within 1e-4 (softmax probabilities; cuDNN may choose another algorithm at
+another batch size, and the phase first measures the rows' difference
+between batch 1 and batch 64, which must be at most half of it); Tiny
+YOLO's f32 step against float64 as Inception-ResNet v1's; each new conv
+layer on the card within 1e-4 of the float64 tensor's largest magnitude
+(f32 sums of up to 2304 products).
 """
 
 from __future__ import annotations
@@ -253,6 +305,28 @@ IR_BATCH, IR_HW, IR_CLASSES, IR_PARAMS = 64, 160, 1001, 16_863_161
 GN_BATCH, GN_HW, GN_CLASSES, GN_PARAMS = 64, 224, 1000, 8_048_152
 ZOO_WARMUP_STEPS, ZOO_TIMED_STEPS, ZOO_LOSS_WINDOW = 2, 10, 5
 ZOO_CHECK_BATCH, ZOO_CKPT_ATOL = 8, 1e-4
+
+# the finetune phase: the fused ResNet50 above trained two steps, saved,
+# restored, frozen up to s2b5_relu with a fresh 5-way head (Adam 1e-3); its
+# unfrozen stage 3 launches the conv kernels 7 + 3 times a step
+FT_CLASSES, FT_EXTRACTOR, FT_SOURCE_STEPS = 5, "s2b5_relu", 2
+FT_PARAMS, FT_TRAINABLE, FT_FROZEN = 23_518_277, 14_974_981, 45
+FT_CONV_A_STEP = {"conv_mm_stats": 7, "conv3x3_stats": 3}
+FT_EVAL_IMAGES, FT_ES_EPOCHS = 640, 3
+FT_MIN_ACCURACY = 0.6  # chance is 1/5: held-out accuracy above it by 0.4
+FT_LISTENER_ALLOWANCE = 0.1
+# the fine-tune kernel step against its exactly rounded one, in units of the
+# library f32 steps' distance from it: the kernel sums each output in one
+# chain of up to 4608 products, which put it 0.96x, 1.23x and 1.38x the
+# library's distance (gradients, all together) in three runs on the card; a
+# wrong function moves the gradients by orders of magnitude more
+FT_NOISE_FACTOR = 3.0
+FT_SERVE_BUCKETS, FT_SERVE_REQUESTS, FT_SERVE_MAX_ROWS = (1, 2, 4, 8, 16, 32, 64), 256, 16
+FT_SERVE_ATOL = 1e-4
+# Tiny YOLO at the registry's defaults (416x416, 20 classes, 5 VOC anchors)
+YOLO_BATCH, YOLO_HW, YOLO_CLASSES, YOLO_PARAMS = 32, 416, 20, 15_861_773
+YOLO_CHECK_BATCH, YOLO_CHECK_HW, YOLO_DETECT_IMAGES, YOLO_DETECTIONS = 4, 224, 4, 64
+LAYER_BATCH, LAYER_HW, LAYER_C, LAYER_RTOL = 4, 56, 128, 1e-4
 
 
 def emit(phase, **fields):
@@ -1646,14 +1720,18 @@ def phase_conv(C):
     return totals, path_err
 
 
-def resnet_data(seed, n, hw=RN_HW, n_out=RN_CLASSES):
-    """n synthetic labelled images on the card: each of RN_TASK_CLASSES
-    class templates (uniform noise images from the seed) plus noise of half
-    its amplitude, labels one-hot over the ``n_out`` outputs."""
+def resnet_data(seed, n, hw=RN_HW, n_out=RN_CLASSES, classes=RN_TASK_CLASSES, draw_seed=None):
+    """n synthetic labelled images on the card: each of ``classes`` class
+    templates (uniform noise images from the seed) plus noise of half its
+    amplitude, labels one-hot over the ``n_out`` outputs; ``draw_seed``
+    draws other labels and noise over the same templates (held-out
+    images)."""
     rs = np.random.RandomState(seed)
-    templates = torch.from_numpy(rs.rand(RN_TASK_CLASSES, hw, hw, 3).astype(np.float32))
-    labels = torch.from_numpy(rs.randint(0, RN_TASK_CLASSES, size=n)).cuda()
-    g = torch.Generator(device="cuda").manual_seed(seed)
+    templates = torch.from_numpy(rs.rand(classes, hw, hw, 3).astype(np.float32))
+    if draw_seed is not None:
+        rs = np.random.RandomState(draw_seed)
+    labels = torch.from_numpy(rs.randint(0, classes, size=n)).cuda()
+    g = torch.Generator(device="cuda").manual_seed(seed if draw_seed is None else draw_seed)
     x = templates.cuda()[labels] + 0.5 * torch.rand(n, hw, hw, 3, device="cuda", generator=g)
     return x, torch.nn.functional.one_hot(labels, n_out).float()
 
@@ -1712,14 +1790,17 @@ def graph_step(C, seed, x, y, plain=False, scope=None):
 def step_diff(a, b):
     """How far step ``a`` is from step ``b``: relative loss difference, the
     gradients' relative difference (all tensors together, and per tensor),
-    the state's and the parameters' max |diff| and the parameter elements
-    beyond RN_PARAM_ATOL."""
+    the state's max |diff| (absolute, and per tensor relative to the larger
+    of 1 and the tensor's largest magnitude), the parameters' max |diff|
+    and the parameter elements beyond RN_PARAM_ATOL."""
     rel = {k: ((a[1][k] - b[1][k]).norm() / b[1][k].norm().clamp_min(1e-30)).item() for k in b[1]}
     num = sum(((a[1][k] - b[1][k]) ** 2).sum() for k in b[1])
     den = sum((b[1][k] ** 2).sum() for k in b[1])
     return {"loss_rel": abs(a[0] - b[0]) / abs(b[0]), "grad_rel": (num / den).sqrt().item(),
             "grad_rel_by_tensor": rel,
             "state_max_abs": max((a[3][k] - b[3][k]).abs().max().item() for k in b[3]),
+            "state_max_rel": max(((a[3][k] - b[3][k]).abs().max() /
+                                  b[3][k].abs().max().clamp_min(1.0)).item() for k in b[3]),
             "param_max_abs": max((a[2][k] - b[2][k]).abs().max().item() for k in b[2]),
             "params_beyond_atol": sum(int(((a[2][k] - b[2][k]).abs() > RN_PARAM_ATOL).sum())
                                       for k in b[2])}
@@ -1745,31 +1826,37 @@ def resnet_step_check(C, x, y, seed):
     return within_noise(k, p, q, "kernel", "plain")
 
 
-def within_noise(k, p, q, k_name, p_name):
+def within_noise(k, p, q, k_name, p_name, state_rel=False):
     """Hold step ``k`` against step ``p`` within the noise of ``q`` (``p``'s
     step on the batch permuted), as ``resnet_step_check`` states."""
     return noise_check(k, p, step_diff(k, p), step_diff(q, p), k_name, p_name,
-                       f"{p_name}_vs_{p_name}_permuted")
+                       f"{p_name}_vs_{p_name}_permuted", state_rel=state_rel)
 
 
-def noise_check(k, p, kp, qp, k_name, p_name, noise_name, per_tensor=True):
-    """Hold ``kp`` (step_diff of step ``k`` from step ``p``) within the noise
-    ``qp`` (a step_diff of the same kind); ``per_tensor=False`` reports the
-    worst tensor's gradient difference without holding it."""
+def noise_check(k, p, kp, qp, k_name, p_name, noise_name, per_tensor=True, state_rel=False,
+                factor=RN_NOISE_FACTOR):
+    """Hold ``kp`` (step_diff of step ``k`` from step ``p``) within ``factor``
+    x the noise ``qp`` (a step_diff of the same kind); ``per_tensor=False``
+    reports the worst tensor's gradient difference without holding it. The
+    state is held to RN_STATE_ATOL absolutely, or with ``state_rel``
+    relative to each tensor's largest magnitude (where that exceeds 1: BN
+    statistics of activations far from unit scale)."""
     if not kp["loss_rel"] <= RN_LOSS_RTOL:
         raise AssertionError(f"{k_name} step loss {k[0]} vs {p_name} step loss {p[0]}")
-    if not kp["state_max_abs"] <= RN_STATE_ATOL:
-        raise AssertionError(f"BN running state differs by {kp['state_max_abs']}")
-    if not kp["grad_rel"] <= RN_NOISE_FACTOR * qp["grad_rel"]:
+    state_err = kp["state_max_rel" if state_rel else "state_max_abs"]
+    if not state_err <= RN_STATE_ATOL:
+        raise AssertionError(f"BN running state differs by {state_err}"
+                             + (" relative" if state_rel else ""))
+    if not kp["grad_rel"] <= factor * qp["grad_rel"]:
         raise AssertionError(f"gradients differ by {kp['grad_rel']} relative, beyond "
-                             f"{RN_NOISE_FACTOR} x the step's own noise {qp['grad_rel']}")
+                             f"{factor} x the step's own noise {qp['grad_rel']}")
     worst = max(kp["grad_rel_by_tensor"],
                 key=lambda n: kp["grad_rel_by_tensor"][n] / (qp["grad_rel_by_tensor"][n] + 1e-5))
-    if per_tensor and not kp["grad_rel_by_tensor"][worst] <= 2 * RN_NOISE_FACTOR * \
+    if per_tensor and not kp["grad_rel_by_tensor"][worst] <= 2 * factor * \
             qp["grad_rel_by_tensor"][worst] + 1e-5:
         raise AssertionError(f"gradient {worst} differs by {kp['grad_rel_by_tensor'][worst]}, "
                              f"beyond the noise {qp['grad_rel_by_tensor'][worst]}")
-    if not kp["params_beyond_atol"] <= RN_NOISE_FACTOR * qp["params_beyond_atol"]:
+    if not kp["params_beyond_atol"] <= factor * qp["params_beyond_atol"]:
         raise AssertionError(f"{kp['params_beyond_atol']} updated parameters beyond "
                              f"{RN_PARAM_ATOL}, against {qp['params_beyond_atol']} from noise")
     summary = {k_: v for k_, v in kp.items() if k_ != "grad_rel_by_tensor"}
@@ -1942,17 +2029,7 @@ def irv1_step(net, x, y):
     """The first step of ``fit`` from ``net``'s weights: (loss, {path:
     gradient}, {path: parameter after RmsProp's first step}, {path: state:
     BN statistics and centers})."""
-    from deeplearning4j_tpu_torch.utils.trees import flatten_tree
-
-    from deeplearning4j_tpu_torch.utils import dtypes
-
-    with dtypes.policy_precision():
-        loss, state, grads = net.compute_gradients(net.params, net.state, {"input": x},
-                                                   {"lossLayer": y})
-    net.opt_state = net.conf.updater.init(net.params)
-    net.apply_update(net.params, net.opt_state, grads, 0)
-    return (float(loss), flatten_tree(grads),
-            {k: v.detach() for k, v in flatten_tree(net.params).items()}, flatten_tree(state))
+    return first_step(net, {"input": x}, {"lossLayer": y})
 
 
 def irv1_step_check(seed, x, y):
@@ -2185,6 +2262,596 @@ def phase_zoo(C, seed):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# finetune: transfer learning of the fused ResNet50, evaluation, early
+# stopping, graph serving, Tiny YOLO and the other conv layers
+# ---------------------------------------------------------------------------
+
+def ft_build(source, seed):
+    """The fine-tuned graph: ``source``'s fused ResNet50 frozen up to and
+    including FT_EXTRACTOR, a fresh FT_CLASSES-way head, Adam 1e-3."""
+    from deeplearning4j_tpu_torch.nn import layers as L
+    from deeplearning4j_tpu_torch.nn import updaters as U
+    from deeplearning4j_tpu_torch.nn.transfer import FineTuneConfiguration, TransferLearningGraph
+
+    net = (TransferLearningGraph(source)
+           .fine_tune_configuration(FineTuneConfiguration(updater=U.Adam(1e-3), seed=seed))
+           .set_feature_extractor(FT_EXTRACTOR)
+           .replace_layer("fc", L.OutputLayer(n_out=FT_CLASSES, loss="mcxent")).build())
+    trainable = sum(p.numel() for n, d in net.params.items() if n not in net.frozen_vertices
+                    for p in d.values())
+    got = (net.num_params(), trainable, len(net.frozen_vertices))
+    if got != (FT_PARAMS, FT_TRAINABLE, FT_FROZEN):
+        raise AssertionError(f"fine-tuned graph: (params, trainable, frozen vertices) {got}, "
+                             f"expected {(FT_PARAMS, FT_TRAINABLE, FT_FROZEN)}")
+    return net
+
+
+def first_step(net, x, y):
+    """The first step of ``fit`` from ``net``'s weights, the updater from
+    its initial state: (loss, {path: gradient}, {path: parameter},
+    {path: state})."""
+    from deeplearning4j_tpu_torch.utils import dtypes
+    from deeplearning4j_tpu_torch.utils.trees import flatten_tree
+
+    with dtypes.policy_precision():
+        loss, state, grads = net.compute_gradients(net.params, net.state, x, y)
+    net.opt_state = net.conf.updater.init(net.params)
+    net.apply_update(net.params, net.opt_state, grads, 0)
+    return (float(loss), flatten_tree(grads),
+            {k: v.detach() for k, v in flatten_tree(net.params).items()}, flatten_tree(state))
+
+
+@contextlib.contextmanager
+def exact_conv_kernels(C):
+    """Within this block the fused op computes z with the kernels' plain
+    versions in float64, rounded once to the input's dtype, and its
+    statistics from that z in f32, as the kernels sum them: the f32 step
+    whose convolutions are exactly rounded. (Statistics in float64 would
+    also remove the f32 cancellation of E[z^2] - mean^2 that every f32
+    path shares, which no f32 step can match.)"""
+    saved = C.conv_mm_stats, C.conv3x3_stats
+
+    def exact(plain):
+        def run(x, w, stride=(1, 1)):
+            z = plain(x.double(), w.double(), stride)[0].to(x.dtype)
+            zf = z.reshape(-1, z.shape[-1]).float()
+            return z, torch.stack((zf.sum(0), (zf * zf).sum(0)))
+        return run
+
+    C.conv_mm_stats, C.conv3x3_stats = exact(C.conv_mm_stats_plain), exact(C.conv3x3_stats_plain)
+    try:
+        yield
+    finally:
+        C.conv_mm_stats, C.conv3x3_stats = saved
+
+
+@contextlib.contextmanager
+def cpu_conv_kernels(C):
+    """Within this block the fused op computes z and its statistics with the
+    kernels' plain versions on the CPU in f32 (another f32 implementation:
+    the CPU's library sums in its own order), the results back on the
+    card."""
+    saved = C.conv_mm_stats, C.conv3x3_stats
+
+    def on_cpu(plain):
+        def run(x, w, stride=(1, 1)):
+            z, stats = plain(x.cpu(), w.cpu(), stride)
+            return z.to(x.device), stats.to(x.device)
+        return run
+
+    C.conv_mm_stats, C.conv3x3_stats = on_cpu(C.conv_mm_stats_plain), on_cpu(C.conv3x3_stats_plain)
+    try:
+        yield
+    finally:
+        C.conv_mm_stats, C.conv3x3_stats = saved
+
+
+def ft_step(C, source, seed, x, y, conv="kernel"):
+    """The first fine-tune step from ``source``; ``conv`` "plain" runs the
+    fused vertices on the conv kernels' plain versions, "exact" on them in
+    float64 (``exact_conv_kernels``), "cpu" on them on the CPU
+    (``cpu_conv_kernels``); none of these launches a kernel."""
+    net = ft_build(source, seed)
+    launched = dict(C.launches)
+    ctx = {"kernel": contextlib.nullcontext, "plain": plain_conv_kernels,
+           "exact": exact_conv_kernels, "cpu": cpu_conv_kernels}[conv]
+    with ctx() if conv == "kernel" else ctx(C):
+        out = first_step(net, x, y)
+    if conv != "kernel" and C.launches != launched:
+        raise AssertionError(f"the {conv} fine-tune step launched a conv kernel")
+    del net
+    return out
+
+
+def frozen_unchanged(net, source):
+    """Whether every frozen vertex's parameters and state equal the
+    source's bit for bit."""
+    return all(torch.equal(net.params[n][k], source.params[n][k]) for n in net.frozen_vertices
+               for k in source.params[n]) and \
+        all(torch.equal(net.state[n][k], source.state[n][k]) for n in net.frozen_vertices
+            for k in source.state[n])
+
+
+def ft_fit_timed(C, net, x, y, listeners, hopper):
+    """The timed fine-tune steps over (x, y) with ``listeners`` attached:
+    (step ms, losses, conv launches, launches by variant), the launches
+    held to FT_CONV_A_STEP a step, all on ``hopper``."""
+    net.listeners = list(listeners)
+    torch.cuda.synchronize()
+    C.reset_launches()
+    t0 = time.perf_counter()
+    net.fit(x, y, batch_size=RN_BATCH)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    steps = x.shape[0] // RN_BATCH
+    launches, by_variant = dict(C.launches), dict(C.launches_by_variant)
+    want = {k: v * steps for k, v in FT_CONV_A_STEP.items()}
+    if launches != want:
+        raise AssertionError(f"fine-tune conv launches {launches} in {steps} steps, expected "
+                             f"{want}: the frozen vertices must launch none")
+    if by_variant != {**dict.fromkeys(C.VARIANTS, 0), hopper: sum(want.values())}:
+        raise AssertionError(f"fine-tune conv launches by variant {by_variant}: every one "
+                             f"should be {hopper}")
+    net.listeners = []
+    return 1e3 * wall / steps, list(net.score_history), launches, by_variant
+
+
+def finetune_train(C, source, seed, policy, x, y):
+    """The fine-tune step check (f32), warm-up, then the timed steps
+    without and with three listeners, interleaved (plain, listeners, plain,
+    listeners, plain): the listener runs' median must stay within the
+    plain runs' spread plus FT_LISTENER_ALLOWANCE of their median (a
+    single run of ten steps can catch a host hiccup of 15%)."""
+    from deeplearning4j_tpu_torch.nn import listeners as LS
+
+    b = RN_BATCH
+    check = None
+    if policy == "f32":
+        # the kernel step (K) against the step whose stage-3 convs are
+        # exactly rounded (E), within FT_NOISE_FACTOR x the f32 noise: the
+        # largest distance from E of three other f32 implementations, the
+        # plain versions on the card (P), on the batch permuted (Q) and on
+        # the CPU (R), as the zoo phase holds Inception-ResNet v1 against
+        # float64. A permutation alone is too small a noise here: it leaves
+        # each image's conv sums as they were, where K's and P's differ in
+        # every element. Single tensors are reported, not held
+        k = ft_step(C, source, seed, x[:b], y[:b])
+        p = ft_step(C, source, seed, x[:b], y[:b], conv="plain")
+        e = ft_step(C, source, seed, x[:b], y[:b], conv="exact")
+        perm = torch.randperm(b, generator=torch.Generator().manual_seed(seed)).cuda()
+        q = ft_step(C, source, seed, x[:b][perm], y[:b][perm], conv="plain")
+        r = ft_step(C, source, seed, x[:b], y[:b], conv="cpu")
+        ke = step_diff(k, e)
+        samples = {"plain_vs_exact": step_diff(p, e), "plain_permuted_vs_exact": step_diff(q, e),
+                   "plain_cpu_vs_exact": step_diff(r, e)}
+        noise = {m: (max(d[m] for d in samples.values()) if m != "grad_rel_by_tensor" else
+                     {t: max(d[m][t] for d in samples.values()) for t in ke[m]}) for m in ke}
+        check = noise_check(k, e, ke, noise, "kernel", "exact", "f32_noise", per_tensor=False,
+                            state_rel=True, factor=FT_NOISE_FACTOR)
+        check["kernel_vs_plain"] = {m: v for m, v in step_diff(k, p).items()
+                                    if m != "grad_rel_by_tensor"}
+        check.update({n: {m: v for m, v in d.items() if m != "grad_rel_by_tensor"}
+                      for n, d in samples.items()})
+        del k, p, e, q, r
+        torch.cuda.empty_cache()
+    net = ft_build(source, seed)
+    warm = b * ZOO_WARMUP_STEPS
+    net.fit(x[:warm], y[:warm], batch_size=b)
+    first_loss = net.score_history[0]
+    hopper = "bf16_wgmma" if policy == "bf16" else "f32_pipelined"
+    lines = []
+    runs = {"plain": [], "listeners": []}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for kind in ("plain", "listeners", "plain", "listeners", "plain"):
+        ls = [LS.ScoreIterationListener(5, print_fn=lines.append),
+              LS.PerformanceListener(5, print_fn=lines.append),
+              LS.CollectScoresListener()] if kind == "listeners" else []
+        step_ms, losses, launches, by_variant = ft_fit_timed(C, net, x[warm:], y[warm:], ls,
+                                                             hopper)
+        runs[kind].append(step_ms)
+        if kind == "listeners" and ls[2].scores != losses:
+            raise AssertionError("CollectScoresListener's scores are not fit's losses")
+        if kind == "listeners":
+            perf = ls[1].records
+    peak = torch.cuda.max_memory_allocated()
+    plain = runs["plain"]
+    limit = max(plain) + (max(plain) - min(plain)) + FT_LISTENER_ALLOWANCE * statistics.median(plain)
+    if not statistics.median(runs["listeners"]) <= limit:
+        raise AssertionError(f"listeners moved the step to {runs['listeners']} ms against "
+                             f"{plain} ms without them (limit {limit})")
+    tail = float(np.mean(losses[-ZOO_LOSS_WINDOW:]))
+    if not all(np.isfinite(losses)) or not tail < first_loss:
+        raise AssertionError(f"fine-tune loss did not fall: first {first_loss}, last {losses}")
+    if not frozen_unchanged(net, source):
+        raise AssertionError("a frozen vertex's parameters or state moved")
+    steps = x.shape[0] // b - ZOO_WARMUP_STEPS
+    row = {"policy": policy, "params": net.num_params(), "trainable": FT_TRAINABLE,
+           "frozen_vertices": len(net.frozen_vertices), "batch": b, "steps": steps,
+           "step_ms": statistics.median(plain), "step_ms_runs": plain,
+           "step_ms_listeners": runs["listeners"], "listener_limit_ms": limit,
+           "images_per_s": 1e3 * b / statistics.median(plain), "peak_mem_gb": peak / 1e9,
+           "loss_first": first_loss, f"loss_mean_last{ZOO_LOSS_WINDOW}": tail,
+           "losses_last_run": losses, "conv_launches": launches,
+           "conv_launches_by_variant": by_variant, "frozen_unchanged": True,
+           "performance_listener_median_iter_ms": 1e3 * statistics.median(
+               r["iter_time_s"] for r in perf),
+           "performance_listener_device_mb": perf[-1].get("device_mb_in_use"),
+           "listener_lines": len(lines),
+           "step_check": check, "card": card_line()}
+    emit("finetune.train", **row)
+    return row, net
+
+
+def finetune_eval(net, xe, ye, policy):
+    """``evaluate`` and ``evaluate_roc`` over the held-out images, an
+    EvaluationCalibration, and the confusion matrix against the argmax
+    counts of ``output`` on the same rows."""
+    from deeplearning4j_tpu_torch.eval import Evaluation, EvaluationCalibration
+
+    b = RN_BATCH
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ev = net.evaluate(xe, ye, batch_size=b)
+    eval_s = time.perf_counter() - t0
+    roc = net.evaluate_roc(xe, ye, batch_size=b)
+    cal, again = EvaluationCalibration(), Evaluation()
+    counts = np.zeros((FT_CLASSES, FT_CLASSES), np.int64)
+    host_s = 0.0
+    for i in range(0, xe.shape[0], b):
+        out = net.output(xe[i:i + b])
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        again.eval(ye[i:i + b], out)
+        host_s += time.perf_counter() - t1
+        cal.eval(ye[i:i + b], out)
+        np.add.at(counts, (ye[i:i + b].argmax(-1).cpu().numpy(), out.argmax(-1).cpu().numpy()), 1)
+    if not np.array_equal(counts, ev.confusion.matrix):
+        raise AssertionError(f"evaluate's confusion matrix {ev.confusion.matrix.tolist()} is "
+                             f"not output()'s argmax counts {counts.tolist()}")
+    acc = ev.accuracy()
+    if not acc >= FT_MIN_ACCURACY:
+        raise AssertionError(f"held-out accuracy {acc} below {FT_MIN_ACCURACY} (chance is "
+                             f"{1 / FT_CLASSES})")
+    row = {"policy": policy, "images": xe.shape[0], "accuracy": acc, "f1": ev.f1(),
+           "min_accuracy": FT_MIN_ACCURACY, "auc": roc.average_auc(),
+           "ece": cal.expected_calibration_error(), "confusion": counts.tolist(),
+           "evaluate_s": eval_s, "eval_host_ms_per_batch": 1e3 * host_s / (xe.shape[0] // b),
+           "card": card_line()}
+    emit("finetune.eval", **row)
+    return row
+
+
+def finetune_early_stopping(net, x, y, xe, ye):
+    """EarlyStoppingTrainer over FT_ES_EPOCHS epochs of the fine-tune data,
+    scored by the held-out loss; the restored best model must score the
+    recorded best."""
+    from deeplearning4j_tpu_torch.nn import earlystopping as ES
+
+    cfg = ES.EarlyStoppingConfiguration(
+        score_calculator=ES.DataSetLossCalculator(xe, ye),
+        epoch_terminations=(ES.MaxEpochsTermination(FT_ES_EPOCHS),
+                            ES.ScoreImprovementEpochsTermination(1)),
+        saver=ES.InMemoryModelSaver())
+    t0 = time.perf_counter()
+    res = ES.EarlyStoppingTrainer(cfg, net, x, y, batch_size=RN_BATCH).fit()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    restored = res.best_model.score(xe, ye)
+    if restored != res.best_score:
+        raise AssertionError(f"the restored best model scores {restored}, the recorded best "
+                             f"is {res.best_score}")
+    row = {"termination": res.termination_details, "epochs": res.total_epochs,
+           "best_epoch": res.best_epoch, "best_score": res.best_score,
+           "score_vs_epoch": res.score_vs_epoch, "restored_score": restored, "wall_s": wall,
+           "card": card_line()}
+    emit("finetune.early_stopping", **row)
+    return row
+
+
+def finetune_serve(net, xe, ye, seed):
+    """The fine-tuned graph from its checkpoint through the registry: a
+    burst of FT_SERVE_REQUESTS requests of 1 to FT_SERVE_MAX_ROWS held-out
+    images (one in four batched, every other one in the dict form), every
+    result against ``output()`` on the same rows in batches of RN_BATCH,
+    then the ``serve`` and ``eval`` verbs on the checkpoint."""
+    from deeplearning4j_tpu_torch.models.zoo import restore_checkpoint
+    from deeplearning4j_tpu_torch.serving import get_model_registry
+    from deeplearning4j_tpu_torch.utils import dtypes, serialization
+
+    zip_path = WORK / "finetuned.zip"
+    serialization.save_model(net, zip_path, save_updater=False)
+    served = restore_checkpoint(zip_path, device="cuda")
+    images = xe.cpu().numpy()
+    with dtypes.policy_precision():
+        ref = torch.cat([served.output(xe[i:i + RN_BATCH])
+                         for i in range(0, xe.shape[0], RN_BATCH)]).cpu().numpy()
+        # the same rows one at a time: cuDNN may take another algorithm at
+        # another batch size, which bounds what a served row can differ by
+        single = np.concatenate([served.output(xe[i:i + 1]).cpu().numpy() for i in range(16)])
+    spread = float(np.abs(single - ref[:16]).max())
+    if not 2 * spread <= FT_SERVE_ATOL:
+        raise AssertionError(f"outputs differ by {spread} between batch sizes 1 and "
+                             f"{RN_BATCH}: FT_SERVE_ATOL {FT_SERVE_ATOL} is too tight")
+    rs = np.random.RandomState(seed)
+    reqs = []
+    for i in range(FT_SERVE_REQUESTS):
+        batched = i % 4 == 0
+        idx = rs.randint(0, images.shape[0], size=int(rs.randint(1, FT_SERVE_MAX_ROWS + 1))
+                         if batched else 1)
+        x = images[idx] if batched else images[idx[0]]
+        reqs.append((idx, batched, {"input": x} if i % 2 == 0 else x))
+    registry = get_model_registry()
+    t_reg = time.perf_counter()
+    engine = registry.register("finetuned", served, input_spec=(RN_HW, RN_HW, 3),
+                               buckets=FT_SERVE_BUCKETS, max_queue=FT_SERVE_REQUESTS *
+                               FT_SERVE_MAX_ROWS, device="cuda")
+    register_s = time.perf_counter() - t_reg
+    t0 = time.perf_counter()
+    try:
+        futs = [engine.submit(x, batched=batched) for _, batched, x in reqs]
+        outs = [f.get(timeout=600) for f in futs]
+        wall = time.perf_counter() - t0
+        stats = engine.stats()
+    finally:
+        registry.stop()
+    max_err, rows = 0.0, 0
+    for (idx, batched, _), out in zip(reqs, outs):
+        y = out["fc"]
+        want = ref[idx] if batched else ref[idx[0]]
+        if y.shape != want.shape or not np.isfinite(y).all():
+            raise AssertionError(f"served output {y.shape} for {want.shape}")
+        err = float(np.abs(y - want).max())
+        max_err = max(max_err, err)
+        if err > FT_SERVE_ATOL:
+            raise AssertionError(f"a served result differs from output() by {err}")
+        rows += len(idx)
+    lats = [f.latency_s for f in futs]
+    row = {"requests": len(reqs), "images": rows, "dict_requests": len(reqs) // 2,
+           "batched_requests": sum(b for _, b, _ in reqs), "buckets": list(FT_SERVE_BUCKETS),
+           "device_forwards": stats["forward"]["forwards"] - stats["forward"]["warmed"],
+           "register_s": register_s, "wall_s": wall, "images_per_s": rows / wall,
+           "p50_ms": 1e3 * float(np.percentile(lats, 50)),
+           "p99_ms": 1e3 * float(np.percentile(lats, 99)), "max_abs_err": max_err,
+           "atol": FT_SERVE_ATOL, "batch_size_spread": spread, "card": card_line()}
+    emit("finetune.serve", **row)
+
+    np.save(WORK / "x.npy", images[:RN_BATCH])
+    np.save(WORK / "y.npy", ye[:RN_BATCH].cpu().numpy())
+    for verb, args in (("serve", ["--smoke", "8"]),
+                       ("eval", ["--data", str(WORK / "x.npy"), "--labels",
+                                 str(WORK / "y.npy"), "--batch-size", "32"])):
+        t1 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "deeplearning4j_tpu_torch", verb,
+                               "--model-path", str(zip_path), *args],
+                              cwd=ROOT, capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError(f"{verb} CLI exited {proc.returncode}:\n{proc.stdout}\n"
+                                 f"{proc.stderr}")
+        emit("finetune.cli", verb=verb, rc=proc.returncode, seconds=time.perf_counter() - t1,
+             last_line=proc.stdout.strip().splitlines()[-1])
+    return row
+
+
+def yolo_data(seed, n, hw=YOLO_HW, classes=YOLO_CLASSES):
+    """n synthetic images on the card, 1 to 4 boxes each painted in its
+    class's colour over dim noise, and their YOLO labels [n, g, g, 5 +
+    classes] (g = hw / 32): the box centre's cell holds the indicator, the
+    centre's offset in the cell, the width and height in grid units and the
+    one-hot class."""
+    rs = np.random.RandomState(seed)
+    g = hw // 32
+    colors = torch.from_numpy(rs.rand(classes, 3).astype(np.float32)).cuda()
+    x = 0.2 * torch.rand(n, hw, hw, 3, device="cuda",
+                         generator=torch.Generator(device="cuda").manual_seed(seed))
+    y = np.zeros((n, g, g, 5 + classes), np.float32)
+    for i in range(n):
+        for _ in range(rs.randint(1, 5)):
+            c = rs.randint(classes)
+            w, h = rs.uniform(1.0, min(5.0, g), size=2)
+            cx, cy = rs.uniform(w / 2, g - w / 2), rs.uniform(h / 2, g - h / 2)
+            row, col = int(cy), int(cx)
+            y[i, row, col] = 0.0
+            y[i, row, col, :5] = (1.0, cx - col, cy - row, w, h)
+            y[i, row, col, 5 + c] = 1.0
+            x[i, int(32 * (cy - h / 2)):int(32 * (cy + h / 2)),
+              int(32 * (cx - w / 2)):int(32 * (cx + w / 2))] = colors[c]
+    return x, torch.from_numpy(y).cuda()
+
+
+def yolo_step_check(seed):
+    """Tiny YOLO at YOLO_CHECK_HW (full width, batch YOLO_CHECK_BATCH): one
+    f32 step on the card against the same step in float64 on the CPU, held
+    as ``irv1_step_check`` holds Inception-ResNet v1's."""
+    from deeplearning4j_tpu_torch.models import tiny_yolo
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.utils import serialization
+
+    x, y = yolo_data(seed + 1, YOLO_CHECK_BATCH, hw=YOLO_CHECK_HW)
+
+    def card_net():
+        net = MultiLayerNetwork(tiny_yolo(YOLO_CHECK_HW, YOLO_CHECK_HW, seed=seed), device="cuda")
+        net.init(torch.Generator().manual_seed(seed))
+        return net
+
+    net = card_net()
+    perm = torch.randperm(x.shape[0], generator=torch.Generator().manual_seed(seed)).cuda()
+    cpu_steps, cpu_s = {}, {}
+    for name, dt, order in (("f64", torch.float64, None), ("f32", torch.float32, None),
+                            ("f32_permuted", torch.float32, perm)):
+        ref = MultiLayerNetwork(tiny_yolo(YOLO_CHECK_HW, YOLO_CHECK_HW, seed=seed), device="cpu")
+        ref.init(dtype=dt)
+        serialization.params_from_numpy(
+            ref, [{k: t.detach().cpu().to(dt) for k, t in p.items()} for p in net.params],
+            state=[{k: t.cpu().to(dt) for k, t in s.items()} for s in net.state])
+        xs, ys = (x, y) if order is None else (x[order], y[order])
+        t0 = time.perf_counter()
+        step = first_step(ref, xs.cpu().to(dt), ys.cpu().to(dt))
+        cpu_s[name] = time.perf_counter() - t0
+        cpu_steps[name] = (step[0],) + tuple({k: v.float().cuda() for k, v in d.items()}
+                                             for d in step[1:])
+        del ref
+    r = cpu_steps["f64"]
+    k = first_step(net, x, y)
+    q = first_step(card_net(), x[perm], y[perm])
+    kr = step_diff(k, r)
+    samples = {"cpu_f32_vs_cpu_f64": step_diff(cpu_steps["f32"], r),
+               "cpu_f32_permuted_vs_cpu_f64": step_diff(cpu_steps["f32_permuted"], r),
+               "card_f32_permuted_vs_card_f32": step_diff(q, k)}
+    noise = {m: (max(d[m] for d in samples.values()) if m != "grad_rel_by_tensor" else
+                 {t: max(d[m][t] for d in samples.values()) for t in kr[m]}) for m in kr}
+    out = noise_check(k, r, kr, noise, "card_f32", "cpu_f64", "f32_noise", per_tensor=False,
+                      state_rel=True)
+    out.update(image=[YOLO_CHECK_HW, YOLO_CHECK_HW, 3], batch=YOLO_CHECK_BATCH, cpu_step_s=cpu_s)
+    del net
+    torch.cuda.empty_cache()
+    return out
+
+
+def finetune_yolo(seed):
+    """Tiny YOLO from the registry at its defaults, trained under both
+    policies; its detections and NMS from the card's output against the
+    same functions on the output moved to the CPU; the float64 step check."""
+    from deeplearning4j_tpu_torch.models import get_model
+    from deeplearning4j_tpu_torch.nn.layers.objdetect import non_max_suppression
+    from deeplearning4j_tpu_torch.utils import dtypes
+
+    rows = {}
+    x, y = yolo_data(seed, YOLO_BATCH * (ZOO_WARMUP_STEPS + ZOO_TIMED_STEPS))
+    for policy in ("f32", "bf16"):
+        (dtypes.bf16_policy if policy == "bf16" else dtypes.f32_policy)()
+        try:
+            net = get_model("tinyyolo").build(device="cuda", seed=seed)
+            if net.num_params() != YOLO_PARAMS:
+                raise AssertionError(f"tiny_yolo has {net.num_params()} params, expected "
+                                     f"{YOLO_PARAMS}")
+            row = zoo_train(net, x, y, YOLO_BATCH, "tiny_yolo", policy)
+            head = net.conf.layers[-1]
+            out = net.output(x[:YOLO_DETECT_IMAGES])
+            # the threshold that keeps the YOLO_DETECTIONS most confident
+            # anchors of these images (a dozen steps leave every confidence low)
+            conf = torch.sigmoid(out.float().reshape(*out.shape[:3], head.n_anchors, -1)[..., 4])
+            threshold = float(conf.flatten().topk(YOLO_DETECTIONS + 1).values[-1])
+            card = head.get_predicted_objects(out, threshold)
+            host = head.get_predicted_objects(out.cpu(), threshold)
+            kept = [non_max_suppression(d, 0.45) for d in card]
+            if card != host or kept != [non_max_suppression(d, 0.45) for d in host]:
+                raise AssertionError("detections from the card's output differ from the same "
+                                     "functions on it moved to the CPU")
+            row.update(detections=sum(map(len, card)), after_nms=sum(map(len, kept)),
+                       threshold=threshold, grid=list(out.shape[1:3]))
+            emit("finetune.yolo", **row)
+            rows[policy] = row
+            del net
+            torch.cuda.empty_cache()
+        finally:
+            dtypes.f32_policy()
+    del x, y
+    rows["step_check"] = yolo_step_check(seed)
+    emit("finetune.yolo_step_check", **rows["step_check"], card=card_line())
+    return rows
+
+
+def finetune_layers(seed):
+    """Each conv layer this slice ports, forward and backward (input and
+    parameter gradients of sum(y * g)) on the card in f32 at a realistic
+    shape, against float64 on the CPU: every tensor within LAYER_RTOL of the
+    reference tensor's largest magnitude."""
+    from deeplearning4j_tpu_torch.nn import layers as L
+    from deeplearning4j_tpu_torch.nn.conf import inputs as I
+    from deeplearning4j_tpu_torch.utils import dtypes
+
+    b, hw, c = LAYER_BATCH, LAYER_HW, LAYER_C
+    cnn, rnn = I.ConvolutionalType(hw, hw, c), I.RecurrentType(c, hw * hw)
+    cases = [(L.Convolution1DLayer(n_out=c, kernel=3, padding="same"), rnn),
+             (L.Deconvolution2DLayer(n_out=c // 2, kernel=(3, 3), stride=(2, 2),
+                                     padding="same"), cnn),
+             (L.SeparableConvolution2DLayer(n_out=c, kernel=(3, 3), padding="same",
+                                            depth_multiplier=2), cnn),
+             (L.Subsampling1DLayer(kernel=2, stride=2), rnn),
+             (L.Upsampling2DLayer(size=(2, 2)), cnn), (L.Upsampling1DLayer(size=2), rnn),
+             (L.ZeroPaddingLayer(pad=(1, 2, 1, 2)), cnn), (L.ZeroPadding1DLayer(pad=(1, 2)), rnn),
+             (L.SpaceToDepthLayer(blocks=2), cnn), (L.SpaceToBatchLayer(blocks=(2, 2)), cnn)]
+    rows = []
+    rs = np.random.RandomState(seed)
+    for layer, in_type in cases:
+        shape = (b,) + tuple(in_type.shape(1)[1:])
+        params = layer.init(torch.Generator().manual_seed(seed), in_type, torch.float64)
+        x = torch.from_numpy(rs.randn(*shape))
+        with torch.no_grad():  # the output's shape (SpaceToBatch multiplies the batch)
+            g = torch.from_numpy(rs.randn(*layer.apply(params, {}, x)[0].shape))
+
+        def run(dev, dt):
+            p = {k: v.to(dev, dt).detach().requires_grad_(True) for k, v in params.items()}
+            xx = x.to(dev, dt).detach().requires_grad_(True)
+            with dtypes.policy_precision():
+                yy = layer.apply(p, {}, xx)[0]
+                (yy * g.to(dev, dt)).sum().backward()
+            return {"y": yy.detach(), "dx": xx.grad, **{f"d{k}": v.grad for k, v in p.items()}}
+
+        want = run("cpu", torch.float64)
+        t0 = time.perf_counter()
+        got = run("cuda", torch.float32)
+        torch.cuda.synchronize()
+        card_ms = 1e3 * (time.perf_counter() - t0)
+        errs = {k: ((got[k].double().cpu() - w).abs().max() / w.abs().max().clamp_min(1e-30)).item()
+                for k, w in want.items()}
+        if not max(errs.values()) <= LAYER_RTOL:
+            raise AssertionError(f"{type(layer).__name__} on the card differs from float64: {errs}")
+        rows.append({"layer": type(layer).__name__, "input": list(shape),
+                     "output": list(want["y"].shape), "max_rel_err": errs, "card_ms": card_ms})
+    emit("finetune.layers", layers=rows, rtol=LAYER_RTOL, card=card_line())
+    return rows
+
+
+def phase_finetune(C, seed):
+    """The fused ResNet50 at the flagship shape trained FT_SOURCE_STEPS
+    steps, saved and restored through the zoo's ``restore_checkpoint``,
+    fine-tuned frozen up to FT_EXTRACTOR under both policies, evaluated,
+    early-stopped and served; Tiny YOLO; the other conv layers."""
+    from deeplearning4j_tpu_torch.models.zoo import restore_checkpoint
+    from deeplearning4j_tpu_torch.utils import dtypes, serialization
+    from deeplearning4j_tpu_torch.utils.trees import flatten_tree
+
+    rows = {}
+    src = make_resnet(seed)
+    xs, ys = resnet_data(seed, RN_BATCH * FT_SOURCE_STEPS)
+    src.fit(xs, ys, batch_size=RN_BATCH)
+    zip_path = WORK / "resnet50_source.zip"
+    serialization.save_model(src, zip_path, save_updater=False)
+    source = restore_checkpoint(zip_path, device="cuda")
+    mine, back = flatten_tree(src.params), flatten_tree(source.params)
+    if mine.keys() != back.keys() or not all(torch.equal(mine[k], back[k]) for k in mine):
+        raise AssertionError("the restored source differs from the saved network")
+    emit("finetune.source", params=source.num_params(), steps=FT_SOURCE_STEPS,
+         losses=src.score_history, zip_mb=zip_path.stat().st_size / 1e6, card=card_line())
+    del src, xs, ys, mine
+    torch.cuda.empty_cache()
+
+    n = RN_BATCH * (ZOO_WARMUP_STEPS + ZOO_TIMED_STEPS)
+    x, y = resnet_data(seed, n, n_out=FT_CLASSES, classes=FT_CLASSES)
+    xe, ye = resnet_data(seed, FT_EVAL_IMAGES, n_out=FT_CLASSES, classes=FT_CLASSES,
+                         draw_seed=seed + 1)
+    for policy in ("f32", "bf16"):
+        (dtypes.bf16_policy if policy == "bf16" else dtypes.f32_policy)()
+        try:
+            rows[policy], net = finetune_train(C, source, seed, policy, x, y)
+            rows[("eval", policy)] = finetune_eval(net, xe, ye, policy)
+            if policy == "f32":
+                rows["early_stopping"] = finetune_early_stopping(net, x, y, xe, ye)
+                rows["serve"] = finetune_serve(net, xe, ye, seed)
+            del net
+            torch.cuda.empty_cache()
+        finally:
+            dtypes.f32_policy()
+    del source, x, y, xe, ye
+    torch.cuda.empty_cache()
+    rows["yolo"] = finetune_yolo(seed)
+    rows["layers"] = finetune_layers(seed)
+    return rows
+
+
 def cuobjdump():
     """The toolkit's cuobjdump, or the copy Triton's package carries; None
     where neither exists."""
@@ -2234,7 +2901,7 @@ def build_all(libs):
                  HMMA=sass_count(so, "HMMA"))
 
 
-PHASES = ("kernels", "flash", "train", "conv", "resnet", "serve", "charnn", "zoo")
+PHASES = ("kernels", "flash", "train", "conv", "resnet", "serve", "charnn", "zoo", "finetune")
 
 
 def main(argv=None):
@@ -2297,6 +2964,13 @@ def main(argv=None):
             zoo_rows = phase_zoo(C, args.seed)
         finally:
             shutil.rmtree(WORK, ignore_errors=True)
+    if "finetune" in only:
+        shutil.rmtree(WORK, ignore_errors=True)
+        WORK.mkdir()
+        try:
+            ft_rows = phase_finetune(C, args.seed)
+        finally:
+            shutil.rmtree(WORK, ignore_errors=True)
     if only != set(PHASES):
         return
 
@@ -2331,15 +3005,18 @@ def main(argv=None):
         "launches_by_variant": train_rows[0]["flash_launches_by_variant"]}] + [{
         # per forward of the fused ResNet50 at batch 64 in f32 (the *_bf16
         # keys: in bf16): the sums over the kernel's calls; launches over the
-        # 10 timed bf16_policy steps of the resnet phase and the 10 timed
-        # steps of the remat'd ResNet50 under each policy (zoo phase)
+        # 10 timed bf16_policy steps of the resnet phase, the 10 timed steps
+        # of the remat'd ResNet50 under each policy (zoo phase) and the last
+        # 10 timed fine-tune steps under each policy (finetune phase)
         "name": name, "route": "cuda", "source": "deeplearning4j_tpu_torch/csrc/conv_stats.cu",
         "replaces": f"deeplearning4j_tpu/ops/conv_pallas.py:{line}",
         "launches": resnet_rows["bf16"]["conv_launches"][name]
-        + sum(zoo_rows[("remat", p)]["conv_launches"][name] for p in ("f32", "bf16")),
+        + sum(zoo_rows[("remat", p)]["conv_launches"][name] for p in ("f32", "bf16"))
+        + sum(ft_rows[p]["conv_launches"][name] for p in ("f32", "bf16")),
         "launches_resnet": resnet_rows["bf16"]["conv_launches"][name],
         "launches_remat": {p: zoo_rows[("remat", p)]["conv_launches"][name]
                            for p in ("f32", "bf16")},
+        "launches_finetune": {p: ft_rows[p]["conv_launches"][name] for p in ("f32", "bf16")},
         "max_abs_err": conv_err,
         "ms": conv_totals[(name, "float32")]["ms"],
         "plain_ms": conv_totals[(name, "float32")]["plain_ms"],

@@ -1,14 +1,21 @@
-"""Command-line entry point of the port. Ported so far: the ``serve`` verb.
+"""Command-line entry point of the port. Ported so far: the ``serve`` and
+``eval`` verbs.
 
     python -m deeplearning4j_tpu_torch serve --model-path ckpt.zip --max-batch 32
     python -m deeplearning4j_tpu_torch serve --model-path ckpt.zip --smoke 64 --device cpu
+    python -m deeplearning4j_tpu_torch eval --model-path ckpt.zip --data x.npy --labels y.npy
 
-``serve`` loads a checkpoint zip (written by either package), warms every
-batch bucket, and serves with continuous batching and admission control.
-``--smoke N`` serves N synthetic requests, prints the engine's stats as
-JSON and exits. The forward runs on ``--device`` (default ``cuda``; a
-missing card raises rather than falling back to the CPU). The JAX
-package's other verbs are not ported yet.
+``serve`` loads a checkpoint zip (written by either package, a
+MultiLayerNetwork or a ComputationGraph), warms every batch bucket, and
+serves with continuous batching and admission control; a graph's warmup
+spec is one per-example shape per input, from its input types. ``--smoke
+N`` serves N synthetic requests, prints the engine's stats as JSON and
+exits. ``eval`` runs a checkpoint (or a freshly initialised zoo model,
+``--zoo``) over ``.npy`` features and labels and prints the
+``Evaluation`` (or, with ``--regression``, the ``RegressionEvaluation``)
+statistics; a CSV waits for ``datasets/records.py``. Both run on
+``--device`` (default ``cuda``; a missing card raises rather than falling
+back to the CPU). The JAX package's other verbs are not ported yet.
 """
 
 from __future__ import annotations
@@ -24,7 +31,7 @@ import numpy as np
 def _build_parser():
     p = argparse.ArgumentParser(
         prog="deeplearning4j_tpu_torch",
-        description="PyTorch/CUDA port of deeplearning4j_tpu: serve")
+        description="PyTorch/CUDA port of deeplearning4j_tpu: serve, eval")
     sub = p.add_subparsers(dest="command", required=True)
     sv = sub.add_parser(
         "serve",
@@ -46,16 +53,45 @@ def _build_parser():
                     help="serve N synthetic requests, print the stats, and exit")
     sv.add_argument("--device", default="cuda",
                     help="device the forward runs on: cuda (default) or cpu")
+
+    e = sub.add_parser("eval", help="evaluate a checkpoint on a dataset")
+    esrc = e.add_mutually_exclusive_group(required=True)
+    esrc.add_argument("--model-path", help="checkpoint zip")
+    esrc.add_argument("--zoo", help="zoo model name (fresh init)")
+    e.add_argument("--data", required=True,
+                   help=".npy features (a labelled .csv/.dat file is not ported yet)")
+    e.add_argument("--label-column", type=int, default=-1)
+    e.add_argument("--n-classes", type=int)
+    e.add_argument("--skip-lines", type=int, default=0)
+    e.add_argument("--labels", help=".npy labels (one-hot or class indices)")
+    e.add_argument("--batch-size", type=int, default=128)
+    e.add_argument("--regression", action="store_true",
+                   help="report regression metrics instead of classification")
+    e.add_argument("--device", default="cuda",
+                   help="device the forward runs on: cuda (default) or cpu")
     return p
 
 
 def _serve_input_spec(net):
-    """Per-example input shape for warmup, from the model's input type."""
+    """Per-example input shape for warmup, from the model's input type; a
+    graph's is a dict of them, one per input."""
+    input_types = getattr(net.conf, "input_types", None)
+    if input_types:
+        return {name: tuple(t.shape(1)[1:]) for name, t in zip(net.conf.inputs, input_types)}
     input_type = getattr(net.conf, "input_type", None)
     if input_type is None:
         raise SystemExit("the model conf carries no input type to derive "
                          "the warmup shape from")
     return tuple(input_type.shape(1)[1:])
+
+
+def _smoke_requests(input_spec, n):
+    """``n`` synthetic per-example requests (dicts for a graph)."""
+    rs = np.random.RandomState(0)
+    if isinstance(input_spec, dict):
+        xs = {k: rs.rand(n, *spec).astype(np.float32) for k, spec in input_spec.items()}
+        return [{k: v[i] for k, v in xs.items()} for i in range(n)]
+    return list(rs.rand(n, *input_spec).astype(np.float32))
 
 
 def _cmd_serve(args):
@@ -81,15 +117,13 @@ def _cmd_serve(args):
           f"{st['warmup_s']:.2f}s on {st['device']} (input {input_spec})")
     try:
         if args.smoke:
-            rs = np.random.RandomState(0)
-            xs = rs.rand(args.smoke, *input_spec).astype(np.float32)
             futs, shed = [], 0
-            for i in range(args.smoke):
+            for x in _smoke_requests(input_spec, args.smoke):
                 # a burst bigger than --max-queue legitimately sheds: back
                 # off briefly and keep going
                 for _ in range(1000):
                     try:
-                        futs.append(engine.submit(xs[i]))
+                        futs.append(engine.submit(x))
                         break
                     except ServingOverloaded:
                         time.sleep(0.001)
@@ -118,10 +152,71 @@ def _cmd_serve(args):
     return 0
 
 
+def _load_model(args):
+    """The checkpoint at ``--model-path`` or a fresh ``--zoo`` model, on
+    ``--device``."""
+    from deeplearning4j_tpu_torch.models import zoo
+
+    if args.model_path:
+        return zoo.restore_checkpoint(args.model_path, device=args.device)
+    try:
+        entry = zoo.get_model(args.zoo)
+    except KeyError:
+        raise SystemExit(f"unknown zoo model {args.zoo!r}; known: {zoo.model_names()}") from None
+    return entry.build(device=args.device)
+
+
+def _load_xy(args):
+    """Features and labels from a pair of ``.npy`` files."""
+    if args.data.endswith((".csv", ".dat")):
+        raise SystemExit("a labelled CSV for eval needs datasets/records.py, which is not "
+                         "ported yet (ROADMAP queue 1, item 3, \"Rest of the training "
+                         "core\"); pass .npy features and --labels")
+    if not args.labels:
+        raise SystemExit("--labels is required with .npy features")
+    return np.load(args.data), np.load(args.labels)
+
+
+def _cmd_eval(args):
+    """(reference role: Evaluation printed from evaluate(), the examples'
+    ``eval.stats()`` tail, as a CLI verb)"""
+    net = _load_model(args)
+    x, y = _load_xy(args)
+    preds = []
+    for i in range(0, x.shape[0], args.batch_size):
+        out = net.output(x[i:i + args.batch_size])
+        if isinstance(out, dict):  # multi-output graph: the first output head
+            out = next(iter(out.values()))
+        preds.append(out.float().cpu().numpy())
+    preds = np.concatenate(preds)
+    if args.regression:
+        from deeplearning4j_tpu_torch.eval.regression import RegressionEvaluation
+        if y.ndim == 1:  # a single-target vector -> a column
+            y = y[:, None]
+        ev = RegressionEvaluation()
+        ev.eval(y, preds)
+        print(ev.stats())
+        return 0
+    from deeplearning4j_tpu_torch.eval.classification import Evaluation
+    n_classes = preds.shape[-1]
+    if n_classes == 1:
+        # a single sigmoid output: Evaluation takes 1-column labels as is
+        if y.ndim == 1:
+            y = y[:, None]
+    elif y.ndim == 1 or (y.ndim == 2 and y.shape[-1] == 1):
+        y = np.eye(n_classes, dtype=np.float32)[y.astype(int).ravel()]
+    ev = Evaluation()
+    ev.eval(y, preds)
+    print(ev.stats())
+    return 0
+
+
 def main(argv=None):
     args = _build_parser().parse_args(sys.argv[1:] if argv is None else argv)
     if args.command == "serve":
         return _cmd_serve(args)
+    if args.command == "eval":
+        return _cmd_eval(args)
     return 1
 
 

@@ -1,10 +1,11 @@
-"""Smaller zoo models: SimpleCNN, AlexNet, Darknet19, the GravesLSTM
-char-RNN and the transformer language model (reference: SimpleCNN.java,
-AlexNet.java, Darknet19.java, TextGenerationLSTM.java).
+"""Smaller zoo models: SimpleCNN, AlexNet, Darknet19, TinyYOLO, the
+GravesLSTM char-RNN and the transformer language model (reference:
+SimpleCNN.java, AlexNet.java, Darknet19.java, TinyYOLO.java,
+TextGenerationLSTM.java).
 
 Each builds the same configuration as the JAX package's
 (``deeplearning4j_tpu/models/misc.py``), so both serialize to the same
-``config.json``. TinyYOLO waits for ``nn/layers/objdetect.py``.
+``config.json``.
 """
 
 from __future__ import annotations
@@ -85,11 +86,24 @@ def darknet19(height=224, width=224, channels=3, n_classes=1000, updater=None, s
         *layers, input_type=I.ConvolutionalType(height, width, channels))
 
 
-def tiny_yolo(*args, **kwargs):
-    """TinyYOLO (reference: TinyYOLO.java) needs Yolo2OutputLayer
-    (``nn/layers/objdetect.py``), which is not ported yet."""
-    raise NotImplementedError("tiny_yolo needs nn/layers/objdetect.py Yolo2OutputLayer, which "
-                              "is not ported yet (ROADMAP queue 1, \"Left out of slice 3\")")
+def tiny_yolo(height=416, width=416, channels=3, n_classes=20,
+              anchors=((1.08, 1.19), (3.42, 4.41), (6.63, 11.38), (9.42, 5.11),
+                       (16.62, 10.52)), updater=None, seed=12345):
+    """(reference: TinyYOLO.java: a darknet-tiny backbone and a
+    Yolo2OutputLayer over the 13x13 grid of a 416x416 image, the 5 VOC
+    anchors)"""
+    layers = []
+    for n_out in (16, 32, 64, 128, 256):
+        layers += _darknet_conv(n_out, (3, 3))
+        layers += [L.SubsamplingLayer(kernel=(2, 2), stride=(2, 2))]
+    layers += _darknet_conv(512, (3, 3))
+    layers += _darknet_conv(1024, (3, 3))
+    layers += _darknet_conv(1024, (3, 3))
+    layers += [L.ConvolutionLayer(n_out=len(anchors) * (5 + n_classes), kernel=(1, 1),
+                                  padding="same"),
+               L.Yolo2OutputLayer(anchors=tuple(anchors))]
+    return NeuralNetConfig(seed=seed, updater=updater or U.Adam(learning_rate=1e-3)).list(
+        *layers, input_type=I.ConvolutionalType(height, width, channels))
 
 
 def text_generation_lstm(vocab_size, hidden=256, seq_len=64, updater=None, seed=12345):

@@ -5,8 +5,8 @@ the JAX package's ``deeplearning4j_tpu/models/zoo.py``).
 freshly initialised network from the registered builder,
 ``init_pretrained`` restores the pretrained checkpoint from the local data
 directory after its md5 check (``datasets/cacheable.py``; the port never
-downloads). The registry holds the JAX package's names less ``tinyyolo``,
-which waits for ``nn/layers/objdetect.py``. ``restore_checkpoint`` reads
+downloads). The registry holds the JAX package's names, all of them.
+``restore_checkpoint`` reads
 the framework's own zip (format v1); a DL4J ModelSerializer zip
 (``configuration.json`` + ``coefficients.bin``) and a Keras HDF5 file raise
 ``NotImplementedError`` until ``modelimport/`` is ported.
@@ -111,12 +111,13 @@ def init_pretrained(name, pretrained_type=PretrainedType.IMAGENET, device="cuda"
     return get_model(name).init_pretrained(pretrained_type, device=device)
 
 
-# the JAX package's registry, less tinyyolo (nn/layers/objdetect.py); entries
-# ship without pretrained artifacts, as there
+# the JAX package's registry; entries ship without pretrained artifacts, as
+# there
 register_model("lenet", _lenet, graph=False)
 register_model("simplecnn", _misc.simple_cnn, graph=False)
 register_model("alexnet", _misc.alexnet, graph=False)
 register_model("darknet19", _misc.darknet19, graph=False)
+register_model("tinyyolo", _misc.tiny_yolo, graph=False)
 register_model("textgenlstm", _misc.text_generation_lstm, graph=False)
 register_model("vgg16", _vgg.vgg16, graph=False)
 register_model("vgg19", _vgg.vgg19, graph=False)

@@ -35,19 +35,31 @@ share a name prefix (``s0b0_a_bn``, ``s0b0_b_bn``, ... -> ``s0b0``) under
 ``gradient_checkpointing`` checkpoints every other vertex on its own. Weight
 noise, ``steps_per_dispatch > 1`` and ``pad_ragged`` raise
 ``NotImplementedError``.
+
+Freezing (``nn/transfer.py``): ``frozen_vertices`` names the vertices that
+train as DL4J's FrozenLayer does: each runs with ``train=False`` in every
+pass (BatchNormalization keeps its running statistics, a fused vertex
+launches no kernel, dropout is off), and its parameters stay out of
+autograd and out of the updater, whose state for them is left as it is.
+Listeners (``nn/listeners.py``) hear ``fit`` and its TBPTT branch one step
+late; ``evaluate``, ``evaluate_regression`` and ``evaluate_roc`` take an
+``output_name`` for a head of a multi-output graph.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+import time
 
 import numpy as np
 import torch
 import torch.utils.checkpoint
 from torch import nn
 
+from deeplearning4j_tpu_torch.datasets.iterator import iter_batches
 from deeplearning4j_tpu_torch.nn import gradnorm as _gradnorm
+from deeplearning4j_tpu_torch.nn import listeners as _listeners
 from deeplearning4j_tpu_torch.nn import updaters as _updaters
 from deeplearning4j_tpu_torch.nn.conf import inputs as _inputs
 from deeplearning4j_tpu_torch.nn.layers import base as _base
@@ -58,9 +70,9 @@ from deeplearning4j_tpu_torch.nn.multilayer import _as_tensor, _detach, _param_t
 from deeplearning4j_tpu_torch.utils import dtypes as _dtypes
 from deeplearning4j_tpu_torch.utils import serde
 from deeplearning4j_tpu_torch.utils.device import resolve_device
-from deeplearning4j_tpu_torch.utils.trees import tree_leaves, tree_like
+from deeplearning4j_tpu_torch.utils.trees import drop_entries, tree_leaves, tree_like
 
-_NOT_PORTED = "is not ported yet (ROADMAP queue 1, \"Left out of slice 3\")"
+_NOT_PORTED = "is not ported yet (ROADMAP queue 1, \"Rest of the training core\")"
 
 
 def _loss_mask_for(mask, label):
@@ -547,6 +559,10 @@ class ComputationGraph(nn.Module):
         self.score_value = None
         self.score_history = []
         self._rnn_stream_state = None
+        self.listeners = []
+        self.last_input = None  # the fit loop's current first input (listeners read it)
+        # names of the vertices that train frozen (``nn/transfer.py``)
+        self.frozen_vertices = set()
 
     @property
     def device(self) -> torch.device:
@@ -585,6 +601,21 @@ class ComputationGraph(nn.Module):
         self.state = state
         self.opt_state = None
         return self.params
+
+    def _trainable(self, tree):
+        """A per-vertex tree (parameters, gradients, updater state) with the
+        frozen vertices' entries emptied."""
+        return drop_entries(tree, self.frozen_vertices, self._order)
+
+    def _watch(self, params):
+        """Turn autograd on for the trainable parameters and off for the
+        frozen ones; returns the trainable tree."""
+        for p in tree_leaves(params):
+            p.requires_grad_(False)
+        trainable = self._trainable(params)
+        for p in tree_leaves(trainable):
+            p.requires_grad_(True)
+        return trainable
 
     def _check_trainable(self):
         for v in self.conf.vertices:
@@ -650,7 +681,8 @@ class ComputationGraph(nn.Module):
             for n in names:
                 v = self._defs[n]
                 local[n], ns[n] = v.vertex.apply(gp[n], gs[n], [local[i] for i in v.inputs],
-                                                 train=train, mask=m, rng=seeds[self._pos[n]])
+                                                 train=train and n not in self.frozen_vertices,
+                                                 mask=m, rng=seeds[self._pos[n]])
             return [local[n] for n in bnd], ns
 
         outs, ns = torch.utils.checkpoint.checkpoint(
@@ -689,6 +721,8 @@ class ComputationGraph(nn.Module):
             name = seg[1]
             v = self._defs[name]
             seed = seeds[self._pos[name]]
+            # FrozenLayer.java: a frozen vertex runs as in inference
+            v_train = train and name not in self.frozen_vertices
             xs = [acts[i] for i in v.inputs]
             layer = getattr(v.vertex, "layer", None)
             lm = None
@@ -701,10 +735,10 @@ class ComputationGraph(nn.Module):
                 x = xs[0]
                 if layer.input_family is _inputs.FeedForwardType and x.dim() > 2:
                     x = x.reshape(x.shape[0], -1)
-                if train and seed is not None and layer.dropout > 0.0:
+                if v_train and seed is not None and layer.dropout > 0.0:
                     x = dropout_mask(split_seed(seed, 2)[0], x, layer.dropout)
                 l_i, acts[name], new_state[name] = layer.loss_from_features(
-                    params[name], state[name], x, labels[name], lm, train=train)
+                    params[name], state[name], x, labels[name], lm, train=v_train)
                 loss = loss + l_i
                 continue
             if new_carries is not None and isinstance(v.vertex, LayerVertex) \
@@ -713,11 +747,11 @@ class ComputationGraph(nn.Module):
                     params[name], new_carries.get(name), xs, mask=mask)
             elif remat and self.conf.gradient_checkpointing:
                 acts[name], new_state[name] = torch.utils.checkpoint.checkpoint(
-                    functools.partial(v.vertex.apply, train=train, rng=seed), params[name],
+                    functools.partial(v.vertex.apply, train=v_train, rng=seed), params[name],
                     state[name], xs, mask=mask, use_reentrant=False, preserve_rng_state=False)
             else:
                 acts[name], new_state[name] = v.vertex.apply(
-                    params[name], state[name], xs, train=train, mask=mask, rng=seed)
+                    params[name], state[name], xs, train=v_train, mask=mask, rng=seed)
             if labels is not None and name in self.conf.outputs:
                 head = layer if layer is not None else v.vertex
                 if not hasattr(head, "compute_loss"):
@@ -810,11 +844,10 @@ class ComputationGraph(nn.Module):
         def tbptt_step(params, state, opt_state, carries, inputs, labels, step, mask=None,
                        rng=None):
             carries = {k: _detach(c) for k, c in carries.items()}
-            for p in tree_leaves(params):
-                p.requires_grad_(True)
+            trainable = self._watch(params)
             loss, (new_state, _, new_carries) = self.loss_fn(
                 params, state, inputs, labels, train=True, mask=mask, carries=carries, rng=rng)
-            grads = self._grads(loss, params)
+            grads = self._grads(loss, trainable)
             params, opt_state = self.apply_update(params, opt_state, grads, step)
             return (params, new_state, opt_state, {k: _detach(c) for k, c in new_carries.items()},
                     loss.detach())
@@ -838,12 +871,12 @@ class ComputationGraph(nn.Module):
     def _fit_tbptt(self, inputs, labels, mask):
         """One batch in chunks of ``tbptt_fwd_length`` steps; ``iteration``
         advances once a chunk. Returns the mean chunk loss (a device
-        scalar)."""
+        scalar) and the chunks' ``(iteration, loss)`` pairs."""
         step_fn = self.make_tbptt_step()
         first = self._time_major(inputs)
         length = self.conf.tbptt_fwd_length
         carries = self._zero_carries(first.shape[0], first.dtype, first.device)
-        total, n_chunks = 0.0, 0
+        total, chunks = 0.0, []
         for t0 in range(0, first.shape[1], length):
             cm = None if mask is None else mask[:, t0:t0 + length]
             _, self.state, self.opt_state, carries, loss = step_fn(
@@ -852,9 +885,9 @@ class ComputationGraph(nn.Module):
                 self._chunk_time(labels, t0, t0 + length), self.iteration, cm,
                 step_seed(self.conf.seed, self.iteration))
             total = total + loss
-            n_chunks += 1
             self.iteration += 1
-        return total / max(n_chunks, 1)
+            chunks.append((self.iteration, loss))
+        return total / max(len(chunks), 1), chunks
 
     def rnn_clear_previous_state(self):
         self._rnn_stream_state = None
@@ -886,18 +919,21 @@ class ComputationGraph(nn.Module):
         """Loss and normalized gradients. Returns (loss, new_state, grads)
         with ``grads`` a dict of per-vertex dicts shaped as ``params``. A
         parameter the loss does not reach gets zeros. ``rng``, the step's
-        seed, turns on the random draws (dropout)."""
-        for p in tree_leaves(params):
-            p.requires_grad_(True)
+        seed, turns on the random draws (dropout). A frozen vertex's entry
+        is ``{}``: no gradient is computed for it."""
+        trainable = self._watch(params)
         loss, (new_state, _) = self.loss_fn(params, state, inputs, labels, train=True, mask=mask,
                                             rng=rng)
-        return loss.detach(), new_state, self._grads(loss, params)
+        return loss.detach(), new_state, self._grads(loss, trainable)
 
     def apply_update(self, params, opt_state, grads, step):
-        """The updater, in place; the graph has no constraint pass.
+        """The updater, in place, over the trainable vertices (``grads`` as
+        ``compute_gradients`` gives them): a frozen vertex's parameters and
+        updater state are not touched. The graph has no constraint pass.
         Returns (params, opt_state)."""
         with torch.profiler.record_function("updater.step"):
-            opt_state = self.conf.updater.update_(params, grads, opt_state, step)
+            self.conf.updater.update_(self._trainable(params), self._trainable(grads),
+                                      self._trainable(opt_state), step)
         return params, opt_state
 
     def apply_constraints(self, params, step):
@@ -927,8 +963,10 @@ class ComputationGraph(nn.Module):
             steps_per_dispatch=1, pad_ragged=None):
         """Train over dict-keyed (or single-array) inputs and labels, numpy
         or tensors, sliced into batches of ``batch_size``. Each step's loss
-        lands in ``score_history`` one step late; ``score_value`` is the
-        last. Returns the network."""
+        lands in ``score_history`` one step late, where the listeners hear
+        it (a TBPTT batch: one entry, the mean of its chunks; one listener
+        callback a chunk); ``score_value`` is the last. Returns the
+        network."""
         if int(steps_per_dispatch) != 1 or pad_ragged:
             raise NotImplementedError(f"steps_per_dispatch > 1 and pad_ragged {_NOT_PORTED}")
         if self.params is None:
@@ -947,27 +985,34 @@ class ComputationGraph(nn.Module):
         n = next(iter(inputs.values())).shape[0]
         bs = batch_size or n
         self.score_history = []
-        with _dtypes.policy_precision():
-            for _ in range(epochs):
-                pending = None
-                for i in range(0, n, bs):
-                    bi = {k: _as_tensor(v[i:i + bs], dev) for k, v in inputs.items()}
-                    bl = {k: _as_tensor(v[i:i + bs], dev) for k, v in labels.items()}
-                    bm = _as_tensor(mask[i:i + bs], dev) if mask is not None else None
-                    if use_tbptt:
-                        # one entry a batch: the mean of its chunks' losses
-                        loss = self._fit_tbptt(bi, bl, bm)
-                    else:
+        scores = _listeners.FitScores(self)
+        try:
+            with _dtypes.policy_precision():
+                for _ in range(epochs):
+                    for l in self.listeners:
+                        l.on_epoch_start(self)
+                    for i in range(0, n, bs):
+                        t_etl = time.perf_counter()
+                        bi = {k: _as_tensor(v[i:i + bs], dev) for k, v in inputs.items()}
+                        bl = {k: _as_tensor(v[i:i + bs], dev) for k, v in labels.items()}
+                        bm = _as_tensor(mask[i:i + bs], dev) if mask is not None else None
+                        etl = time.perf_counter() - t_etl
+                        self.last_input = next(iter(bi.values()))
+                        if use_tbptt:
+                            loss, chunks = self._fit_tbptt(bi, bl, bm)
+                            scores.push(loss, self.iteration, etl, chunks=chunks)
+                            continue
                         _, self.state, self.opt_state, loss = step_fn(
                             self.params, self.state, self.opt_state, bi, bl, self.iteration,
                             bm, step_seed(self.conf.seed, self.iteration))
                         self.iteration += 1
-                    if pending is not None:
-                        self.score_history.append(float(pending))
-                    pending = loss
-                if pending is not None:
-                    self.score_history.append(float(pending))
-                self.epoch += 1
+                        scores.push(loss, self.iteration, etl)
+                    scores.flush()
+                    for l in self.listeners:
+                        l.on_epoch_end(self)
+                    self.epoch += 1
+        finally:
+            _listeners.run_fit_end_hooks(self)
         if self.score_history:
             self.score_value = self.score_history[-1]
         return self
@@ -996,6 +1041,67 @@ class ComputationGraph(nn.Module):
                                    self._named(labels, self.conf.outputs), train=False,
                                    mask=_as_tensor(mask, self.device))
         return float(loss)
+
+    def _eval_batches(self, data, labels, batch_size, output_name):
+        """(labels, mask, output) of the head ``output_name`` (default: the
+        first output) for each batch of the evaluate family: dict-keyed
+        inputs and labels are sliced entry by entry, everything else goes
+        through ``iter_batches``."""
+        head = output_name or self.conf.outputs[0]
+        if isinstance(data, dict):
+            n = next(iter(data.values())).shape[0]
+            bs = batch_size or n
+            batches = (({k: v[i:i + bs] for k, v in data.items()},
+                        {k: v[i:i + bs] for k, v in labels.items()}
+                        if isinstance(labels, dict) else labels[i:i + bs], None)
+                       for i in range(0, n, bs))
+        else:
+            batches = iter_batches(data, labels, batch_size, None)
+        for bx, by, bm in batches:
+            out = self.output(bx, mask=bm)
+            yield (by[head] if isinstance(by, dict) else by, bm,
+                   out[head] if isinstance(out, dict) else out)
+
+    def evaluate(self, data, labels=None, *, batch_size=None, evaluation=None,
+                 output_name=None):
+        """Classification ``Evaluation`` over arrays, an (x, y) pair, dict
+        inputs and labels or a DataSetIterator (reference:
+        ComputationGraph.evaluate); ``output_name`` picks a head."""
+        from deeplearning4j_tpu_torch.eval.classification import Evaluation
+
+        e = evaluation if evaluation is not None else Evaluation()
+        for by, bm, out in self._eval_batches(data, labels, batch_size, output_name):
+            e.eval(by, out, mask=bm)
+        return e
+
+    def evaluate_regression(self, data, labels=None, *, batch_size=None, output_name=None):
+        """``RegressionEvaluation`` (reference:
+        ComputationGraph.evaluateRegression)."""
+        from deeplearning4j_tpu_torch.eval.regression import RegressionEvaluation
+
+        e = RegressionEvaluation()
+        for by, bm, out in self._eval_batches(data, labels, batch_size, output_name):
+            e.eval(by, out, mask=bm)
+        return e
+
+    def evaluate_roc(self, data, labels=None, *, batch_size=None, threshold_steps=0,
+                     output_name=None):
+        """``ROC`` (at most 2 outputs) or ``ROCMultiClass`` (reference:
+        ComputationGraph.evaluateROC / evaluateROCMultiClass)."""
+        from deeplearning4j_tpu_torch.eval.roc import ROC, ROCMultiClass
+
+        roc = None
+        for by, bm, out in self._eval_batches(data, labels, batch_size, output_name):
+            if roc is None:
+                roc = ROC(threshold_steps) if out.shape[-1] <= 2 else ROCMultiClass(threshold_steps)
+            roc.eval(by, out, mask=bm)
+        if roc is None:
+            raise ValueError("no data to evaluate")
+        return roc
+
+    def add_listener(self, *ls):
+        self.listeners.extend(ls)
+        return self
 
     def num_params(self):
         return sum(int(p.numel()) for p in self.parameters())

@@ -4,8 +4,12 @@ from deeplearning4j_tpu_torch.nn.layers.base import Layer, ParamLayer  # noqa: F
 from deeplearning4j_tpu_torch.nn.layers.core import (  # noqa: F401
     ActivationLayer, DenseLayer, DropoutLayer, EmbeddingSequenceLayer, LossLayer, OutputLayer)
 from deeplearning4j_tpu_torch.nn.layers.conv import (  # noqa: F401
-    BatchNormalization, ConvolutionLayer, GlobalPoolingLayer, LocalResponseNormalization,
-    ResidualBottleneck, SubsamplingLayer)
+    BatchNormalization, Convolution1DLayer, ConvolutionLayer, Deconvolution2DLayer,
+    GlobalPoolingLayer, LocalResponseNormalization, ResidualBottleneck,
+    SeparableConvolution2DLayer, SpaceToBatchLayer, SpaceToDepthLayer, Subsampling1DLayer,
+    SubsamplingLayer, Upsampling1DLayer, Upsampling2DLayer, ZeroPadding1DLayer,
+    ZeroPaddingLayer)
+from deeplearning4j_tpu_torch.nn.layers.objdetect import Yolo2OutputLayer  # noqa: F401
 from deeplearning4j_tpu_torch.nn.layers.centerloss import CenterLossOutputLayer  # noqa: F401
 from deeplearning4j_tpu_torch.nn.layers.rnn import (  # noqa: F401
     LSTM, Bidirectional, GravesBidirectionalLSTM, GravesLSTM, LastTimeStep, RnnLossLayer,

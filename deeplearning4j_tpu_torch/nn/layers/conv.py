@@ -1,6 +1,8 @@
-"""Convolutional layers: ConvolutionLayer, SubsamplingLayer,
-BatchNormalization, LocalResponseNormalization, ResidualBottleneck and
-GlobalPoolingLayer.
+"""Convolutional layers: ConvolutionLayer, Convolution1DLayer,
+Deconvolution2DLayer, SeparableConvolution2DLayer, SubsamplingLayer,
+Subsampling1DLayer, Upsampling1D/2D, ZeroPadding1D/2D, SpaceToDepth,
+SpaceToBatch, BatchNormalization, LocalResponseNormalization,
+ResidualBottleneck and GlobalPoolingLayer.
 
 Activations stay logically NHWC and kernels HWIO, as in the JAX package, so
 parameters and checkpoints need no transpose. A library convolution gets an
@@ -18,6 +20,19 @@ the unbiased one. LocalResponseNormalization divides by
 n-1-n//2), as the JAX package's ``reduce_window``; torch's
 ``local_response_norm`` divides alpha by n and centres the window
 otherwise.
+
+Deconvolution2DLayer is the JAX package's ``lax.conv_transpose`` with
+``transpose_kernel=False`` on an HWIO kernel: a correlation of the
+stride-dilated input with the kernel as given, padded (k - 1, s - 1 +
+max(k - s, 0)) for "valid", (k - 1, s - 1) or (ceil((k + s - 2) / 2), the
+rest) for "same" (output = input * stride) and ``pad`` on both sides for
+"explicit". Torch's ``conv_transpose2d`` computes the full correlation
+(pad k - 1 both sides) with the kernel flipped and its in and out axes
+swapped; the port feeds it that kernel and crops or zero-pads the full
+output to the JAX padding. SpaceToDepthLayer orders the new channels
+(block row, block column, channel), where ``pixel_unshuffle`` orders them
+(channel, block row, block column); SpaceToBatchLayer orders the new batch
+(block row, block column, image).
 """
 
 from __future__ import annotations
@@ -71,12 +86,13 @@ def _nchw_padded(x, pads, value=0.0):
     return F.pad(xn, (wl, wh, hl, hh), value=value), (0, 0)
 
 
-def conv(x, w, *, stride=(1, 1), padding="valid", pad=(0, 0), dilation=(1, 1)):
+def conv(x, w, *, stride=(1, 1), padding="valid", pad=(0, 0), dilation=(1, 1), groups=1):
     """Policy-aware 2-D convolution of NHWC ``x`` with HWIO ``w`` (the JAX
     package's ``conv``): operands in the compute dtype; under mixed
     precision (bf16 compute, f32 accumulation) the result stays in bf16, as
     the JAX package computes bf16 -> bf16, else it comes back in the
-    accumulation dtype."""
+    accumulation dtype. ``groups`` is XLA's ``feature_group_count``: output
+    channel o reads input group o // (cout / groups), as in torch."""
     cd, ad = _dtypes.compute_dtypes_for(x.dtype)
     kh, kw = w.shape[0], w.shape[1]
     dh, dw = _pair(dilation)
@@ -84,7 +100,7 @@ def conv(x, w, *, stride=(1, 1), padding="valid", pad=(0, 0), dilation=(1, 1)):
     pads = _explicit_padding(padding, _pair(pad), x.shape[1:3], keff, _pair(stride))
     xn, sym = _nchw_padded(x.to(cd), pads)
     z = F.conv2d(xn, w.to(cd).permute(3, 2, 0, 1), stride=_pair(stride), padding=sym,
-                 dilation=(dh, dw))
+                 dilation=(dh, dw), groups=groups)
     z = z.permute(0, 2, 3, 1)
     return z if cd != ad else z.to(ad)
 
@@ -401,3 +417,287 @@ class GlobalPoolingLayer(Layer):
         else:
             raise ValueError(f"Unknown pooling mode {self.mode!r}")
         return y, state
+
+
+def _conv_transpose_pads(k, s, padding, pad):
+    """(lo, hi) padding of the stride-dilated input in ``lax.conv_transpose``
+    (its ``_conv_transpose_padding`` for "same" and "valid"; an explicit
+    ``pad`` on both sides)."""
+    if padding == "same":
+        total = k + s - 2
+        lo = k - 1 if s > k - 1 else -(-total // 2)
+        return lo, total - lo
+    if padding == "valid":
+        return k - 1, s - 1 + max(k - s, 0)
+    return pad, pad
+
+
+@register_config
+@dataclasses.dataclass(frozen=True)
+class Convolution1DLayer(ParamLayer):
+    """1-D convolution over time (reference: Convolution1DLayer.java). Input
+    [B, T, F]; W [k, cin, cout]; computed as the 2-D conv over a width-1
+    axis."""
+
+    n_out: int = 0
+    kernel: int = 3
+    stride: int = 1
+    padding: str = "valid"
+    pad: int = 0
+    dilation: int = 1
+    has_bias: bool = True
+    weight_init: object = dataclasses.field(default="relu", kw_only=True)
+
+    input_family = _inputs.RecurrentType
+
+    def output_type(self, input_type):
+        if not isinstance(input_type, _inputs.RecurrentType):
+            raise ValueError(f"{type(self).__name__} needs RNN input, got {input_type}")
+        t = input_type.timesteps
+        if t is not None:
+            k_eff = self.kernel + (self.kernel - 1) * (self.dilation - 1)
+            t = _conv_out_size(t, k_eff, self.stride, self.padding, self.pad)
+        return _inputs.RecurrentType(self.n_out, t)
+
+    def init(self, generator, input_type, dtype=torch.float32):
+        cin = input_type.size
+        p = {"W": _init.init_weight(self.weight_init, generator, (self.kernel, cin, self.n_out),
+                                    cin * self.kernel, self.n_out * self.kernel, dtype)}
+        if self.has_bias:
+            p["b"] = torch.full((self.n_out,), self.bias_init, dtype=dtype,
+                                device=generator.device)
+        return p
+
+    def apply(self, params, state, x, *, train=False):
+        z = conv(x[:, :, None, :], params["W"][:, None], stride=(self.stride, 1),
+                 padding=self.padding, pad=(self.pad, 0), dilation=(self.dilation, 1))[:, :, 0]
+        if self.has_bias:
+            z = z + params["b"].to(z.dtype)
+        return self.activation_fn()(z), state
+
+
+@register_config
+@dataclasses.dataclass(frozen=True)
+class Deconvolution2DLayer(ConvolutionLayer):
+    """Transposed convolution (reference: Deconvolution2D.java), the JAX
+    package's function (see the module docstring); ``dilation`` is
+    ignored, as there."""
+
+    def output_type(self, input_type):
+        kh, kw = _pair(self.kernel)
+        sh, sw = _pair(self.stride)
+        ph, pw = _pair(self.pad)
+        if self.padding == "same":
+            h, w = input_type.height * sh, input_type.width * sw
+        else:
+            pads = (0, 0) if self.padding == "valid" else (ph, pw)
+            h = sh * (input_type.height - 1) + kh - 2 * pads[0]
+            w = sw * (input_type.width - 1) + kw - 2 * pads[1]
+        return _inputs.ConvolutionalType(h, w, self.n_out)
+
+    def apply(self, params, state, x, *, train=False):
+        cd, ad = _dtypes.compute_dtypes_for(x.dtype)
+        w = params["W"]
+        kh, kw = w.shape[0], w.shape[1]
+        (sh, sw), (ph, pw) = _pair(self.stride), _pair(self.pad)
+        hl, hh = _conv_transpose_pads(kh, sh, self.padding, ph)
+        wl, wh = _conv_transpose_pads(kw, sw, self.padding, pw)
+        full = F.conv_transpose2d(x.to(cd).permute(0, 3, 1, 2),
+                                  w.to(cd).permute(2, 3, 0, 1).flip(2, 3), stride=(sh, sw))
+        # the full correlation pads k - 1 on each side: crop (or zero-pad)
+        # it to the JAX padding
+        z = F.pad(full, (wl - (kw - 1), wh - (kw - 1), hl - (kh - 1), hh - (kh - 1)))
+        z = z.permute(0, 2, 3, 1)
+        z = z if cd != ad else z.to(ad)
+        if self.has_bias:
+            z = z + params["b"].to(z.dtype)
+        return self.activation_fn()(z), state
+
+
+@register_config
+@dataclasses.dataclass(frozen=True)
+class SeparableConvolution2DLayer(ParamLayer):
+    """Depthwise-separable convolution (reference: SeparableConvolution2D.java):
+    D [kh, kw, 1, cin * mult] depthwise (output channel o reads input
+    channel o // mult), then P [1, 1, cin * mult, cout] pointwise."""
+
+    n_out: int = 0
+    kernel: tuple = (3, 3)
+    stride: tuple = (1, 1)
+    padding: str = "valid"
+    pad: tuple = (0, 0)
+    depth_multiplier: int = 1
+    has_bias: bool = True
+    weight_init: object = dataclasses.field(default="relu", kw_only=True)
+
+    input_family = _inputs.ConvolutionalType
+
+    def output_type(self, input_type):
+        kh, kw = _pair(self.kernel)
+        sh, sw = _pair(self.stride)
+        ph, pw = _pair(self.pad)
+        h = _conv_out_size(input_type.height, kh, sh, self.padding, ph)
+        w = _conv_out_size(input_type.width, kw, sw, self.padding, pw)
+        return _inputs.ConvolutionalType(h, w, self.n_out)
+
+    def init(self, generator, input_type, dtype=torch.float32):
+        kh, kw = _pair(self.kernel)
+        cin = input_type.channels
+        cm = cin * self.depth_multiplier
+        p = {"D": _init.init_weight(self.weight_init, generator, (kh, kw, 1, cm), cin * kh * kw,
+                                    cm, dtype),
+             "P": _init.init_weight(self.weight_init, generator, (1, 1, cm, self.n_out), cm,
+                                    self.n_out, dtype)}
+        if self.has_bias:
+            p["b"] = torch.full((self.n_out,), self.bias_init, dtype=dtype,
+                                device=generator.device)
+        return p
+
+    def apply(self, params, state, x, *, train=False):
+        z = conv(x, params["D"], stride=_pair(self.stride), padding=self.padding,
+                 pad=_pair(self.pad), groups=x.shape[-1])
+        z = conv(z, params["P"])
+        if self.has_bias:
+            z = z + params["b"].to(z.dtype)
+        return self.activation_fn()(z), state
+
+
+@register_config
+@dataclasses.dataclass(frozen=True)
+class Subsampling1DLayer(Layer):
+    """1-D pooling over time (reference: Subsampling1DLayer.java): "max",
+    "avg", or a sum for any other mode; "same" or "valid" padding."""
+
+    kernel: int = 2
+    stride: int = 2
+    padding: str = "valid"
+    mode: str = "max"
+
+    input_family = _inputs.RecurrentType
+
+    def output_type(self, input_type):
+        t = input_type.timesteps
+        if t is not None:
+            t = _conv_out_size(t, self.kernel, self.stride, self.padding, 0)
+        return _inputs.RecurrentType(input_type.size, t)
+
+    def apply(self, params, state, x, *, train=False):
+        mode = self.mode if self.mode in ("max", "avg") else "sum"
+        pool = SubsamplingLayer(kernel=(self.kernel, 1), stride=(self.stride, 1),
+                                padding=self.padding, mode=mode)
+        y, _ = pool.apply(params, state, x[:, :, None, :])
+        return y[:, :, 0], state
+
+
+@register_config
+@dataclasses.dataclass(frozen=True)
+class Upsampling2DLayer(Layer):
+    """Nearest-neighbour repeat (reference: Upsampling2D.java)."""
+
+    size: tuple = (2, 2)
+
+    input_family = _inputs.ConvolutionalType
+
+    def output_type(self, input_type):
+        sh, sw = _pair(self.size)
+        return _inputs.ConvolutionalType(input_type.height * sh, input_type.width * sw,
+                                         input_type.channels)
+
+    def apply(self, params, state, x, *, train=False):
+        sh, sw = _pair(self.size)
+        return x.repeat_interleave(sh, dim=1).repeat_interleave(sw, dim=2), state
+
+
+@register_config
+@dataclasses.dataclass(frozen=True)
+class Upsampling1DLayer(Layer):
+    size: int = 2
+
+    input_family = _inputs.RecurrentType
+
+    def output_type(self, input_type):
+        t = None if input_type.timesteps is None else input_type.timesteps * self.size
+        return _inputs.RecurrentType(input_type.size, t)
+
+    def apply(self, params, state, x, *, train=False):
+        return x.repeat_interleave(self.size, dim=1), state
+
+
+@register_config
+@dataclasses.dataclass(frozen=True)
+class ZeroPaddingLayer(Layer):
+    """(reference: ZeroPaddingLayer.java) pad = (top, bottom, left, right)."""
+
+    pad: tuple = (1, 1, 1, 1)
+
+    input_family = _inputs.ConvolutionalType
+
+    def output_type(self, input_type):
+        t, b, l, r = self.pad
+        return _inputs.ConvolutionalType(input_type.height + t + b,
+                                         input_type.width + l + r, input_type.channels)
+
+    def apply(self, params, state, x, *, train=False):
+        t, b, l, r = self.pad
+        return F.pad(x, (0, 0, l, r, t, b)), state
+
+
+@register_config
+@dataclasses.dataclass(frozen=True)
+class ZeroPadding1DLayer(Layer):
+    pad: tuple = (1, 1)
+
+    input_family = _inputs.RecurrentType
+
+    def output_type(self, input_type):
+        l, r = self.pad
+        t = None if input_type.timesteps is None else input_type.timesteps + l + r
+        return _inputs.RecurrentType(input_type.size, t)
+
+    def apply(self, params, state, x, *, train=False):
+        l, r = self.pad
+        return F.pad(x, (0, 0, l, r)), state
+
+
+@register_config
+@dataclasses.dataclass(frozen=True)
+class SpaceToDepthLayer(Layer):
+    """(reference: SpaceToDepthLayer.java; the YOLO passthrough) Channels
+    ordered (block row, block column, channel)."""
+
+    blocks: int = 2
+
+    input_family = _inputs.ConvolutionalType
+
+    def output_type(self, input_type):
+        b = self.blocks
+        return _inputs.ConvolutionalType(input_type.height // b, input_type.width // b,
+                                         input_type.channels * b * b)
+
+    def apply(self, params, state, x, *, train=False):
+        b = self.blocks
+        n, h, w, c = x.shape
+        y = x.reshape(n, h // b, b, w // b, b, c).permute(0, 1, 3, 2, 4, 5)
+        return y.reshape(n, h // b, w // b, b * b * c), state
+
+
+@register_config
+@dataclasses.dataclass(frozen=True)
+class SpaceToBatchLayer(Layer):
+    """(reference: SpaceToBatchLayer.java) Batch ordered (block row, block
+    column, image)."""
+
+    blocks: tuple = (2, 2)
+
+    input_family = _inputs.ConvolutionalType
+
+    def output_type(self, input_type):
+        bh, bw = _pair(self.blocks)
+        return _inputs.ConvolutionalType(input_type.height // bh, input_type.width // bw,
+                                         input_type.channels)
+
+    def apply(self, params, state, x, *, train=False):
+        bh, bw = _pair(self.blocks)
+        n, h, w, c = x.shape
+        y = x.reshape(n, h // bh, bh, w // bw, bw, c).permute(2, 4, 0, 1, 3, 5)
+        return y.reshape(n * bh * bw, h // bh, w // bw, c), state

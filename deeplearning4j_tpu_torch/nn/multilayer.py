@@ -32,11 +32,21 @@ Input dropout and ``DropoutLayer`` draw from a seed a train step
 (``nn/layers/base.py step_seed``), split into one seed a layer. Weight
 noise is not ported yet: training a network that needs it raises
 ``NotImplementedError``.
+
+Freezing (``nn/transfer.py``): ``frozen_layers`` holds the indices of
+layers that train as DL4J's FrozenLayer does. A frozen layer runs with
+``train=False`` in every pass (BatchNormalization normalizes with its
+running statistics and keeps them, dropout is off), its parameters stay
+out of autograd and out of the updater, whose state for them is left as
+it is. Listeners (``nn/listeners.py``) hear every fit loop, one step
+late; ``evaluate``, ``evaluate_regression`` and ``evaluate_roc`` run the
+``eval/`` classes over arrays, an (x, y) pair or a DataSetIterator.
 """
 
 from __future__ import annotations
 
 import functools
+import time
 
 import numpy as np
 import torch
@@ -45,13 +55,14 @@ from torch import nn
 
 from deeplearning4j_tpu_torch.datasets.iterator import iter_batches
 from deeplearning4j_tpu_torch.nn import gradnorm as _gradnorm
+from deeplearning4j_tpu_torch.nn import listeners as _listeners
 from deeplearning4j_tpu_torch.nn.conf import inputs as _inputs
 from deeplearning4j_tpu_torch.nn.conf.network import MultiLayerConfiguration
 from deeplearning4j_tpu_torch.nn.layers import base as _base
 from deeplearning4j_tpu_torch.nn.layers.base import apply_layer, split_seed, step_seed
 from deeplearning4j_tpu_torch.utils import dtypes as _dtypes
 from deeplearning4j_tpu_torch.utils.device import resolve_device
-from deeplearning4j_tpu_torch.utils.trees import tree_leaves, tree_like
+from deeplearning4j_tpu_torch.utils.trees import drop_entries, tree_leaves, tree_like
 
 _NOT_PORTED = "is not ported yet (ROADMAP queue 1, \"Rest of the training core\")"
 
@@ -102,6 +113,10 @@ class MultiLayerNetwork(nn.Module):
         self.score_value = None
         self.score_history = []
         self._rnn_stream_state = None
+        self.listeners = []
+        self.last_input = None  # the fit loop's current batch (listeners read it)
+        # indices of the layers that train frozen (``nn/transfer.py``)
+        self.frozen_layers = ()
 
     @property
     def device(self) -> torch.device:
@@ -135,6 +150,26 @@ class MultiLayerNetwork(nn.Module):
         self.opt_state = None
         return self.params
 
+    def _layer_train(self, i, train):
+        """The mode layer ``i`` runs in: a frozen layer always as in
+        inference (FrozenLayer.java)."""
+        return train and i not in self.frozen_layers
+
+    def _trainable(self, tree):
+        """A per-layer tree (parameters, gradients, updater state) with the
+        frozen layers' entries emptied."""
+        return drop_entries(tree, set(self.frozen_layers), range(len(self.conf.layers)))
+
+    def _watch(self, params):
+        """Turn autograd on for the trainable parameters and off for the
+        frozen ones; returns the trainable tree."""
+        for p in tree_leaves(params):
+            p.requires_grad_(False)
+        trainable = self._trainable(params)
+        for p in tree_leaves(trainable):
+            p.requires_grad_(True)
+        return trainable
+
     def _check_trainable(self):
         for layer in self.conf.layers:
             if getattr(layer, "weight_noise", None) is not None:
@@ -163,16 +198,17 @@ class MultiLayerNetwork(nn.Module):
                 # reach mask-aware layers
                 if self._mask_aware[i] and mask is not None and mask.dim() >= 2:
                     kwargs["mask"] = mask
-                if train and self.conf.gradient_checkpointing:
+                l_train = self._layer_train(i, train)
+                if l_train and self.conf.gradient_checkpointing:
                     # remat: keep the layer's input, recompute its activations
                     # in the backward (memory for operations); the seed makes
                     # the recompute draw the same masks
                     x, new_state[i] = torch.utils.checkpoint.checkpoint(
-                        functools.partial(apply_layer, layer, train=train, rng=seeds[i],
+                        functools.partial(apply_layer, layer, train=l_train, rng=seeds[i],
                                           **kwargs),
                         params[i], state[i], x, use_reentrant=False, preserve_rng_state=False)
                 else:
-                    x, new_state[i] = apply_layer(layer, params[i], state[i], x, train=train,
+                    x, new_state[i] = apply_layer(layer, params[i], state[i], x, train=l_train,
                                                   rng=seeds[i], **kwargs)
                 cur_type = layer.output_type(cur_type)
         return x, new_state
@@ -194,7 +230,8 @@ class MultiLayerNetwork(nn.Module):
         with torch.enable_grad() if train else torch.inference_mode():
             if from_features:
                 loss, preds, new_state[-1] = out_layer.loss_from_features(
-                    params[-1], state[-1], out, y, lm, train=train)
+                    params[-1], state[-1], out, y, lm,
+                    train=self._layer_train(len(params) - 1, train))
             else:
                 preds, loss = out, out_layer.compute_loss(out, y, lm)
             for layer, p in zip(self.conf.layers, params):
@@ -207,11 +244,11 @@ class MultiLayerNetwork(nn.Module):
         """Loss and normalized/clipped gradients. Returns (loss, new_state,
         grads) with ``grads`` a list of per-layer dicts shaped as
         ``params``. A parameter the loss does not reach gets zeros.
-        ``rng``, the step's seed, turns on the random draws (dropout)."""
-        for p in tree_leaves(params):
-            p.requires_grad_(True)
+        ``rng``, the step's seed, turns on the random draws (dropout). A
+        frozen layer's entry is ``{}``: no gradient is computed for it."""
+        trainable = self._watch(params)
         loss, (new_state, _) = self.loss_fn(params, state, x, y, train=True, mask=mask, rng=rng)
-        return loss.detach(), new_state, self._grads(loss, params)
+        return loss.detach(), new_state, self._grads(loss, trainable)
 
     def _grads(self, loss, params):
         """Gradients of ``loss`` shaped as ``params`` (zeros where the loss
@@ -224,15 +261,22 @@ class MultiLayerNetwork(nn.Module):
                                          self.conf.gradient_normalization_threshold)
 
     def apply_update(self, params, opt_state, grads, step):
-        """updater -> parameter add -> constraints, all in place. Returns
-        (params, opt_state)."""
-        with torch.profiler.record_function("updater.step"):
-            opt_state = self.conf.updater.update_(params, grads, opt_state, step)
+        """updater -> parameter add -> constraints, all in place, on the
+        trainable layers only (``grads`` as ``compute_gradients`` gives
+        them). Returns (params, opt_state)."""
+        self._update(params, opt_state, grads, step)
         return self.apply_constraints(params, step), opt_state
 
+    def _update(self, params, opt_state, grads, step):
+        """The updater in place over the trainable layers: a frozen layer's
+        parameters and updater state are not touched."""
+        with torch.profiler.record_function("updater.step"):
+            self.conf.updater.update_(self._trainable(params), self._trainable(grads),
+                                      self._trainable(opt_state), step)
+
     def apply_constraints(self, params, step):
-        return [l.apply_constraints(p, step, 0) if len(p) else p
-                for l, p in zip(self.conf.layers, params)]
+        return [l.apply_constraints(p, step, 0) if len(p) and i not in self.frozen_layers else p
+                for i, (l, p) in enumerate(zip(self.conf.layers, params))]
 
     def make_train_step(self):
         """The train step: (params, state, opt_state, x, y, step, mask, rng)
@@ -277,7 +321,8 @@ class MultiLayerNetwork(nn.Module):
                 kwargs = {"mask": mask} if (self._mask_aware[i] and mask is not None) else {}
                 if seeds is not None and _base.takes(type(layer), "rng"):
                     kwargs["rng"] = seeds[i]
-                x, new_state[i] = layer.apply(params[i], state[i], x, train=train, **kwargs)
+                x, new_state[i] = layer.apply(params[i], state[i], x,
+                                              train=self._layer_train(i, train), **kwargs)
             cur_type = layer.output_type(cur_type)
         return x, new_state, new_carries
 
@@ -291,8 +336,7 @@ class MultiLayerNetwork(nn.Module):
 
         def tbptt_step(params, state, opt_state, carries, x, y, step, mask=None, rng=None):
             carries = [None if c is None else _detach(c) for c in carries]
-            for p in tree_leaves(params):
-                p.requires_grad_(True)
+            trainable = self._watch(params)
             with torch.enable_grad():
                 preds, new_state, new_carries = self._apply_rnn(params, state, x, carries,
                                                                 train=True, mask=mask, rng=rng)
@@ -301,9 +345,7 @@ class MultiLayerNetwork(nn.Module):
                     if len(p):
                         loss = loss + layer.regularization_penalty(p)
                 loss, new_state = _base.pop_aux_losses(loss, new_state)
-            grads = self._grads(loss, params)
-            with torch.profiler.record_function("updater.step"):
-                opt_state = conf.updater.update_(params, grads, opt_state, step)
+            self._update(params, opt_state, self._grads(loss, trainable), step)
             new_carries = [None if c is None else _detach(c) for c in new_carries]
             return params, new_state, opt_state, new_carries, loss.detach()
 
@@ -363,8 +405,8 @@ class MultiLayerNetwork(nn.Module):
         arrays may be numpy or tensors, and move to the network's device.
         ``pad_ragged=True`` pads every batch to the first one's size with a
         validity mask (exact under the masked-mean losses). Each step's loss
-        lands in ``score_history`` one step late; ``score_value`` is the
-        last. Returns the network."""
+        lands in ``score_history`` one step late, where the listeners hear
+        it; ``score_value`` is the last. Returns the network."""
         if self.params is None:
             self.init()
         if self.opt_state is None:
@@ -372,26 +414,34 @@ class MultiLayerNetwork(nn.Module):
         step_fn = self.make_train_step()
         dev = self.device
         self.score_history = []
-        with _dtypes.policy_precision():
-            for _ in range(epochs):
-                pending = None
-                for x, y, m in iter_batches(data, labels, batch_size, mask,
-                                            pad_to=True if pad_ragged else None):
-                    x, y, m = _as_tensor(x, dev), _as_tensor(y, dev), _as_tensor(m, dev)
-                    if self._tbptt_applies(x, y):
-                        # one entry a batch: the mean of its chunks' losses
-                        loss = self._fit_tbptt(x, y, m)
-                    else:
-                        _, self.state, self.opt_state, loss = step_fn(
-                            self.params, self.state, self.opt_state, x, y, self.iteration, m,
-                            step_seed(self.conf.seed, self.iteration))
-                        self.iteration += 1
-                    if pending is not None:
-                        self.score_history.append(float(pending))
-                    pending = loss
-                if pending is not None:
-                    self.score_history.append(float(pending))
-                self.epoch += 1
+        scores = _listeners.FitScores(self)
+        try:
+            with _dtypes.policy_precision():
+                for _ in range(epochs):
+                    for l in self.listeners:
+                        l.on_epoch_start(self)
+                    t_etl = time.perf_counter()
+                    for x, y, m in iter_batches(data, labels, batch_size, mask,
+                                                pad_to=True if pad_ragged else None):
+                        x, y, m = _as_tensor(x, dev), _as_tensor(y, dev), _as_tensor(m, dev)
+                        etl = time.perf_counter() - t_etl
+                        self.last_input = x
+                        if self._tbptt_applies(x, y):
+                            # one entry a batch: the mean of its chunks' losses
+                            loss = self._fit_tbptt(x, y, m)
+                        else:
+                            _, self.state, self.opt_state, loss = step_fn(
+                                self.params, self.state, self.opt_state, x, y, self.iteration,
+                                m, step_seed(self.conf.seed, self.iteration))
+                            self.iteration += 1
+                        scores.push(loss, self.iteration, etl)
+                        t_etl = time.perf_counter()
+                    scores.flush()
+                    for l in self.listeners:
+                        l.on_epoch_end(self)
+                    self.epoch += 1
+        finally:
+            _listeners.run_fit_end_hooks(self)
         if self.score_history:
             self.score_value = self.score_history[-1]
         return self
@@ -417,6 +467,65 @@ class MultiLayerNetwork(nn.Module):
         dev = self.device
         with _dtypes.policy_precision():
             return self.forward(_as_tensor(x, dev), mask=_as_tensor(mask, dev))
+
+    def predict(self, x, mask=None):
+        """Predicted class indices [batch] (reference:
+        MultiLayerNetwork.predict): the argmax of ``output``, on the host."""
+        return self.output(x, mask=mask).argmax(-1).cpu().numpy()
+
+    def f1_score(self, x, y, mask=None):
+        """Macro F1 over a labelled batch (reference: Classifier.f1Score); a
+        mask excludes padded examples or steps."""
+        from deeplearning4j_tpu_torch.eval.classification import Evaluation
+
+        e = Evaluation()
+        e.eval(y, self.output(x, mask=mask), mask=mask)
+        return e.f1()
+
+    def _eval_batches(self, data, labels, batch_size):
+        """(x, y, mask, output) for each batch of the evaluate family."""
+        for bx, by, bm in iter_batches(data, labels, batch_size, None):
+            yield bx, by, bm, self.output(bx, mask=bm)
+
+    def evaluate(self, data, labels=None, *, batch_size=None, evaluation=None):
+        """Classification ``Evaluation`` over arrays, an (x, y) pair or a
+        DataSetIterator (reference: MultiLayerNetwork.evaluate). Pass
+        ``evaluation=`` to accumulate into an existing instance (a top-N or
+        cost-array one)."""
+        from deeplearning4j_tpu_torch.eval.classification import Evaluation
+
+        e = evaluation if evaluation is not None else Evaluation()
+        for _, by, bm, out in self._eval_batches(data, labels, batch_size):
+            e.eval(by, out, mask=bm)
+        return e
+
+    def evaluate_regression(self, data, labels=None, *, batch_size=None):
+        """``RegressionEvaluation`` over the same inputs (reference:
+        MultiLayerNetwork.evaluateRegression)."""
+        from deeplearning4j_tpu_torch.eval.regression import RegressionEvaluation
+
+        e = RegressionEvaluation()
+        for _, by, bm, out in self._eval_batches(data, labels, batch_size):
+            e.eval(by, out, mask=bm)
+        return e
+
+    def evaluate_roc(self, data, labels=None, *, batch_size=None, threshold_steps=0):
+        """``ROC`` (at most 2 outputs) or ``ROCMultiClass`` over the same
+        inputs (reference: evaluateROC / evaluateROCMultiClass)."""
+        from deeplearning4j_tpu_torch.eval.roc import ROC, ROCMultiClass
+
+        roc = None
+        for _, by, bm, out in self._eval_batches(data, labels, batch_size):
+            if roc is None:
+                roc = ROC(threshold_steps) if out.shape[-1] <= 2 else ROCMultiClass(threshold_steps)
+            roc.eval(by, out, mask=bm)
+        if roc is None:
+            raise ValueError("no data to evaluate")
+        return roc
+
+    def add_listener(self, *ls):
+        self.listeners.extend(ls)
+        return self
 
     def num_params(self):
         return sum(int(p.numel()) for p in self.parameters())

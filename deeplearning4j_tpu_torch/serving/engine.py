@@ -16,10 +16,15 @@ The port of ``deeplearning4j_tpu/serving/engine.py``:
   on them.
 
 The forward runs under ``torch.inference_mode()`` on the engine's device
-(``"cuda"`` unless the caller asks for the CPU). Not ported yet: the warm
+(``"cuda"`` unless the caller asks for the CPU). A ComputationGraph is
+served in the JAX package's dict form: a request is one array (the
+graph's first input) or a dict of arrays keyed by input name, every leaf
+padded to the bucket (a seq bucket pads axis 1 of every leaf with a
+sequence axis), and the result is the dict of the graph's outputs
+(``apply_fn``'s form), one or several. A batched submit whose leaves
+disagree on their leading dimension is refused. Not ported yet: the warm
 AOT manifest and compile cache, metering, causal tracing, telemetry
-metrics, the mesh path and hot swap; dict inputs (the ComputationGraph
-form) raise.
+metrics, the mesh path and hot swap.
 """
 
 from __future__ import annotations
@@ -97,38 +102,69 @@ class InferenceFuture:
         return self._value
 
 
-def _as_input(x):
-    """One request input as a host array. Dict inputs are the
-    ComputationGraph form, which is not ported yet."""
+def _host_array(a):
+    if torch.is_tensor(a):
+        return a.detach().cpu().numpy()
+    return np.asarray(a)
+
+
+def _as_input(x, graph_inputs=None):
+    """One request input on the host: a dict is the ComputationGraph
+    multi-input form (each value taken as an array), anything else one
+    array. For a graph (``graph_inputs``: its input names) one array is its
+    first input, so both forms batch together."""
     if isinstance(x, dict):
-        raise NotImplementedError(
-            "dict inputs (the ComputationGraph multi-input form) are not "
-            "ported to deeplearning4j_tpu_torch yet")
-    return np.asarray(x)
+        return {k: _host_array(v) for k, v in x.items()}
+    if graph_inputs:
+        return {graph_inputs[0]: _host_array(x)}
+    return _host_array(x)
 
 
-def _pad_rows_np(a, target, seq_target=None):
-    """Zero-pad ``a`` to ``target`` rows along axis 0 (host-side). With
-    ``seq_target``, an array with a sequence axis (``ndim >= 2``) is
+def _tree_map(fn, tree):
+    """``fn`` over an array or over each value of a dict of arrays."""
+    if isinstance(tree, dict):
+        return {k: fn(v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _first_leaf(tree):
+    return next(iter(tree.values())) if isinstance(tree, dict) else tree
+
+
+def _concat(parts):
+    """Row-concatenate a list of arrays or of dicts of arrays."""
+    if isinstance(parts[0], dict):
+        return {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
+    return np.concatenate(parts)
+
+
+def _pad_rows_np(tree, target, seq_target=None):
+    """Zero-pad every leaf to ``target`` rows along axis 0 (host-side).
+    With ``seq_target``, a leaf with a sequence axis (``ndim >= 2``) is
     zero-padded along axis 1 as well: the model is causal over time, so
     the real rows and steps of the padded forward equal the unpadded one."""
-    a = np.asarray(a)
-    n = a.shape[0]
-    if n != target:
-        a = np.concatenate([a, np.zeros((target - n,) + a.shape[1:], a.dtype)])
-    if seq_target is not None and a.ndim >= 2 and a.shape[1] != seq_target:
-        width = [(0, 0)] * a.ndim
-        width[1] = (0, seq_target - a.shape[1])
-        a = np.pad(a, width)
-    return a
-
-
-def _slice_seq(a, padded_seq, real_seq):
-    """Undo the seq-axis pad on a forward's output: slice axis 1 back to
-    ``real_seq`` when axis 1 is the padded length."""
-    if real_seq == padded_seq or a.ndim < 2 or a.shape[1] != padded_seq:
+    def pad(a):
+        a = np.asarray(a)
+        n = a.shape[0]
+        if n != target:
+            a = np.concatenate([a, np.zeros((target - n,) + a.shape[1:], a.dtype)])
+        if seq_target is not None and a.ndim >= 2 and a.shape[1] != seq_target:
+            width = [(0, 0)] * a.ndim
+            width[1] = (0, seq_target - a.shape[1])
+            a = np.pad(a, width)
         return a
-    return a[:, :real_seq]
+    return _tree_map(pad, tree)
+
+
+def _slice_seq(tree, padded_seq, real_seq):
+    """Undo the seq-axis pad on a forward's outputs: slice axis 1 back to
+    ``real_seq`` on every leaf whose axis 1 is the padded length."""
+    if real_seq == padded_seq:
+        return tree
+
+    def cut(a):
+        return a[:, :real_seq] if a.ndim >= 2 and a.shape[1] == padded_seq else a
+    return _tree_map(cut, tree)
 
 
 class BucketedForward:
@@ -143,6 +179,9 @@ class BucketedForward:
     def __init__(self, net, buckets, *, device, dtype=np.float32):
         self.net = net
         self.device = device
+        #: a graph's input names (requests become dicts), None for a network
+        #: of one input
+        self.graph_inputs = tuple(getattr(net.conf, "inputs", ())) or None
         self.buckets = buckets
         #: 2-D (batch, seq) grid vs the 1-D batch-only registry
         self.seq_aware = isinstance(buckets, ShapeBuckets)
@@ -152,54 +191,58 @@ class BucketedForward:
 
     def warmup(self, input_spec):
         """Run every registered bucket once (zeros of the per-example
-        ``input_spec`` shape) so kernel builds and first-launch costs land
-        here, not on a request. Returns the wall seconds spent."""
-        if isinstance(input_spec, dict):
-            raise NotImplementedError(
-                "dict input specs (ComputationGraph) are not ported yet")
-        spec = tuple(int(d) for d in input_spec)
-        t0 = time.perf_counter()
-        if self.seq_aware:
+        ``input_spec`` shape, or a dict of them keyed by graph input) so
+        kernel builds and first-launch costs land here, not on a request.
+        Returns the wall seconds spent."""
+        def zeros(spec, b, s):
+            spec = tuple(int(d) for d in spec)
+            if s is None:
+                return np.zeros((b,) + spec, self.dtype)
             if not spec:
                 raise ValueError("seq-bucketed serving needs a per-example "
                                  "input spec with a leading sequence axis")
-            shapes = [(b, s) + spec[1:] for b, s in self.buckets]
-        else:
-            shapes = [(b,) + spec for b in self.buckets]
-        for shape in shapes:
-            self._run(np.zeros(shape, self.dtype))
+            return np.zeros((b, s) + spec[1:], self.dtype)
+
+        t0 = time.perf_counter()
+        shapes = list(self.buckets) if self.seq_aware else [(b, None) for b in self.buckets]
+        for b, s in shapes:
+            self._run(_tree_map(lambda spec: zeros(spec, b, s), input_spec)
+                      if isinstance(input_spec, dict) else zeros(input_spec, b, s))
             with self._lock:
                 self._counts["warmed"] += 1
         return time.perf_counter() - t0
 
     def _run(self, x_padded):
-        """One forward at the padded shape; the result comes back to the
-        host (which waits for the device)."""
-        x = torch.from_numpy(x_padded).to(self.device)
+        """One forward at the padded shape; the result (an array, or a
+        graph's dict of outputs) comes back to the host, which waits for
+        the device."""
+        x = _tree_map(lambda a: torch.from_numpy(a).to(self.device), x_padded)
         with _dtypes.policy_precision(), torch.inference_mode():
             y, _ = self.net.apply_fn(self.net.params, self.net.state, x)
         with self._lock:
             self._counts["forwards"] += 1
-        return y.cpu().numpy()
+        return _tree_map(lambda t: t.cpu().numpy(), y)
 
     def stats(self):
         with self._lock:
             return dict(self._counts)
 
     def __call__(self, x):
-        """Padded, bucketed forward of a host batch of any leading size."""
-        x = _as_input(x)
-        n = x.shape[0]
-        seq_in = x.shape[1] if self.seq_aware and x.ndim >= 2 else None
+        """Padded, bucketed forward of a host batch of any leading size (an
+        array or a dict of arrays with one leading size)."""
+        x = _as_input(x, self.graph_inputs)
+        first = _first_leaf(x)
+        n = first.shape[0]
+        seq_in = first.shape[1] if self.seq_aware and first.ndim >= 2 else None
         if self.seq_aware and seq_in is None:
             raise ValueError(
                 "seq-bucketed serving requires inputs with a sequence axis "
-                f"([rows, steps, ...]); got shape {tuple(x.shape)}")
+                f"([rows, steps, ...]); got shape {tuple(first.shape)}")
         outs = []
         step = self.buckets.max
         for i in range(0, n, step):
-            chunk = np.asarray(x[i:i + step], dtype=self.dtype)
-            real = chunk.shape[0]
+            chunk = _tree_map(lambda a: np.asarray(a[i:i + step], dtype=self.dtype), x)
+            real = _first_leaf(chunk).shape[0]
             if self.seq_aware:
                 shape = self.buckets.bucket_for(real, seq_in)
                 if shape is None:
@@ -210,11 +253,12 @@ class BucketedForward:
                 bucket, seq_bucket = shape
             else:
                 bucket, seq_bucket = self.buckets.bucket_for(real), None
-            y = self._run(_pad_rows_np(chunk, bucket, seq_target=seq_bucket))[:real]
+            y = _tree_map(lambda a: a[:real],
+                          self._run(_pad_rows_np(chunk, bucket, seq_target=seq_bucket)))
             if seq_bucket is not None:
                 y = _slice_seq(y, seq_bucket, seq_in)
             outs.append(y)
-        return outs[0] if len(outs) == 1 else np.concatenate(outs)
+        return outs[0] if len(outs) == 1 else _concat(outs)
 
 
 class ServingEngine:
@@ -323,14 +367,17 @@ class ServingEngine:
         buckets as the batched path; counted into ``stats()``."""
         t0 = time.perf_counter()
         out = self._fwd(x)
-        self._count("served", out.shape[0])
+        self._count("served", _first_leaf(out).shape[0])
         self._note_latencies([time.perf_counter() - t0])
         return out
 
     def submit(self, x, deadline_s=None, *, batched=False):
         """Queue ONE example (or, with ``batched=True``, one multi-example
         batch, examples on axis 0); returns ONE :class:`InferenceFuture`.
-        A batched future resolves to the stacked ``[n, ...]`` outputs.
+        A batched future resolves to the stacked ``[n, ...]`` outputs. A
+        ComputationGraph request may be a dict of arrays keyed by input
+        name; a batched one must carry the same leading size in every
+        leaf.
 
         Admission bounds queued EXAMPLES: a batched submit of n rows spends
         n of the ``max_queue`` slots. A full queue sheds here
@@ -344,12 +391,21 @@ class ServingEngine:
             deadline_s = self.default_deadline_s
         deadline = None if deadline_s is None else now + deadline_s
         self._count("submitted")
-        item = _as_input(x)
+        item = _as_input(x, self._fwd.graph_inputs)
         if batched:
-            if item.ndim == 0 or item.shape[0] == 0:
+            # every leaf carries the examples on a shared axis 0: a dict whose
+            # leaves disagree would be admitted on one count and fail the
+            # co-batched requests inside the drain
+            leaves = list(item.values()) if isinstance(item, dict) else [item]
+            dims = {int(a.shape[0]) if a.ndim else -1 for a in leaves}
+            if len(dims) != 1 or -1 in dims:
+                raise ValueError("batched submit requires every input leaf to carry the "
+                                 "examples on axis 0 with one shared length; got leading "
+                                 f"dims {sorted(dims)}")
+            nrows = dims.pop()
+            if nrows == 0:
                 raise ValueError("batched submit requires at least one example "
-                                 f"on axis 0; got shape {tuple(item.shape)}")
-            nrows = int(item.shape[0])
+                                 "(got a 0-row batch)")
             if nrows > self.max_queue:
                 # can never be admitted: a sizing error, not load
                 raise ValueError(
@@ -358,14 +414,15 @@ class ServingEngine:
                     "admitted; split the batch or raise max_queue")
         else:
             nrows = None
-            item = item[None]
+            item = _tree_map(lambda a: a[None], item)
         seq = skey = None
         if self._fwd.seq_aware:
-            if item.ndim < 2:
+            lead = _first_leaf(item)
+            if lead.ndim < 2:
                 raise ValueError(
                     f"model {self.name!r} serves 2-D (batch, seq) buckets: "
                     "requests need a sequence axis ([steps, ...] per example)")
-            seq = int(item.shape[1])
+            seq = int(lead.shape[1])
             skey = self._fwd.buckets.seq.bucket_for(seq)
             if skey is None:
                 raise ValueError(
@@ -460,18 +517,18 @@ class ServingEngine:
                     # vary: pad each entry to the batch max so the concat
                     # is rectangular
                     batch_seq = max(e[5] for e in live)
-                    parts = [_pad_rows_np(p, p.shape[0], seq_target=batch_seq)
-                             for p in parts]
-                ys = self._fwd(np.concatenate(parts))
+                    parts = [_pad_rows_np(p, e[4] or 1, seq_target=batch_seq)
+                             for p, e in zip(parts, live)]
+                ys = self._fwd(_concat(parts))
                 done = time.perf_counter()
                 lats, off = [], 0
                 for _x, fut, t_sub, _dl, n, seq in live:
                     width = n or 1
-                    y = ys[off:off + width]
+                    y = _tree_map(lambda a: a[off:off + width], ys)
                     if batch_seq is not None:
                         y = _slice_seq(y, batch_seq, seq)
                     if n is None:
-                        y = y[0]
+                        y = _tree_map(lambda a: a[0], y)
                     off += width
                     lats.append(done - t_sub)
                     fut.latency_s = done - t_sub

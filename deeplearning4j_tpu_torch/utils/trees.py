@@ -43,3 +43,23 @@ def flatten_tree(tree, prefix=""):
         out.update(flatten_tree(v, f"{prefix}[{k}]" if isinstance(k, int)
                                 else f"{prefix}['{k}']"))
     return out
+
+
+def drop_entries(tree, drop, keys):
+    """``tree`` with the entries of the layers (or vertices) in ``drop``
+    emptied to ``{}``, so their leaves drop out of ``tree_leaves``.
+    ``tree`` is a per-layer list or a dict keyed by ``keys`` (parameters,
+    gradients, an updater's per-layer state), a dict of such trees (an
+    updater's ``{"m": ..., "v": ...}``), or leafless (``()``). The
+    entries left are the original objects, not copies."""
+    if not drop:
+        return tree
+    if isinstance(tree, (list, tuple)):
+        if len(tree) != len(keys):
+            return tree
+        return [{} if i in drop else t for i, t in enumerate(tree)]
+    if hasattr(tree, "items"):
+        if set(tree.keys()) == set(keys):
+            return {k: {} if k in drop else v for k, v in tree.items()}
+        return {k: drop_entries(v, drop, keys) for k, v in tree.items()}
+    return tree

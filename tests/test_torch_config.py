@@ -93,9 +93,9 @@ def test_schedule_configs_round_trip(name):
 
 
 def test_unported_type_raises_a_clear_error():
-    conf = JNetConf().list(JL.ZeroPaddingLayer(),
+    conf = JNetConf().list(JL.VariationalAutoencoder(n_latent=2),
                            JL.OutputLayer(n_out=2),
-                           input_type=JIn.ConvolutionalType(8, 8, 1))
+                           input_type=JIn.FeedForwardType(8))
     with pytest.raises(KeyError, match="not ported"):
         TConf.from_json(conf.to_json())
 

@@ -1,6 +1,10 @@
 """Slice 1 as a whole: a char-RNN built and saved by the JAX package, served
 by the port's registry, engine and CLI on the CPU, against the JAX
-network's own output (atol 1e-5)."""
+network's own output (atol 1e-5). And a ComputationGraph served in the
+dict form: a two-input, two-output graph saved by the JAX package, its
+results against the JAX graph's ``apply_fn`` outputs (f32, atol 1e-5); a
+recurrent graph on (batch, seq) buckets; the ``serve`` and ``eval`` verbs
+on graph zips."""
 
 import subprocess
 import sys
@@ -14,10 +18,19 @@ import torch
 from deeplearning4j_tpu.datasets.iterator import BucketRegistry as JBuckets
 from deeplearning4j_tpu.datasets.iterator import ShapeBuckets as JShape
 from deeplearning4j_tpu.models.misc import text_generation_lstm as j_charnn
+from deeplearning4j_tpu.nn import layers as JL
+from deeplearning4j_tpu.nn.conf import inputs as JI
+from deeplearning4j_tpu.nn.graph import ComputationGraph as JGraph
+from deeplearning4j_tpu.nn.graph import GraphBuilder as JGB
+from deeplearning4j_tpu.nn.graph import MergeVertex as JMerge
 from deeplearning4j_tpu.nn.multilayer import MultiLayerNetwork as JNet
 from deeplearning4j_tpu.utils import serialization as jser
 from deeplearning4j_tpu_torch.datasets.iterator import BucketRegistry, ShapeBuckets
 from deeplearning4j_tpu_torch.models.misc import text_generation_lstm as t_charnn
+from deeplearning4j_tpu_torch.nn import layers as TL
+from deeplearning4j_tpu_torch.nn.conf import inputs as TI
+from deeplearning4j_tpu_torch.nn.graph import ComputationGraph as TGraph
+from deeplearning4j_tpu_torch.nn.graph import GraphBuilder as TGB
 from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork as TNet
 from deeplearning4j_tpu_torch.serving import (ModelRegistry, ServingOverloaded,
                                               ServingShutdown)
@@ -127,8 +140,25 @@ def test_seq_longer_than_the_grid_is_refused(model_zip, registry):
     engine = _register(registry, model_zip, seq_buckets=(4, 8))
     with pytest.raises(ValueError, match="seq bucket"):
         engine.submit(_x(1, 9, seed=7)[0])
-    with pytest.raises(NotImplementedError, match="ComputationGraph"):
-        engine.submit({"in": _x(1, 4, seed=7)[0]})
+    # the dict form of a recurrent graph is served on the same grid: every
+    # leaf padded on axis 1, the output sliced back; a longer one is refused
+    g = TGB(seed=3)
+    g.add_inputs("in")
+    g.set_input_types(TI.RecurrentType(VOCAB, SEQ))
+    g.add_layer("lstm", TL.GravesLSTM(n_out=8), "in")
+    g.add_layer("out", TL.RnnOutputLayer(n_out=VOCAB, loss="mcxent"), "lstm")
+    g.set_outputs("out")
+    gnet = TGraph(g.build(), device="cpu")
+    gnet.init()
+    gengine = registry.register("charnn_graph", gnet, input_spec={"in": (SEQ, VOCAB)},
+                                max_batch_size=4, seq_buckets=(4, 8), device="cpu")
+    x = _x(2, 6, seed=7)
+    got = [gengine.submit({"in": x[i]}).get(timeout=30) for i in range(2)]
+    want = gnet.output({"in": x}).numpy()
+    assert got[0]["out"].shape == (6, VOCAB)
+    np.testing.assert_allclose(np.stack([r["out"] for r in got]), want, atol=1e-5)
+    with pytest.raises(ValueError, match="seq bucket"):
+        gengine.submit({"in": _x(1, 9, seed=7)[0]})
 
 
 def test_registry_names_and_duplicates(model_zip, registry):
@@ -175,3 +205,131 @@ def test_shape_buckets_match_jax():
     for rows in range(0, 20):
         for seq in (1, 31, 32, 33, 100, 128, 129):
             assert mine.bucket_for(rows, seq) == ref.bucket_for(rows, seq)
+
+
+# ---------------------------------------------------------------------------
+# a ComputationGraph in the dict form
+# ---------------------------------------------------------------------------
+
+def _two_in_two_out(GB, L, I, merge):
+    g = GB(seed=11)
+    g.add_inputs("img", "meta")
+    g.set_input_types(I.ConvolutionalType(6, 6, 2), I.FeedForwardType(3))
+    g.add_layer("conv", L.ConvolutionLayer(n_out=4, kernel=(3, 3), padding="same",
+                                           activation="relu"), "img")
+    g.add_layer("pool", L.GlobalPoolingLayer(mode="avg"), "conv")
+    g.add_vertex("merge", merge, "pool", "meta")
+    g.add_layer("h", L.DenseLayer(n_out=8, activation="tanh"), "merge")
+    g.add_layer("cls", L.OutputLayer(n_out=3, loss="mcxent"), "h")
+    g.add_layer("reg", L.OutputLayer(n_out=2, loss="mse", activation="identity"), "h")
+    g.set_outputs("cls", "reg")
+    return g.build()
+
+
+@pytest.fixture(scope="module")
+def graph_pair(tmp_path_factory):
+    jnet = JGraph(_two_in_two_out(JGB, JL, JI, JMerge()))
+    jnet.init()
+    path = tmp_path_factory.mktemp("serve_graph") / "graph.zip"
+    jser.save_model(jnet, str(path))
+    return jnet, path
+
+
+def _gx(rows, seed):
+    rs = np.random.RandomState(seed)
+    return {"img": rs.rand(rows, 6, 6, 2).astype(np.float32),
+            "meta": rs.randn(rows, 3).astype(np.float32)}
+
+
+def test_graph_dict_requests_match_jax(graph_pair, registry):
+    jnet, path = graph_pair
+    net = tser.load_model(path, device="cpu")
+    engine = registry.register("graph", net, input_spec={"img": (6, 6, 2), "meta": (3,)},
+                               max_batch_size=4, device="cpu")
+    assert engine.stats()["forward"]["warmed"] == 3
+    x = _gx(7, seed=1)
+    want, _ = jnet.apply_fn(jnet.params, jnet.state, x)
+    singles = [engine.submit({k: v[i] for k, v in x.items()}) for i in range(7)]
+    batched = engine.submit({k: v[:5] for k, v in x.items()}, batched=True)
+    direct = engine.output(x)
+    for head in ("cls", "reg"):
+        ref = np.asarray(want[head])
+        np.testing.assert_allclose(np.stack([f.get(timeout=30)[head] for f in singles]), ref,
+                                   atol=1e-5)
+        np.testing.assert_allclose(batched.get(timeout=30)[head], ref[:5], atol=1e-5)
+        np.testing.assert_allclose(direct[head], ref, atol=1e-5)
+    assert engine.stats()["requests"]["errors"] == 0
+
+
+def test_graph_batched_dict_with_mismatched_rows_is_refused(graph_pair, registry):
+    _, path = graph_pair
+    engine = registry.register("graph", tser.load_model(path, device="cpu"),
+                               input_spec={"img": (6, 6, 2), "meta": (3,)}, max_batch_size=4,
+                               device="cpu", start=False)
+    x = _gx(4, seed=2)
+    with pytest.raises(ValueError, match="one shared length"):
+        engine.submit({"img": x["img"][:3], "meta": x["meta"][:2]}, batched=True)
+    with pytest.raises(ValueError, match="at least one example"):
+        engine.submit({"img": x["img"][:0], "meta": x["meta"][:0]}, batched=True)
+    assert engine.stats()["queue_depth"] == 0
+
+
+def test_serve_and_eval_cli_on_graph_zips(graph_pair, tmp_path):
+    jnet, path = graph_pair
+    proc = subprocess.run(
+        [sys.executable, "-m", "deeplearning4j_tpu_torch", "serve", "--model-path", str(path),
+         "--smoke", "5", "--device", "cpu", "--max-batch", "4"],
+        cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert "'img': (6, 6, 2)" in proc.stdout and '"served": 5' in proc.stdout
+    # eval on a single-input graph zip, labels as class indices
+    g = JGB(seed=2)
+    g.add_inputs("in")
+    g.set_input_types(JI.FeedForwardType(4))
+    g.add_layer("out", JL.OutputLayer(n_out=3, loss="mcxent"), "in")
+    g.set_outputs("out")
+    jg = JGraph(g.build())
+    jg.init()
+    zip_path = tmp_path / "g1.zip"
+    jser.save_model(jg, str(zip_path))
+    rs = np.random.RandomState(3)
+    x, y = rs.randn(10, 4).astype(np.float32), rs.randint(0, 3, 10)
+    np.save(tmp_path / "x.npy", x)
+    np.save(tmp_path / "y.npy", y)
+    proc = subprocess.run(
+        [sys.executable, "-m", "deeplearning4j_tpu_torch", "eval", "--model-path", str(zip_path),
+         "--data", str(tmp_path / "x.npy"), "--labels", str(tmp_path / "y.npy"),
+         "--device", "cpu", "--batch-size", "4"],
+        cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    from deeplearning4j_tpu.eval.classification import Evaluation
+    ref = Evaluation()
+    ref.eval(np.eye(3)[y], np.asarray(jg.output(x)))
+    assert ref.stats() in proc.stdout
+    proc = subprocess.run(
+        [sys.executable, "-m", "deeplearning4j_tpu_torch", "eval", "--model-path", str(zip_path),
+         "--data", str(tmp_path / "x.csv"), "--device", "cpu"],
+        cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0 and "datasets/records.py" in proc.stderr
+
+
+def test_single_input_graph_batches_arrays_and_dicts_together(registry):
+    """One array and the dict form of a single-input graph are the same
+    request: both coalesce into one drained batch."""
+    g = TGB(seed=4)
+    g.add_inputs("input")
+    g.set_input_types(TI.FeedForwardType(5))
+    g.add_layer("fc", TL.OutputLayer(n_out=3, loss="mcxent"), "input")
+    g.set_outputs("fc")
+    net = TGraph(g.build(), device="cpu")
+    net.init()
+    engine = registry.register("g1", net, input_spec=(5,), buckets=(8,), device="cpu",
+                               start=False)
+    x = np.random.RandomState(6).randn(6, 5).astype(np.float32)
+    futs = [engine.submit({"input": x[i]} if i % 2 else x[i]) for i in range(4)]
+    futs.append(engine.submit({"input": x[4:]}, batched=True))
+    engine.start()
+    got = np.concatenate([np.stack([f.get(timeout=30)["fc"] for f in futs[:4]]),
+                          futs[4].get(timeout=30)["fc"]])
+    np.testing.assert_allclose(got, net.output(x).numpy(), atol=1e-6)
+    assert engine.stats()["forward"]["forwards"] == engine.stats()["forward"]["warmed"] + 1
