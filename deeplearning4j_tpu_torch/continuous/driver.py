@@ -1,0 +1,366 @@
+"""StepDriver: the resumable dispatch loop every fit path of the port runs.
+
+The port of ``deeplearning4j_tpu/continuous/driver.py``. ``fit`` of both
+network kinds delegates here, at K=1 and at K > 1, so the loop's contract
+lives in one place:
+
+* ``run_round(k_dispatches)`` consumes up to that many dispatches of the
+  current epoch (starting one if none is open; ``None``: to its end) and
+  returns a ``RoundResult``; params, layer state, updater state and the
+  iteration (from which the step seeds follow) are live on the net, and
+  the score pipeline and the health monitor hold at most one pending
+  entry each.
+* Scores resolve one dispatch late (``telemetry.ScorePipeline``): each
+  resolved step's loss lands in ``net.score_history`` and reaches the
+  listeners' ``iteration_done``, the epoch's last before its
+  ``on_epoch_end``. Health bundles resolve one dispatch late too
+  (``telemetry.health``), when the watchdog was armed as the driver was
+  built.
+* ``sync()`` drains both (a ``raise`` watchdog policy raises
+  ``NumericsError`` here, one round late); ``checkpoint(path)`` is
+  ``sync()`` then ``utils.serialization.save_bundle``; ``restore(bundle)``
+  re-arms params, state, updater state and the iteration from a bundle,
+  so the run resumes bit-exactly. The restored tensors are new ones, so a
+  K-step engine rebuilds its CUDA graph at the next dispatch.
+* ``run(epochs)`` is the fit loop: epochs of ``run_round(None)``, the
+  health tail flushed, and in ``finally`` the pending score dropped, the
+  prefetch producer joined and the listeners' ``on_fit_end`` hooks run.
+
+Engines say what one dispatch is: ``_PlainEngine`` (K=1, one minibatch
+through ``net.make_train_step``; a batch ``tbptt_fn`` accepts runs the
+net's truncated-BPTT chunks instead) and ``_FusedEngine`` (K > 1, one
+super-batch through the ``nn/fused.py`` engine, assembled and copied to
+the card by the prefetch thread). The JAX driver's spans, flight records,
+registry metrics and ``profile_round`` wait for the port's telemetry
+registry and profiler (ROADMAP queue 1, item 7); its sharded engines wait
+for ``parallel/`` (item 6).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+
+import numpy as np
+import torch
+
+from deeplearning4j_tpu_torch.nn import listeners as _listeners
+from deeplearning4j_tpu_torch.nn.layers.base import step_seed
+from deeplearning4j_tpu_torch.telemetry import health as _health
+from deeplearning4j_tpu_torch.telemetry.scorepipe import ScorePipeline
+
+__all__ = ["StepDriver", "RoundResult"]
+
+
+@dataclasses.dataclass
+class RoundResult:
+    """What one ``run_round`` consumed: ``dispatches`` dispatches covering
+    ``steps`` updater steps; ``epoch_done`` marks the source's end (the
+    epoch-end listeners have run)."""
+
+    dispatches: int = 0
+    steps: int = 0
+    epoch_done: bool = False
+
+
+def _first(tree):
+    return next(iter(tree.values())) if isinstance(tree, dict) else tree
+
+
+def _tensor(a, device):
+    if a is None:
+        return None
+    t = a if torch.is_tensor(a) else torch.from_numpy(np.asarray(a))
+    return t.to(device)
+
+
+def _on_device(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tensor(v, device) for k, v in tree.items()}
+    return _tensor(tree, device)
+
+
+class _PlainEngine:
+    """K=1: one ``(x, y, mask)`` minibatch a dispatch through the net's
+    train step."""
+
+    fused = False
+
+    def __init__(self, net, use_health, tbptt_fn=None):
+        self.net = net
+        self.use_health = use_health
+        self.tbptt_fn = tbptt_fn
+        self.step_fn = net.make_train_step(with_health=use_health)
+
+    def build_source(self, batch_factory):
+        return batch_factory()
+
+    def prepare(self, item):
+        x, y, m = item
+        dev = self.net.device
+        return _on_device(x, dev), _on_device(y, dev), _tensor(m, dev)
+
+    def note_input(self, prep):
+        self.net.last_input = _first(prep[0])
+
+    def n_real(self, item):
+        return 1
+
+    def dispatch(self, prep, n_real):
+        """Returns (loss, health bundle or None, TBPTT chunks or None)."""
+        net = self.net
+        x, y, m = prep
+        if self.tbptt_fn is not None and self.tbptt_fn(x, y):
+            # truncated BPTT: the net's chunk loop; a graph's comes with its
+            # chunks' (iteration, loss), one listener callback each
+            out = net._fit_tbptt(x, y, m)
+            return (out[0], None, out[1]) if isinstance(out, tuple) else (out, None, None)
+        out = self.step_fn(net.params, net.state, net.opt_state, x, y, net.iteration, m,
+                           step_seed(net.conf.seed, net.iteration))
+        net.state, net.opt_state = out[1], out[2]
+        net.iteration += 1
+        return out[3], (out[4] if self.use_health else None), None
+
+
+class _FusedEngine:
+    """K > 1: one stacked super-batch a dispatch through the K-step engine
+    (``nn/fused.py``), assembled and copied to the net's device on the
+    prefetch thread."""
+
+    fused = True
+
+    def __init__(self, net, k, use_health, batch_size=None, prefetch=True):
+        from deeplearning4j_tpu_torch.nn import fused as _fused
+        self.net = net
+        self.k = int(k)
+        self.use_health = use_health
+        self.batch_size = batch_size
+        self.prefetch = prefetch
+        self.steps_fn = _fused._steps_fn_for(net, k, use_health)
+
+    def build_source(self, batch_factory):
+        from deeplearning4j_tpu_torch.datasets.iterator import (AsyncDataSetIterator,
+                                                                SuperBatchIterator)
+        sbit = SuperBatchIterator(batch_factory, self.k, batch_size=self.batch_size)
+        if not self.prefetch:
+            return sbit
+        return AsyncDataSetIterator(sbit, queue_size=2, device=self.net.device)
+
+    def prepare(self, sb):
+        return sb.features, sb.labels, sb.labels_mask, sb.step_valid
+
+    def note_input(self, prep):
+        if self.net.listeners:
+            self.net.last_input = _first(prep[0])[0]
+
+    def n_real(self, item):
+        return item.n_steps
+
+    def dispatch(self, prep, n_real):
+        net = self.net
+        xs, ys, ms, sv = prep
+        out = self.steps_fn(net.params, net.state, net.opt_state, xs, ys, net.iteration,
+                            net.conf.seed, ms, sv)
+        losses, hb = out if self.use_health else (out, None)
+        net.iteration += n_real
+        return losses, hb, None
+
+
+def _rearm_net(net, restored):
+    """Put a restored network's tensors, counters and step RNG chain on the
+    live net (the engines hold the live net). The tensors are new objects:
+    a K-step engine's graph over the old ones is rebuilt."""
+    if hasattr(net, "vertex_params"):
+        net.vertex_params = restored.vertex_params
+    else:
+        net.layer_params = restored.layer_params
+    net.state = restored.state
+    if restored.opt_state is not None:
+        net.opt_state = restored.opt_state
+    net.rng = restored.rng
+    net.iteration = restored.iteration
+    net.epoch = restored.epoch
+
+
+class StepDriver:
+    """Resumable dispatch loop over one engine (see the module docstring).
+    ``batch_factory`` is a zero-argument callable returning a fresh
+    ``(x, y, mask)`` iterable an epoch; a K-step engine wraps it in the
+    super-batching (and prefetching) source once and re-enters it at each
+    epoch."""
+
+    def __init__(self, net, batch_factory, *, k=1, batch_size=None, prefetch=True,
+                 tbptt_fn=None):
+        self.net = net
+        self.batch_factory = batch_factory
+        self.k = int(k)
+        self._hm = _health.get_monitor()
+        # read once: the step's health variant is chosen as the driver is built
+        self._use_health = self._hm.active
+        if net.params is None:
+            net.init()
+        if net.opt_state is None:
+            net.opt_state = net.conf.updater.init(net.params)
+        self.engine = (_FusedEngine(net, self.k, self._use_health, batch_size=batch_size,
+                                    prefetch=prefetch) if self.k > 1
+                       else _PlainEngine(net, self._use_health, tbptt_fn=tbptt_fn))
+        self._pipe = ScorePipeline()
+        self._src = None   # a K-step engine's source (it owns the prefetcher)
+        self._it = None    # the open epoch's iterator
+        self._t_etl = None
+
+    # -- epochs ---------------------------------------------------------
+
+    def _epoch_source(self):
+        if self.engine.fused:
+            if self._src is None:
+                self._src = self.engine.build_source(self.batch_factory)
+            return self._src
+        return self.engine.build_source(self.batch_factory)
+
+    def start_epoch(self):
+        for l in self.net.listeners:
+            l.on_epoch_start(self.net)
+        self._it = iter(self._epoch_source())
+        self._t_etl = time.perf_counter()
+
+    def end_epoch(self):
+        # the epoch's last score lands before on_epoch_end
+        tail = self._pipe.flush()
+        if tail is not None:
+            self._emit(*tail)
+        for l in self.net.listeners:
+            l.on_epoch_end(self.net)
+        self.net.epoch += 1
+        self._it = None
+
+    def _emit(self, score, meta):
+        net = self.net
+        if isinstance(score, list):
+            # a K-step dispatch: its real steps, one record each
+            scores = score[:meta["k"]]
+            it0 = meta["iteration"] - len(scores)
+            etl = meta["etl_time_s"] / max(len(scores), 1)
+            for j, s in enumerate(scores):
+                net.score_history.append(s)
+                for l in net.listeners:
+                    l.iteration_done(net, it0 + j + 1, s, etl)
+            return
+        net.score_history.append(score)
+        if meta.get("chunks"):
+            for (it, _), v in zip(meta["chunks"], meta["chunk_scores"]):
+                for l in net.listeners:
+                    l.iteration_done(net, it, v)
+            return
+        for l in net.listeners:
+            l.iteration_done(net, meta["iteration"], score, meta["etl_time_s"])
+
+    # -- rounds ---------------------------------------------------------
+
+    def run_round(self, k_dispatches=None):
+        """Consume up to ``k_dispatches`` dispatches of the current epoch
+        (``None``: to its end). Returns a ``RoundResult``."""
+        if self._it is None:
+            self.start_epoch()
+        rr = RoundResult()
+        while k_dispatches is None or rr.dispatches < k_dispatches:
+            try:
+                item = next(self._it)
+            except StopIteration:
+                rr.epoch_done = True
+                break
+            rr.dispatches += 1
+            rr.steps += self._dispatch_one(item)
+        if rr.epoch_done:
+            self.end_epoch()
+        return rr
+
+    def run(self, epochs):
+        """The fit loop: ``epochs`` epochs to their ends; the health tail
+        is resolved (its policy may raise) before it returns."""
+        try:
+            for _ in range(epochs):
+                self.run_round(None)
+            if self._use_health:
+                self._hm.flush()
+        except BaseException:
+            if self._use_health:
+                try:
+                    self._hm.flush(apply_policy=False)
+                except Exception:
+                    pass
+            raise
+        finally:
+            self._pipe.abandon()
+            self.close_source()
+            _listeners.run_fit_end_hooks(self.net)
+        if self.net.score_history:
+            self.net.score_value = self.net.score_history[-1]
+        return self.net
+
+    def _dispatch_one(self, item):
+        eng, net = self.engine, self.net
+        prep = eng.prepare(item)
+        etl = time.perf_counter() - self._t_etl
+        eng.note_input(prep)
+        step0 = net.iteration
+        n_real = eng.n_real(item)
+        loss, hb, chunks = eng.dispatch(prep, n_real)
+        meta = {"step": step0, "iteration": net.iteration, "etl_time_s": etl,
+                "k": n_real, "chunks": chunks}
+        # queue this dispatch, resolve the previous one: the fetch overlaps
+        # the dispatch just issued
+        resolved = self._pipe.push(loss, meta)
+        if resolved is not None:
+            self._emit(*resolved)
+        if hb is not None:
+            # the policy may raise NumericsError one dispatch late
+            self._hm.on_step(hb, step=step0, k=n_real if eng.fused else None)
+        self._t_etl = time.perf_counter()
+        return n_real
+
+    # -- resuming -------------------------------------------------------
+
+    def sync(self, apply_policy=True):
+        """Resolve what is in flight: the pending score is recorded and the
+        pending health bundle resolved (a ``raise`` policy raises here)."""
+        tail = self._pipe.flush()
+        if tail is not None:
+            self._emit(*tail)
+        if self._use_health:
+            self._hm.flush(apply_policy=apply_policy)
+
+    def checkpoint(self, path, *, buckets=None, save_updater=True):
+        """``sync()``, then one resumable ``save_bundle`` unit between
+        rounds; ``restore`` of it is bit-exact."""
+        from deeplearning4j_tpu_torch.utils import serialization as _ser
+        self.sync()
+        return _ser.save_bundle(self.net, path, buckets=buckets, save_updater=save_updater)
+
+    def restore(self, path_or_bundle):
+        """Drop what is in flight, then re-arm params, state, updater state
+        and the iteration from a bundle (a path, a file or a ``Bundle``)."""
+        from deeplearning4j_tpu_torch.utils import serialization as _ser
+        self.abandon_pending()
+        b = (path_or_bundle if isinstance(path_or_bundle, _ser.Bundle)
+             else _ser.load_bundle(path_or_bundle, device=self.net.device))
+        _rearm_net(self.net, b.net)
+        return b
+
+    def abandon_pending(self):
+        """Drop the pending score unresolved; record the pending health
+        bundle without running its policy."""
+        self._pipe.abandon()
+        if self._use_health:
+            try:
+                self._hm.flush(apply_policy=False)
+            except Exception:
+                pass
+
+    def close_source(self):
+        """Stop the prefetch producer; a later ``run_round`` rebuilds the
+        source. Safe to call repeatedly."""
+        if self._src is not None and hasattr(self._src, "close"):
+            self._src.close()
+        self._src = None
+        self._it = None

@@ -1,20 +1,45 @@
-"""Minibatch sources and shape buckets.
+"""Minibatch sources, shape buckets and the prefetching iterators.
 
 The same semantics as the JAX package's ``iter_batches``, ``pad_batch``,
-``validity_mask``, ``BucketRegistry`` and ``ShapeBuckets``
-(``deeplearning4j_tpu/datasets/iterator.py``). Arrays may be numpy arrays
-or torch tensors; padding keeps each one's kind (and a tensor's device).
-Serving warms each bucket once at startup, so no request pays a kernel
-build; training pads ragged batches to one shape with a validity mask,
-which the masked-mean losses make exact.
+``validity_mask``, ``BucketRegistry``, ``ShapeBuckets``, the
+``DataSetIterator`` family, ``SuperBatchIterator`` and
+``AsyncDataSetIterator`` (``deeplearning4j_tpu/datasets/iterator.py``).
+Arrays may be numpy arrays or torch tensors, features and labels dicts of
+them (a graph's inputs and outputs); padding keeps each one's kind (and a
+tensor's device). Serving warms each bucket once at startup, so no request
+pays a kernel build; training pads ragged batches to one shape with a
+validity mask, which the masked-mean losses make exact.
+
+``SuperBatchIterator`` stacks K minibatches into ``[K, B, ...]`` for one
+K-step dispatch (``nn/fused.py``): ragged batches pad to the bucketed
+shape, a ragged K-tail pads with steps whose ``step_valid`` is 0.
+``AsyncDataSetIterator`` assembles the next batch on a producer thread
+while the current dispatch runs (``queue_size=2``: double buffering). With
+a CUDA ``device`` the producer stages each array in pinned host memory and
+copies it with ``non_blocking=True`` on a stream of its own, recording an
+event the consumer's stream waits on before the dispatch reads the batch.
 """
 
 from __future__ import annotations
 
 import bisect
+import dataclasses
+import queue
+import threading
 
 import numpy as np
 import torch
+
+
+def _map(fn, tree):
+    """``fn`` over an array or each entry of a dict of arrays."""
+    if isinstance(tree, dict):
+        return {k: fn(v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _first(tree):
+    return next(iter(tree.values())) if isinstance(tree, dict) else tree
 
 
 def _pad_axis(a, target, axis):
@@ -39,6 +64,7 @@ def validity_mask(labels, n_valid, target, *, seq_valid=None, seq_target=None):
     """[target] (or [target, T] for time-distributed labels) float32 numpy
     mask: 1 for the first ``n_valid`` examples, 0 for padding; with a
     sequence bucket the steps past ``seq_valid`` are 0 too."""
+    labels = _first(labels)
     valid = (np.arange(target) < n_valid).astype(np.float32)
     if labels.ndim >= 3:  # [B, T, ...] labels score per timestep
         t = int(seq_target) if seq_target else labels.shape[1]
@@ -52,19 +78,20 @@ def validity_mask(labels, n_valid, target, *, seq_valid=None, seq_target=None):
 def pad_batch(x, y, m, target, *, seq_target=None):
     """Bucket one ``(x, y, mask)`` minibatch to ``target`` examples (and,
     with ``seq_target``, steps). Returns ``(x, y, mask, n_valid)``; the
-    mask is always present, all ones when nothing was padded."""
-    n = x.shape[0]
-    seq = x.shape[1] if seq_target is not None and x.ndim >= 2 else None
-    x, y_padded = _pad_axis(x, target, 0), _pad_axis(y, target, 0)
+    mask is always present, all ones when nothing was padded. ``x`` and
+    ``y`` may be dicts of arrays (a graph's), padded entry by entry."""
+    x0 = _first(x)
+    n = x0.shape[0]
+    seq = x0.shape[1] if seq_target is not None and x0.ndim >= 2 else None
+    x = _map(lambda a: _pad_axis(a, target, 0), x)
+    y_padded = _map(lambda a: _pad_axis(a, target, 0), y)
     if seq_target is not None:
-        if x.ndim >= 2:
-            x = _pad_axis(x, seq_target, 1)
-        if y_padded.ndim >= 3:
-            y_padded = _pad_axis(y_padded, seq_target, 1)
+        x = _map(lambda a: _pad_axis(a, seq_target, 1) if a.ndim >= 2 else a, x)
+        y_padded = _map(lambda a: _pad_axis(a, seq_target, 1) if a.ndim >= 3 else a, y_padded)
     if m is None:
         m = validity_mask(y, n, target, seq_valid=seq, seq_target=seq_target)
-        if torch.is_tensor(x):
-            m = torch.from_numpy(m).to(x.device)
+        if torch.is_tensor(x0):
+            m = torch.from_numpy(m).to(x0.device)
     else:
         m = _pad_axis(m, target, 0)
         if seq_target is not None:
@@ -202,3 +229,348 @@ class ShapeBuckets:
     def __repr__(self):
         return (f"ShapeBuckets(batch={self._batch.sizes()}, "
                 f"seq={self._seq.sizes()})")
+
+
+# ---------------------------------------------------------------------------
+# DataSet iterators (reference: datasets/iterator/ — the DataSetIterator
+# SPI, AsyncDataSetIterator.java, MultipleEpochsIterator,
+# EarlyTerminationDataSetIterator)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class DataSet:
+    """One minibatch (reference: org.nd4j.linalg.dataset.DataSet)."""
+
+    features: object
+    labels: object
+    features_mask: object = None
+    labels_mask: object = None
+
+    def num_examples(self):
+        return _first(self.features).shape[0]
+
+
+class DataSetIterator:
+    """Iterator protocol: yields DataSets; ``reset()`` starts an epoch."""
+
+    def __iter__(self):
+        self.reset()
+        return self
+
+    def __next__(self) -> DataSet:
+        raise NotImplementedError
+
+    def reset(self):
+        pass
+
+    @property
+    def batch_size(self):
+        raise NotImplementedError
+
+
+class ArrayDataSetIterator(DataSetIterator):
+    """Minibatches of in-memory arrays. ``pad_last=True`` pads the ragged
+    last batch to ``batch_size`` (validity folded into the masks) and gives
+    masks on every batch, so the epoch has one shape."""
+
+    def __init__(self, features, labels, batch_size=32, *, features_mask=None,
+                 labels_mask=None, shuffle=False, seed=123, drop_last=False, pad_last=False):
+        self.features = np.asarray(features)
+        self.labels = np.asarray(labels)
+        self.features_mask = None if features_mask is None else np.asarray(features_mask)
+        self.labels_mask = None if labels_mask is None else np.asarray(labels_mask)
+        self._batch = batch_size
+        self.shuffle = shuffle
+        self.rng = np.random.RandomState(seed)
+        self.drop_last = drop_last
+        self.pad_last = pad_last
+        self._order = np.arange(len(self.features))
+        self._pos = 0
+
+    @property
+    def batch_size(self):
+        return self._batch
+
+    def reset(self):
+        self._pos = 0
+        if self.shuffle:
+            self.rng.shuffle(self._order)
+
+    def __next__(self):
+        n = len(self.features)
+        if self._pos >= n:
+            raise StopIteration
+        end = min(self._pos + self._batch, n)
+        if self.drop_last and end - self._pos < self._batch:
+            raise StopIteration
+        idx = self._order[self._pos:end]
+        self._pos = end
+        pick = lambda a: None if a is None else a[idx]
+        ds = DataSet(self.features[idx], self.labels[idx], pick(self.features_mask),
+                     pick(self.labels_mask))
+        if not self.pad_last:
+            return ds
+        x, y, fm, _ = pad_batch(ds.features, ds.labels, ds.features_mask, self._batch)
+        lm = None if ds.labels_mask is None else _pad_axis(ds.labels_mask, self._batch, 0)
+        return DataSet(x, y, fm, lm)
+
+
+_SENTINEL = object()
+
+
+def _stage(a, device, stream):
+    """``a`` (numpy or tensor) as a tensor on ``device``: through pinned
+    memory and a copy on ``stream`` for a card."""
+    if a is None:
+        return None
+    t = a if torch.is_tensor(a) else torch.from_numpy(np.ascontiguousarray(a))
+    if device.type != "cuda":
+        return t.to(device)
+    if t.device.type == "cpu":
+        t = t.pin_memory()
+    with torch.cuda.stream(stream):
+        return t.to(device, non_blocking=True)
+
+
+class AsyncDataSetIterator(DataSetIterator):
+    """Prefetch on a producer thread (reference: AsyncDataSetIterator.java,
+    queue-based double buffering). A producer error reaches the consumer
+    at its next ``next()``, before the batches still queued; ``close()``
+    stops and joins the producer, and the iterator restarts cleanly on the
+    next ``reset()``. With ``device`` every array of an item (a DataSet or
+    a SuperBatch, whose extra fields ride along) is placed there on the
+    producer thread; on a card the consumer's current stream waits on the
+    copy's event when it takes the item."""
+
+    def __init__(self, base, queue_size=2, device=None):
+        self.base = base
+        self.queue_size = queue_size
+        self.device = None if device is None else torch.device(device)
+        self._queue = None
+        self._thread = None
+        self._error = None
+        self._stop = None
+        self._stream = None
+
+    @property
+    def batch_size(self):
+        return self.base.batch_size
+
+    def reset(self):
+        self._shutdown()
+        self.base.reset()
+        self._queue = queue.Queue(maxsize=self.queue_size)
+        self._error = None
+        self._stop = threading.Event()
+        if self.device is not None and self.device.type == "cuda" and self._stream is None:
+            self._stream = torch.cuda.Stream(device=self.device)
+        self._thread = threading.Thread(target=self._producer, daemon=True)
+        self._thread.start()
+
+    def _place(self, ds):
+        if self.device is None:
+            return ds
+        put = lambda tree: None if tree is None else _map(
+            lambda a: _stage(a, self.device, self._stream), tree)
+        item = dataclasses.replace(ds, features=put(ds.features), labels=put(ds.labels),
+                                   features_mask=put(ds.features_mask),
+                                   labels_mask=put(ds.labels_mask))
+        if self._stream is not None:
+            ev = torch.cuda.Event()
+            ev.record(self._stream)
+            item._ready = ev
+        return item
+
+    def _producer(self):
+        # this generation's queue and flag: a producer outliving close()'s
+        # join must not feed the next generation's queue
+        q, stop = self._queue, self._stop
+        try:
+            while not stop.is_set():
+                try:
+                    ds = next(self.base)
+                except StopIteration:
+                    break
+                q.put(self._place(ds))
+        except Exception as e:  # surfaced on the consumer side
+            if self._queue is q:
+                self._error = e
+        finally:
+            q.put(_SENTINEL)
+
+    def __next__(self):
+        if self._queue is None:
+            self.reset()
+        if self._error is not None:
+            # a dead producer surfaces at once, not after the queued batches
+            raise self._error
+        item = self._queue.get()
+        if item is _SENTINEL:
+            if self._error is not None:
+                raise self._error
+            raise StopIteration
+        ev = getattr(item, "_ready", None)
+        if ev is not None:
+            cur = torch.cuda.current_stream(self.device)
+            cur.wait_event(ev)
+            for tree in (item.features, item.labels, item.features_mask, item.labels_mask):
+                if tree is not None:
+                    # the consumer's stream now uses the producer's memory
+                    _map(lambda t: t.record_stream(cur), tree)
+        return item
+
+    def close(self):
+        """Stop and join the producer; safe to call repeatedly."""
+        self._shutdown()
+
+    def _shutdown(self):
+        if self._thread is not None:
+            # flag, then drain: a producer blocked in put() wakes, sees the
+            # flag and exits instead of producing the rest of the epoch
+            self._stop.set()
+            self._drain()
+            if self._thread.is_alive():
+                self._thread.join(timeout=5)
+            self._drain()
+        self._thread = None
+        self._queue = None
+
+    def _drain(self):
+        try:
+            while True:
+                self._queue.get_nowait()
+        except queue.Empty:
+            pass
+
+
+@dataclasses.dataclass
+class SuperBatch(DataSet):
+    """K stacked minibatches for one K-step dispatch (``nn/fused.py``):
+    ``features``/``labels`` ``[K, B, ...]`` (dicts stack entry by entry),
+    ``labels_mask`` the ``[K, B(, T)]`` validity times the user's mask,
+    ``step_valid`` 1 for a real minibatch and 0 for a padded K-tail step,
+    ``n_steps`` the count of real ones."""
+
+    step_valid: object = None
+    n_steps: int = 0
+
+
+def _host(a):
+    return a.detach().cpu().numpy() if torch.is_tensor(a) else np.asarray(a)
+
+
+class SuperBatchIterator(DataSetIterator):
+    """Stacks K minibatches into super-batches, one a K-step dispatch.
+    Every super-batch of a fit has one shape: ragged minibatches pad to the
+    bucketed batch size (validity folded into ``labels_mask``, exact under
+    the masked-mean losses) and a ragged K-tail pads with zeroed steps
+    whose ``step_valid`` is 0. ``source`` is a DataSetIterator or a
+    zero-argument callable returning a fresh ``(x, y, mask)`` iterable an
+    epoch; ``reset()`` re-enters either. Stacking runs on the host, in
+    numpy: wrap it in ``AsyncDataSetIterator`` to overlap it with the
+    running dispatch."""
+
+    def __init__(self, source, k, *, batch_size=None):
+        if k < 1:
+            raise ValueError(f"k must be >= 1, got {k}")
+        self.source = source
+        self.k = int(k)
+        self._nominal = batch_size
+        self._target = None  # the bucketed batch size, fixed at the first batch
+        self._it = None
+
+    @property
+    def batch_size(self):
+        if self._nominal:
+            return self._nominal
+        return getattr(self.source, "batch_size", None)
+
+    def reset(self):
+        if isinstance(self.source, DataSetIterator) or not callable(self.source):
+            self._it = iter(iter_batches(self.source))
+        else:
+            self._it = iter(self.source())
+
+    def __next__(self):
+        if self._it is None:
+            self.reset()
+        got = []
+        for _ in range(self.k):
+            try:
+                got.append(next(self._it))
+            except StopIteration:
+                break
+        if not got:
+            raise StopIteration
+        if self._target is None:
+            self._target = int(max(_first(got[0][0]).shape[0], self.batch_size or 0))
+        padded = [pad_batch(_map(_host, x), _map(_host, y), None if m is None else _host(m),
+                            self._target) for x, y, m in got]
+        n = len(padded)
+        xs, ys = [p[0] for p in padded], [p[1] for p in padded]
+        ms = [np.asarray(p[2], np.float32) for p in padded]
+        if n < self.k:  # a ragged K-tail: zeroed steps
+            xs += [_map(np.zeros_like, xs[0])] * (self.k - n)
+            ys += [_map(np.zeros_like, ys[0])] * (self.k - n)
+            ms += [np.zeros_like(ms[0])] * (self.k - n)
+
+        def stack(parts):
+            if isinstance(parts[0], dict):
+                return {key: np.stack([p[key] for p in parts]) for key in parts[0]}
+            return np.stack(parts)
+
+        return SuperBatch(features=stack(xs), labels=stack(ys), labels_mask=np.stack(ms),
+                          step_valid=(np.arange(self.k) < n).astype(np.float32), n_steps=n)
+
+
+class MultipleEpochsIterator(DataSetIterator):
+    """``base`` replayed ``epochs`` times as one stream (reference:
+    MultipleEpochsIterator.java)."""
+
+    def __init__(self, base, epochs):
+        self.base = base
+        self.epochs = epochs
+        self._epoch = 0
+
+    @property
+    def batch_size(self):
+        return self.base.batch_size
+
+    def reset(self):
+        self._epoch = 0
+        self.base.reset()
+
+    def __next__(self):
+        try:
+            return next(self.base)
+        except StopIteration:
+            self._epoch += 1
+            if self._epoch >= self.epochs:
+                raise
+            self.base.reset()
+            return next(self.base)
+
+
+class EarlyTerminationIterator(DataSetIterator):
+    """At most ``max_batches`` minibatches of ``base`` (reference:
+    EarlyTerminationDataSetIterator.java)."""
+
+    def __init__(self, base, max_batches):
+        self.base = base
+        self.max_batches = max_batches
+        self._count = 0
+
+    @property
+    def batch_size(self):
+        return self.base.batch_size
+
+    def reset(self):
+        self._count = 0
+        self.base.reset()
+
+    def __next__(self):
+        if self._count >= self.max_batches:
+            raise StopIteration
+        self._count += 1
+        return next(self.base)

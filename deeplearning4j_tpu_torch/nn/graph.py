@@ -10,8 +10,12 @@ by each training step and never part of the autograd graph.
 
 The functional core mirrors the JAX package's: ``apply_fn``, ``loss_fn``,
 ``compute_gradients``, ``apply_update`` (no constraint pass, as there) and
-``make_train_step``; ``fit``, ``score`` and ``output`` wrap it. ``fit`` is
-a plain loop, one step per batch, the loss fetched one step late.
+``make_train_step``; ``fit``, ``score`` and ``output`` wrap it. ``fit`` runs
+``continuous.StepDriver``: one step a batch with the loss fetched one step
+late, or with ``steps_per_dispatch=K`` K steps a dispatch through
+``nn/fused.py`` (one CUDA-graph replay on a card; dict inputs and labels
+stack entry by entry); ``pad_ragged=True`` pads the K=1 loop's batches to
+the batch size with validity masks.
 
 Truncated BPTT and streaming follow the MultiLayerNetwork's contract: with
 ``backprop_type="tbptt"`` a batch whose [B, T, ...] input is longer than
@@ -26,15 +30,16 @@ Every vertex class of the JAX package is ported (``nn/fusion.py`` holds
 (``CenterLossOutputLayer``) sees its input activation and the labels.
 ``feed_forward`` returns every vertex's activation.
 
-Random draws (input dropout, ``DropoutLayer``) take a seed a train step
-(``nn/layers/base.py step_seed``), split into one seed a vertex before the
-traversal starts, as the JAX package splits its key. Remat:
+Random draws (input dropout, ``DropoutLayer``, weight noise) take a seed
+a train step (``nn/layers/base.py step_seed``), split into one seed a
+vertex before the traversal starts, as the JAX package splits its key. Remat:
 ``checkpoint_scope="prefix"`` runs each group of consecutive vertices that
 share a name prefix (``s0b0_a_bn``, ``s0b0_b_bn``, ... -> ``s0b0``) under
 ``torch.utils.checkpoint``, the JAX package's segments;
-``gradient_checkpointing`` checkpoints every other vertex on its own. Weight
-noise, ``steps_per_dispatch > 1`` and ``pad_ragged`` raise
-``NotImplementedError``.
+``gradient_checkpointing`` checkpoints every other vertex on its own. A
+layer vertex's weight noise (``nn/weightnoise.py``) perturbs its
+parameters in train mode, as DL4J's graphs do (the JAX package's graph
+does not read the field).
 
 Freezing (``nn/transfer.py``): ``frozen_vertices`` names the vertices that
 train as DL4J's FrozenLayer does: each runs with ``train=False`` in every
@@ -50,7 +55,6 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-import time
 
 import numpy as np
 import torch
@@ -59,7 +63,6 @@ from torch import nn
 
 from deeplearning4j_tpu_torch.datasets.iterator import iter_batches
 from deeplearning4j_tpu_torch.nn import gradnorm as _gradnorm
-from deeplearning4j_tpu_torch.nn import listeners as _listeners
 from deeplearning4j_tpu_torch.nn import updaters as _updaters
 from deeplearning4j_tpu_torch.nn.conf import inputs as _inputs
 from deeplearning4j_tpu_torch.nn.layers import base as _base
@@ -67,12 +70,11 @@ from deeplearning4j_tpu_torch.nn.layers.base import dropout_mask, split_seed, st
 from deeplearning4j_tpu_torch.nn.layers.rnn import (Bidirectional, GravesBidirectionalLSTM,
                                                     last_time_step)
 from deeplearning4j_tpu_torch.nn.multilayer import _as_tensor, _detach, _param_tree
+from deeplearning4j_tpu_torch.telemetry import health as _health
 from deeplearning4j_tpu_torch.utils import dtypes as _dtypes
 from deeplearning4j_tpu_torch.utils import serde
 from deeplearning4j_tpu_torch.utils.device import resolve_device
 from deeplearning4j_tpu_torch.utils.trees import drop_entries, tree_leaves, tree_like
-
-_NOT_PORTED = "is not ported yet (ROADMAP queue 1, \"Rest of the training core\")"
 
 
 def _loss_mask_for(mask, label):
@@ -617,13 +619,6 @@ class ComputationGraph(nn.Module):
             p.requires_grad_(True)
         return trainable
 
-    def _check_trainable(self):
-        for v in self.conf.vertices:
-            if getattr(getattr(v.vertex, "layer", None), "weight_noise", None) is not None:
-                raise NotImplementedError(f"vertex {v.name!r}: weight noise in train mode is "
-                                          "not ported yet (ROADMAP queue 1, \"Rest of the "
-                                          "training core\")")
-
     def _build_segments(self):
         """The ``checkpoint_scope="prefix"`` partition of the topological
         order, the JAX package's: a maximal run of >= 2 consecutive vertices
@@ -765,8 +760,6 @@ class ComputationGraph(nn.Module):
         """Forward pass over a dict of inputs (or one tensor for a
         single-input graph). Returns ({output name: activation},
         new_state). ``train=False`` runs under ``torch.inference_mode()``."""
-        if train:
-            self._check_trainable()
         with torch.enable_grad() if train else torch.inference_mode():
             acts, new_state, _ = self._forward_pass(params, state, inputs, train=train,
                                                     mask=mask, rng=rng)
@@ -792,8 +785,6 @@ class ComputationGraph(nn.Module):
         updated carries join them: (loss, (new_state, outputs, carries))."""
         if not isinstance(labels, dict):
             labels = {self.conf.outputs[0]: labels}
-        if train:
-            self._check_trainable()
         with torch.enable_grad() if train else torch.inference_mode():
             fwd = self._forward_pass(params, state, inputs, train=train, mask=mask, rng=rng,
                                      labels=labels, label_masks=label_masks, carries=carries)
@@ -939,15 +930,25 @@ class ComputationGraph(nn.Module):
     def apply_constraints(self, params, step):
         return params
 
-    def make_train_step(self):
+    def make_train_step(self, with_health=False):
         """The train step: (params, state, opt_state, inputs, labels, step,
-        mask, rng) -> (params, state, opt_state, loss)."""
+        mask, rng) -> (params, state, opt_state, loss[, health]); ``step``
+        and ``with_health`` as in ``MultiLayerNetwork.make_train_step``."""
         def train_step(params, state, opt_state, inputs, labels, step, mask=None, rng=None):
             loss, new_state, grads = self.compute_gradients(params, state, inputs, labels,
                                                             mask=mask, rng=rng)
+            health = _health.health_stats(grads, params, loss) if with_health else None
             params, opt_state = self.apply_update(params, opt_state, grads, step)
+            if with_health:
+                return params, new_state, opt_state, loss, health
             return params, new_state, opt_state, loss
         return train_step
+
+    def make_train_steps(self, k, with_health=False):
+        """The K-step engine over the graph's train step (``nn/fused.py``;
+        dict inputs and labels stack entry by entry)."""
+        from deeplearning4j_tpu_torch.nn import fused as _fused
+        return _fused.make_train_steps(self, k, with_health=with_health)
 
     # ------------------------------------------------------------------
     # convenience (stateful) API
@@ -959,20 +960,39 @@ class ComputationGraph(nn.Module):
             arrays = {names[0]: arrays}
         return {k: _as_tensor(v, self.device) for k, v in arrays.items()}
 
+    def _fit_batches(self, inputs, labels, batch_size, mask, pad_to=False):
+        """An epoch's (inputs, labels, mask) minibatches of the dict-keyed
+        arrays; ``pad_to`` pads each to the batch size with the validity
+        folded into the mask."""
+        from deeplearning4j_tpu_torch.datasets.iterator import pad_batch
+
+        n = next(iter(inputs.values())).shape[0]
+        bs = batch_size or n
+        for i in range(0, n, bs):
+            bi = {k: v[i:i + bs] for k, v in inputs.items()}
+            bl = {k: v[i:i + bs] for k, v in labels.items()}
+            bm = mask[i:i + bs] if mask is not None else None
+            if pad_to:
+                bi, bl, bm, _ = pad_batch(bi, bl, bm, bs)
+            yield bi, bl, bm
+
     def fit(self, inputs, labels, *, epochs=1, batch_size=None, mask=None,
             steps_per_dispatch=1, pad_ragged=None):
         """Train over dict-keyed (or single-array) inputs and labels, numpy
         or tensors, sliced into batches of ``batch_size``. Each step's loss
-        lands in ``score_history`` one step late, where the listeners hear
-        it (a TBPTT batch: one entry, the mean of its chunks; one listener
-        callback a chunk); ``score_value`` is the last. Returns the
-        network."""
-        if int(steps_per_dispatch) != 1 or pad_ragged:
-            raise NotImplementedError(f"steps_per_dispatch > 1 and pad_ragged {_NOT_PORTED}")
+        lands in ``score_history`` one dispatch late, where the listeners
+        hear it (a TBPTT batch: one entry, the mean of its chunks; one
+        listener callback a chunk); ``score_value`` is the last. Returns
+        the network.
+
+        ``steps_per_dispatch=K`` and ``pad_ragged`` as in
+        ``MultiLayerNetwork.fit``. Both bucket with one validity mask, so a
+        graph whose outputs mix label layouts (pooled and time-distributed,
+        or two lengths) is refused, and so is TBPTT at K > 1."""
+        from deeplearning4j_tpu_torch.continuous.driver import StepDriver
+
         if self.params is None:
             self.init()
-        if self.opt_state is None:
-            self.opt_state = self.conf.updater.init(self.params)
         if not isinstance(inputs, dict):
             inputs = {self.conf.inputs[0]: inputs}
         if not isinstance(labels, dict):
@@ -980,42 +1000,33 @@ class ComputationGraph(nn.Module):
         tm = self._time_major(inputs)
         use_tbptt = (self.conf.backprop_type == "tbptt" and tm is not None
                      and tm.shape[1] > self.conf.tbptt_fwd_length)
-        step_fn = self.make_train_step()
-        dev = self.device
-        n = next(iter(inputs.values())).shape[0]
-        bs = batch_size or n
+        k = int(steps_per_dispatch)
+        if k > 1 or pad_ragged:
+            layouts = {"pooled" if np.ndim(v) <= 2 else ("temporal", v.shape[1])
+                       for v in labels.values()}
+            if len(layouts) > 1:
+                raise ValueError(
+                    "shape bucketing (steps_per_dispatch > 1 / pad_ragged) needs a single "
+                    "label layout; this graph mixes pooled / differently-lengthed "
+                    "time-distributed outputs: pad the dataset to the batch size yourself or "
+                    "train with steps_per_dispatch=1")
         self.score_history = []
-        scores = _listeners.FitScores(self)
-        try:
+        if k > 1:
+            if use_tbptt:
+                raise ValueError("steps_per_dispatch > 1 does not compose with TBPTT (the "
+                                 "chunk loop is its own loop); use the default single-step "
+                                 "path")
+            from deeplearning4j_tpu_torch.nn import fused as _fused
             with _dtypes.policy_precision():
-                for _ in range(epochs):
-                    for l in self.listeners:
-                        l.on_epoch_start(self)
-                    for i in range(0, n, bs):
-                        t_etl = time.perf_counter()
-                        bi = {k: _as_tensor(v[i:i + bs], dev) for k, v in inputs.items()}
-                        bl = {k: _as_tensor(v[i:i + bs], dev) for k, v in labels.items()}
-                        bm = _as_tensor(mask[i:i + bs], dev) if mask is not None else None
-                        etl = time.perf_counter() - t_etl
-                        self.last_input = next(iter(bi.values()))
-                        if use_tbptt:
-                            loss, chunks = self._fit_tbptt(bi, bl, bm)
-                            scores.push(loss, self.iteration, etl, chunks=chunks)
-                            continue
-                        _, self.state, self.opt_state, loss = step_fn(
-                            self.params, self.state, self.opt_state, bi, bl, self.iteration,
-                            bm, step_seed(self.conf.seed, self.iteration))
-                        self.iteration += 1
-                        scores.push(loss, self.iteration, etl)
-                    scores.flush()
-                    for l in self.listeners:
-                        l.on_epoch_end(self)
-                    self.epoch += 1
-        finally:
-            _listeners.run_fit_end_hooks(self)
-        if self.score_history:
-            self.score_value = self.score_history[-1]
-        return self
+                return _fused.fit_fused(
+                    self, lambda: self._fit_batches(inputs, labels, batch_size, mask),
+                    epochs=epochs, k=k, batch_size=batch_size)
+        drv = StepDriver(
+            self, lambda: self._fit_batches(inputs, labels, batch_size, mask,
+                                            pad_to=bool(pad_ragged)),
+            tbptt_fn=(lambda x, y: True) if use_tbptt else None)
+        with _dtypes.policy_precision():
+            return drv.run(epochs)
 
     def output(self, inputs, mask=None):
         """Inference; one tensor for a single-output graph, else a dict."""

@@ -18,18 +18,23 @@ under the JAX keys.
 Regularization fields are consumed by the network: l1/l2 are added to the
 loss over the layer's parameters (``regularization_penalty``), constraints
 are projections applied after each update (``apply_constraints``, in
-place), ``dropout`` drops the layer's input in train mode
-(``apply_layer``). Weight noise is not ported yet: a network training a
-layer that sets it raises.
+place), ``dropout`` drops the layer's input in train mode and
+``weight_noise`` (``nn/weightnoise.py``) perturbs the layer's parameters
+before ``apply`` in train mode (``apply_layer``).
 
-Random draws follow the JAX package's key splitting with integer seeds: a
-train step has one seed (``step_seed``, a function of the configuration's
-seed and the iteration), the network splits it into one seed a layer or
-vertex (``split_seed``) before anything runs, and a layer with input
-dropout splits its seed again into the mask's and its own. A mask is drawn
-from a generator seeded on the tensor's device, so a segment recomputed in
-the backward (remat) draws the same mask. The masks are not the JAX
-package's bits (threefry there, Philox or the CPU's Mersenne twister here).
+Random draws follow the JAX package's key splitting with seeds: a train
+step has one seed (``step_seed``, a function of the configuration's seed
+and the iteration), the network splits it into one seed a layer or vertex
+(``split_seed``) before anything runs, and a layer with input dropout or
+weight noise splits its seed again. A seed is a Python int or a 0-d int64
+tensor holding the same value: the draws are counter-based (a 32-bit
+integer hash of the seed and each element's index, ``uniform`` and
+``normal``), written in plain tensor ops, so the same seed gives the same
+bits from a Python int on the host and from a tensor computed on the card
+inside a captured CUDA graph (``nn/fused.py``, where the step's seed
+follows the iteration on the device). A segment recomputed in the
+backward (remat) draws the same mask. The masks are not the JAX package's
+bits (threefry there).
 """
 
 from __future__ import annotations
@@ -134,26 +139,83 @@ def pop_aux_losses(loss, states):
     return loss, out
 
 
+_M32 = 0xFFFFFFFF
+
+
+def _mul32(x, m):
+    """``x * m`` mod 2^32 for ``x`` in [0, 2^32) and a constant ``m``, in
+    16-bit halves so an int64 tensor never overflows."""
+    return (x * (m & 0xFFFF) + (((x * (m >> 16)) & 0xFFFF) << 16)) & _M32
+
+
+def _mix32(x):
+    """A bijective 32-bit integer hash (Wellons' lowbias32 constants), the
+    same on Python ints and int64 tensors."""
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x21F0AAAD)
+    x = x ^ (x >> 15)
+    x = _mul32(x, 0x735A2D97)
+    return x ^ (x >> 15)
+
+
+def _combine(seed, i):
+    """The seed of stream ``i`` of ``seed`` (ints or tensors)."""
+    return _mix32(_mix32(seed) ^ ((_mul32(i & _M32, 0x9E3779B9) + 0x7F4A7C15) & _M32))
+
+
+def _as_seed(seed):
+    return seed if torch.is_tensor(seed) else int(seed) & _M32
+
+
 def split_seed(seed, n):
-    """``n`` seeds drawn from ``seed`` (the port's ``jax.random.split``):
-    numpy's SeedSequence, the same on every host and device."""
-    return [int(s) for s in np.random.SeedSequence(int(seed)).generate_state(n, np.uint32)]
+    """``n`` seeds drawn from ``seed`` (the port's ``jax.random.split``).
+    A Python int gives a list of ints; a 0-d tensor a list of 0-d tensors
+    with the same values, computed on its device in one pass."""
+    seed = _as_seed(seed)
+    if torch.is_tensor(seed):
+        return list(_combine(seed, torch.arange(n, dtype=torch.int64, device=seed.device)))
+    return [_combine(seed, i) for i in range(n)]
 
 
 def step_seed(seed, iteration):
     """The seed of train step ``iteration`` of a network seeded ``seed``: a
     run resumed from a checkpoint (which carries the iteration) draws what
-    the uninterrupted run would have drawn."""
-    return int(np.random.SeedSequence([int(seed) % 2 ** 32, int(iteration)]).generate_state(1)[0])
+    the uninterrupted run would have drawn. ``iteration`` may be a 0-d
+    int64 tensor (the K-step engine's counter on the device)."""
+    it = iteration & _M32 if torch.is_tensor(iteration) else int(iteration) & _M32
+    return _combine(_mix32(int(seed) & _M32), it)
+
+
+def _bits(seed, shape, device, stream=0):
+    """[*shape] int64 of 32 random bits each: the hash of each element's
+    index under ``seed`` (stream ``stream`` of it)."""
+    seed = _as_seed(seed)
+    k1, k2 = _combine(seed, 2 * stream + 1), _combine(seed, 2 * stream + 2)
+    n = 1
+    for d in shape:
+        n *= int(d)
+    idx = torch.arange(n, dtype=torch.int64, device=device)
+    return _mix32(_mix32((idx + k1) & _M32) ^ k2).reshape(tuple(shape))
+
+
+def uniform(seed, shape, device):
+    """[*shape] float32 uniform on [0, 1) in steps of 2^-24, from ``seed``."""
+    return (_bits(seed, shape, device) >> 8).to(torch.float32) * (2.0 ** -24)
+
+
+def normal(seed, shape, device):
+    """[*shape] float32 standard normal from ``seed`` (Box-Muller on two
+    uniform streams)."""
+    u1 = ((_bits(seed, shape, device, 0) >> 8) + 1).to(torch.float32) * (2.0 ** -24)
+    u2 = (_bits(seed, shape, device, 1) >> 8).to(torch.float32) * (2.0 ** -24)
+    return torch.sqrt(-2.0 * torch.log(u1)) * torch.cos((2.0 * np.pi) * u2)
 
 
 def dropout_mask(seed, x, rate):
     """Inverted dropout: each element kept with probability 1 - rate and
-    scaled by 1/(1 - rate), the mask drawn from a generator seeded with
-    ``seed`` on x's device."""
+    scaled by 1/(1 - rate), the mask drawn from ``seed``."""
     keep = 1.0 - rate
-    g = torch.Generator(device=x.device).manual_seed(int(seed))
-    u = torch.rand(x.shape, generator=g, device=x.device)
+    u = uniform(seed, x.shape, x.device)
     return torch.where(u < keep, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
@@ -167,11 +229,20 @@ def apply_layer(layer, params, state, x, *, train=False, rng=None, **kwargs):
     """``layer.apply`` as a network runs it: in train mode with a seed, the
     input dropped first (``layer.dropout``) from one half of ``rng``, the
     other half passed on to a layer that draws (as the JAX package's
-    ``MultiLayerNetwork._apply_layer`` splits its key)."""
+    ``MultiLayerNetwork._apply_layer`` splits its key), after the weight
+    noise (``layer.weight_noise``) has perturbed ``params`` from a split of
+    that half. Gradients flow through the perturbed parameters."""
+    takes_rng = takes(type(layer), "rng")
     if rng is not None:
-        drop, rng = split_seed(rng, 2)
-        if train and layer.dropout > 0.0:
-            x = dropout_mask(drop, x, layer.dropout)
-    if takes(type(layer), "rng"):
+        drop_in = train and layer.dropout > 0.0
+        noise = getattr(layer, "weight_noise", None) if train and len(params) else None
+        if drop_in or noise is not None or takes_rng:
+            drop, rng = split_seed(rng, 2)
+            if drop_in:
+                x = dropout_mask(drop, x, layer.dropout)
+            if noise is not None:
+                rng, noise_seed = split_seed(rng, 2)
+                params = noise.perturb(noise_seed, layer, params)
+    if takes_rng:
         kwargs["rng"] = rng
     return layer.apply(params, state, x, train=train, **kwargs)

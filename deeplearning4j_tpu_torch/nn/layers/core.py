@@ -11,7 +11,7 @@ from deeplearning4j_tpu_torch.nn import activations as _act
 from deeplearning4j_tpu_torch.nn import initializers as _init
 from deeplearning4j_tpu_torch.nn import losses as _losses
 from deeplearning4j_tpu_torch.nn.conf import inputs as _inputs
-from deeplearning4j_tpu_torch.nn.layers.base import Layer, ParamLayer, dropout_mask
+from deeplearning4j_tpu_torch.nn.layers.base import Layer, ParamLayer, dropout_mask, normal, uniform
 from deeplearning4j_tpu_torch.utils import dtypes as _dtypes
 from deeplearning4j_tpu_torch.utils.serde import register_config
 
@@ -122,15 +122,14 @@ class DropoutLayer(Layer):
             return x, state
         if self.kind == "dropout":
             return dropout_mask(rng, x, self.rate), state
-        g = torch.Generator(device=x.device).manual_seed(int(rng))
         if self.kind == "alpha":
             alpha_p = -1.7580993408473766
             keep = 1.0 - self.rate
             a = (keep + alpha_p ** 2 * keep * (1 - keep)) ** -0.5
             b = -a * alpha_p * (1 - keep)
-            kept = torch.rand(x.shape, generator=g, device=x.device) < keep
+            kept = uniform(rng, x.shape, x.device) < keep
             return a * torch.where(kept, x, torch.full_like(x, alpha_p)) + b, state
-        noise = torch.randn(x.shape, generator=g, device=x.device).to(x.dtype)
+        noise = normal(rng, x.shape, x.device).to(x.dtype)
         if self.kind == "gaussian_dropout":
             return x * (1.0 + (self.rate / (1.0 - self.rate)) ** 0.5 * noise), state
         if self.kind == "gaussian_noise":

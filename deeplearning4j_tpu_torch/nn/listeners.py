@@ -4,14 +4,17 @@ CollectScoresIterationListener, TimeIterationListener,
 EvaluativeListener).
 
 The port of ``deeplearning4j_tpu/nn/listeners.py``, the same classes and
-callbacks. Both network kinds call them from every fit loop: ``fit``, its
-truncated-BPTT branch and the graph's. The contract:
+callbacks. Both network kinds call them from every fit loop
+(``continuous.StepDriver``: ``fit`` at K=1 and K > 1, its truncated-BPTT
+branch and the graph's). The contract:
 
 * ``iteration_done(model, iteration, score, etl_time)`` for step *i* fires
-  once step *i*'s loss has been fetched, which the fit loops do one step
-  late (while step *i + 1* runs on the card): a listener never makes the
-  host wait on the step it just issued. ``iteration`` counts steps from 1
-  (the network's iteration counter after the step); a TBPTT batch of a
+  once step *i*'s loss has been fetched, which the driver does one
+  dispatch late (``telemetry.ScorePipeline``, while the next dispatch
+  runs on the card; a K-step dispatch's K losses in one fetch): a
+  listener never makes the host wait on the dispatch it just issued.
+  ``iteration`` counts steps from 1 (the network's iteration counter
+  after the step); a TBPTT batch of a
   MultiLayerNetwork reports once with the mean of its chunks' losses, a
   graph's TBPTT batch once a chunk, as in the JAX package.
 * ``on_epoch_start`` / ``on_epoch_end`` bracket each epoch; the last
@@ -51,45 +54,6 @@ def run_fit_end_hooks(model):
                 hook(model)
             except Exception:
                 logger.warning("on_fit_end failed for %s", type(l).__name__, exc_info=True)
-
-
-class FitScores:
-    """One fit loop's step losses, resolved one step late: ``push`` queues
-    step *i*'s device loss and resolves step *i - 1*'s, whose device work
-    the step just issued overlaps; ``flush`` resolves the last at the
-    epoch's end. A resolved loss goes to the network's ``score_history``
-    and to its listeners. ``chunks`` are a graph TBPTT batch's
-    ``(iteration, loss)`` pairs, one callback each, fetched together."""
-
-    __slots__ = ("net", "_pending")
-
-    def __init__(self, net):
-        self.net = net
-        self._pending = None
-
-    def push(self, loss, iteration, etl_time=0.0, chunks=None):
-        prev, self._pending = self._pending, (loss, iteration, etl_time, chunks)
-        if prev is not None:
-            self._resolve(*prev)
-
-    def flush(self):
-        prev, self._pending = self._pending, None
-        if prev is not None:
-            self._resolve(*prev)
-
-    def _resolve(self, loss, iteration, etl_time, chunks):
-        net = self.net
-        net.score_history.append(float(loss))
-        if not net.listeners:
-            return
-        if chunks is None:
-            for l in net.listeners:
-                l.iteration_done(net, iteration, net.score_history[-1], etl_time)
-            return
-        values = torch.stack([c for _, c in chunks]).tolist()
-        for (it, _), v in zip(chunks, values):
-            for l in net.listeners:
-                l.iteration_done(net, it, v)
 
 
 class TrainingListener:

@@ -11,8 +11,12 @@ The functional core mirrors the JAX package's: ``apply_fn``, ``loss_fn``,
 ``make_train_step``; ``fit``, ``score`` and ``output`` wrap it. Parameters
 are created with ``requires_grad=False`` (serving needs no graph);
 ``compute_gradients`` turns it on. The updater changes parameters and its
-state in place. ``fit`` is a plain loop: one step per batch, the loss
-fetched one step late so the host never waits on the step it just issued.
+state in place. ``fit`` runs ``continuous.StepDriver``: at K=1 one step a
+batch, the loss fetched one step late so the host never waits on the step
+it just issued; with ``steps_per_dispatch=K`` K steps a dispatch through
+``nn/fused.py`` (one CUDA-graph replay on a card), the batches bucketed
+and stacked on a prefetch thread. ``make_train_step(with_health=True)``
+also returns the numerics watchdog's bundle (``telemetry/health.py``).
 ``gradient_checkpointing`` recomputes each layer's forward in the backward
 (``torch.utils.checkpoint``), as the JAX package's ``jax.checkpoint``.
 
@@ -29,9 +33,9 @@ ResidualBottleneck) is a list of per-layer dicts of plain tensors, replaced
 by each train step. An output layer with ``loss_from_features``
 (``CenterLossOutputLayer``) gets its input activation and the labels.
 Input dropout and ``DropoutLayer`` draw from a seed a train step
-(``nn/layers/base.py step_seed``), split into one seed a layer. Weight
-noise is not ported yet: training a network that needs it raises
-``NotImplementedError``.
+(``nn/layers/base.py step_seed``), split into one seed a layer; weight
+noise (``nn/weightnoise.py``) perturbs a layer's parameters from its seed
+before the layer runs in train mode.
 
 Freezing (``nn/transfer.py``): ``frozen_layers`` holds the indices of
 layers that train as DL4J's FrozenLayer does. A frozen layer runs with
@@ -46,7 +50,6 @@ late; ``evaluate``, ``evaluate_regression`` and ``evaluate_roc`` run the
 from __future__ import annotations
 
 import functools
-import time
 
 import numpy as np
 import torch
@@ -55,17 +58,14 @@ from torch import nn
 
 from deeplearning4j_tpu_torch.datasets.iterator import iter_batches
 from deeplearning4j_tpu_torch.nn import gradnorm as _gradnorm
-from deeplearning4j_tpu_torch.nn import listeners as _listeners
 from deeplearning4j_tpu_torch.nn.conf import inputs as _inputs
 from deeplearning4j_tpu_torch.nn.conf.network import MultiLayerConfiguration
 from deeplearning4j_tpu_torch.nn.layers import base as _base
 from deeplearning4j_tpu_torch.nn.layers.base import apply_layer, split_seed, step_seed
+from deeplearning4j_tpu_torch.telemetry import health as _health
 from deeplearning4j_tpu_torch.utils import dtypes as _dtypes
 from deeplearning4j_tpu_torch.utils.device import resolve_device
 from deeplearning4j_tpu_torch.utils.trees import drop_entries, tree_leaves, tree_like
-
-_NOT_PORTED = "is not ported yet (ROADMAP queue 1, \"Rest of the training core\")"
-
 
 def _param_tree(d, device):
     """A (nested) ParameterDict of frozen parameters from a dict of tensors."""
@@ -170,19 +170,11 @@ class MultiLayerNetwork(nn.Module):
             p.requires_grad_(True)
         return trainable
 
-    def _check_trainable(self):
-        for layer in self.conf.layers:
-            if getattr(layer, "weight_noise", None) is not None:
-                raise NotImplementedError(
-                    f"{type(layer).__name__}: weight noise in train mode {_NOT_PORTED}")
-
     def apply_fn(self, params, state, x, *, train=False, mask=None, rng=None, layer_limit=None):
         """Forward pass through the first ``layer_limit`` layers (all by
         default). Returns (output, new_state). ``train=False`` runs under
         ``torch.inference_mode()``; ``train=True`` builds the graph. ``rng``
         is the step's seed (None: no random draws)."""
-        if train:
-            self._check_trainable()
         new_state = list(state)
         cur_type = self.conf.input_type
         n = len(self.conf.layers) if layer_limit is None else layer_limit
@@ -278,15 +270,29 @@ class MultiLayerNetwork(nn.Module):
         return [l.apply_constraints(p, step, 0) if len(p) and i not in self.frozen_layers else p
                 for i, (l, p) in enumerate(zip(self.conf.layers, params))]
 
-    def make_train_step(self):
+    def make_train_step(self, with_health=False):
         """The train step: (params, state, opt_state, x, y, step, mask, rng)
-        -> (params, state, opt_state, loss)."""
+        -> (params, state, opt_state, loss[, health]). ``step`` is the
+        iteration or its row of the updater's scalar table on the device;
+        ``with_health=True`` appends the watchdog's bundle of device
+        scalars, computed inside the step from the gradients and the
+        parameters before the update."""
         def train_step(params, state, opt_state, x, y, step, mask=None, rng=None):
             loss, new_state, grads = self.compute_gradients(params, state, x, y, mask=mask,
                                                             rng=rng)
+            health = _health.health_stats(grads, params, loss) if with_health else None
             params, opt_state = self.apply_update(params, opt_state, grads, step)
+            if with_health:
+                return params, new_state, opt_state, loss, health
             return params, new_state, opt_state, loss
         return train_step
+
+    def make_train_steps(self, k, with_health=False):
+        """The K-step engine (``nn/fused.py``): one dispatch runs K train
+        steps over a stacked ``[K, B, ...]`` super-batch, one CUDA-graph
+        replay on a card; ``fit(steps_per_dispatch=K)`` drives it."""
+        from deeplearning4j_tpu_torch.nn import fused as _fused
+        return _fused.make_train_steps(self, k, with_health=with_health)
 
     # ------------------------------------------------------------------
     # truncated BPTT and streaming inference (reference: doTruncatedBPTT,
@@ -304,8 +310,6 @@ class MultiLayerNetwork(nn.Module):
         """Forward pass threading the recurrent layers' carries. Returns
         (y, new_state, new_carries). As in the JAX package, a layer that
         draws (``DropoutLayer``) gets its seed; input dropout is off here."""
-        if train:
-            self._check_trainable()
         new_state = list(state)
         new_carries = list(carries)
         cur_type = self.conf.input_type
@@ -399,52 +403,52 @@ class MultiLayerNetwork(nn.Module):
     # ------------------------------------------------------------------
 
     def fit(self, data, labels=None, *, epochs=1, batch_size=None, mask=None,
-            pad_ragged=None):
+            steps_per_dispatch=1, pad_ragged=None):
         """Train. ``data`` is an (x, y) pair, feature arrays with ``labels``,
         or an iterable of minibatches (see ``datasets.iter_batches``);
         arrays may be numpy or tensors, and move to the network's device.
-        ``pad_ragged=True`` pads every batch to the first one's size with a
-        validity mask (exact under the masked-mean losses). Each step's loss
-        lands in ``score_history`` one step late, where the listeners hear
-        it; ``score_value`` is the last. Returns the network."""
+        Each step's loss lands in ``score_history`` one dispatch late, where
+        the listeners hear it; ``score_value`` is the last. Returns the
+        network.
+
+        ``steps_per_dispatch=K`` runs K steps a dispatch through the K-step
+        engine (``nn/fused.py``; one CUDA-graph replay on a card): batches
+        are bucketed to one shape with validity masks (exact under the
+        masked-mean losses), stacked K at a time and copied to the device
+        on a prefetch thread while the current dispatch runs; a ragged
+        K-tail pads with no-op steps. ``pad_ragged=True`` pads every batch
+        of the K=1 loop to the first one's size the same way. Truncated
+        BPTT is refused at K > 1 where it would engage (3-d features and
+        labels longer than the window)."""
+        from deeplearning4j_tpu_torch.continuous.driver import StepDriver
+
         if self.params is None:
             self.init()
-        if self.opt_state is None:
-            self.opt_state = self.conf.updater.init(self.params)
-        step_fn = self.make_train_step()
-        dev = self.device
+        k = int(steps_per_dispatch)
         self.score_history = []
-        scores = _listeners.FitScores(self)
-        try:
+        if k > 1:
+            if self.conf.backprop_type == "tbptt":
+                pair = labels is None and isinstance(data, (tuple, list))
+                feats = data[0] if pair else data
+                labs = data[1] if pair else labels
+                safe = (hasattr(feats, "shape") and
+                        (feats.ndim != 3 or feats.shape[1] <= self.conf.tbptt_fwd_length
+                         or (hasattr(labs, "shape") and labs.ndim != 3)))
+                if not safe:
+                    raise ValueError("steps_per_dispatch > 1 does not compose with TBPTT (the "
+                                     "chunk loop is its own loop); use the default "
+                                     "single-step path")
+            from deeplearning4j_tpu_torch.nn import fused as _fused
             with _dtypes.policy_precision():
-                for _ in range(epochs):
-                    for l in self.listeners:
-                        l.on_epoch_start(self)
-                    t_etl = time.perf_counter()
-                    for x, y, m in iter_batches(data, labels, batch_size, mask,
-                                                pad_to=True if pad_ragged else None):
-                        x, y, m = _as_tensor(x, dev), _as_tensor(y, dev), _as_tensor(m, dev)
-                        etl = time.perf_counter() - t_etl
-                        self.last_input = x
-                        if self._tbptt_applies(x, y):
-                            # one entry a batch: the mean of its chunks' losses
-                            loss = self._fit_tbptt(x, y, m)
-                        else:
-                            _, self.state, self.opt_state, loss = step_fn(
-                                self.params, self.state, self.opt_state, x, y, self.iteration,
-                                m, step_seed(self.conf.seed, self.iteration))
-                            self.iteration += 1
-                        scores.push(loss, self.iteration, etl)
-                        t_etl = time.perf_counter()
-                    scores.flush()
-                    for l in self.listeners:
-                        l.on_epoch_end(self)
-                    self.epoch += 1
-        finally:
-            _listeners.run_fit_end_hooks(self)
-        if self.score_history:
-            self.score_value = self.score_history[-1]
-        return self
+                return _fused.fit_fused(
+                    self, lambda: iter_batches(data, labels, batch_size, mask),
+                    epochs=epochs, k=k, batch_size=batch_size)
+        drv = StepDriver(
+            self, lambda: iter_batches(data, labels, batch_size, mask,
+                                       pad_to=True if pad_ragged else None),
+            tbptt_fn=self._tbptt_applies)
+        with _dtypes.policy_precision():
+            return drv.run(epochs)
 
     def score(self, x, y, mask=None):
         """The loss on (x, y) without training (inference forward)."""

@@ -11,15 +11,25 @@ differ in similar details.
 
 Each updater has
   init(params)                           -> state
+  scalars(step)                          -> its per-step scalars (floats)
+  step_table(steps)                      -> [len(steps), n] float32 of them
   update_(params, grads, state, step)    -> state
 where ``params`` is the network's list of per-layer parameter trees,
 ``grads`` a matching list of dicts of tensors, and ``state`` mirrors the
 JAX package's optimizer state: a per-layer tree list, a dict of them
 (``{"m": ..., "v": ...}``), or ``()``. ``update_`` updates the parameters
 and the state in place under ``torch.no_grad()`` (the JAX package returns
-new arrays; updating in place keeps one copy of each on the card). Scalar
-factors (schedules, bias corrections) are computed in float32, as JAX
-computes them.
+new arrays; updating in place keeps one copy of each on the card).
+
+The per-step scalars (the learning rate from its schedule, the bias
+corrections) are computed on the host in float32, as JAX computes them,
+and reach the update as a device tensor: ``step`` is either an iteration
+(an int, whose row of ``step_table`` is staged to the parameters' device)
+or that row already on the device. The K-step engine (``nn/fused.py``)
+stages the table of a dispatch's K steps with its super-batch, so a
+captured CUDA graph reads each step's scalars from a buffer instead of
+baking the capture's values in; the K=1 loop runs the same arithmetic on
+its one-row table.
 """
 
 from __future__ import annotations
@@ -134,6 +144,34 @@ def resolve_lr(lr, step):
     return lr(step) if callable(lr) else float(_f(lr))
 
 
+def _row(table_row, like):
+    """A step's scalar row as a tensor on ``like``'s device (pinned and
+    copied without a host wait on a card)."""
+    row = torch.from_numpy(table_row)
+    if like.device.type == "cuda":
+        return row.pin_memory().to(like.device, non_blocking=True)
+    return row
+
+
+class _Scalars:
+    """The per-step scalar table every updater shares."""
+
+    def scalars(self, step):
+        return ()
+
+    def step_table(self, steps):
+        """[len(steps), n] float32: ``scalars`` of each step."""
+        rows = [self.scalars(int(s)) for s in steps]
+        return np.asarray(rows, dtype=np.float32).reshape(len(rows), -1)
+
+    def step_row(self, step, like):
+        """``step``'s scalars as a device tensor: an int's row of the table
+        staged to ``like``'s device, or a row given on the device."""
+        if torch.is_tensor(step):
+            return step
+        return _row(self.step_table([step])[0], like)
+
+
 def zeros_like_tree(params):
     """Plain lists and dicts of zeros mirroring ``params``."""
     return tree_like(params, (torch.zeros_like(p.detach()) for p in tree_leaves(params)))
@@ -147,33 +185,45 @@ def _bias_powers(b, step):
 
 @register_config
 @dataclasses.dataclass(frozen=True)
-class Sgd:
+class Sgd(_Scalars):
     learning_rate: Schedule = 0.1
 
     def init(self, params):
         return ()
 
+    def scalars(self, step):
+        return (resolve_lr(self.learning_rate, step),)
+
     @torch.no_grad()
     def update_(self, params, grads, state, step):
-        lr = resolve_lr(self.learning_rate, step)
-        for p, g in zip(tree_leaves(params), tree_leaves(grads)):
+        leaves = list(tree_leaves(params))
+        if not leaves:
+            return state
+        lr = self.step_row(step, leaves[0])[0]
+        for p, g in zip(leaves, tree_leaves(grads)):
             p.add_(-lr * g)
         return state
 
 
 @register_config
 @dataclasses.dataclass(frozen=True)
-class Nesterovs:
+class Nesterovs(_Scalars):
     learning_rate: Schedule = 0.1
     momentum: float = 0.9
 
     def init(self, params):
         return zeros_like_tree(params)
 
+    def scalars(self, step):
+        return (resolve_lr(self.learning_rate, step),)
+
     @torch.no_grad()
     def update_(self, params, grads, state, step):
-        lr, mu = resolve_lr(self.learning_rate, step), self.momentum
-        for p, g, v in zip(tree_leaves(params), tree_leaves(grads), tree_leaves(state)):
+        leaves = list(tree_leaves(params))
+        if not leaves:
+            return state
+        lr, mu = self.step_row(step, leaves[0])[0], self.momentum
+        for p, g, v in zip(leaves, tree_leaves(grads), tree_leaves(state)):
             v.copy_(mu * v - lr * g)
             p.add_(mu * v - lr * g)  # look-ahead (ND4J NesterovsUpdater)
         return state
@@ -181,7 +231,7 @@ class Nesterovs:
 
 @register_config
 @dataclasses.dataclass(frozen=True)
-class Adam:
+class Adam(_Scalars):
     learning_rate: Schedule = 1e-3
     beta1: float = 0.9
     beta2: float = 0.999
@@ -190,13 +240,19 @@ class Adam:
     def init(self, params):
         return {"m": zeros_like_tree(params), "v": zeros_like_tree(params)}
 
+    def scalars(self, step):
+        lr = resolve_lr(self.learning_rate, step)
+        b1t, b2t = _bias_powers(self.beta1, step)[0], _bias_powers(self.beta2, step)[0]
+        return (float(-_f(lr) * (np.sqrt(_f(1) - b2t) / (_f(1) - b1t))),)
+
     @torch.no_grad()
     def update_(self, params, grads, state, step):
-        lr = resolve_lr(self.learning_rate, step)
+        leaves = list(tree_leaves(params))
+        if not leaves:
+            return state
+        lr_t = self.step_row(step, leaves[0])[0]
         b1, b2 = self.beta1, self.beta2
-        b1t, b2t = _bias_powers(b1, step)[0], _bias_powers(b2, step)[0]
-        lr_t = float(-_f(lr) * (np.sqrt(_f(1) - b2t) / (_f(1) - b1t)))
-        for p, g, m, v in zip(tree_leaves(params), tree_leaves(grads), tree_leaves(state["m"]),
+        for p, g, m, v in zip(leaves, tree_leaves(grads), tree_leaves(state["m"]),
                               tree_leaves(state["v"])):
             m.copy_(b1 * m + (1 - b1) * g)
             v.copy_(b2 * v + (1 - b2) * g * g)
@@ -206,7 +262,7 @@ class Adam:
 
 @register_config
 @dataclasses.dataclass(frozen=True)
-class AdaMax:
+class AdaMax(_Scalars):
     learning_rate: Schedule = 1e-3
     beta1: float = 0.9
     beta2: float = 0.999
@@ -215,12 +271,18 @@ class AdaMax:
     def init(self, params):
         return {"m": zeros_like_tree(params), "u": zeros_like_tree(params)}
 
+    def scalars(self, step):
+        lr = resolve_lr(self.learning_rate, step)
+        return (float(_f(lr) / (_f(1) - _bias_powers(self.beta1, step)[0])),)
+
     @torch.no_grad()
     def update_(self, params, grads, state, step):
-        lr = resolve_lr(self.learning_rate, step)
+        leaves = list(tree_leaves(params))
+        if not leaves:
+            return state
+        scale = self.step_row(step, leaves[0])[0]
         b1, b2 = self.beta1, self.beta2
-        scale = float(_f(lr) / (_f(1) - _bias_powers(b1, step)[0]))
-        for p, g, m, u in zip(tree_leaves(params), tree_leaves(grads), tree_leaves(state["m"]),
+        for p, g, m, u in zip(leaves, tree_leaves(grads), tree_leaves(state["m"]),
                               tree_leaves(state["u"])):
             m.copy_(b1 * m + (1 - b1) * g)
             u.copy_(torch.maximum(b2 * u, g.abs()))
@@ -230,7 +292,7 @@ class AdaMax:
 
 @register_config
 @dataclasses.dataclass(frozen=True)
-class Nadam:
+class Nadam(_Scalars):
     learning_rate: Schedule = 1e-3
     beta1: float = 0.9
     beta2: float = 0.999
@@ -239,15 +301,20 @@ class Nadam:
     def init(self, params):
         return {"m": zeros_like_tree(params), "v": zeros_like_tree(params)}
 
+    def scalars(self, step):
+        b1t, b1t1 = _bias_powers(self.beta1, step)
+        b2t = _bias_powers(self.beta2, step)[0]
+        return (resolve_lr(self.learning_rate, step), float(_f(1) - b1t1), float(_f(1) - b1t),
+                float(_f(1) - b2t))
+
     @torch.no_grad()
     def update_(self, params, grads, state, step):
-        lr = resolve_lr(self.learning_rate, step)
+        leaves = list(tree_leaves(params))
+        if not leaves:
+            return state
+        lr, c_m, c_g, c_v = self.step_row(step, leaves[0])
         b1, b2 = self.beta1, self.beta2
-        b1t, b1t1 = _bias_powers(b1, step)
-        b2t = _bias_powers(b2, step)[0]
-        c_m, c_g = float(_f(1) - b1t1), float(_f(1) - b1t)
-        c_v = float(_f(1) - b2t)
-        for p, g, m, v in zip(tree_leaves(params), tree_leaves(grads), tree_leaves(state["m"]),
+        for p, g, m, v in zip(leaves, tree_leaves(grads), tree_leaves(state["m"]),
                               tree_leaves(state["v"])):
             m.copy_(b1 * m + (1 - b1) * g)
             v.copy_(b2 * v + (1 - b2) * g * g)
@@ -259,17 +326,23 @@ class Nadam:
 
 @register_config
 @dataclasses.dataclass(frozen=True)
-class AdaGrad:
+class AdaGrad(_Scalars):
     learning_rate: Schedule = 0.1
     epsilon: float = 1e-6
 
     def init(self, params):
         return zeros_like_tree(params)
 
+    def scalars(self, step):
+        return (resolve_lr(self.learning_rate, step),)
+
     @torch.no_grad()
     def update_(self, params, grads, state, step):
-        lr = resolve_lr(self.learning_rate, step)
-        for p, g, h in zip(tree_leaves(params), tree_leaves(grads), tree_leaves(state)):
+        leaves = list(tree_leaves(params))
+        if not leaves:
+            return state
+        lr = self.step_row(step, leaves[0])[0]
+        for p, g, h in zip(leaves, tree_leaves(grads), tree_leaves(state)):
             h.add_(g * g)
             p.add_(-lr * g / (torch.sqrt(h) + self.epsilon))
         return state
@@ -277,7 +350,7 @@ class AdaGrad:
 
 @register_config
 @dataclasses.dataclass(frozen=True)
-class AdaDelta:
+class AdaDelta(_Scalars):
     rho: float = 0.95
     epsilon: float = 1e-6
 
@@ -298,7 +371,7 @@ class AdaDelta:
 
 @register_config
 @dataclasses.dataclass(frozen=True)
-class RmsProp:
+class RmsProp(_Scalars):
     learning_rate: Schedule = 1e-3
     decay: float = 0.95
     epsilon: float = 1e-8
@@ -306,10 +379,16 @@ class RmsProp:
     def init(self, params):
         return zeros_like_tree(params)
 
+    def scalars(self, step):
+        return (resolve_lr(self.learning_rate, step),)
+
     @torch.no_grad()
     def update_(self, params, grads, state, step):
-        lr, d = resolve_lr(self.learning_rate, step), self.decay
-        for p, g, a in zip(tree_leaves(params), tree_leaves(grads), tree_leaves(state)):
+        leaves = list(tree_leaves(params))
+        if not leaves:
+            return state
+        lr, d = self.step_row(step, leaves[0])[0], self.decay
+        for p, g, a in zip(leaves, tree_leaves(grads), tree_leaves(state)):
             a.copy_(d * a + (1 - d) * g * g)
             p.add_(-lr * g / (torch.sqrt(a) + self.epsilon))
         return state
@@ -317,7 +396,7 @@ class RmsProp:
 
 @register_config
 @dataclasses.dataclass(frozen=True)
-class AmsGrad:
+class AmsGrad(_Scalars):
     learning_rate: Schedule = 1e-3
     beta1: float = 0.9
     beta2: float = 0.999
@@ -327,11 +406,17 @@ class AmsGrad:
         return {"m": zeros_like_tree(params), "v": zeros_like_tree(params),
                 "vhat": zeros_like_tree(params)}
 
+    def scalars(self, step):
+        return (resolve_lr(self.learning_rate, step),)
+
     @torch.no_grad()
     def update_(self, params, grads, state, step):
-        lr = resolve_lr(self.learning_rate, step)
+        leaves = list(tree_leaves(params))
+        if not leaves:
+            return state
+        lr = self.step_row(step, leaves[0])[0]
         b1, b2 = self.beta1, self.beta2
-        for p, g, m, v, vh in zip(tree_leaves(params), tree_leaves(grads), tree_leaves(state["m"]),
+        for p, g, m, v, vh in zip(leaves, tree_leaves(grads), tree_leaves(state["m"]),
                                   tree_leaves(state["v"]), tree_leaves(state["vhat"])):
             m.copy_(b1 * m + (1 - b1) * g)
             v.copy_(b2 * v + (1 - b2) * g * g)
@@ -342,7 +427,7 @@ class AmsGrad:
 
 @register_config
 @dataclasses.dataclass(frozen=True)
-class NoOp:
+class NoOp(_Scalars):
     def init(self, params):
         return ()
 

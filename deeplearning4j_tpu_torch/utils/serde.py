@@ -25,7 +25,8 @@ _CATALOG_MODULES = ("deeplearning4j_tpu_torch.nn.layers",
                     "deeplearning4j_tpu_torch.nn.fusion",
                     "deeplearning4j_tpu_torch.nn.initializers",
                     "deeplearning4j_tpu_torch.nn.updaters",
-                    "deeplearning4j_tpu_torch.nn.constraints")
+                    "deeplearning4j_tpu_torch.nn.constraints",
+                    "deeplearning4j_tpu_torch.nn.weightnoise")
 
 
 def register_config(cls):

@@ -20,13 +20,22 @@ port's updater state under the same paths (Adam's ``opt['m'][1]['W']``,
 RmsProp's ``opt[0]['W']``) and is written back from it, so a checkpoint
 taken mid-training in either package resumes in the other with its
 moments. The step RNG chain (``rng``) is kept as the raw array it is.
+
+A bundle (``save_bundle``/``load_bundle``) is the same zip plus
+``buckets.json``, the batch-size buckets the job ran with: one resumable
+unit for ``continuous.StepDriver``. A bundle written by the JAX package
+may also embed ``warm_manifest.zip``, serialized XLA executables; a CUDA
+graph cannot be serialized, so the port drops that entry with a warning,
+as the JAX package drops a manifest built for another backend.
 """
 
 from __future__ import annotations
 
 import io
 import json
+import warnings
 import zipfile
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -142,3 +151,52 @@ def load_model(path, *, device="cuda"):
     package onto ``device``."""
     with zipfile.ZipFile(path) as z:
         return _read_model(z, device)
+
+
+def _bucket_sizes(buckets):
+    """A BucketRegistry or an iterable of sizes as the sorted int list of
+    ``buckets.json``."""
+    if hasattr(buckets, "sizes"):
+        return buckets.sizes()
+    return sorted(int(b) for b in buckets)
+
+
+@dataclass
+class Bundle:
+    """One resumable unit: the restored network (params, state, updater
+    state, step RNG chain, iteration and epoch) and the bucket registry the
+    job ran with."""
+
+    net: object
+    buckets: object = None   # datasets.iterator.BucketRegistry | None
+
+
+def save_bundle(net, path, *, buckets=None, save_updater=True):
+    """Write the checkpoint, updater state and step RNG chain, and with
+    ``buckets`` (a BucketRegistry or sizes) ``buckets.json``, into one zip
+    that ``load_bundle`` (either package's) resumes from."""
+    if net.params is None:
+        raise ValueError("save_bundle needs an initialized network")
+    with zipfile.ZipFile(path, "w", zipfile.ZIP_DEFLATED) as z:
+        _write_model(z, net, save_updater)
+        if buckets is not None:
+            z.writestr("buckets.json", json.dumps(_bucket_sizes(buckets)))
+    return path
+
+
+def load_bundle(path, *, device="cuda"):
+    """Restore a ``Bundle`` onto ``device``. An embedded warm manifest
+    (the JAX package's serialized executables) is dropped with a warning:
+    the port captures its CUDA graphs at the first dispatch instead."""
+    from deeplearning4j_tpu_torch.datasets.iterator import BucketRegistry
+
+    with zipfile.ZipFile(path) as z:
+        net = _read_model(z, device)
+        names = set(z.namelist())
+        buckets = (BucketRegistry(json.loads(z.read("buckets.json")))
+                   if "buckets.json" in names else None)
+    if "warm_manifest.zip" in names:
+        warnings.warn(f"bundle {path}: the embedded warm manifest holds XLA executables, "
+                      "which the port cannot run; dropped (the first dispatch captures "
+                      "its CUDA graph instead)", stacklevel=2)
+    return Bundle(net=net, buckets=buckets)

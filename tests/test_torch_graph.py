@@ -172,7 +172,9 @@ def test_training_what_is_not_ported_raises():
     """``checkpoint_scope="prefix"`` trains now: from the same weights the
     remat step equals the plain one in float64 (loss, gradients, BN state),
     and every fused vertex, all inside a block group, runs its conv twice
-    (forward and recompute). ``steps_per_dispatch > 1`` still raises."""
+    (forward and recompute). ``steps_per_dispatch=4`` trains the same
+    graph: one dispatch of one real step (and three padded ones) equals the
+    K=1 step on the batch padded the same way, in float64."""
     x, y = (torch.from_numpy(a).double() for a in _data(2, 0))
     nets, calls = [], []
     for scope in (None, "prefix"):
@@ -192,9 +194,16 @@ def test_training_what_is_not_ported_raises():
     _assert_trees(g1, g0, rtol=1e-12, atol=1e-15)
     _assert_trees(s1, s0, rtol=0, atol=0)
     assert calls == [52, 104]
-    net = TG.ComputationGraph(t_resnet50(HW, HW, n_classes=CLASSES), device="cpu")
-    with pytest.raises(NotImplementedError, match="steps_per_dispatch"):
-        net.fit(*_data(2, 0), steps_per_dispatch=4)
+    fits = []
+    for k in (1, 4):
+        net = TG.ComputationGraph(t_resnet50(HW, HW, n_classes=CLASSES), device="cpu")
+        net.init(torch.Generator().manual_seed(0), dtype=torch.float64)
+        xf, yf = (a.astype(np.float64) for a in _data(2, 0))
+        net.fit(xf, yf, steps_per_dispatch=k, pad_ragged=True)
+        fits.append(net)
+    assert fits[1].iteration == 1 and fits[1]._train_steps_fused[(4, False)].calls == 1
+    np.testing.assert_allclose(fits[1].score_value, fits[0].score_value, rtol=1e-12)
+    _assert_trees(fits[1].params, fits[0].params, rtol=1e-12, atol=1e-15)
 
 
 def test_graph_fits_dict_inputs_with_two_heads():

@@ -44,6 +44,7 @@ from deeplearning4j_tpu_torch.nn import gradnorm as TG
 from deeplearning4j_tpu_torch.nn import layers as TL
 from deeplearning4j_tpu_torch.nn import losses as TLoss
 from deeplearning4j_tpu_torch.nn import updaters as TU
+from deeplearning4j_tpu_torch.nn import weightnoise as TWN
 from deeplearning4j_tpu_torch.nn.conf import inputs as TI
 from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork as TNet
 from deeplearning4j_tpu_torch.ops import lstm_seq
@@ -459,13 +460,12 @@ def test_char_rnn_gradients_on_the_cpu_match_jax():
 # what training refuses
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("change", [{"dropout": 0.1}, {"weight_noise": object()}],
+@pytest.mark.parametrize("change", [{"dropout": 0.1}, {"weight_noise": TWN.WeightNoise()}],
                          ids=["dropout", "weight_noise"])
 def test_dropout_and_weight_noise_raise_in_train_mode(change):
-    """Weight noise still raises in train mode. Input dropout trains: its
-    step differs from the dropout-free step from the same weights and
-    repeats to the bit from the same seed and iteration. Inference ignores
-    both."""
+    """Input dropout and weight noise both train: the step differs from the
+    plain step from the same weights and repeats to the bit from the same
+    seed and iteration. Inference ignores both."""
     conf = t_lm(VOCAB, n_layers=1, d_model=8, n_heads=2, seq_len=8)
 
     def net_with(ch):
@@ -478,16 +478,12 @@ def test_dropout_and_weight_noise_raise_in_train_mode(change):
     rs = np.random.RandomState(0)
     x = rs.randint(0, VOCAB, (2, 8, 1)).astype(np.float32)
     y = np.eye(VOCAB, dtype=np.float32)[rs.randint(0, VOCAB, (2, 8))]
-    if "weight_noise" in change:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            net.fit((x, y))
-    else:
-        plain, again = net_with({}), net_with(change)
-        for n in (net, plain, again):
-            n.fit((x, y))
-        _assert_trees(again.params, net.params, rtol=0, atol=0)
-        assert not torch.equal(net.params[-1]["W"], plain.params[-1]["W"])
-        assert np.isfinite(net.score_value)
+    plain, again = net_with({}), net_with(change)
+    for n in (net, plain, again):
+        n.fit((x, y))
+    _assert_trees(again.params, net.params, rtol=0, atol=0)
+    assert not torch.equal(net.params[-1]["W"], plain.params[-1]["W"])
+    assert np.isfinite(net.score_value)
     assert net.output(x).shape == (2, 8, VOCAB)  # inference ignores both
     np.testing.assert_array_equal(net.output(x).numpy(), net.output(x).numpy())
 
