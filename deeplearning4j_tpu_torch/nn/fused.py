@@ -51,6 +51,7 @@ import importlib
 import torch
 
 from deeplearning4j_tpu_torch.nn.layers.base import step_seed
+from deeplearning4j_tpu_torch.utils.device import as_device
 from deeplearning4j_tpu_torch.utils.trees import tree_leaves
 
 __all__ = ["make_train_steps", "fit_fused", "replay_launches"]
@@ -110,17 +111,6 @@ def _tmap(fn, *trees):
     if isinstance(trees[0], dict):
         return {k: fn(*(t[k] for t in trees)) for k in trees[0]}
     return fn(*trees)
-
-
-def _as_device(a, device):
-    """``a`` (numpy or tensor) on ``device``, through pinned memory without
-    a host wait on a card."""
-    t = a if torch.is_tensor(a) else torch.from_numpy(a)
-    if t.device == device:
-        return t
-    if device.type == "cuda" and t.device.type == "cpu":
-        return t.pin_memory().to(device, non_blocking=True)
-    return t.to(device)
 
 
 class _Signature:
@@ -257,16 +247,16 @@ class TrainSteps:
             self._sigs[key] = sig
             self.captures += 1
         with torch.no_grad():
-            _tmap(lambda dst, src: dst.copy_(_as_device(src, device), non_blocking=True),
+            _tmap(lambda dst, src: dst.copy_(as_device(src, device), non_blocking=True),
                   sig.xs, xs)
-            _tmap(lambda dst, src: dst.copy_(_as_device(src, device), non_blocking=True),
+            _tmap(lambda dst, src: dst.copy_(as_device(src, device), non_blocking=True),
                   sig.ys, ys)
-            sig.ms.copy_(_as_device(masks, device), non_blocking=True)
-            sig.sv.copy_(_as_device(torch.as_tensor(step_valid, dtype=torch.float32), device),
+            sig.ms.copy_(as_device(masks, device), non_blocking=True)
+            sig.sv.copy_(as_device(torch.as_tensor(step_valid, dtype=torch.float32), device),
                          non_blocking=True)
             sig.step0.fill_(int(step0))
             table = net.conf.updater.step_table(range(int(step0), int(step0) + self.k))
-            sig.table.copy_(_as_device(torch.from_numpy(table), device), non_blocking=True)
+            sig.table.copy_(as_device(torch.from_numpy(table), device), non_blocking=True)
         if device.type != "cuda":
             return self._finish(self._steps(params, state, opt_state, sig, seed))
         if sig.graph is None:

@@ -18,3 +18,14 @@ def resolve_device(device="cuda") -> torch.device:
         raise ValueError(f"unsupported device {str(device)!r} "
                          "(expected 'cuda' or 'cpu')")
     return dev
+
+
+def as_device(a, device):
+    """``a`` (numpy or tensor) on ``device``, through pinned memory without
+    a host wait on a card."""
+    t = a if torch.is_tensor(a) else torch.from_numpy(a)
+    if t.device == device:
+        return t
+    if device.type == "cuda" and t.device.type == "cpu":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)

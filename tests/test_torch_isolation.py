@@ -46,3 +46,14 @@ def test_package_imports_with_jax_blocked():
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "ok"
+
+
+@pytest.mark.parametrize("module", [
+    "deeplearning4j_tpu_torch/text/word2vec.py", "deeplearning4j_tpu_torch/text/zh_lattice.py",
+    "deeplearning4j_tpu_torch/graphlib/deepwalk.py", "deeplearning4j_tpu_torch/graphlib/loader.py",
+    "deeplearning4j_tpu_torch/clustering/tsne.py", "deeplearning4j_tpu_torch/clustering/server.py",
+    "deeplearning4j_tpu_torch/utils/hostsync.py"])
+def test_the_sweep_covers_the_nlp_tier(module):
+    """The copied and ported NLP modules are among the AST-checked sources,
+    so none keeps an import of the JAX package."""
+    assert module in SOURCES
