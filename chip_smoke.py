@@ -210,6 +210,36 @@ nonzero; nothing is caught):
             tests with every NLP trainer on the card: SGNS, HS and CBOW
             orderings, PV-DBOW and ``infer_vector``, GloVe, DeepWalk,
             KMeans, t-SNE.
+16. mnist   BASELINE config 1 as DL4J's LenetMnistExample runs it: MNIST-
+            format IDX files at MNIST's size (60,000 + 10,000 images,
+            28x28, 10 class templates plus noise and shifts, from the seed;
+            the training split gzipped) read back through ``mnist_iterator``
+            (batch 256), a ``NormalizerStandardize`` fitted streaming over
+            the 235 training batches (held against a one-shot float64
+            fit), one epoch of ``MultiLayerNetwork.fit`` of LeNet (431,080
+            params) over the normalized iterator under the f32 policy and
+            ``bf16_policy`` (images/s with the fetch and normalization,
+            the host's ms a batch for them, 5 profiled steps' busy share,
+            the loss falling, ``evaluate`` on the test split); the model
+            saved with its normalizer, restored on the card (outputs
+            equal), the normalized test set as a labelled CSV through the
+            ``eval`` verb (its statistics equal ``evaluate``'s);
+            ``memory_report``'s estimate against the card's peak over one
+            step; ``QuantizedInference`` (int8 bytes, accuracy, the largest
+            probability change, ms a forward); the VAE of dl4j-examples'
+            VariationalAutoEncoderExample (535,828 params) pretrained one
+            epoch on the same pixels in [0, 1] (the -ELBO falling,
+            ``reconstruction_probability``, ``generate_at_mean`` on a grid,
+            one step against float64 on the CPU); an AutoEncoder 784 -> 250
+            pretrained one epoch; ``Solver`` L-BFGS and conjugate gradient
+            on LeNet over 10,000 images, 10 iterations each (ms and counted
+            host syncs an iteration) and one L-BFGS iteration at batch 512
+            against float64 on the CPU; EmbeddingLayer,
+            TimeDistributedDenseLayer and AutoEncoder on the card against
+            float64, both embedding layers with ids out of range and -1,
+            and ``check_gradients`` in float64 on the card for a narrow VAE.
+            No kernel of the port runs here: the JAX package computes all
+            of it outside Pallas.
 
 Then a ``kernels`` line (every kernel of the paths with its launches on
 its path, error, times and bound), the card's name and power limit, and
@@ -281,19 +311,37 @@ of the spread between two card runs of the chunk (``index_add_``'s atomics
 sum a row's gradients in no fixed order) and the plain f32 step's own
 distance from float64 on the CPU; the quality checks hold the JAX tests'
 orderings (t-SNE: mean silhouette of the two clusters above 0.25, see
-W2V_TSNE_SILHOUETTE).
+W2V_TSNE_SILHOUETTE). MNIST: the streaming normalizer within 1e-6 of the
+one-shot float64 fit (relative; float32 results); the restored net's
+outputs equal to the bit and the ``eval`` verb's statistics equal to
+``evaluate``'s (the CSV holds each float32 value to 9 digits, which
+round-trips it, and the verb runs the same batches); test accuracy at
+least MN_MIN_ACCURACY; the int8 net's accuracy within
+MN_QUANT_ACCURACY_DROP of the f32 net's; the VAE step and the L-BFGS
+iteration on the card against float64 on the CPU within 3x
+(MN_NOISE_FACTOR) the f32 noise in loss, gradients (all together),
+updated parameters' largest difference and the accepted step, the noise
+the larger of the f32 step on the CPU and the card's step on the batch
+permuted (parameters beyond 1e-4: 3x the noise's count plus
+MN_SIGN_FLIPS, for near-zero gradients whose sign rounds either way under
+RmsProp's first step); the new layers on the card within 1e-4
+(LAYER_RTOL) of each float64 tensor's largest magnitude; the embedding
+rows for bad ids exactly ``jnp.take``'s (NaN rows, -1 the last row).
 """
 
 from __future__ import annotations
 
 import contextlib
 import gc
+import gzip
+import itertools
 import json
 import os
 import pathlib
 import re
 import shutil
 import statistics
+import struct
 import subprocess
 import sys
 import time
@@ -411,6 +459,27 @@ W2V_CHECK_FACTOR, W2V_TIMED_REPLAYS, W2V_PROFILED_REPLAYS, W2V_TOP_KERNELS = 3.0
 # spread is decided by last-bit chaos on this data (JAX f64 passes, JAX
 # f32 fails, the port the other way round), so it is not used here
 W2V_TSNE_SILHOUETTE = 0.25
+
+
+# the mnist phase: BASELINE config 1 as DL4J's LenetMnistExample runs it
+# (LeNet, 431,080 params, batch 256, one epoch of MNIST-size data read
+# through the fetcher, standardized by a fitted normalizer), then the rest
+# of the training core on the same pixels: dl4j-examples'
+# VariationalAutoEncoderExample widths (784 -> 256, 256 -> 2 -> 256, 256 ->
+# 784, Bernoulli, leaky relu, RmsProp 1e-3, batch 128: 535,828 params), the
+# first layer of its MNIST anomaly example as an AutoEncoder (784 -> 250,
+# AdaGrad 0.05), and the full-batch solvers on LeNet over 10,000 images
+MN_TRAIN, MN_TEST, MN_BATCH, MN_PARAMS = 60_000, 10_000, 256, 431_080
+MN_TEMPLATE_GAIN, MN_PIXEL_NOISE, MN_MAX_SHIFT = 0.3, 120.0, 3
+MN_LOSS_WINDOW, MN_PROFILED_STEPS, MN_NORM_RTOL = 10, 5, 1e-6
+MN_MIN_ACCURACY = 0.85
+MN_QUANT_ACCURACY_DROP = 0.01
+MN_NOISE_FACTOR, MN_PARAM_ATOL, MN_SIGN_FLIPS = 3.0, 1e-4, 8
+F32_ULP = 2.0 ** -23
+VAE_BATCH, VAE_PARAMS, VAE_LR, VAE_SCORED, VAE_GRID = 128, 535_828, 1e-3, 1000, 10
+AE_HIDDEN, AE_LR = 250, 0.05
+SOLVER_N, SOLVER_ITERS, SOLVER_CHECK_BATCH = 10_000, 10, 512
+GRADCHECK_PER_LEAF = 4
 
 
 def emit(phase, **fields):
@@ -3710,6 +3779,664 @@ def phase_word2vec(seed):
     return {"check": check, "fit": fit, "quality": quality, "card": card_line()}
 
 
+# ---------------------------------------------------------------------------
+# mnist: BASELINE config 1 through DL4J's MNIST workflow (fetcher,
+# normalizer, fit, evaluate, save with the normalizer, CSV evaluation),
+# the memory report, quantized inference, the VAE and AutoEncoder
+# pretraining, the full-batch solvers and the new layers on the card
+# ---------------------------------------------------------------------------
+
+def mnist_write_idx(path, arr, gz=False):
+    """An IDX file as MNIST ships it: the big-endian header (0, dtype code
+    0x08 for uint8, rank, dims) then the bytes; gzipped with ``gz``."""
+    header = struct.pack(">HBB", 0, 0x08, arr.ndim) + struct.pack(">" + "I" * arr.ndim, *arr.shape)
+    if gz:
+        with gzip.open(str(path) + ".gz", "wb", compresslevel=1) as f:
+            f.write(header + arr.tobytes())
+    else:
+        pathlib.Path(path).write_bytes(header + arr.tobytes())
+
+
+def mnist_files(root, seed):
+    """MNIST-format files at MNIST's size under ``root``/mnist: 10 class
+    templates (random 7x7 stroke grids blown up to 28x28) with pixel noise
+    and a random shift, uint8; the training split gzipped, the test split
+    raw. Returns the seconds taken."""
+    t0 = time.perf_counter()
+    rs = np.random.RandomState(seed)
+    templates = np.kron(rs.rand(10, 7, 7) > 0.6, np.ones((4, 4))).astype(np.float32) * 255.0
+    d = root / "mnist"
+    d.mkdir(parents=True)
+    for prefix, n, gz in (("train", MN_TRAIN, True), ("t10k", MN_TEST, False)):
+        labels = rs.randint(0, 10, n).astype(np.uint8)
+        img = templates[labels] * MN_TEMPLATE_GAIN
+        img += rs.randn(n, 28, 28).astype(np.float32) * MN_PIXEL_NOISE
+        shifts = rs.randint(-MN_MAX_SHIFT, MN_MAX_SHIFT + 1, (n, 2))
+        for dy in range(-MN_MAX_SHIFT, MN_MAX_SHIFT + 1):
+            for dx in range(-MN_MAX_SHIFT, MN_MAX_SHIFT + 1):
+                sel = (shifts[:, 0] == dy) & (shifts[:, 1] == dx)
+                img[sel] = np.roll(img[sel], (dy, dx), axis=(1, 2))
+        img = np.clip(img, 0, 255).astype(np.uint8)
+        mnist_write_idx(d / f"{prefix}-images-idx3-ubyte", img, gz)
+        mnist_write_idx(d / f"{prefix}-labels-idx1-ubyte", labels, gz)
+    return time.perf_counter() - t0
+
+
+class NormalizedIterator:
+    """A DataSetIterator's batches with the fitted normalizer applied on
+    the host, as DL4J's ``iterator.setPreProcessor(normalizer)``."""
+
+    def __init__(self, base, norm):
+        self.base, self.norm = base, norm
+
+    def __iter__(self):
+        from deeplearning4j_tpu_torch.datasets.iterator import DataSet
+
+        for ds in self.base:
+            yield DataSet(self.norm.transform(ds.features), ds.labels)
+
+
+def mnist_family(name):
+    if any(s in name for s in ("conv", "cudnn", "gemm", "cutlass", "xmma", "sm90", "wgrad",
+                               "dgrad", "implicit", "winograd", "fft")):
+        return "library_conv_gemm"
+    return "elementwise_other"
+
+
+def mnist_data(seed):
+    """The phase's data directory: files written, read back through the
+    port's fetcher, the normalizer fitted streaming over 235 batches and
+    held against a one-shot float64 fit."""
+    from deeplearning4j_tpu_torch.datasets import fetchers as F
+    from deeplearning4j_tpu_torch.datasets.normalizers import NormalizerStandardize
+
+    root = WORK / "data"
+    write_s = mnist_files(root, seed)
+    os.environ["DL4J_TPU_DATA_DIR"] = str(root)
+    t0 = time.perf_counter()
+    train_it = F.mnist_iterator(batch_size=MN_BATCH)
+    test_it = F.mnist_iterator(batch_size=MN_BATCH, train=False, shuffle=False)
+    read_s = time.perf_counter() - t0
+    if train_it.features.shape != (MN_TRAIN, 28, 28, 1) or test_it.features.shape != (
+            MN_TEST, 28, 28, 1):
+        raise AssertionError(f"fetcher shapes {train_it.features.shape} {test_it.features.shape}")
+    seen = []
+    t0 = time.perf_counter()
+    norm = NormalizerStandardize().fit_iterator(
+        (seen.append(ds.features.shape[0]) or ds) for ds in train_it)
+    fit_s = time.perf_counter() - t0
+    if len(seen) != -(-MN_TRAIN // MN_BATCH) or seen[-1] != MN_TRAIN % MN_BATCH:
+        raise AssertionError(f"normalizer fit saw {len(seen)} batches, the last of {seen[-1]}")
+    flat = train_it.features.astype(np.float64).reshape(-1, 1)
+    one_shot = (flat.mean(0), flat.std(0))
+    mean_err = float(np.abs(norm.mean - one_shot[0]).max() / np.abs(one_shot[0]).max())
+    std_err = float(np.abs(norm.std - one_shot[1]).max() / np.abs(one_shot[1]).max())
+    if not (mean_err <= MN_NORM_RTOL and std_err <= MN_NORM_RTOL):
+        raise AssertionError(f"streaming fit off the one-shot float64 fit: {mean_err}, {std_err}")
+    t0 = time.perf_counter()
+    batches = sum(1 for _ in NormalizedIterator(train_it, norm))
+    host_ms = 1e3 * (time.perf_counter() - t0) / batches
+    return train_it, test_it, norm, {
+        "write_s": write_s, "read_s": read_s, "normalizer_fit_s": fit_s,
+        "normalizer_mean": norm.mean.tolist(), "normalizer_std": norm.std.tolist(),
+        "normalizer_rel_err_vs_one_shot_f64": [mean_err, std_err],
+        "host_fetch_normalize_ms_a_batch": host_ms, "batches": batches}
+
+
+def mnist_net(seed):
+    from deeplearning4j_tpu_torch.models.lenet import lenet
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+
+    net = MultiLayerNetwork(lenet(seed=seed), device="cuda")
+    net.init()
+    if net.num_params() != MN_PARAMS:
+        raise AssertionError(f"LeNet has {net.num_params()} params, not {MN_PARAMS}")
+    return net
+
+
+def mnist_train(train_it, test_it, norm, seed, policy):
+    """One epoch of ``fit`` over the normalized iterator (the last batch
+    ragged), timed on the host clock with the fetch and the normalization;
+    5 more steps profiled; ``evaluate`` over the test iterator."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from deeplearning4j_tpu_torch.utils import dtypes
+
+    (dtypes.bf16_policy if policy == "bf16" else dtypes.f32_policy)()
+    try:
+        warm = mnist_net(seed)  # cuDNN's handles and plans, outside the timed epoch
+        warm.fit(iter(list(itertools.islice(NormalizedIterator(train_it, norm), 2))))
+        del warm
+        net = mnist_net(seed)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()  # earlier phases' leftovers are not the epoch's
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        net.fit(NormalizedIterator(train_it, norm))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - base
+        losses = net.score_history
+        first = float(np.mean(losses[:MN_LOSS_WINDOW]))
+        last = float(np.mean(losses[-MN_LOSS_WINDOW:]))
+        if len(losses) != -(-MN_TRAIN // MN_BATCH) or not np.all(np.isfinite(losses)) \
+                or not last < first:
+            raise AssertionError(f"LeNet {policy}: {len(losses)} steps, loss {first} -> {last}")
+        batches = list(itertools.islice(NormalizedIterator(train_it, norm), MN_PROFILED_STEPS))
+        net.fit(iter(batches[:1]))
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            net.fit(iter(batches))
+            torch.cuda.synchronize()
+            wall_ms = 1e3 * (time.perf_counter() - t0)
+        by_family, busy_ms, share = device_families(prof, wall_ms, mnist_family)
+        t0 = time.perf_counter()
+        ev = net.evaluate(NormalizedIterator(test_it, norm))
+        eval_s = time.perf_counter() - t0
+        if not ev.accuracy() >= MN_MIN_ACCURACY:
+            raise AssertionError(f"LeNet {policy}: test accuracy {ev.accuracy()}")
+        return net, ev, {
+            "policy": policy, "params": net.num_params(), "batch": MN_BATCH,
+            "steps": len(losses), "epoch_s": wall, "images_per_s": MN_TRAIN / wall,
+            "step_ms": 1e3 * wall / len(losses), "peak_mem_gb": peak / 1e9,
+            f"loss_first{MN_LOSS_WINDOW}": first, f"loss_last{MN_LOSS_WINDOW}": last,
+            "profiled_steps": MN_PROFILED_STEPS, "profiled_wall_ms": wall_ms,
+            "device_ms_by_family": by_family, "device_busy_ms": busy_ms,
+            "device_busy_share": share, "test_accuracy": ev.accuracy(), "eval_s": eval_s}
+    finally:
+        dtypes.f32_policy()
+
+
+def mnist_outputs(fn, test_it, norm):
+    """``fn``'s outputs over the normalized test set, in the iterator's
+    order and batches."""
+    return torch.cat([fn(ds.features) for ds in NormalizedIterator(test_it, norm)])
+
+
+def mnist_save_and_csv(net, ev, test_it, norm):
+    """save_model + add_normalizer_to_model, load_model on the card +
+    restore_normalizer: the restored net answers the test set exactly as
+    the trained one; the normalized test set as a labelled CSV through the
+    ``eval`` verb agrees with ``evaluate`` count for count."""
+    from deeplearning4j_tpu_torch.utils import serialization as S
+
+    path = WORK / "lenet_mnist.zip"
+    S.save_model(net, str(path))
+    S.add_normalizer_to_model(str(path), norm)
+    restored = S.load_model(str(path), device="cuda")
+    norm2 = S.restore_normalizer(str(path))
+    if not (np.array_equal(norm2.mean, norm.mean) and np.array_equal(norm2.std, norm.std)):
+        raise AssertionError("the restored normalizer differs")
+    want = mnist_outputs(net.output, test_it, norm2)
+    got = mnist_outputs(restored.output, test_it, norm2)
+    if not torch.equal(got, want):
+        raise AssertionError(f"restored outputs differ by {(got - want).abs().max().item()}")
+    t0 = time.perf_counter()
+    rows = np.concatenate([norm.transform(ds.features).reshape(ds.features.shape[0], -1)
+                           for ds in test_it])
+    labels = test_it.labels.argmax(-1)
+    csv = WORK / "mnist_test.csv"
+    np.savetxt(csv, np.concatenate([rows, labels[:, None]], 1),
+               fmt=["%.9g"] * rows.shape[1] + ["%d"], delimiter=",")
+    csv_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "deeplearning4j_tpu_torch", "eval", "--model-path", str(path),
+         "--data", str(csv), "--label-column", "784", "--n-classes", "10",
+         "--batch-size", str(MN_BATCH)],
+        cwd=ROOT, capture_output=True, text=True, timeout=600)
+    cli_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"eval verb failed:\n{proc.stderr[-4000:]}")
+    if ev.stats() not in proc.stdout:
+        raise AssertionError(f"eval verb's statistics differ from evaluate's:\n{proc.stdout}\n"
+                             f"---\n{ev.stats()}")
+    return restored, {"zip_mb": path.stat().st_size / 1e6, "csv_mb": csv.stat().st_size / 1e6,
+                      "csv_write_s": csv_s, "cli_s": cli_s, "accuracy": ev.accuracy(),
+                      "correct": int(round(ev.accuracy() * MN_TEST))}
+
+
+def mnist_memory(seed, x, y):
+    """memory_report's training estimate at batch 256 against the card's
+    peak over one step of a fresh LeNet (its updater state made by a step
+    before)."""
+    from deeplearning4j_tpu_torch.models.lenet import lenet
+    from deeplearning4j_tpu_torch.nn.conf.memory import memory_report
+
+    rep = memory_report(lenet(seed=seed))
+    if rep.total_param_count != MN_PARAMS:
+        raise AssertionError(f"memory_report counts {rep.total_param_count} params")
+    free_card()
+    base = torch.cuda.memory_allocated()
+    net = mnist_net(seed)
+    net.fit(x, y)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    net.fit(x, y)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    est = rep.total_memory_bytes(MN_BATCH, training=True)
+    del net
+    return {"total_param_count": rep.total_param_count,
+            "estimate_train_bytes": est, "measured_peak_bytes": peak,
+            "measured_over_estimate": peak / est,
+            "estimate_infer_bytes": rep.total_memory_bytes(MN_BATCH, training=False)}
+
+
+def mnist_quantized(net, ev, test_it, norm):
+    """QuantizedInference on the card over the test set against the f32
+    net: weight bytes at rest, accuracy, the largest probability change,
+    ms a forward at batch 256 and one call's peak beside the resident
+    bytes."""
+    from deeplearning4j_tpu_torch.eval.classification import Evaluation
+    from deeplearning4j_tpu_torch.utils import quantization as Q
+    from deeplearning4j_tpu_torch.utils.trees import tree_leaves
+
+    qi = Q.QuantizedInference(net)
+    f32 = mnist_outputs(net.output, test_it, norm)
+    q = mnist_outputs(qi.output, test_it, norm)
+    qev = Evaluation()
+    qev.eval(test_it.labels, q.cpu().numpy())
+    int8_bytes = Q.weight_bytes(qi.qparams)
+    scale_bytes = sum(s.numel() * s.element_size() for s in tree_leaves(qi.scales)
+                      if torch.is_tensor(s))
+    f32_bytes = Q.weight_bytes(net.params)
+    if not abs(qev.accuracy() - ev.accuracy()) <= MN_QUANT_ACCURACY_DROP:
+        raise AssertionError(f"quantized accuracy {qev.accuracy()} vs f32 {ev.accuracy()}")
+    xb = torch.from_numpy(norm.transform(test_it.features[:MN_BATCH])).cuda()
+    q_ms = time_ms(lambda: qi.output(xb), iters=20, reps=5)
+    f_ms = time_ms(lambda: net.output(xb), iters=20, reps=5)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    qi.output(xb)
+    torch.cuda.synchronize()
+    call_peak = torch.cuda.max_memory_allocated() - before
+    return {"weight_bytes_f32": f32_bytes, "weight_bytes_int8": int8_bytes,
+            "scale_bytes": scale_bytes, "at_rest_ratio": (int8_bytes + scale_bytes) / f32_bytes,
+            "accuracy_f32": ev.accuracy(), "accuracy_int8": qev.accuracy(),
+            "max_prob_diff": (q - f32).abs().max().item(),
+            "argmax_agreement": (q.argmax(-1) == f32.argmax(-1)).float().mean().item(),
+            "ms_a_forward_int8": q_ms, "ms_a_forward_f32": f_ms,
+            "call_peak_bytes_above_resident": call_peak}
+
+
+def flat_diff(a, b):
+    """How far step ``a`` is from step ``b``, each (loss, [gradients],
+    [parameters after the update]): the loss's relative difference, the
+    gradients' relative difference (all together), the parameters' largest
+    difference and the elements beyond MN_PARAM_ATOL."""
+    ga, gb = (torch.cat([t.reshape(-1).double().cpu() for t in s[1]]) for s in (a, b))
+    pa, pb = (torch.cat([t.reshape(-1).double().cpu() for t in s[2]]) for s in (a, b))
+    return {"loss_rel": abs(a[0] - b[0]) / abs(b[0]),
+            "grad_rel": ((ga - gb).norm() / gb.norm()).item(),
+            "param_max_abs": (pa - pb).abs().max().item(),
+            "params_beyond_atol": int(((pa - pb).abs() > MN_PARAM_ATOL).sum())}
+
+
+def held_to_noise(what, k_r, samples):
+    """Hold the card's step (``k_r``: flat_diff from float64) within
+    MN_NOISE_FACTOR x the f32 noise (the largest of ``samples``, each a
+    flat_diff of an f32 step from its reference), plus MN_SIGN_FLIPS
+    parameters for near-zero gradients whose sign rounds either way."""
+    noise = {m: max(s[m] for s in samples.values()) for m in k_r}
+    # the loss is one number: its f32 noise is at least one ulp
+    noise["loss_rel"] = max(noise["loss_rel"], F32_ULP)
+    for m in ("loss_rel", "grad_rel", "param_max_abs"):
+        if not k_r[m] <= MN_NOISE_FACTOR * noise[m]:
+            raise AssertionError(f"{what}: {m} {k_r[m]} beyond {MN_NOISE_FACTOR} x the f32 noise "
+                                 f"{noise[m]} ({samples})")
+    if not k_r["params_beyond_atol"] <= MN_NOISE_FACTOR * noise["params_beyond_atol"] + \
+            MN_SIGN_FLIPS:
+        raise AssertionError(f"{what}: {k_r['params_beyond_atol']} parameters beyond "
+                             f"{MN_PARAM_ATOL}, noise {noise['params_beyond_atol']}")
+    return {"card_f32_vs_cpu_f64": k_r, **samples, "noise": noise}
+
+
+def vae_step(vae, params, x, eps, upd):
+    """One pretraining step from ``params`` (copied): (-ELBO, gradients,
+    parameters after the updater's first step)."""
+    p = {k: v.detach().clone().requires_grad_(True) for k, v in params.items()}
+    loss = vae.pretrain_loss(p, x, eps=eps)
+    grads = dict(zip(p, torch.autograd.grad(loss, list(p.values()))))
+    upd.update_(p, grads, upd.init(p), 0)
+    return loss.item(), list(grads.values()), [t.detach() for t in p.values()]
+
+
+def mnist_pixels(train):
+    """The raw IDX pixels [N, 784] through ImagePreProcessingScaler: [0, 1]."""
+    from deeplearning4j_tpu_torch.datasets import fetchers as F
+    from deeplearning4j_tpu_torch.datasets.normalizers import ImagePreProcessingScaler
+
+    prefix = "train" if train else "t10k"
+    raw = F._read_idx(F.MnistDataFetcher._find(str(WORK / "data" / "mnist"),
+                                               f"{prefix}-images-idx3-ubyte"))
+    return ImagePreProcessingScaler().transform(raw.reshape(raw.shape[0], -1).astype(np.float32))
+
+
+def pretrain_epoch(layer, params, upd, x, batch, gen):
+    """One epoch of ``layer.pretrain_loss`` through autograd and ``upd``,
+    draws from ``gen``: (per-step losses, ms a step)."""
+    from deeplearning4j_tpu_torch.utils.hostsync import fetch_losses
+
+    opt = upd.init(params)
+    losses = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i, s in enumerate(range(0, x.shape[0], batch)):
+        for p in params.values():
+            p.requires_grad_(True)
+        loss = layer.pretrain_loss(params, x[s:s + batch], gen)
+        grads = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
+        upd.update_(params, grads, opt, i)
+        losses.append(loss.detach())
+    torch.cuda.synchronize()
+    return fetch_losses(losses), 1e3 * (time.perf_counter() - t0) / len(losses)
+
+
+def mnist_vae(seed, x_train, x_test):
+    """dl4j-examples' VariationalAutoEncoderExample at its widths: one
+    epoch of -ELBO pretraining, reconstruction_probability on 1,000 test
+    images, generate_at_mean over a grid, and one step from identical
+    weights held against float64 on the CPU."""
+    from deeplearning4j_tpu_torch.nn import layers as L
+    from deeplearning4j_tpu_torch.nn import updaters as U
+    from deeplearning4j_tpu_torch.nn.conf import inputs as I
+
+    vae = L.VariationalAutoencoder(n_latent=2, encoder_layer_sizes=(256, 256),
+                                   decoder_layer_sizes=(256, 256), reconstruction="bernoulli",
+                                   activation="leakyrelu", weight_init="xavier")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = vae.init(gen, I.FeedForwardType(784))
+    n_params = sum(p.numel() for p in params.values())
+    if n_params != VAE_PARAMS:
+        raise AssertionError(f"the VAE has {n_params} params, not {VAE_PARAMS}")
+    upd = U.RmsProp(learning_rate=VAE_LR)
+    check = vae_step_check(vae, params, x_train[:VAE_BATCH], upd, seed)
+    losses, ms = pretrain_epoch(vae, params, upd, x_train, VAE_BATCH, gen)
+    first = float(np.mean(losses[:MN_LOSS_WINDOW]))
+    last = float(np.mean(losses[-MN_LOSS_WINDOW:]))
+    if len(losses) != -(-MN_TRAIN // VAE_BATCH) or not np.all(np.isfinite(losses)) \
+            or not last < first:
+        raise AssertionError(f"VAE: {len(losses)} steps, -ELBO {first} -> {last}")
+    with torch.no_grad():
+        logp = vae.reconstruction_probability(params, x_test[:VAE_SCORED], gen)
+        axis = torch.linspace(-2.0, 2.0, VAE_GRID, device="cuda")
+        grid = torch.stack(torch.meshgrid(axis, axis, indexing="ij"), -1).reshape(-1, 2)
+        images = vae.generate_at_mean(params, grid)
+    if not (logp.shape == (VAE_SCORED,) and torch.isfinite(logp).all() and (logp < 0).all()):
+        raise AssertionError("reconstruction_probability is not a finite log-probability")
+    if not (images.shape == (VAE_GRID ** 2, 784) and images.min() >= 0 and images.max() <= 1):
+        raise AssertionError("generate_at_mean left [0, 1]")
+    return {"params": n_params, "batch": VAE_BATCH, "steps": len(losses), "step_ms": ms,
+            f"neg_elbo_first{MN_LOSS_WINDOW}": first, f"neg_elbo_last{MN_LOSS_WINDOW}": last,
+            "reconstruction_log_prob_mean": logp.mean().item(),
+            "grid_images": list(images.shape), "step_check": check}
+
+
+def vae_step_check(vae, params, x, upd, seed):
+    """One step on the card (f32) from ``params`` with injected eps, held
+    against the same step in float64 on the CPU within the f32 noise: the
+    step in f32 on the CPU, and the card's step on the batch permuted (the
+    eps rows with it)."""
+    eps = [torch.randn((x.shape[0], vae.n_latent), generator=torch.Generator().manual_seed(seed),
+                       dtype=torch.float64)]
+    perm = torch.randperm(x.shape[0], generator=torch.Generator().manual_seed(seed + 1))
+    cpu = {k: v.detach().cpu() for k, v in params.items()}
+    r = vae_step(vae, {k: v.double() for k, v in cpu.items()}, x.cpu().double(), eps, upd)
+    k = vae_step(vae, params, x, [eps[0].float().cuda()], upd)
+    p = vae_step(vae, cpu, x.cpu(), [eps[0].float()], upd)
+    q = vae_step(vae, params, x[perm.cuda()], [eps[0][perm].float().cuda()], upd)
+    return held_to_noise("VAE step", flat_diff(k, r), {
+        "cpu_f32_vs_cpu_f64": flat_diff(p, r), "card_f32_permuted_vs_card_f32": flat_diff(q, k)})
+
+
+def mnist_autoencoder(seed, x_train):
+    """The AutoEncoder layer of dl4j-examples' MNIST anomaly example's first
+    layer (784 -> 250), corruption 0.3, sigmoid, MSE, AdaGrad 0.05: one
+    epoch of pretraining."""
+    from deeplearning4j_tpu_torch.nn import layers as L
+    from deeplearning4j_tpu_torch.nn import updaters as U
+    from deeplearning4j_tpu_torch.nn.conf import inputs as I
+
+    ae = L.AutoEncoder(n_out=AE_HIDDEN, corruption_level=0.3, activation="sigmoid", loss="mse")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = ae.init(gen, I.FeedForwardType(784))
+    losses, ms = pretrain_epoch(ae, params, U.AdaGrad(learning_rate=AE_LR), x_train, VAE_BATCH,
+                                gen)
+    first = float(np.mean(losses[:MN_LOSS_WINDOW]))
+    last = float(np.mean(losses[-MN_LOSS_WINDOW:]))
+    if not np.all(np.isfinite(losses)) or not last < first:
+        raise AssertionError(f"AutoEncoder: loss {first} -> {last}")
+    return {"params": sum(p.numel() for p in params.values()), "steps": len(losses),
+            "step_ms": ms, f"loss_first{MN_LOSS_WINDOW}": first,
+            f"loss_last{MN_LOSS_WINDOW}": last}
+
+
+@contextlib.contextmanager
+def counted_syncs():
+    """Count the host's waits on the card inside the block (CUDA's
+    sync-debug warnings, one a synchronizing call)."""
+    import warnings
+
+    box = {"n": 0}
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            yield box
+        box["n"] = sum("synchronizing" in str(w.message) for w in seen)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def mnist_solvers(seed, x, y):
+    """Solver(net, "lbfgs") and Solver(net, "conjugate_gradient") full batch
+    on LeNet over SOLVER_N images, SOLVER_ITERS iterations each: the loss
+    falls; ms and counted host syncs an iteration."""
+    from deeplearning4j_tpu_torch.nn.solvers import DEFAULT_LS_ITERATIONS, Solver
+
+    out = {}
+    xs, ys = torch.from_numpy(x[:SOLVER_N]).cuda(), torch.from_numpy(y[:SOLVER_N]).cuda()
+    for algo in ("lbfgs", "conjugate_gradient"):
+        # cuDNN's plans and the allocator's blocks at this batch, outside the count
+        Solver(mnist_net(seed), algo, max_iterations=1, tolerance=0.0).optimize(xs, ys)
+        net = mnist_net(seed)
+        before = net.score(xs, ys)
+        solver = Solver(net, algo, max_iterations=SOLVER_ITERS, tolerance=0.0)
+        torch.cuda.synchronize()
+        with counted_syncs() as syncs:
+            t0 = time.perf_counter()
+            score = solver.optimize(xs, ys)
+            wall = time.perf_counter() - t0  # optimize ends on its score's read
+        # the design: one read of the score an iteration, and the first one
+        if syncs["n"] != SOLVER_ITERS + 1:
+            raise AssertionError(f"{algo}: {syncs['n']} host syncs in {SOLVER_ITERS} iterations")
+        if not (np.isfinite(score) and score < before) or net.iteration != SOLVER_ITERS:
+            raise AssertionError(f"{algo}: loss {before} -> {score} in {net.iteration}")
+        out[algo] = {"images": SOLVER_N, "iterations": net.iteration, "loss_before": before,
+                     "loss_after": score, "ms_an_iteration": 1e3 * wall / SOLVER_ITERS,
+                     "host_syncs": syncs["n"],
+                     "host_syncs_an_iteration": (syncs["n"] - 1) / SOLVER_ITERS,
+                     "ls_forwards_an_iteration": DEFAULT_LS_ITERATIONS}
+        del net
+    out["iteration_check"] = solver_iteration_check(seed, x[:SOLVER_CHECK_BATCH],
+                                                    y[:SOLVER_CHECK_BATCH])
+    return out
+
+
+def solver_iteration(net, x, y):
+    """LBFGS's first iteration on ``net``: (loss, [gradient], [parameters
+    after the step]) and the accepted step."""
+    from deeplearning4j_tpu_torch.nn import solvers as S
+    from deeplearning4j_tpu_torch.utils import dtypes
+
+    flat0, _ = S.flatten_params(net.params)
+
+    def loss_fn(v, x, y):
+        return net.loss_fn(S.unflatten_like(v, net.params), net.state, x, y, train=True,
+                           rng=0)[0]
+
+    opt = S.LBFGS(loss_fn)
+    with dtypes.policy_precision():
+        f, g = opt.value_and_grad(flat0, x, y)
+        x1, _, _, step = opt.iteration(flat0, g, f, opt._init_aux(flat0), x, y)
+    return (f.item(), [g], [x1]), step.item()
+
+
+def solver_iteration_check(seed, x, y):
+    """One LBFGS iteration on the card (f32) from identical weights at batch
+    SOLVER_CHECK_BATCH, held against the same iteration in float64 on the
+    CPU within the f32 noise (the iteration in f32 on the CPU, and the
+    card's on the batch permuted): the loss and gradient it starts from,
+    the accepted step and the new parameters."""
+    from deeplearning4j_tpu_torch.models.lenet import lenet
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.utils.serialization import params_from_numpy
+
+    card = mnist_net(seed)
+    weights = [{k: v.detach().cpu().numpy() for k, v in d.items()} for d in card.params]
+    runs = {}
+    for name, dt, dev in (("cpu_f64", torch.float64, "cpu"), ("cpu_f32", torch.float32, "cpu")):
+        net = MultiLayerNetwork(lenet(seed=seed), device=dev)
+        net.init(dtype=dt)
+        params_from_numpy(net, weights)
+        runs[name] = solver_iteration(net, torch.from_numpy(x).to(dt), torch.from_numpy(y).to(dt))
+    perm = np.random.RandomState(seed).permutation(x.shape[0])
+    k = solver_iteration(card, torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda())
+    q = solver_iteration(mnist_net(seed), torch.from_numpy(x[perm]).cuda(),
+                         torch.from_numpy(y[perm]).cuda())
+    r = runs["cpu_f64"]
+    step_rel = {n: abs(s[1] - b[1]) / abs(b[1]) for n, s, b in (
+        ("card", k, r), ("cpu_f32", runs["cpu_f32"], r), ("card_permuted", q, k))}
+    held = held_to_noise("LBFGS iteration", flat_diff(k[0], r[0]), {
+        "cpu_f32_vs_cpu_f64": flat_diff(runs["cpu_f32"][0], r[0]),
+        "card_f32_permuted_vs_card_f32": flat_diff(q[0], k[0])})
+    noise = max(step_rel["cpu_f32"], step_rel["card_permuted"])
+    if not step_rel["card"] <= MN_NOISE_FACTOR * noise:
+        raise AssertionError(f"accepted step {k[1]} vs float64 {r[1]}: {step_rel}")
+    return {**held, "step_card": k[1], "step_cpu_f64": r[1], "step_rel": step_rel}
+
+
+def mnist_layers(seed):
+    """EmbeddingLayer, TimeDistributedDenseLayer and AutoEncoder: one
+    forward and backward on the card against the port on the CPU in
+    float64; both embedding layers with ids out of range and -1 (NaN rows
+    and the last row, as JAX's jnp.take, no device assert); check_gradients
+    in float64 on the card for a narrow VAE."""
+    from deeplearning4j_tpu_torch.nn import layers as L
+    from deeplearning4j_tpu_torch.nn.conf import inputs as I
+    from deeplearning4j_tpu_torch.utils.gradcheck import check_gradients
+
+    rs = np.random.RandomState(seed)
+    g = torch.Generator().manual_seed(seed)
+    cases = [
+        (L.EmbeddingLayer(n_in=1000, n_out=64, has_bias=True, activation="tanh"),
+         I.FeedForwardType(1), rs.randint(0, 1000, (256, 1)).astype(np.float32)),
+        (L.TimeDistributedDenseLayer(n_out=128, activation="sigmoid"), I.RecurrentType(256, 32),
+         rs.randn(64, 32, 256).astype(np.float32)),
+        (L.AutoEncoder(n_out=AE_HIDDEN, corruption_level=0.3), I.FeedForwardType(784),
+         rs.rand(128, 784).astype(np.float32)),
+    ]
+    out = {}
+    for layer, it, x in cases:
+        params = layer.init(g, it, torch.float64)
+        keep = torch.from_numpy(rs.rand(*x.shape) > 0.3)
+
+        def run(dev, dt):
+            p = {k: v.to(dev, dt).requires_grad_(True) for k, v in params.items()}
+            xt = torch.from_numpy(x).to(dev, dt)
+            if isinstance(layer, L.AutoEncoder):
+                y = layer.pretrain_loss(p, xt, keep=keep.to(dev))
+            else:
+                y = layer.apply(p, {}, xt)[0]
+            gs = torch.autograd.grad(torch.sin(y).sum(), list(p.values()))
+            return [y.detach().double().cpu()] + [t.double().cpu() for t in gs]
+
+        ref, card = run("cpu", torch.float64), run("cuda", torch.float32)
+        errs = [((c - r).abs().max() / r.abs().max().clamp_min(1e-30)).item()
+                for c, r in zip(card, ref)]
+        if not max(errs) <= LAYER_RTOL:
+            raise AssertionError(f"{type(layer).__name__} on the card vs float64: {errs}")
+        out[type(layer).__name__] = {"max_rel_err": max(errs), "tensors": len(errs)}
+    n_in = 50
+    for layer, ids in ((L.EmbeddingLayer(n_in=n_in, n_out=8),
+                        [[0.0], [n_in], [-1.0], [n_in + 7], [-n_in - 1], [3.0]]),
+                       (L.EmbeddingSequenceLayer(n_in=n_in, n_out=8),
+                        [[0.0, n_in, -1.0], [n_in + 7, -n_in - 1, 3.0]])):
+        params = layer.init(g, I.FeedForwardType(1), torch.float32)
+        w = params["W"].numpy()
+        flat = np.asarray(ids, np.int64).reshape(-1)
+        want = np.where(((flat >= -n_in) & (flat < n_in))[:, None],
+                        w[np.clip(np.where(flat < 0, flat + n_in, flat), 0, n_in - 1)], np.nan)
+        got = layer.apply({k: v.cuda() for k, v in params.items()}, {},
+                          torch.tensor(ids, device="cuda"))[0]
+        torch.cuda.synchronize()  # a device assert would surface here
+        if not np.array_equal(got.cpu().numpy().reshape(-1, 8), want, equal_nan=True):
+            raise AssertionError(f"{type(layer).__name__}: out-of-range ids off jnp.take's rows")
+        out[type(layer).__name__ + "_out_of_range"] = {
+            "ids": flat.tolist(), "nan_rows": int(np.isnan(want[:, 0]).sum())}
+    torch.ones(1, device="cuda").add_(1).item()  # the context still works
+    vae = L.VariationalAutoencoder(n_latent=2, encoder_layer_sizes=(8,), decoder_layer_sizes=(8,),
+                                   reconstruction="bernoulli", activation="tanh")
+    params = {k: v.cuda() for k, v in vae.init(g, I.FeedForwardType(12), torch.float64).items()}
+    xv = torch.from_numpy(np.clip(rs.rand(6, 12), 0.05, 0.95)).cuda()
+    ok, failures = check_gradients(lambda p: vae.pretrain_loss(p, xv), params,
+                                   max_params_per_leaf=GRADCHECK_PER_LEAF)
+    if not ok:
+        raise AssertionError(f"VAE gradcheck on the card: {failures[:3]}")
+    out["vae_gradcheck"] = {"ok": ok, "leaves": len(params),
+                            "checked": sum(min(p.numel(), GRADCHECK_PER_LEAF)
+                                           for p in params.values())}
+    return out
+
+
+def phase_mnist(seed):
+    """BASELINE config 1 as DL4J's LenetMnistExample runs it, and the rest of
+    the training core on the card; one JSON line."""
+    old_dir = os.environ.get("DL4J_TPU_DATA_DIR")
+    out = {}
+
+    def part(name, value):
+        emit(f"mnist.{name}", **value)
+        out[name] = value
+        return value
+
+    try:
+        train_it, test_it, norm, data = mnist_data(seed)
+        part("data", data)
+        rows = {}
+        for policy in ("f32", "bf16"):
+            net, ev, rows[policy] = mnist_train(train_it, test_it, norm, seed, policy)
+            if policy == "f32":
+                f32_net, f32_ev = net, ev
+            else:
+                del net
+        part("train", rows)
+        restored, saved = mnist_save_and_csv(f32_net, f32_ev, test_it, norm)
+        del restored
+        part("saved", saved)
+        part("quantized", mnist_quantized(f32_net, f32_ev, test_it, norm))
+        del f32_net
+        x_norm = norm.transform(train_it.features).astype(np.float32)
+        part("memory", mnist_memory(seed, x_norm[:MN_BATCH], train_it.labels[:MN_BATCH]))
+        part("solvers", mnist_solvers(seed, x_norm, train_it.labels))
+        x_train = torch.from_numpy(mnist_pixels(True)).cuda()
+        x_test = torch.from_numpy(mnist_pixels(False)).cuda()
+        part("vae", mnist_vae(seed, x_train, x_test))
+        part("autoencoder", mnist_autoencoder(seed, x_train))
+        del x_train, x_test
+        part("layers", mnist_layers(seed))
+        emit("mnist", **out, card=card_line())
+    finally:
+        if old_dir is None:
+            os.environ.pop("DL4J_TPU_DATA_DIR", None)
+        else:
+            os.environ["DL4J_TPU_DATA_DIR"] = old_dir
+        free_card()
+
+
 def cuobjdump():
     """The toolkit's cuobjdump, or the copy Triton's package carries; None
     where neither exists."""
@@ -3760,7 +4487,7 @@ def build_all(libs):
 
 
 PHASES = ("kernels", "flash", "train", "conv", "resnet", "serve", "charnn", "zoo", "finetune",
-          "fused", "word2vec")
+          "fused", "word2vec", "mnist")
 
 
 def main(argv=None):
@@ -3839,6 +4566,13 @@ def main(argv=None):
             shutil.rmtree(WORK, ignore_errors=True)
     if "word2vec" in only:
         phase_word2vec(args.seed)
+    if "mnist" in only:
+        shutil.rmtree(WORK, ignore_errors=True)
+        WORK.mkdir()
+        try:
+            phase_mnist(args.seed)
+        finally:
+            shutil.rmtree(WORK, ignore_errors=True)
     if only != set(PHASES):
         return
 

@@ -4,6 +4,8 @@
     python -m deeplearning4j_tpu_torch serve --model-path ckpt.zip --max-batch 32
     python -m deeplearning4j_tpu_torch serve --model-path ckpt.zip --smoke 64 --device cpu
     python -m deeplearning4j_tpu_torch eval --model-path ckpt.zip --data x.npy --labels y.npy
+    python -m deeplearning4j_tpu_torch eval --model-path ckpt.zip --data test.csv \
+        --label-column 784 --n-classes 10
 
 ``serve`` loads a checkpoint zip (written by either package, a
 MultiLayerNetwork or a ComputationGraph), warms every batch bucket, and
@@ -11,9 +13,10 @@ serves with continuous batching and admission control; a graph's warmup
 spec is one per-example shape per input, from its input types. ``--smoke
 N`` serves N synthetic requests, prints the engine's stats as JSON and
 exits. ``eval`` runs a checkpoint (or a freshly initialised zoo model,
-``--zoo``) over ``.npy`` features and labels and prints the
-``Evaluation`` (or, with ``--regression``, the ``RegressionEvaluation``)
-statistics; a CSV waits for ``datasets/records.py``. Both run on
+``--zoo``) over ``.npy`` features and labels, or over one labelled CSV,
+and prints the ``Evaluation`` (or, with ``--regression``, the
+``RegressionEvaluation``) statistics; flat rows for an image model are
+reshaped to its input image (DL4J's ``InputType.convolutionalFlat``). Both run on
 ``--device`` (default ``cuda``; a missing card raises rather than falling
 back to the CPU). The JAX package's other verbs are not ported yet.
 """
@@ -59,10 +62,12 @@ def _build_parser():
     esrc.add_argument("--model-path", help="checkpoint zip")
     esrc.add_argument("--zoo", help="zoo model name (fresh init)")
     e.add_argument("--data", required=True,
-                   help=".npy features (a labelled .csv/.dat file is not ported yet)")
-    e.add_argument("--label-column", type=int, default=-1)
-    e.add_argument("--n-classes", type=int)
-    e.add_argument("--skip-lines", type=int, default=0)
+                   help=".npy features, or a labelled .csv/.dat file")
+    e.add_argument("--label-column", type=int, default=-1,
+                   help="the CSV's label column (default: the last)")
+    e.add_argument("--n-classes", type=int,
+                   help="one-hot the CSV's integer labels over this many classes")
+    e.add_argument("--skip-lines", type=int, default=0, help="CSV header lines to skip")
     e.add_argument("--labels", help=".npy labels (one-hot or class indices)")
     e.add_argument("--batch-size", type=int, default=128)
     e.add_argument("--regression", action="store_true",
@@ -167,14 +172,37 @@ def _load_model(args):
 
 
 def _load_xy(args):
-    """Features and labels from a pair of ``.npy`` files."""
+    """Features and labels from a pair of ``.npy`` files, or from one
+    labelled CSV (``--label-column``, ``--n-classes``, ``--skip-lines``,
+    through ``datasets.records.csv_dataset``)."""
     if args.data.endswith((".csv", ".dat")):
-        raise SystemExit("a labelled CSV for eval needs datasets/records.py, which is not "
-                         "ported yet (ROADMAP queue 1, item 3, \"Rest of the training "
-                         "core\"); pass .npy features and --labels")
+        if args.labels:
+            raise SystemExit(
+                "--labels cannot be combined with a labelled CSV --data file: the CSV's "
+                "--label-column is the label source. Drop --labels, or pass .npy "
+                "features instead.")
+        from deeplearning4j_tpu_torch.datasets.records import csv_dataset
+        x, y = csv_dataset(args.data, label_column=args.label_column,
+                           n_classes=args.n_classes, skip_lines=args.skip_lines)
+        if y.ndim == 1:
+            # no --n-classes: the raw label column as an [N, 1] target
+            y = y[:, None]
+        return x, y
     if not args.labels:
         raise SystemExit("--labels is required with .npy features")
     return np.load(args.data), np.load(args.labels)
+
+
+def _image_rows(net, x):
+    """Flat feature rows for a sequential model whose input is an image (a
+    CSV row holds H*W*C values, NHWC order) reshaped to the image, as DL4J's
+    InputType.convolutionalFlat does; any other input as it is."""
+    from deeplearning4j_tpu_torch.nn.conf.inputs import ConvolutionalType
+
+    it = getattr(net.conf, "input_type", None)
+    if isinstance(it, ConvolutionalType) and x.ndim == 2 and x.shape[1] == it.flat_size:
+        return x.reshape(x.shape[0], it.height, it.width, it.channels)
+    return x
 
 
 def _cmd_eval(args):
@@ -182,6 +210,7 @@ def _cmd_eval(args):
     ``eval.stats()`` tail, as a CLI verb)"""
     net = _load_model(args)
     x, y = _load_xy(args)
+    x = _image_rows(net, x)
     preds = []
     for i in range(0, x.shape[0], args.batch_size):
         out = net.output(x[i:i + args.batch_size])

@@ -1,5 +1,6 @@
 """Local files for the zoo and the dataset fetchers: the local half of the
-JAX package's ``datasets/cacheable.py ensure_file``.
+JAX package's ``datasets/cacheable.py`` (``ensure_file`` and
+``ensure_extracted``).
 
 The port never downloads. A file is looked up under the data directory
 (``DL4J_TPU_DATA_DIR``, default ``~/.deeplearning4j_tpu/data``, the JAX
@@ -7,13 +8,18 @@ package's); a missing one raises ``FileNotFoundError`` naming where to put
 it. With an md5 given, a mismatch deletes the file and raises
 ``ChecksumError`` (the reference's ZooModel.java:77-83 policy); a match is
 remembered in a ``.md5ok`` marker bound to the file's size and mtime, the
-JAX package's, so the two share a cache.
+JAX package's, so the two share a cache. ``ensure_extracted`` unpacks a
+local zip or tar[.gz] archive into a directory once, through a temporary
+sibling so an interrupted extraction never leaves a half-filled target.
 """
 
 from __future__ import annotations
 
 import hashlib
 import os
+import shutil
+import tarfile
+import zipfile
 
 
 class ChecksumError(RuntimeError):
@@ -66,3 +72,27 @@ def ensure_file(relpath, url=None, md5=None, root=None):
     except OSError:
         pass
     return path
+
+
+def ensure_extracted(relpath, archive_relpath, url=None, md5=None, root=None):
+    """The directory ``relpath`` under the data directory, extracted from
+    the local archive ``archive_relpath`` (zip or tar[.gz], md5-checked by
+    ``ensure_file``) when it is missing or empty."""
+    root = root or data_dir()
+    target = os.path.join(root, relpath)
+    if os.path.isdir(target) and os.listdir(target):
+        return target
+    archive = ensure_file(archive_relpath, url=url, md5=md5, root=root)
+    tmp = target + ".extracting"
+    shutil.rmtree(tmp, ignore_errors=True)
+    os.makedirs(tmp, exist_ok=True)
+    if zipfile.is_zipfile(archive):
+        with zipfile.ZipFile(archive) as z:
+            z.extractall(tmp)
+    else:
+        with tarfile.open(archive) as t:
+            t.extractall(tmp, filter="data")
+    os.makedirs(os.path.dirname(target) or root, exist_ok=True)
+    shutil.rmtree(target, ignore_errors=True)
+    os.replace(tmp, target)
+    return target

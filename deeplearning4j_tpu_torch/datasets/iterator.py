@@ -2,8 +2,9 @@
 
 The same semantics as the JAX package's ``iter_batches``, ``pad_batch``,
 ``validity_mask``, ``BucketRegistry``, ``ShapeBuckets``, the
-``DataSetIterator`` family, ``SuperBatchIterator`` and
-``AsyncDataSetIterator`` (``deeplearning4j_tpu/datasets/iterator.py``).
+``DataSetIterator`` family (``BenchmarkDataSetIterator`` included),
+``SuperBatchIterator``, ``AsyncDataSetIterator`` and its
+``DataSetCallback`` hooks (``deeplearning4j_tpu/datasets/iterator.py``).
 Arrays may be numpy arrays or torch tensors, features and labels dicts of
 them (a graph's inputs and outputs); padding keeps each one's kind (and a
 tensor's device). Serving warms each bucket once at startup, so no request
@@ -29,6 +30,8 @@ import threading
 
 import numpy as np
 import torch
+
+from deeplearning4j_tpu_torch.utils.device import as_device
 
 
 def _map(fn, tree):
@@ -341,12 +344,17 @@ class AsyncDataSetIterator(DataSetIterator):
     next ``reset()``. With ``device`` every array of an item (a DataSet or
     a SuperBatch, whose extra fields ride along) is placed there on the
     producer thread; on a card the consumer's current stream waits on the
-    copy's event when it takes the item."""
+    copy's event when it takes the item. A ``callback``
+    (``DataSetCallback``) takes each batch instead and places it itself."""
 
-    def __init__(self, base, queue_size=2, device=None):
+    def __init__(self, base, queue_size=2, device=None, callback=None):
+        if callback is not None and device is not None:
+            raise ValueError("callback and device are mutually exclusive: the callback "
+                             "owns device placement (e.g. InterleavedDataSetCallback)")
         self.base = base
         self.queue_size = queue_size
         self.device = None if device is None else torch.device(device)
+        self.callback = callback  # a DataSetCallback run on the producer thread
         self._queue = None
         self._thread = None
         self._error = None
@@ -360,6 +368,8 @@ class AsyncDataSetIterator(DataSetIterator):
     def reset(self):
         self._shutdown()
         self.base.reset()
+        if self.callback is not None:
+            self.callback.reset()
         self._queue = queue.Queue(maxsize=self.queue_size)
         self._error = None
         self._stop = threading.Event()
@@ -369,6 +379,8 @@ class AsyncDataSetIterator(DataSetIterator):
         self._thread.start()
 
     def _place(self, ds):
+        if self.callback is not None:
+            return self.callback.call(ds)
         if self.device is None:
             return ds
         put = lambda tree: None if tree is None else _map(
@@ -574,3 +586,73 @@ class EarlyTerminationIterator(DataSetIterator):
             raise StopIteration
         self._count += 1
         return next(self.base)
+
+
+class BenchmarkDataSetIterator(DataSetIterator):
+    """One synthetic batch repeated ``n_batches`` times (reference:
+    BenchmarkDataSetIterator.java, a feeder with no ETL): the JAX package's
+    draws from ``np.random.RandomState(seed)``."""
+
+    def __init__(self, feature_shape, n_classes, n_batches, seed=0, labels_shape=None):
+        rs = np.random.RandomState(seed)
+        self._features = rs.rand(*feature_shape).astype(np.float32)
+        if labels_shape is None:
+            idx = rs.randint(0, n_classes, feature_shape[0])
+            self._labels = np.eye(n_classes, dtype=np.float32)[idx]
+        else:
+            self._labels = rs.rand(*labels_shape).astype(np.float32)
+        self.n_batches = n_batches
+        self._count = 0
+
+    @property
+    def batch_size(self):
+        return self._features.shape[0]
+
+    def reset(self):
+        self._count = 0
+
+    def __next__(self):
+        if self._count >= self.n_batches:
+            raise StopIteration
+        self._count += 1
+        return DataSet(features=self._features, labels=self._labels)
+
+
+class DataSetCallback:
+    """A hook applied to each batch an ``AsyncDataSetIterator`` prefetches,
+    on its producer thread (reference: DataSetCallback.java)."""
+
+    def call(self, ds: DataSet) -> DataSet:
+        return ds
+
+    def reset(self):
+        """Called on the iterator's reset, so per-epoch state (a round-robin
+        position) realigns with the batch index."""
+
+
+class InterleavedDataSetCallback(DataSetCallback):
+    """Round-robin prefetched batches across devices (reference:
+    InterleavedDataSetCallback.java): batch i goes to ``devices[i % n]``,
+    so the replica that consumes it finds it resident. ``devices``
+    defaults to every visible card and raises without one."""
+
+    def __init__(self, devices=None):
+        if devices:
+            self.devices = [torch.device(d) for d in devices]
+        else:
+            if not torch.cuda.is_available():
+                raise RuntimeError("InterleavedDataSetCallback: torch sees no CUDA device; "
+                                   "pass devices=[...] (e.g. ['cpu'])")
+            self.devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+        self._counter = 0
+
+    def reset(self):
+        self._counter = 0
+
+    def call(self, ds: DataSet) -> DataSet:
+        dev = self.devices[self._counter % len(self.devices)]
+        self._counter += 1
+        put = lambda tree: None if tree is None else _map(lambda a: as_device(a, dev), tree)
+        return dataclasses.replace(ds, features=put(ds.features), labels=put(ds.labels),
+                                   features_mask=put(ds.features_mask),
+                                   labels_mask=put(ds.labels_mask))

@@ -10,6 +10,10 @@ Three families, as in the JAX package:
 
 ``adapt`` converts Recurrent and Convolutional activations to FeedForward
 (the sequential network's implicit preprocessors); other conversions raise.
+``feed_forward``/``recurrent``/``convolutional`` build the types and the
+remaining preprocessors (``feed_forward_to_cnn``, ``feed_forward_to_rnn``,
+``cnn_to_rnn``, ``rnn_to_cnn``) reshape with explicit target dims, as the
+JAX package's.
 """
 
 from __future__ import annotations
@@ -58,14 +62,52 @@ class ConvolutionalType(InputType):
         return self.height * self.width * self.channels
 
 
+# convenience constructors mirroring InputType.feedForward(...) etc.
+def feed_forward(size):
+    return FeedForwardType(size)
+
+
+def recurrent(size, timesteps=None):
+    return RecurrentType(size, timesteps)
+
+
+def convolutional(height, width, channels):
+    return ConvolutionalType(height, width, channels)
+
+
+# Preprocessors: reshapes between the families (the reference's
+# CnnToFeedForwardPreProcessor family). The network inserts the two to
+# FeedForward itself (``adapt``); the others take explicit target dims.
+
+
 def cnn_to_feed_forward(x):
     """[B, H, W, C] -> [B, H*W*C], flattened in NHWC order."""
     return x.reshape(x.shape[0], -1)
 
 
+def feed_forward_to_cnn(x, height, width, channels):
+    """[B, H*W*C] -> [B, H, W, C]"""
+    return x.reshape(x.shape[0], height, width, channels)
+
+
+def feed_forward_to_rnn(x, timesteps):
+    """[B*T, F] -> [B, T, F]"""
+    return x.reshape(-1, timesteps, x.shape[-1])
+
+
 def rnn_to_feed_forward(x):
     """[B, T, F] -> [B*T, F]"""
     return x.reshape(-1, x.shape[-1])
+
+
+def cnn_to_rnn(x):
+    """[B, H, W, C] -> [B, H, W*C], height as time."""
+    return x.reshape(x.shape[0], x.shape[1], -1)
+
+
+def rnn_to_cnn(x, height, width, channels):
+    """[B, T, F] -> [B, H, W, C]"""
+    return x.reshape(x.shape[0], height, width, channels)
 
 
 def adapt(x, from_type: InputType, to_family: type):
@@ -77,6 +119,9 @@ def adapt(x, from_type: InputType, to_family: type):
         return cnn_to_feed_forward(x)
     if isinstance(from_type, RecurrentType) and to_family is FeedForwardType:
         return rnn_to_feed_forward(x)
+    if isinstance(from_type, FeedForwardType) and to_family is ConvolutionalType:
+        raise ValueError("FeedForward->CNN adaptation requires explicit target dims; "
+                         "set an explicit preprocessor or input_type on the layer")
     raise ValueError(f"No automatic adaptation from {from_type} to "
                      f"{to_family.__name__} in the torch port")
 

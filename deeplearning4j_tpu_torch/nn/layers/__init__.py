@@ -2,7 +2,8 @@
 
 from deeplearning4j_tpu_torch.nn.layers.base import Layer, ParamLayer  # noqa: F401
 from deeplearning4j_tpu_torch.nn.layers.core import (  # noqa: F401
-    ActivationLayer, DenseLayer, DropoutLayer, EmbeddingSequenceLayer, LossLayer, OutputLayer)
+    ActivationLayer, AutoEncoder, DenseLayer, DropoutLayer, EmbeddingLayer,
+    EmbeddingSequenceLayer, LossLayer, OutputLayer, TimeDistributedDenseLayer)
 from deeplearning4j_tpu_torch.nn.layers.conv import (  # noqa: F401
     BatchNormalization, Convolution1DLayer, ConvolutionLayer, Deconvolution2DLayer,
     GlobalPoolingLayer, LocalResponseNormalization, ResidualBottleneck,
@@ -16,3 +17,6 @@ from deeplearning4j_tpu_torch.nn.layers.rnn import (  # noqa: F401
     RnnOutputLayer, SimpleRnn)
 from deeplearning4j_tpu_torch.nn.layers.attention import (  # noqa: F401
     LayerNormalization, MultiHeadAttention, TransformerBlock)
+from deeplearning4j_tpu_torch.nn.layers.vae import (  # noqa: F401
+    BernoulliReconstruction, CompositeReconstruction, ExponentialReconstruction,
+    GaussianReconstruction, LossWrapperReconstruction, VariationalAutoencoder)

@@ -450,6 +450,30 @@ class MultiLayerNetwork(nn.Module):
         with _dtypes.policy_precision():
             return drv.run(epochs)
 
+    def feed_forward(self, x, train=False):
+        """Every layer's activation in order, the input not included
+        (reference: feedForwardToLayer): the input-type adapters run
+        between layers and each layer's state is threaded to the next
+        call, as in the JAX package. Tensors on the network's device."""
+        if self.params is None:
+            self.init()
+        x = _as_tensor(x, self.device)
+        cur_type = self.conf.input_type
+        state = list(self.state)
+        acts = []
+        with _dtypes.policy_precision(), \
+                torch.enable_grad() if train else torch.inference_mode():
+            for i, layer in enumerate(self.conf.layers):
+                fam = layer.input_family
+                if fam is not None and not isinstance(cur_type, fam):
+                    x = _inputs.adapt(x, cur_type, fam)
+                    cur_type = _inputs.adapted_type(cur_type, fam)
+                x, state[i] = layer.apply(self.params[i], state[i], x,
+                                          train=self._layer_train(i, train))
+                cur_type = layer.output_type(cur_type)
+                acts.append(x)
+        return acts
+
     def score(self, x, y, mask=None):
         """The loss on (x, y) without training (inference forward)."""
         if self.params is None:

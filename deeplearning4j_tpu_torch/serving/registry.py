@@ -2,8 +2,11 @@
 
 The port of ``deeplearning4j_tpu/serving/registry.py``: named models,
 each with its own continuous-batching engine, and one status surface (the
-``serve`` CLI verb prints it). Hot swap, A/B registration and warm
-manifest gating are not ported yet.
+``serve`` CLI verb prints it). Each model's engine kwargs are kept
+(``engine_kwargs``). Hot swap, A/B registration (``update_model``,
+``register_like``), warm manifest gating, per-tenant metering
+(``submit``'s ``tenant=``/``origin=``) and ``health`` wait for the
+serving extras (ROADMAP queue 1, item 7).
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ class ModelRegistry:
     def __init__(self):
         self._lock = threading.RLock()
         self._engines = {}
+        self._engine_kw = {}  # name -> the kwargs register() built it with
 
     def register(self, name, net, *, start=True, **engine_kw):
         """Build (and by default start) a serving engine for ``net`` under
@@ -37,6 +41,7 @@ class ModelRegistry:
             if name in self._engines:  # raced a concurrent register
                 raise duplicate()
             self._engines[name] = engine
+            self._engine_kw[name] = dict(engine_kw)
         if start:
             engine.start()
         return engine
@@ -49,6 +54,37 @@ class ModelRegistry:
                 raise KeyError(f"no model {name!r} registered; known: "
                                f"{sorted(self._engines)}") from None
 
+    def engine_kwargs(self, name):
+        """The engine kwargs ``name`` was registered with (a copy)."""
+        self.engine(name)  # the helpful KeyError on an unknown name
+        with self._lock:
+            return dict(self._engine_kw.get(name, {}))
+
+    def unregister(self, name):
+        """Stop ``name``'s engine and drop it."""
+        with self._lock:
+            engine = self._engines.pop(name)
+            self._engine_kw.pop(name, None)
+        engine.stop()
+
+    def names(self):
+        with self._lock:
+            return sorted(self._engines)
+
+    def submit(self, name, x, deadline_s=None, *, batched=False, tenant=None, origin=None):
+        """Enqueue ``x`` on ``name``'s engine; returns its future.
+        ``tenant``/``origin`` are per-tenant metering, which is not ported:
+        they raise rather than be dropped."""
+        if tenant is not None or origin is not None:
+            raise NotImplementedError(
+                "submit(tenant=, origin=) is serving/metering.py, which is not ported yet "
+                "(ROADMAP queue 1, item 7)")
+        return self.engine(name).submit(x, deadline_s=deadline_s, batched=batched)
+
+    def output(self, name, x):
+        """``name``'s engine's synchronous forward of ``x``."""
+        return self.engine(name).output(x)
+
     def status(self):
         """Per-model engine stats."""
         with self._lock:
@@ -60,6 +96,7 @@ class ModelRegistry:
         with self._lock:
             engines = list(self._engines.values())
             self._engines.clear()
+            self._engine_kw.clear()
         for e in engines:
             e.stop()
 
@@ -75,3 +112,12 @@ def get_model_registry() -> ModelRegistry:
         if _default is None:
             _default = ModelRegistry()
     return _default
+
+
+def reset():
+    """Stop every engine in the default registry and drop it (tests)."""
+    global _default
+    with _default_lock:
+        reg, _default = _default, None
+    if reg is not None:
+        reg.stop()

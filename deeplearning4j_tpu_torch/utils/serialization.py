@@ -27,6 +27,9 @@ unit for ``continuous.StepDriver``. A bundle written by the JAX package
 may also embed ``warm_manifest.zip``, serialized XLA executables; a CUDA
 graph cannot be serialized, so the port drops that entry with a warning,
 as the JAX package drops a manifest built for another backend.
+
+A fitted input normalizer rides in the same zip as ``normalizer.json``
+(``add_normalizer_to_model``, ``restore_normalizer``).
 """
 
 from __future__ import annotations
@@ -200,3 +203,37 @@ def load_bundle(path, *, device="cuda"):
                       "which the port cannot run; dropped (the first dispatch captures "
                       "its CUDA graph instead)", stacklevel=2)
     return Bundle(net=net, buckets=buckets)
+
+
+def add_normalizer_to_model(path, normalizer):
+    """Attach a fitted normalizer (``datasets/normalizers.py``) to an
+    existing checkpoint zip as ``normalizer.json``, the JAX package's entry
+    (reference: ModelSerializer.addNormalizerToModel, which appends a
+    Java-serialized ``normalizer.bin``)."""
+    entry = normalizer.to_json()
+    with zipfile.ZipFile(path, "a", zipfile.ZIP_DEFLATED) as z:
+        if "normalizer.json" in z.namelist():
+            raise ValueError(f"{path} already contains a normalizer")
+        z.writestr("normalizer.json", entry)
+    return path
+
+
+def restore_normalizer(path):
+    """The fitted normalizer attached to a checkpoint, or None (reference:
+    ModelSerializer.restoreNormalizerFromFile). A DL4J zip's JVM-serialized
+    ``normalizer.bin`` cannot be read and raises rather than be skipped:
+    a model served without its normalizer answers wrongly and silently."""
+    from deeplearning4j_tpu_torch.datasets.normalizers import _FittedNormalizer
+
+    with zipfile.ZipFile(path) as z:
+        names = z.namelist()
+        if "normalizer.json" in names:
+            return _FittedNormalizer.from_json(z.read("normalizer.json").decode())
+        if "normalizer.bin" in names:
+            raise ValueError(
+                f"{path} contains a JVM-serialized normalizer.bin (DL4J "
+                "ModelSerializer format), which is not readable here. Re-fit the "
+                "normalizer (datasets.normalizers) on the training data, or export "
+                "its statistics from the JVM side; the model config and params in "
+                "this zip still load.")
+        return None

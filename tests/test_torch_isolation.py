@@ -57,3 +57,35 @@ def test_the_sweep_covers_the_nlp_tier(module):
     """The copied and ported NLP modules are among the AST-checked sources,
     so none keeps an import of the JAX package."""
     assert module in SOURCES
+
+
+@pytest.mark.parametrize("module", [
+    "deeplearning4j_tpu_torch/datasets/normalizers.py",
+    "deeplearning4j_tpu_torch/datasets/fetchers.py",
+    "deeplearning4j_tpu_torch/datasets/records.py",
+    "deeplearning4j_tpu_torch/datasets/images.py",
+    "deeplearning4j_tpu_torch/datasets/cacheable.py",
+    "deeplearning4j_tpu_torch/datasets/iterator.py",
+    "deeplearning4j_tpu_torch/nn/layers/core.py", "deeplearning4j_tpu_torch/nn/layers/vae.py",
+    "deeplearning4j_tpu_torch/nn/solvers.py", "deeplearning4j_tpu_torch/nn/simple.py",
+    "deeplearning4j_tpu_torch/nn/conf/memory.py", "deeplearning4j_tpu_torch/nn/conf/__init__.py",
+    "deeplearning4j_tpu_torch/utils/gradcheck.py",
+    "deeplearning4j_tpu_torch/utils/quantization.py",
+    "deeplearning4j_tpu_torch/utils/timeseries.py",
+    "deeplearning4j_tpu_torch/serving/registry.py", "deeplearning4j_tpu_torch/cli.py"])
+def test_the_sweep_covers_the_rest_of_the_training_core(module):
+    """The data tier, layers, solvers and utilities copied or ported from
+    the JAX package's numpy-only and jnp modules are AST-checked too."""
+    assert module in SOURCES
+
+
+def test_the_fetchers_need_no_pil_at_import():
+    """The card's host may lack PIL: the fetchers, image loader and the
+    MNIST path import it only where an image is decoded."""
+    code = ("import sys\n"
+            "sys.modules['PIL'] = None\n"
+            "from deeplearning4j_tpu_torch.datasets import fetchers, images, normalizers\n"
+            "print('ok')\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr

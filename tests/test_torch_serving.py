@@ -4,7 +4,9 @@ network's own output (atol 1e-5). And a ComputationGraph served in the
 dict form: a two-input, two-output graph saved by the JAX package, its
 results against the JAX graph's ``apply_fn`` outputs (f32, atol 1e-5); a
 recurrent graph on (batch, seq) buckets; the ``serve`` and ``eval`` verbs
-on graph zips."""
+on graph zips (``eval`` on ``.npy`` arrays and on a labelled CSV); the
+registry's API (``engine_kwargs``, ``names``, ``submit``, ``output``,
+``unregister``, the module's ``reset``)."""
 
 import subprocess
 import sys
@@ -170,6 +172,50 @@ def test_registry_names_and_duplicates(model_zip, registry):
         registry.engine("other")
 
 
+def test_registry_api_matches_jax(jax_net, model_zip, registry):
+    """``engine_kwargs``, ``names``, ``submit``, ``output`` and
+    ``unregister``, the JAX registry's API (JAX ``serving/registry.py``):
+    results against the JAX network's output."""
+    _register(registry, model_zip, seq_buckets=(4, 8))
+    net2 = tser.load_model(model_zip, device="cpu")
+    registry.register("second", net2, input_spec=(SEQ, VOCAB), max_batch_size=2, device="cpu")
+    assert registry.names() == ["charnn", "second"]
+    kw = registry.engine_kwargs("charnn")
+    assert kw["seq_buckets"] == (4, 8) and kw["max_batch_size"] == 4 and kw["device"] == "cpu"
+    kw["max_batch_size"] = 99  # a copy: the registry keeps its own
+    assert registry.engine_kwargs("charnn")["max_batch_size"] == 4
+    x = _x(3, SEQ, seed=11)
+    want = np.asarray(jax_net.output(x))
+    np.testing.assert_allclose(registry.submit("charnn", x[0]).get(timeout=30), want[0], atol=1e-5)
+    np.testing.assert_allclose(registry.submit("second", x, batched=True).get(timeout=30), want,
+                               atol=1e-5)
+    np.testing.assert_allclose(registry.output("charnn", x), want, atol=1e-5)
+    with pytest.raises(NotImplementedError, match="queue 1, item 7"):
+        registry.submit("charnn", x[0], tenant="acme")
+    with pytest.raises(NotImplementedError, match="queue 1, item 7"):
+        registry.submit("charnn", x[0], origin="batch-job")
+    engine = registry.engine("second")
+    registry.unregister("second")
+    assert registry.names() == ["charnn"] and not engine.running
+    with pytest.raises(KeyError, match="no model"):
+        registry.engine_kwargs("second")
+    with pytest.raises(KeyError):
+        registry.unregister("second")
+
+
+def test_module_reset_stops_the_default_registry(model_zip):
+    from deeplearning4j_tpu_torch.serving import registry as reg_mod
+
+    reg = reg_mod.get_model_registry()
+    engine = reg.register("r", tser.load_model(model_zip, device="cpu"),
+                          input_spec=(SEQ, VOCAB), max_batch_size=2, device="cpu")
+    assert reg_mod.get_model_registry() is reg
+    reg_mod.reset()
+    assert not engine.running and reg.names() == []
+    assert reg_mod.get_model_registry() is not reg
+    reg_mod.reset()
+
+
 def test_cuda_without_a_card_raises():
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present")
@@ -306,11 +352,16 @@ def test_serve_and_eval_cli_on_graph_zips(graph_pair, tmp_path):
     ref = Evaluation()
     ref.eval(np.eye(3)[y], np.asarray(jg.output(x)))
     assert ref.stats() in proc.stdout
+    # the same data as a labelled CSV (datasets/records.py): the label in column 0
+    (tmp_path / "x.csv").write_text("\n".join(
+        f"{lab}," + ",".join(repr(float(v)) for v in row) for row, lab in zip(x, y)) + "\n")
     proc = subprocess.run(
         [sys.executable, "-m", "deeplearning4j_tpu_torch", "eval", "--model-path", str(zip_path),
-         "--data", str(tmp_path / "x.csv"), "--device", "cpu"],
+         "--data", str(tmp_path / "x.csv"), "--label-column", "0", "--n-classes", "3",
+         "--device", "cpu"],
         cwd=ROOT, capture_output=True, text=True, timeout=120)
-    assert proc.returncode != 0 and "datasets/records.py" in proc.stderr
+    assert proc.returncode == 0, proc.stderr
+    assert ref.stats() in proc.stdout
 
 
 def test_single_input_graph_batches_arrays_and_dicts_together(registry):
