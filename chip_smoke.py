@@ -240,6 +240,35 @@ nonzero; nothing is caught):
             and ``check_gradients`` in float64 on the card for a narrow VAE.
             No kernel of the port runs here: the JAX package computes all
             of it outside Pallas.
+17. modelimport  DL4J ModelSerializer zips and a Keras HDF5 file restored
+            on the card through ``models.zoo.restore_checkpoint`` (format
+            detection) and run: (a) the char-RNN at BASELINE config 4's
+            width (3,398,752 params) after 2 Adam steps, written with
+            ``modelimport.dl4j.write_multilayer_network`` (Adam's m and v
+            in ``updaterState.bin``), restored (wall time by stage: read,
+            unflatten, install, build), every parameter and the output over
+            64 x 128 equal to the source's to the bit, then served through
+            the registry (a burst of 64 requests; 2 persistent ``lstm_seq``
+            launches per device forward; results against the plain
+            forward) and through ``serve --input-shape 128,96`` (a DL4J zip
+            stores no sequence length); (b) ResNet50 (``fused=False``,
+            224x224x3, 1000 classes, 25,557,032 params) written as a DL4J
+            ComputationGraph zip, the zoo's pretrained format (25,636,712
+            floats: the params, the BN running mean and variance, a zero
+            bias for each of the 53 convs), restored with the zoo's input
+            type, parameters and BN state equal to the bit, the output on
+            64 images equal to the source's or within the spread of two
+            source forwards, one batch of ``evaluate``; no kernel of the
+            port there (the format has no FusedConvBNVertex), the conv
+            kernels' launches checked to be 0; (c) the Keras examples'
+            imdb_lstm (Embedding(20000, 128) -> LSTM(128) -> Dense(1,
+            sigmoid), 2,691,713 params, maxlen 80) written as a tf.keras
+            HDF5 file (sigmoid gates) by the port's ``Hdf5Archive``,
+            restored and run at batch 32 (one persistent ``lstm_seq``
+            launch) against a float64 numpy forward of the file's
+            datasets, or one skip line where the host has no libhdf5;
+            (d) the committed DL4J fixture zips restored on the card
+            against their ``*_expected.npy``.
 
 Then a ``kernels`` line (every kernel of the paths with its launches on
 its path, error, times and bound), the card's name and power limit, and
@@ -327,6 +356,14 @@ MN_SIGN_FLIPS, for near-zero gradients whose sign rounds either way under
 RmsProp's first step); the new layers on the card within 1e-4
 (LAYER_RTOL) of each float64 tensor's largest magnitude; the embedding
 rows for bad ids exactly ``jnp.take``'s (NaN rows, -1 the last row).
+Model import: the restored char-RNN and ResNet50 hold the source's
+parameters and state to the bit (the same float32 values copied), and the
+char-RNN's output is equal to the bit (same weights, same kernel); the
+ResNet50's output equal to the bit or within the spread of two forwards of
+the source; served rows against the plain forward atol 1e-4 (SERVE_ATOL);
+imdb_lstm against the float64 numpy forward atol 1e-5 (KERAS_ATOL: sigmoid
+outputs in (0, 1) after 80 f32 steps); the fixture zips rtol 1e-5 + atol
+1e-6, the CPU test's tolerance, with cuDNN's TF32 off.
 """
 
 from __future__ import annotations
@@ -345,6 +382,7 @@ import struct
 import subprocess
 import sys
 import time
+import zipfile
 
 import numpy as np
 import torch
@@ -4437,6 +4475,477 @@ def phase_mnist(seed):
         free_card()
 
 
+# ---------------------------------------------------------------------------
+# model import: DL4J ModelSerializer zips and Keras HDF5 files, restored on
+# the card and served
+# ---------------------------------------------------------------------------
+
+MI_REQUESTS = 64
+MI_RN_HW, MI_RN_CLASSES, MI_RN_BATCH = 224, 1000, 64
+MI_RN_PARAMS = 25_557_032
+MI_RN_FLAT = 25_636_712  # the params + 53,120 BN mean/var + 26,560 zero conv biases
+IMDB_VOCAB, IMDB_DIM, IMDB_UNITS, IMDB_MAXLEN, IMDB_BATCH = 20_000, 128, 128, 80, 32
+IMDB_PARAMS = 2_691_713
+KERAS_ATOL = 1e-5
+FIXTURE_RTOL, FIXTURE_ATOL = 1e-5, 1e-6
+
+
+@contextlib.contextmanager
+def restore_stages(dl4j):
+    """Wall time of a restore by stage, from the importer's own steps:
+    ``read`` (the nd4j records, big-endian to native), ``unflatten`` (each
+    layer's slice reshaped, permuted, transposed), ``install`` (the copies
+    into the net's tensors, synchronized); the rest of the call (the
+    network built and initialised on the card) is ``build``."""
+    times = dict.fromkeys(("read", "unflatten", "install"), 0.0)
+    saved = {name: getattr(dl4j, name)
+             for name in ("read_nd4j", "_split_layer_params", "_install_params")}
+
+    def wrap(stage, fn, sync=False):
+        def timed(*a, **k):
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            if sync:
+                torch.cuda.synchronize()
+            times[stage] += time.perf_counter() - t0
+            return out
+        return timed
+
+    dl4j.read_nd4j = wrap("read", saved["read_nd4j"])
+    dl4j._split_layer_params = wrap("unflatten", saved["_split_layer_params"])
+    dl4j._install_params = wrap("install", saved["_install_params"], sync=True)
+    try:
+        yield times
+    finally:
+        for name, fn in saved.items():
+            setattr(dl4j, name, fn)
+
+
+def timed_restore(path, **kw):
+    """(net, staged seconds, seconds of a second, unwrapped restore): the
+    first call by stage, then the one a user's call takes."""
+    from deeplearning4j_tpu_torch.modelimport import dl4j
+    from deeplearning4j_tpu_torch.models.zoo import restore_checkpoint
+
+    with restore_stages(dl4j) as stages:
+        t0 = time.perf_counter()
+        net = restore_checkpoint(path, device="cuda", **kw)
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+    stages = {**stages, "build": total - sum(stages.values()), "total": total}
+    del net
+    free_card()
+    t0 = time.perf_counter()
+    net = restore_checkpoint(path, device="cuda", **kw)
+    torch.cuda.synchronize()
+    return net, stages, time.perf_counter() - t0
+
+
+def same_tensors(src, restored, what):
+    """Every tensor of ``src`` (a per-layer list or per-vertex dict of
+    dicts) equal to the bit in ``restored``; returns the keys only
+    ``restored`` has (the zero biases the DL4J format stores for every
+    conv), each checked to be zero."""
+    keys = range(len(src)) if isinstance(src, list) else list(src)
+    extra = []
+    for k in keys:
+        for name, t in src[k].items():
+            if not torch.equal(t, restored[k][name]):
+                raise AssertionError(f"{what}[{k}][{name}] changed in the restore")
+        for name in set(restored[k]) - set(src[k]):
+            if torch.count_nonzero(restored[k][name]):
+                raise AssertionError(f"{what}[{k}][{name}] only in the restore and not zero")
+            extra.append(f"{k}.{name}")
+    return extra
+
+
+def mi_charnn(L, seed, path):
+    """(a) The char-RNN at BASELINE config 4's width, 2 Adam steps, written
+    as a DL4J zip, restored on the card, held to the source to the bit,
+    then served through the registry and the ``serve`` verb."""
+    from deeplearning4j_tpu_torch.modelimport import dl4j
+    from deeplearning4j_tpu_torch.models.misc import text_generation_lstm
+    from deeplearning4j_tpu_torch.nn import updaters as U
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.serving import ServingOverloaded, get_model_registry
+
+    rs = np.random.RandomState(seed)
+    net = MultiLayerNetwork(text_generation_lstm(VOCAB, hidden=HIDDEN, seq_len=SEQ,
+                                                 updater=U.Adam(1e-3)), device="cuda")
+    net.init(torch.Generator().manual_seed(seed))
+    if net.num_params() != N_PARAMS:
+        raise AssertionError(f"char-RNN has {net.num_params()} params, expected {N_PARAMS}")
+    x, y = charnn_data(rs, 128, SEQ)
+    net.fit(x, y, batch_size=64)
+    if net.iteration != 2:
+        raise AssertionError(f"2 Adam steps expected, the net took {net.iteration}")
+    t0 = time.perf_counter()
+    dl4j.write_multilayer_network(net, str(path), save_updater=True)
+    write_s = time.perf_counter() - t0
+    with zipfile.ZipFile(path) as zf:
+        sizes = {i.filename: i.file_size for i in zf.infolist()}
+        n_updater = dl4j.read_nd4j(zf.read("updaterState.bin")).size
+    if n_updater != 2 * N_PARAMS:
+        raise AssertionError(f"updaterState.bin holds {n_updater} values, Adam's m and v "
+                             f"are {2 * N_PARAMS}")
+    restored, stages, restore_s = timed_restore(path)
+    if type(restored).__name__ != "MultiLayerNetwork":
+        raise AssertionError(f"the DL4J zip restored as a {type(restored).__name__}")
+    extra = same_tensors(net.params, restored.params, "params")
+    if extra:
+        raise AssertionError(f"the char-RNN restore holds parameters the source lacks: {extra}")
+    xb = x[:64]
+    if not torch.equal(restored.output(xb), net.output(xb)):
+        raise AssertionError("the restored char-RNN's output over 64 x 128 differs from the "
+                             "source's (same weights, same kernel: expected equal to the bit)")
+    params = [{k: v.detach() for k, v in p.items()} for p in restored.params]
+    del net
+    free_card()
+
+    reqs = []
+    for i in range(MI_REQUESTS):
+        rows = None if i % 4 else int(rs.randint(2, 17))
+        ids = rs.randint(0, VOCAB, size=(rows or 1, int(rs.randint(1, SEQ + 1))))
+        xr = np.eye(VOCAB, dtype=np.float32)[ids]
+        reqs.append((xr if rows else xr[0], rows is not None))
+    L.reset_launches()
+    registry = get_model_registry()
+    t_reg = time.perf_counter()
+    engine = registry.register("charnn_dl4j", restored, input_spec=(SEQ, VOCAB),
+                               max_batch_size=64, seq_buckets=(32, 64, 128), device="cuda")
+    register_s = time.perf_counter() - t_reg
+    try:
+        t0 = time.perf_counter()
+        first = engine.submit(reqs[0][0], batched=reqs[0][1]).get(timeout=300)
+        first_ms = 1e3 * (time.perf_counter() - t0)
+        futs, shed = [], 0
+        t0 = time.perf_counter()
+        for xr, batched in reqs[1:]:
+            while True:
+                try:
+                    futs.append(engine.submit(xr, batched=batched))
+                    break
+                except ServingOverloaded:
+                    shed += 1
+                    time.sleep(0.001)
+        outs = [first] + [f.get(timeout=300) for f in futs]
+        wall = time.perf_counter() - t0
+        stats = engine.stats()
+    finally:
+        registry.stop()
+    launches, by_variant = L.launches, dict(L.launches_by_variant)
+    forwards = stats["forward"]["forwards"]
+    if launches == 0 or launches != 2 * forwards:
+        raise AssertionError(f"lstm_seq launched {launches} times for {forwards} device forwards "
+                             "of the restored 2-layer LSTM (expected exactly 2 per forward)")
+    if by_variant != {**dict.fromkeys(L.VARIANTS, 0), "persistent": launches}:
+        raise AssertionError(f"lstm_seq launches by variant {by_variant}: every served launch "
+                             "should be persistent")
+    max_err, tokens = 0.0, 0
+    for i, ((xr, batched), out) in enumerate(zip(reqs, outs)):
+        xb = xr if batched else xr[None]
+        ob = out if batched else out[None]
+        if ob.shape != xb.shape[:2] + (VOCAB,) or not np.isfinite(ob).all():
+            raise AssertionError(f"served output {ob.shape} for input {xb.shape}, or not finite")
+        want = plain_forward(L, params, torch.from_numpy(xb).cuda()).cpu().numpy()
+        err = float(np.abs(ob - want).max())
+        max_err = max(max_err, err)
+        if err > SERVE_ATOL:
+            raise AssertionError(f"served output {i} differs from the plain forward by {err}")
+        if i:
+            tokens += xb.shape[0] * xb.shape[1]
+    del restored
+    free_card()
+
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "deeplearning4j_tpu_torch", "serve", "--model-path", str(path),
+         "--input-shape", f"{SEQ},{VOCAB}", "--max-batch", "64", "--smoke", str(MI_REQUESTS),
+         "--device", "cuda"], cwd=ROOT, capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"serve CLI on the DL4J zip exited {proc.returncode}:\n"
+                             f"{proc.stdout}\n{proc.stderr}")
+    cli_stats = json.loads(proc.stdout[proc.stdout.index("\n{") + 1:])
+    if cli_stats["requests"]["served"] != MI_REQUESTS:
+        raise AssertionError(f"serve CLI served {cli_stats['requests']['served']} of "
+                             f"{MI_REQUESTS}")
+    return {"params": N_PARAMS, "adam_steps": 2, "zip_entry_bytes": sizes, "write_s": write_s,
+            "restore_s": restore_s, "restore_stages_first_s": stages,
+            "params_equal": True, "output_equal_64x128": True,
+            "register_s": register_s, "first_request_ms": first_ms,
+            "requests": len(reqs), "tokens_after_first": tokens, "wall_s": wall,
+            "tokens_per_s": tokens / wall, "resubmits_after_queue_full": shed,
+            "device_forwards": forwards, "lstm_seq_launches": launches,
+            "lstm_seq_launches_by_variant": by_variant, "max_abs_err_vs_plain": max_err,
+            "atol": SERVE_ATOL, "cli": {"rc": proc.returncode,
+                                        "served": cli_stats["requests"]["served"],
+                                        "seconds": time.perf_counter() - t0}}
+
+
+def mi_resnet(C, seed, path):
+    """(b) ResNet50 (not fused: the DL4J format has no FusedConvBNVertex)
+    written as a DL4J ComputationGraph zip, restored on the card with the
+    zoo's input type, held to the source, and one batch evaluated."""
+    from deeplearning4j_tpu_torch.modelimport import dl4j
+    from deeplearning4j_tpu_torch.models.resnet import resnet50
+    from deeplearning4j_tpu_torch.nn.conf import inputs as I
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+
+    rs = np.random.RandomState(seed + 1)
+    net = ComputationGraph(resnet50(MI_RN_HW, MI_RN_HW, n_classes=MI_RN_CLASSES, fused=False),
+                           device="cuda")
+    net.init(torch.Generator().manual_seed(seed))
+    if net.num_params() != MI_RN_PARAMS:
+        raise AssertionError(f"ResNet50 has {net.num_params()} params, expected {MI_RN_PARAMS}")
+    with torch.no_grad():  # BN running statistics away from their init
+        for st in net.state.values():
+            if "mean" in st:
+                st["mean"].copy_(torch.from_numpy(0.1 * rs.randn(*st["mean"].shape)))
+                st["var"].copy_(torch.from_numpy(0.5 + rs.rand(*st["var"].shape)))
+    t0 = time.perf_counter()
+    dl4j.write_computation_graph(net, str(path))
+    write_s = time.perf_counter() - t0
+    with zipfile.ZipFile(path) as zf:
+        sizes = {i.filename: i.file_size for i in zf.infolist()}
+    flat = (sizes["coefficients.bin"] - 64) // 4
+    C.reset_launches()
+    restored, stages, restore_s = timed_restore(
+        path, input_type=I.convolutional(MI_RN_HW, MI_RN_HW, 3))
+    extra = same_tensors(net.params, restored.params, "params")
+    same_tensors(net.state, restored.state, "state")
+    n_restored = restored.num_params()
+    bn_stats = sum(st["mean"].numel() + st["var"].numel() for st in net.state.values()
+                   if "mean" in st)
+    n_convs = sum(1 for name in net.params if name.endswith("_conv"))
+    if flat != MI_RN_FLAT or n_restored + bn_stats != flat or len(extra) != n_convs:
+        raise AssertionError(f"restored {n_restored} params, {len(extra)} zero conv biases of "
+                             f"{n_convs} convs, {bn_stats} BN statistics; the flat vector holds "
+                             f"{flat} values, expected {MI_RN_FLAT}")
+    x = torch.from_numpy(rs.rand(MI_RN_BATCH, MI_RN_HW, MI_RN_HW, 3).astype(np.float32)).cuda()
+    src1, src2 = net.output(x), net.output(x)
+    got = restored.output(x)
+    spread = float((src1 - src2).abs().max())
+    err = float((got - src1).abs().max())
+    if not torch.equal(got, src1) and err > spread:
+        raise AssertionError(f"restored ResNet50 differs from the source by {err}, beyond the "
+                             f"spread of two source forwards ({spread})")
+    y = torch.nn.functional.one_hot(torch.from_numpy(rs.randint(0, MI_RN_CLASSES, MI_RN_BATCH)),
+                                    MI_RN_CLASSES).float()
+    restored.evaluate(x, y.cuda())  # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ev = restored.evaluate(x, y.cuda())
+    torch.cuda.synchronize()
+    eval_ms = 1e3 * (time.perf_counter() - t0)
+    if any(C.launches.values()):
+        raise AssertionError(f"the DL4J ResNet50 launched the conv kernels: {C.launches}")
+    del net, restored, src1, src2, got, x
+    free_card()
+    return {"params": MI_RN_PARAMS, "restored_params": n_restored,
+            "zero_conv_biases": len(extra), "bn_statistics": bn_stats, "flat_values": flat,
+            "zip_entry_bytes": sizes,
+            "write_s": write_s, "restore_s": restore_s, "restore_stages_first_s": stages,
+            "params_and_state_equal": True,
+            "output": "equal to the bit" if err == 0.0 else "within the source's spread",
+            "max_abs_err": err, "source_spread": spread, "evaluate_ms_batch": eval_ms,
+            "batch": MI_RN_BATCH,
+            "accuracy_random_labels": ev.accuracy(),
+            "kernels": "none: the DL4J format has no FusedConvBNVertex, so every conv is a "
+                       "library conv (cuDNN); conv_stats launches 0"}
+
+
+def keras_lstm_numpy(ids, emb, kernel, rec, bias, wd, bd):
+    """imdb_lstm's forward from the raw HDF5 arrays, in float64: the
+    embedding rows, Keras's LSTM (gates i, f, c, o; sigmoid, tanh) to the
+    last step, the sigmoid head."""
+    sig = lambda z: 1.0 / (1.0 + np.exp(-z))
+    x = emb[ids].astype(np.float64)
+    h = np.zeros((ids.shape[0], rec.shape[0]))
+    c = np.zeros_like(h)
+    for t in range(ids.shape[1]):
+        i, f, g, o = np.split(x[:, t] @ kernel + h @ rec + bias, 4, axis=-1)
+        c = sig(f) * c + sig(i) * np.tanh(g)
+        h = sig(o) * np.tanh(c)
+    return sig(h @ wd + bd)
+
+
+def hdf5_on_host():
+    """What the host offers the HDF5 bridge: the native library's build
+    (g++), libhdf5 in the loader's cache, and whether the bridge loaded it."""
+    from deeplearning4j_tpu_torch import native
+
+    tool = shutil.which("ldconfig") or "/sbin/ldconfig"
+    try:
+        out = subprocess.run([tool, "-p"], capture_output=True, text=True, timeout=60).stdout
+        libs = [ln.strip() for ln in out.splitlines() if "hdf5" in ln]
+    except OSError as e:
+        libs = [f"ldconfig: {e}"]
+    return {"gxx": shutil.which("g++"), "native_library_built": native.available(),
+            "ldconfig_hdf5": libs, "libhdf5_loaded": native.h5_available()}
+
+
+def mi_keras(L, seed, path):
+    """(c) The Keras examples' imdb_lstm (Embedding(20000, 128) ->
+    LSTM(128) -> Dense(1, sigmoid), maxlen 80) written as a tf.keras HDF5
+    file, restored on the card, held to a numpy forward of the raw
+    datasets; its LSTM launches ``lstm_seq``."""
+    from deeplearning4j_tpu_torch import native
+    from deeplearning4j_tpu_torch.models.zoo import restore_checkpoint
+
+    if not native.available():
+        emit("modelimport.keras", skipped="the native library did not build on this host")
+        return None
+    if not native.h5_available():
+        emit("modelimport.keras", skipped="no libhdf5 on this host")
+        return None
+    from deeplearning4j_tpu_torch.native.h5 import Hdf5Archive
+
+    rs = np.random.RandomState(seed + 2)
+
+    def glorot(fan_in, fan_out):
+        lim = np.sqrt(6.0 / (fan_in + fan_out))
+        return rs.uniform(-lim, lim, (fan_in, fan_out)).astype(np.float32)
+
+    u = IMDB_UNITS
+    emb = rs.uniform(-0.05, 0.05, (IMDB_VOCAB, IMDB_DIM)).astype(np.float32)
+    kernel = glorot(IMDB_DIM, 4 * u)
+    rec = np.concatenate([np.linalg.qr(rs.randn(u, u))[0] for _ in range(4)], 1).astype(np.float32)
+    bias = np.zeros(4 * u, np.float32)
+    bias[u:2 * u] = 1.0  # unit_forget_bias
+    wd, bd = glorot(u, 1), np.zeros(1, np.float32)
+    layers = [
+        {"class_name": "Embedding", "config": {
+            "name": "embedding", "trainable": True, "batch_input_shape": [None, IMDB_MAXLEN],
+            "dtype": "float32", "input_dim": IMDB_VOCAB, "output_dim": IMDB_DIM,
+            "embeddings_initializer": {"class_name": "RandomUniform",
+                                       "config": {"minval": -0.05, "maxval": 0.05}},
+            "mask_zero": False, "input_length": IMDB_MAXLEN}},
+        {"class_name": "LSTM", "config": {
+            "name": "lstm", "trainable": True, "dtype": "float32", "return_sequences": False,
+            "return_state": False, "go_backwards": False, "stateful": False, "unroll": False,
+            "units": u, "activation": "tanh", "recurrent_activation": "sigmoid",
+            "use_bias": True, "unit_forget_bias": True, "implementation": 2}},
+        {"class_name": "Dense", "config": {
+            "name": "dense", "trainable": True, "dtype": "float32", "units": 1,
+            "activation": "sigmoid", "use_bias": True}}]
+    weights = {"embedding": [("embedding/embeddings:0", emb)],
+               "lstm": [("lstm/kernel:0", kernel), ("lstm/recurrent_kernel:0", rec),
+                        ("lstm/bias:0", bias)],
+               "dense": [("dense/kernel:0", wd), ("dense/bias:0", bd)]}
+    t0 = time.perf_counter()
+    with Hdf5Archive(str(path), "w") as f:
+        f.write_attr_string("model_config", json.dumps(
+            {"class_name": "Sequential", "config": {"name": "sequential", "layers": layers}}))
+        f.write_attr_string("keras_version", "2.4.0")
+        f.write_attr_string("backend", "tensorflow")
+        f.make_group("model_weights")
+        f.write_attr_strings("layer_names", list(weights), "model_weights")
+        for lname, ws in weights.items():
+            f.make_group(f"model_weights/{lname}")
+            f.write_attr_strings("weight_names", [wn for wn, _ in ws], f"model_weights/{lname}")
+            for wn, arr in ws:
+                f.write_dataset(f"model_weights/{lname}/{wn}", arr)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    net = restore_checkpoint(str(path), device="cuda")
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    if net.num_params() != IMDB_PARAMS:
+        raise AssertionError(f"imdb_lstm has {net.num_params()} params, expected {IMDB_PARAMS}")
+    lstm = net.conf.layers[1]
+    if type(lstm).__name__ != "LSTM" or not lstm._sequence_op():
+        raise AssertionError(f"layer 1 is {lstm}: the sigmoid-gated LSTM should take lstm_seq")
+    with Hdf5Archive(str(path)) as f:  # the check reads the file, not the arrays above
+        raw = {n: f.read_dataset(f"model_weights/{d}") for n, d in (
+            ("emb", "embedding/embedding/embeddings:0"), ("kernel", "lstm/lstm/kernel:0"),
+            ("rec", "lstm/lstm/recurrent_kernel:0"), ("bias", "lstm/lstm/bias:0"),
+            ("wd", "dense/dense/kernel:0"), ("bd", "dense/dense/bias:0"))}
+    ids = rs.randint(0, IMDB_VOCAB, (IMDB_BATCH, IMDB_MAXLEN))
+    x = torch.from_numpy(ids.astype(np.float32)[..., None]).cuda()
+    net.output(x)  # warm
+    L.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = net.output(x)
+    torch.cuda.synchronize()
+    forward_ms = 1e3 * (time.perf_counter() - t0)
+    launches, by_variant = L.launches, dict(L.launches_by_variant)
+    if launches != 1 or by_variant["persistent"] != 1:
+        raise AssertionError(f"imdb_lstm's forward launched lstm_seq {by_variant} "
+                             "(expected once, persistent)")
+    want = keras_lstm_numpy(ids, raw["emb"], raw["kernel"], raw["rec"], raw["bias"], raw["wd"],
+                            raw["bd"])
+    got = out.cpu().numpy()
+    err = float(np.abs(got - want).max())
+    if got.shape != (IMDB_BATCH, 1) or err > KERAS_ATOL:
+        raise AssertionError(f"imdb_lstm output {got.shape} differs from the numpy forward of "
+                             f"the HDF5 datasets by {err} (atol {KERAS_ATOL})")
+    del net
+    free_card()
+    return {"params": IMDB_PARAMS, "file_bytes": path.stat().st_size, "write_s": write_s,
+            "restore_s": restore_s, "forward_ms_32x80": forward_ms,
+            "lstm_seq_launches": launches, "lstm_seq_launches_by_variant": by_variant,
+            "max_abs_err_vs_numpy": err, "atol": KERAS_ATOL,
+            "cut": "the examples' dropout=0.2, recurrent_dropout=0.2 left out of the LSTM "
+                   "config: the JAX mapper reads neither (inference ignores them)"}
+
+
+def mi_fixtures(L):
+    """(d) The committed DL4J fixture zips restored on the card, each held
+    to its ``*_expected.npy`` at the CPU test's tolerance (cuDNN's TF32
+    off: the pinned outputs are full f32)."""
+    from deeplearning4j_tpu_torch.models.zoo import restore_checkpoint
+    from deeplearning4j_tpu_torch.nn.conf import inputs as I
+
+    fixdir = ROOT / "tests" / "fixtures"
+    manifest = json.loads((fixdir / "dl4j_manifest.json").read_text())["fixtures"]
+    rows, launches = {}, 0
+    for fx in manifest:
+        spec = fx["input_type"]
+        it = (I.convolutional(*spec[1:]) if spec[0] == "conv" else
+              I.recurrent(*spec[1:]) if spec[0] == "rnn" else I.feed_forward(spec[1]))
+        net = restore_checkpoint(str(fixdir / f"{fx['name']}.zip"), input_type=it,
+                                 device="cuda")
+        x = torch.from_numpy(np.load(fixdir / f"{fx['name']}_input.npy")).cuda()
+        want = np.load(fixdir / f"{fx['name']}_expected.npy")
+        L.reset_launches()
+        with library_precision():
+            got = net.output(x)
+        got = (next(iter(got.values())) if isinstance(got, dict) else got).cpu().numpy()
+        launches += L.launches
+        err = float(np.abs(got - want).max())
+        if not np.allclose(got, want, rtol=FIXTURE_RTOL, atol=FIXTURE_ATOL):
+            raise AssertionError(f"fixture {fx['name']} on the card differs from its expected "
+                                 f"output by {err}")
+        rows[fx["name"]] = {"kind": type(net).__name__, "max_abs_err": err,
+                            "lstm_seq_launches": L.launches}
+    if not rows["dl4j_graveslstm_v1"]["lstm_seq_launches"]:
+        raise AssertionError("the GravesLSTM fixture did not launch lstm_seq on the card")
+    return {"fixtures": rows, "rtol": FIXTURE_RTOL, "atol": FIXTURE_ATOL,
+            "lstm_seq_launches": launches}
+
+
+def phase_modelimport(L, C, seed):
+    """Model import on the card: DL4J zips and a Keras HDF5 file restored
+    and run; one JSON line."""
+    t0 = time.perf_counter()
+    out = {"charnn": mi_charnn(L, seed, WORK / "charnn_dl4j.zip")}
+    emit("modelimport.charnn", **out["charnn"])
+    out["resnet50"] = mi_resnet(C, seed, WORK / "resnet50_dl4j.zip")
+    emit("modelimport.resnet50", **out["resnet50"])
+    out["keras"] = mi_keras(L, seed, WORK / "imdb_lstm.h5")
+    if out["keras"] is not None:
+        emit("modelimport.keras", **out["keras"])
+    out["fixtures"] = mi_fixtures(L)
+    emit("modelimport.fixtures", **out["fixtures"])
+    out["lstm_seq_launches"] = (out["charnn"]["lstm_seq_launches"]
+                                + (out["keras"] or {}).get("lstm_seq_launches", 0)
+                                + out["fixtures"]["lstm_seq_launches"])
+    emit("modelimport", seconds=time.perf_counter() - t0,
+         lstm_seq_launches=out["lstm_seq_launches"], hdf5=hdf5_on_host(), card=card_line())
+    return out
+
+
 def cuobjdump():
     """The toolkit's cuobjdump, or the copy Triton's package carries; None
     where neither exists."""
@@ -4487,7 +4996,7 @@ def build_all(libs):
 
 
 PHASES = ("kernels", "flash", "train", "conv", "resnet", "serve", "charnn", "zoo", "finetune",
-          "fused", "word2vec", "mnist")
+          "fused", "word2vec", "mnist", "modelimport")
 
 
 def main(argv=None):
@@ -4573,6 +5082,13 @@ def main(argv=None):
             phase_mnist(args.seed)
         finally:
             shutil.rmtree(WORK, ignore_errors=True)
+    if "modelimport" in only:
+        shutil.rmtree(WORK, ignore_errors=True)
+        WORK.mkdir()
+        try:
+            imported = phase_modelimport(L, C, args.seed)
+        finally:
+            shutil.rmtree(WORK, ignore_errors=True)
     if only != set(PHASES):
         return
 
@@ -4582,14 +5098,18 @@ def main(argv=None):
         "name": "lstm_seq", "route": "cuda", "source": "deeplearning4j_tpu_torch/csrc/lstm_seq.cu",
         "replaces": "deeplearning4j_tpu/ops/lstm_pallas.py:91; deeplearning4j_tpu/ops/lstm_pallas.py:132",
         # launches over the served path, the char-RNN's training paths
-        # (timed steps, TBPTT, streaming) and its timed K=4 dispatches (fused
-        # phase) under both policies; the bwd_*
+        # (timed steps, TBPTT, streaming), its timed K=4 dispatches (fused
+        # phase) under both policies and the modelimport phase; the bwd_*
         # keys are lstm_seq_bwd's (PyTorch, no kernel yet) at B=64, f32
         # (and *_bf16), beside cuDNN's nn.LSTM backward
         "launches": served["lstm_seq_launches"] + sum(r["path_launches"]
                                                       for r in charnn_rows.values())
-        + sum(fused_rows[("charnn", p)]["launches"]["lstm_seq"] for p in ("f32", "bf16")),
+        + sum(fused_rows[("charnn", p)]["launches"]["lstm_seq"] for p in ("f32", "bf16"))
+        + imported["lstm_seq_launches"],
         "launches_serve": served["lstm_seq_launches"],
+        # the modelimport phase: the char-RNN restored from its DL4J zip and
+        # served, the Keras imdb_lstm forward, the GravesLSTM fixture
+        "launches_modelimport": imported["lstm_seq_launches"],
         # from CUDA-graph replays: the fused phase's timed K=4 dispatches
         "launches_fused": {p: fused_rows[("charnn", p)]["launches"]["lstm_seq"]
                            for p in ("f32", "bf16")},

@@ -3,16 +3,22 @@
 
     python -m deeplearning4j_tpu_torch serve --model-path ckpt.zip --max-batch 32
     python -m deeplearning4j_tpu_torch serve --model-path ckpt.zip --smoke 64 --device cpu
+    python -m deeplearning4j_tpu_torch serve --model-path dl4j.zip --input-shape 128,96 --smoke 4
     python -m deeplearning4j_tpu_torch eval --model-path ckpt.zip --data x.npy --labels y.npy
     python -m deeplearning4j_tpu_torch eval --model-path ckpt.zip --data test.csv \
         --label-column 784 --n-classes 10
 
-``serve`` loads a checkpoint zip (written by either package, a
-MultiLayerNetwork or a ComputationGraph), warms every batch bucket, and
-serves with continuous batching and admission control; a graph's warmup
-spec is one per-example shape per input, from its input types. ``--smoke
+``serve`` loads a model file through ``models.zoo.restore_checkpoint``
+(the framework's checkpoint zip written by either package, a DL4J
+ModelSerializer zip or a Keras HDF5 file; a MultiLayerNetwork or a
+ComputationGraph), warms every batch bucket, and serves with continuous
+batching and admission control. The warmup shape is ``--input-shape``
+where given, else the model's input type; a graph's is one per-example
+shape per input, from its input types. A model whose input type leaves a
+dimension open (a DL4J recurrent zip stores no sequence length) needs
+``--input-shape``. ``--smoke
 N`` serves N synthetic requests, prints the engine's stats as JSON and
-exits. ``eval`` runs a checkpoint (or a freshly initialised zoo model,
+exits. ``eval`` runs a model file (or a freshly initialised zoo model,
 ``--zoo``) over ``.npy`` features and labels, or over one labelled CSV,
 and prints the ``Evaluation`` (or, with ``--regression``, the
 ``RegressionEvaluation``) statistics; flat rows for an image model are
@@ -40,12 +46,17 @@ def _build_parser():
         "serve",
         help="inference server: continuous batching over warmed shape "
              "buckets, bounded admission queue with load shedding")
-    sv.add_argument("--model-path", required=True, help="checkpoint zip to serve")
+    sv.add_argument("--model-path", required=True,
+                    help="model to serve: a checkpoint zip, a DL4J ModelSerializer zip "
+                         "or a Keras HDF5 file")
     sv.add_argument("--max-batch", type=int, default=32,
                     help="largest serving batch (= largest bucket)")
     sv.add_argument("--buckets",
                     help="comma-separated batch buckets to warm "
                          "(default: powers of two up to --max-batch)")
+    sv.add_argument("--input-shape",
+                    help="per-example feature shape, e.g. 128,96 (default: derived from "
+                         "the model's input type)")
     sv.add_argument("--max-queue", type=int, default=256,
                     help="admission queue bound; a full queue sheds "
                          "requests with ServingOverloaded")
@@ -59,7 +70,8 @@ def _build_parser():
 
     e = sub.add_parser("eval", help="evaluate a checkpoint on a dataset")
     esrc = e.add_mutually_exclusive_group(required=True)
-    esrc.add_argument("--model-path", help="checkpoint zip")
+    esrc.add_argument("--model-path",
+                      help="checkpoint zip, DL4J ModelSerializer zip or Keras HDF5 file")
     esrc.add_argument("--zoo", help="zoo model name (fresh init)")
     e.add_argument("--data", required=True,
                    help=".npy features, or a labelled .csv/.dat file")
@@ -77,17 +89,30 @@ def _build_parser():
     return p
 
 
-def _serve_input_spec(net):
-    """Per-example input shape for warmup, from the model's input type; a
-    graph's is a dict of them, one per input."""
-    input_types = getattr(net.conf, "input_types", None)
-    if input_types:
-        return {name: tuple(t.shape(1)[1:]) for name, t in zip(net.conf.inputs, input_types)}
-    input_type = getattr(net.conf, "input_type", None)
-    if input_type is None:
-        raise SystemExit("the model conf carries no input type to derive "
-                         "the warmup shape from")
-    return tuple(input_type.shape(1)[1:])
+def _serve_input_spec(args, net):
+    """Per-example input shape for warmup: ``--input-shape`` wins (a
+    one-input graph takes it for that input), else the model's input type;
+    a graph's is a dict of them, one per input. A shape the input type
+    leaves open asks for the flag."""
+    inputs = getattr(net.conf, "inputs", None)
+    if args.input_shape:
+        shape = tuple(int(d) for d in args.input_shape.split(",") if d.strip())
+        if inputs is None:
+            return shape
+        if len(inputs) != 1:
+            raise SystemExit(f"--input-shape names one shape, but the graph has inputs "
+                             f"{list(inputs)}: serve it by its input types")
+        return {inputs[0]: shape}
+    from deeplearning4j_tpu_torch.nn.conf.inputs import RecurrentType
+
+    types = list(getattr(net.conf, "input_types", None) or [getattr(net.conf, "input_type", None)])
+    if any(t is None or (isinstance(t, RecurrentType) and t.timesteps is None) for t in types):
+        raise SystemExit("--input-shape is required: the model conf carries no complete input "
+                         "type (a sequence length, for a recurrent input) to derive the warmup "
+                         "shape from")
+    if inputs is not None:
+        return {name: tuple(t.shape(1)[1:]) for name, t in zip(inputs, types)}
+    return tuple(types[0].shape(1)[1:])
 
 
 def _smoke_requests(input_spec, n):
@@ -102,11 +127,10 @@ def _smoke_requests(input_spec, n):
 def _cmd_serve(args):
     from deeplearning4j_tpu_torch.serving import (ServingOverloaded,
                                                   get_model_registry)
-    from deeplearning4j_tpu_torch.utils.serialization import load_model
 
     name = "default"
-    net = load_model(args.model_path, device=args.device)
-    input_spec = _serve_input_spec(net)
+    net = _load_model(args)
+    input_spec = _serve_input_spec(args, net)
     buckets = None
     if args.buckets:
         buckets = [int(b) for b in args.buckets.split(",") if b.strip()]
@@ -158,8 +182,8 @@ def _cmd_serve(args):
 
 
 def _load_model(args):
-    """The checkpoint at ``--model-path`` or a fresh ``--zoo`` model, on
-    ``--device``."""
+    """The model file at ``--model-path`` (any format ``restore_checkpoint``
+    reads) or a fresh ``--zoo`` model, on ``--device``."""
     from deeplearning4j_tpu_torch.models import zoo
 
     if args.model_path:

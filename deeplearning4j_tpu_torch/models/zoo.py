@@ -6,14 +6,16 @@ freshly initialised network from the registered builder,
 ``init_pretrained`` restores the pretrained checkpoint from the local data
 directory after its md5 check (``datasets/cacheable.py``; the port never
 downloads). The registry holds the JAX package's names, all of them.
-``restore_checkpoint`` reads
-the framework's own zip (format v1); a DL4J ModelSerializer zip
-(``configuration.json`` + ``coefficients.bin``) and a Keras HDF5 file raise
-``NotImplementedError`` until ``modelimport/`` is ported.
+``restore_checkpoint`` restores any supported model file by its format, as
+the JAX package's does (the reference's ModelGuesser role): a DL4J
+ModelSerializer zip through ``modelimport/dl4j.py``, a Keras HDF5 file
+through ``modelimport/keras.py``, the framework's own zip (format v1)
+through ``utils/serialization.load_model``.
 """
 
 from __future__ import annotations
 
+import json
 import os
 import zipfile
 
@@ -23,10 +25,6 @@ from deeplearning4j_tpu_torch.models import misc as _misc
 from deeplearning4j_tpu_torch.models import resnet as _resnet
 from deeplearning4j_tpu_torch.models import vgg as _vgg
 from deeplearning4j_tpu_torch.models.lenet import lenet as _lenet
-
-_MODELIMPORT = ("is not ported yet: it needs modelimport/ (ROADMAP queue 1, item 4, "
-                "\"NLP and domain libraries\")")
-
 
 class PretrainedType:
     """Reference: org.deeplearning4j.zoo.PretrainedType."""
@@ -69,21 +67,55 @@ class ZooModel:
         url, md5 = self.pretrained[pretrained_type]
         path = _cache.ensure_file(os.path.join("zoo", f"{self.name}_{pretrained_type}.zip"),
                                   url=url, md5=md5)
-        return restore_checkpoint(path, device=device)
+        # DL4J graph configs carry no input shape (setInputTypes is not
+        # serialized in the 0.9 format): the registry's own builder knows it
+        return restore_checkpoint(path, input_type=self._default_input_type(), device=device)
+
+    def _default_input_type(self):
+        """The builder's input type at its defaults, or None for a builder
+        that needs arguments (the char-RNN's vocabulary size)."""
+        try:
+            conf = self.builder()
+        except TypeError:
+            return None
+        if self.graph:
+            return conf.input_types[0] if conf.input_types else None
+        return conf.input_type
 
 
-def restore_checkpoint(path, device="cuda"):
-    """Restore a model file by its format: the framework's own zip loads
-    through ``utils/serialization.load_model``; a DL4J ModelSerializer zip
-    and a Keras HDF5 file raise."""
+def restore_checkpoint(path, input_type=None, device="cuda"):
+    """Restore any supported model file onto ``device`` by its format (the
+    reference's ModelGuesser role, util/ModelGuesser.java): a Keras HDF5
+    file (signature ``\\x89HDF``) by its declared model class, Sequential
+    to a MultiLayerNetwork and functional to a ComputationGraph; a zip
+    holding ``configuration.json`` and ``coefficients.bin`` (the
+    reference's ModelSerializer layout, what every zoo ``pretrainedUrl``
+    serves) to a ComputationGraph when the config has ``"vertices"``, else
+    to a MultiLayerNetwork, with ``input_type`` for configs that store no
+    input shape; anything else through ``utils/serialization.load_model``."""
     with open(path, "rb") as f:
         magic = f.read(8)
     if magic.startswith(b"\x89HDF"):
-        raise NotImplementedError(f"{path}: Keras HDF5 import {_MODELIMPORT}")
+        from deeplearning4j_tpu_torch.modelimport.keras import (
+            _layer_list, _model_config, _open, import_keras_model_and_weights,
+            import_keras_sequential_model_and_weights)
+        with _open(path) as archive:
+            cls, _ = _layer_list(_model_config(archive))
+        # dispatch on the declared model class (the reference's
+        # KerasModelImport sniff): a fallback on the exception would mask
+        # the real diagnostic of a failed Sequential import
+        if cls == "Sequential":
+            return import_keras_sequential_model_and_weights(path, device=device)
+        return import_keras_model_and_weights(path, device=device)
     with zipfile.ZipFile(path) as zf:
         names = set(zf.namelist())
-        if "configuration.json" in names and "coefficients.bin" in names:
-            raise NotImplementedError(f"{path}: the DL4J ModelSerializer format {_MODELIMPORT}")
+        cfg = (json.loads(zf.read("configuration.json").decode("utf-8"))
+               if "configuration.json" in names else None)
+    if cfg is not None and "coefficients.bin" in names:
+        from deeplearning4j_tpu_torch.modelimport import dl4j
+        if "vertices" in cfg:  # graph zips: what the zoo URLs serve
+            return dl4j.restore_computation_graph(path, input_type=input_type, device=device)
+        return dl4j.restore_multilayer_network(path, input_type=input_type, device=device)
     from deeplearning4j_tpu_torch.utils.serialization import load_model
     return load_model(path, device=device)
 

@@ -89,3 +89,29 @@ def test_the_fetchers_need_no_pil_at_import():
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
                           timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+@pytest.mark.parametrize("module", [
+    "deeplearning4j_tpu_torch/native/__init__.py", "deeplearning4j_tpu_torch/native/h5.py",
+    "deeplearning4j_tpu_torch/native/codec.py", "deeplearning4j_tpu_torch/native/queue.py",
+    "deeplearning4j_tpu_torch/native/etl.py",
+    "deeplearning4j_tpu_torch/modelimport/__init__.py",
+    "deeplearning4j_tpu_torch/modelimport/dl4j.py",
+    "deeplearning4j_tpu_torch/modelimport/keras.py",
+    "deeplearning4j_tpu_torch/modelimport/layers.py",
+    "deeplearning4j_tpu_torch/modelimport/_tensors.py"])
+def test_the_sweep_covers_model_import(module):
+    """The native bridges and the model importers, copied and ported from
+    the JAX package, are AST-checked and imported with JAX blocked."""
+    assert module in SOURCES
+
+
+def test_the_native_sources_are_the_ports_own_copy():
+    """The port builds its own copy of the C++ sources, never the JAX
+    package's root ``native/``: its loader names no path outside it."""
+    from deeplearning4j_tpu_torch import native
+
+    src = ROOT / "deeplearning4j_tpu_torch" / "native" / "src"
+    assert sorted(p.name for p in src.glob("*.cc")) == sorted(native._SOURCES)
+    assert native._SRC_DIR == src
+    assert native.library_path().parent == ROOT / "deeplearning4j_tpu_torch" / "_build"

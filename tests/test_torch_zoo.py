@@ -333,15 +333,27 @@ def test_a_missing_file_raises_and_nothing_downloads(data_dir, monkeypatch):
 
 
 def test_dl4j_and_keras_files_raise_naming_the_roadmap(tmp_path):
+    """Since ``modelimport/`` is ported (ROADMAP queue 1, item 4), the two
+    formats reach their importers: a DL4J zip whose configuration is
+    neither a network nor a graph raises the DL4J reader's error, a file
+    with the HDF5 signature that libhdf5 cannot open raises the bridge's,
+    in both packages alike; neither raises NotImplementedError."""
+    from deeplearning4j_tpu.modelimport.dl4j import Dl4jImportError as JDl4jImportError
+    from deeplearning4j_tpu_torch.modelimport.dl4j import Dl4jImportError
+
     dl4j = tmp_path / "dl4j.zip"
     with zipfile.ZipFile(dl4j, "w") as z:
         z.writestr("configuration.json", "{}")
         z.writestr("coefficients.bin", b"\0" * 8)
     keras = tmp_path / "model.h5"
     keras.write_bytes(b"\x89HDF\r\n\x1a\n" + b"\0" * 64)
-    for path, what in ((dl4j, "DL4J"), (keras, "Keras")):
-        with pytest.raises(NotImplementedError, match=f"{what}.*ROADMAP queue 1"):
+    for path, mine, theirs in ((dl4j, Dl4jImportError, JDl4jImportError),
+                               (keras, IOError, IOError)):
+        with pytest.raises(mine) as got:
             TM.restore_checkpoint(str(path), device="cpu")
+        assert not isinstance(got.value, NotImplementedError)
+        with pytest.raises(theirs):
+            jzoo.restore_checkpoint(str(path))
 
 
 def _facenet_pair():
