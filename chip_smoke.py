@@ -269,6 +269,44 @@ nonzero; nothing is caught):
             datasets, or one skip line where the host has no libhdf5;
             (d) the committed DL4J fixture zips restored on the card
             against their ``*_expected.npy``.
+18. moe     the train phase's LM with every TransformerBlock an
+            ``MoETransformerBlock`` (8 experts, capacity factor 1.25, aux
+            weight 0.01; 117,620,736 params, random weights from the seed),
+            built from the config DSL, trained by ``MultiLayerNetwork.fit``
+            at batch 4 x 4096 under the f32 policy and ``bf16_policy``: one
+            step from identical weights through the plain attention
+            forward (the train phase's step check), the routing of every
+            block (tokens an expert, dropped, the aux term, and the routing
+            flips between the block's attention through the kernel and the
+            plain version, each within a top-2 margin of 1e-6), 2 warm-up
+            and 10 timed steps with 6 flash launches a step on the planned
+            variant and 60 aux terms popped, the loss falling, one profiled
+            step (flash forward, attention backward, expert products,
+            dispatch/combine, router, optimizer; busy share). Under f32
+            then one block's forward and backward under
+            ``torch.cuda.set_sync_debug_mode("error")`` (no host sync), the
+            trained net served in eval mode through the registry at batch 1
+            (8 requests at T = 4096, each answer against ``output``), and a
+            fresh net at ``fit(steps_per_dispatch=4)``: one capture, every
+            flash launch of 2 timed dispatches from replays, the loss
+            falling.
+19. sequence ``flash_attention_block`` against its plain version on the
+            card (out, lse and dq/dk/dv under random cotangents on both, B=4,
+            H=8, D=64, T in {1000, 4096}, f32 and bf16, causal or not, on the
+            planned variants), timed at one ring block's shape (B=2,
+            T=4096) beside its bound, the plain version and SDPA's forward;
+            flash blocks against ``parallel/sequence.py``'s naive blocks at
+            T_local in {256, 1024, 4096}. Then two ranks on card 0 over NCCL
+            (its refusal recorded), and ``make_ring_attention_fn`` (causal
+            and not) and ``ulysses_self_attention`` over 4 spawned ranks on
+            the one card (on gloo, K/V through pinned host buffers, unless
+            NCCL took the two ranks), B=2, T=16,384 (4096 a rank), H=8,
+            D=64, f32: forward and dq/dk/dv against whole-T
+            ``flash_attention`` on the card, each rank's flash launches (4
+            ring blocks a forward, 1 Ulysses call at full T), the ring's
+            time, one K/V hop and one block; last the ring at world size 1
+            on NCCL against ``flash_attention``. The ranks' times share one
+            card and hop through the host: they are not a scaling result.
 
 Then a ``kernels`` line (every kernel of the paths with its launches on
 its path, error, times and bound), the card's name and power limit, and
@@ -363,7 +401,13 @@ ResNet50's output equal to the bit or within the spread of two forwards of
 the source; served rows against the plain forward atol 1e-4 (SERVE_ATOL);
 imdb_lstm against the float64 numpy forward atol 1e-5 (KERAS_ATOL: sigmoid
 outputs in (0, 1) after 80 f32 steps); the fixture zips rtol 1e-5 + atol
-1e-6, the CPU test's tolerance, with cuDNN's TF32 off.
+1e-6, the CPU test's tolerance, with cuDNN's TF32 off. MoE: the step check
+as the train phase's; served answers within 1e-5 of ``output`` on the same
+ids (the same forward at batch 1; bit-equal answers counted). Sequence:
+the block entry at the flash phase's tolerances; ring and Ulysses against
+whole-T ``flash_attention`` at rtol 2e-4 + atol 2e-5 forward and rtol 1e-3
++ atol 1e-4 gradients (the JAX ring tests' tolerances); the world-1 ring
+the same.
 """
 
 from __future__ import annotations
@@ -373,6 +417,7 @@ import gc
 import gzip
 import itertools
 import json
+import math
 import os
 import pathlib
 import re
@@ -518,6 +563,28 @@ VAE_BATCH, VAE_PARAMS, VAE_LR, VAE_SCORED, VAE_GRID = 128, 535_828, 1e-3, 1000, 
 AE_HIDDEN, AE_LR = 250, 0.05
 SOLVER_N, SOLVER_ITERS, SOLVER_CHECK_BATCH = 10_000, 10, 512
 GRADCHECK_PER_LEAF = 4
+
+# the moe phase: the train phase's LM with every TransformerBlock an
+# MoETransformerBlock of 8 experts at the layer's defaults (Switch
+# Transformer's capacity factor 1.25 and aux weight 0.01): 117,620,736
+# params (the JAX package's init under jax.eval_shape); per block N = 16,384
+# tokens and C = 2,560 slots an expert. A routing decision may differ
+# between the kernel's and the plain attention only where the top-2 router
+# probabilities are within MOE_TIE_MARGIN
+MOE_EXPERTS, MOE_CAPACITY, MOE_AUX, MOE_PARAMS = 8, 1.25, 0.01, 117_620_736
+MOE_TIE_MARGIN = 1e-6
+# under bf16_policy a flip is held to the router logit gap that one bf16
+# ulp (at most BF16_ULP of each element's magnitude) on every router input
+# element can close (``flip_gaps``); MOE_WORST_LEAVES leaves are reported
+# from the bf16 steps routed each by itself
+BF16_ULP, MOE_WORST_LEAVES = 2.0 ** -7, 3
+MOE_K, MOE_K_DISPATCHES, MOE_SERVE_REQUESTS = 4, 2, 8
+# the sequence phase: ring and Ulysses attention over SEQ_RANKS processes on
+# the one card (B=2, T=16,384: 4096 a rank, H=8, D=64, f32) against whole-T
+# flash_attention at the JAX ring tests' tolerances (tests/test_attention.py)
+SEQ_RANKS, SEQ_B, SEQ_T, SEQ_BLOCK_T = 4, 2, 16_384, (256, 1024, 4096)
+SEQ_FWD_RTOL, SEQ_FWD_ATOL, SEQ_GRAD_RTOL, SEQ_GRAD_ATOL = 2e-4, 2e-5, 1e-3, 1e-4
+SEQ_TIMEOUT_S, NCCL_PROBE_TIMEOUT_S = 300, 120
 
 
 def emit(phase, **fields):
@@ -834,17 +901,29 @@ def key_mask(rs, b, t):
     return torch.from_numpy((np.arange(t)[None, :] < lens[:, None]).astype(np.float32)).cuda()
 
 
-def flash_bound(b, t, h, d, dtype, causal, backward=False):
-    """Least time (ms) for one flash forward (or backward) and what sets
-    it: q, k, v read and out, lse written once (backward: q, k, v, out, its
-    cotangent and lse read, dq, dk, dv written) over the memory rate,
-    against the two products' operations (backward: five, 2.5x) over the
-    dtype's peak, counting only the query-key pairs the causal mask
-    leaves."""
+def flash_work(b, t, h, d, dtype, causal, backward=False):
+    """(bytes, operations) of one flash forward (or backward): q, k, v read
+    and out, lse written once (backward: q, k, v, out, its cotangent and lse
+    read, dq, dk, dv written), and the two products' operations (backward:
+    five, 2.5x), counting only the query-key pairs the causal mask leaves."""
     elt = torch.finfo(dtype).bits // 8
     nbytes = elt * (8 if backward else 4) * b * t * h * d + 4 * b * h * t
     pairs = t * (t + 1) // 2 if causal else t * t
-    return roofline(nbytes, (10 if backward else 4) * b * h * d * pairs, dtype)
+    return nbytes, (10 if backward else 4) * b * h * d * pairs
+
+
+def flash_bound(b, t, h, d, dtype, causal, backward=False):
+    """Least time (ms) for one flash forward (or backward) and what sets
+    it: ``flash_work`` over the memory rate and the dtype's peak."""
+    return roofline(*flash_work(b, t, h, d, dtype, causal, backward), dtype)
+
+
+def flash_bound_3xtf32(b, t, h, d, causal):
+    """Least time (ms) for one f32 flash forward on the route it takes, the
+    tensor cores: three TF32 products for each f32 product, over the TF32
+    peak, against the bytes over the memory rate."""
+    nbytes, ops = flash_work(b, t, h, d, torch.float32, causal)
+    return max(1e3 * nbytes / PEAK_BYTES_S, 1e3 * 3 * ops / PEAK_TF32_OPS_S)
 
 
 def check_close(what, got, want, atol, rtol):
@@ -984,8 +1063,7 @@ def phase_flash(A):
                "card": card_line()}
         if dtype == torch.float32:
             # the route taken: three TF32 products per f32 product
-            row["bound_3xtf32_ms"] = 3 * flash_bound(b, LM_SEQ, h, d, dtype, True)[0] * \
-                PEAK_OPS_S[torch.float32] / PEAK_TF32_OPS_S
+            row["bound_3xtf32_ms"] = flash_bound_3xtf32(b, LM_SEQ, h, d, True)
         timings[dtype] = row
         emit("flash.timing", **row)
         del q, k, v, qh, kh, vh, qg, kg, vg, qhg, khg, vhg, g, gh
@@ -1076,8 +1154,18 @@ def one_step(net, x, y):
     return float(loss), list(tree_leaves(grads))
 
 
-def step_check(A, x, y, seed, policy):
-    """One training step from identical weights through the kernel and
+def grad_rel_by_leaf(params, ga, gb):
+    """{leaf path: |ga - gb| / |gb|} (norms over the leaf) for two lists of
+    gradient leaves in ``params``' order."""
+    from deeplearning4j_tpu_torch.utils.trees import flatten_tree
+
+    return {name: ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+            for name, a, b in zip(flatten_tree(params), ga, gb)}
+
+
+def step_check(A, x, y, seed, policy, make=None, by_leaf=False):
+    """One training step of ``make(seed)`` (default ``make_lm``) from
+    identical weights through the kernel and
     through the plain attention forward; the losses must agree to rtol
     1e-4. Under the f32 policy the updated parameters must agree to atol
     1e-4. Under bf16_policy the matmul operands are rounded to bf16, so the
@@ -1086,19 +1174,22 @@ def step_check(A, x, y, seed, policy):
     element can differ by its own size between the runs; Adam's first step,
     about lr·g/(|g| + 3e-7), turns that into up to 2·lr. There each
     tensor's gradient is held to a relative difference of 1e-2 instead, and
-    the parameter difference is reported."""
+    the parameter difference is reported. ``by_leaf`` adds each leaf's
+    relative gradient difference (``grad_rel_by_leaf``)."""
     from deeplearning4j_tpu_torch.utils.trees import tree_leaves
 
-    kern = make_lm(seed)
+    make = make or make_lm
+    kern = make(seed)
     lk, gk = one_step(kern, x, y)
     with plain_attention_forward(A):
-        plain = make_lm(seed)
+        plain = make(seed)
         lp, gp = one_step(plain, x, y)
     if not abs(lk - lp) <= STEP_LOSS_RTOL * abs(lp):
         raise AssertionError(f"kernel step loss {lk} vs plain-attention step loss {lp}")
-    err, beyond, grad_rel = 0.0, 0, 0.0
-    for a, b, ga, gb in zip(tree_leaves(kern.params), tree_leaves(plain.params), gk, gp):
-        grad_rel = max(grad_rel, ((ga - gb).norm() / gb.norm().clamp_min(1e-30)).item())
+    rels = grad_rel_by_leaf(kern.params, gk, gp)
+    leaf = max(rels, key=rels.get)
+    grad_rel, err, beyond = rels[leaf], 0.0, 0
+    for a, b in zip(tree_leaves(kern.params), tree_leaves(plain.params)):
         diff = (a - b).abs()
         err = max(err, diff.max().item())
         beyond += int((diff > STEP_PARAM_ATOL).sum())
@@ -1106,13 +1197,14 @@ def step_check(A, x, y, seed, policy):
         raise AssertionError(f"updated parameters differ by {err} between the kernel step "
                              "and the plain-attention step")
     if policy == "bf16" and not grad_rel <= STEP_BF16_GRAD_RTOL:
-        raise AssertionError(f"gradients differ by {grad_rel} relative between the kernel "
-                             "step and the plain-attention step")
+        raise AssertionError(f"gradients differ by {grad_rel} relative ({leaf}) between the "
+                             "kernel step and the plain-attention step")
     n = sum(g.numel() for g in gp)
     del kern, plain, gk, gp
     torch.cuda.empty_cache()
     return {"loss_kernel": lk, "loss_plain": lp, "max_grad_rel_diff": grad_rel,
-            "max_abs_param_diff": err, "params_beyond_atol": beyond, "params": n}
+            "max_grad_rel_leaf": leaf, "max_abs_param_diff": err, "params_beyond_atol": beyond,
+            "params": n, **({"grad_rel_by_leaf": rels} if by_leaf else {})}
 
 
 def lm_family(name):
@@ -4946,6 +5038,734 @@ def phase_modelimport(L, C, seed):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the MoE transformer LM (the long-context tier)
+# ---------------------------------------------------------------------------
+
+def make_moe_lm(seed):
+    """The train phase's LM with every TransformerBlock an
+    MoETransformerBlock, from the config DSL (the JAX package's zoo has
+    no function for it)."""
+    from deeplearning4j_tpu_torch.nn import layers as TL
+    from deeplearning4j_tpu_torch.nn import updaters as TU
+    from deeplearning4j_tpu_torch.nn.conf import inputs as TI
+    from deeplearning4j_tpu_torch.nn.conf.network import NeuralNetConfig
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+
+    conf = NeuralNetConfig(seed=seed, updater=TU.Adam(learning_rate=3e-4)).list(
+        TL.EmbeddingSequenceLayer(n_in=LM_VOCAB, n_out=LM_WIDTH, add_positional=True),
+        *[TL.MoETransformerBlock(n_out=LM_WIDTH, n_heads=LM_HEADS, n_experts=MOE_EXPERTS,
+                                 mlp_ratio=4, capacity_factor=MOE_CAPACITY,
+                                 aux_loss_weight=MOE_AUX, causal=True)
+          for _ in range(LM_LAYERS)],
+        TL.RnnOutputLayer(n_out=LM_VOCAB, loss="mcxent"),
+        input_type=TI.RecurrentType(1, LM_SEQ))
+    net = MultiLayerNetwork(conf, device="cuda")
+    net.init(torch.Generator().manual_seed(seed))
+    if net.num_params() != MOE_PARAMS:
+        raise AssertionError(f"the MoE LM has {net.num_params()} params, expected {MOE_PARAMS}")
+    return net
+
+
+def flip_gaps(params, h, chosen, other):
+    """For tokens routed to expert ``chosen`` in one run and to ``other`` in
+    another, on this run's router input ``h`` [n, d] (``chosen`` its own
+    argmax): (the router logit gap z[chosen] - z[other] >= 0, its limit).
+    The limit is how far that gap can move when every element of the
+    router input moves by one bf16 ulp (at most BF16_ULP of its magnitude)
+    the way that favours the flip: BF16_ULP · Σ_i |h_i| |W_i,chosen -
+    W_i,other|. Under bf16_policy the attention's output projection rounds
+    its operands to bf16, so the kernel's ~1e-7 difference from the plain
+    attention reaches the router input as bf16 ulps; a flip whose gap
+    exceeds one ulp on every element cannot come from that rounding."""
+    w = params["router_W"].float()
+    hf = h.float()
+    rows = torch.arange(hf.shape[0], device=hf.device)
+    z = hf @ w
+    gap = z[rows, chosen] - z[rows, other]
+    limit = BF16_ULP * (hf.abs() * (w[:, chosen] - w[:, other]).t().abs()).sum(-1)
+    return gap, limit
+
+
+def hold_flips(what, policy, flips):
+    """Under f32 every flip's top-2 margin must be below MOE_TIE_MARGIN;
+    under bf16 every flip's logit gap within its ``flip_gaps`` limit."""
+    if not flips["flips"]:
+        return
+    if policy == "f32" and flips["flips_max_margin"] >= MOE_TIE_MARGIN:
+        raise AssertionError(f"{what}: routing flips beyond a top-2 margin of "
+                             f"{MOE_TIE_MARGIN}: {flips}")
+    if policy == "bf16" and flips["flips_max_gap_over_limit"] > 1:
+        raise AssertionError(f"{what}: a routing flip beyond one bf16 ulp of every router "
+                             f"input: {flips}")
+
+
+def count_flips(report, params, r_own, top_other, h):
+    """Adds to ``report`` the tokens whose own routing ``r_own`` differs
+    from ``top_other``: their count, largest top-2 margin, and largest
+    ``flip_gaps`` ratio of gap to limit."""
+    flipped = r_own.top != top_other
+    n = int(flipped.sum())
+    if not n:
+        return
+    with torch.no_grad():
+        top2 = r_own.probs[flipped].topk(2, dim=-1).values
+        gap, limit = flip_gaps(params, h[flipped], r_own.top[flipped], top_other[flipped])
+    report["flips"] += n
+    for key, value in (("flips_max_margin", float((top2[:, 0] - top2[:, 1]).max())),
+                       ("flips_max_gap_over_limit", float((gap / limit).max()))):
+        report[key] = max(value, report[key] if report[key] is not None else value)
+
+
+def new_flip_report():
+    return {"flips": 0, "flips_max_margin": None, "flips_max_gap_over_limit": None}
+
+
+@contextlib.contextmanager
+def recorded_routing(n_blocks, replay):
+    """Within this block the first ``n_blocks`` MoE routings (the kernel
+    step's forward in ``step_check``) are recorded, and the next
+    ``n_blocks`` (the plain-attention step's) are compared with them
+    (``count_flips``, in the dict yielded). With ``replay`` those send
+    every token to the recorded expert, so the two steps are compared
+    given the same routing; without, each step routes by itself."""
+    from deeplearning4j_tpu_torch.nn.layers.moe import MoETransformerBlock
+
+    saved, tops = MoETransformerBlock.route, []
+    report = {"routings": 0, **new_flip_report()}
+
+    def route(self, params, x2d):
+        r = saved(self, params, x2d)
+        report["routings"] += 1
+        if len(tops) < n_blocks:
+            tops.append(r.top)
+            return r
+        top = tops[report["routings"] - n_blocks - 1]
+        count_flips(report, params, r, top, x2d)
+        return self.assign(r.probs, top) if replay else r
+    MoETransformerBlock.route = route
+    try:
+        yield report
+    finally:
+        MoETransformerBlock.route = saved
+
+
+def moe_step_check(A, x, y, seed, policy):
+    """``step_check`` of the MoE LM, the plain-attention step given the
+    kernel step's routing (``recorded_routing``); the plain step's own
+    routing flips held by ``hold_flips``. Under bf16 the two steps also
+    run each with its own routing (``moe_unreplayed_step``), reported."""
+    with recorded_routing(LM_LAYERS, replay=True) as flips:
+        check = step_check(A, x, y, seed, policy, make=make_moe_lm, by_leaf=True)
+    if flips["routings"] != 2 * LM_LAYERS:
+        raise AssertionError(f"{flips['routings']} routings in two steps of {LM_LAYERS} blocks")
+    hold_flips("the kernel and the plain-attention step", policy, flips)
+    replayed = check.pop("grad_rel_by_leaf")
+    check = {**check, "routing_flips": flips["flips"],
+             "routing_flips_max_margin": flips["flips_max_margin"],
+             "routing_flips_max_gap_over_limit": flips["flips_max_gap_over_limit"]}
+    if policy == "bf16":
+        check["unreplayed"] = moe_unreplayed_step(A, x, y, seed, replayed)
+    return check
+
+
+def moe_unreplayed_step(A, x, y, seed, replayed):
+    """One step of the MoE LM through the kernel and one through the plain
+    attention, each with its own routing: the flips, the losses, and the
+    MOE_WORST_LEAVES parameters whose gradients differ most (relative, in
+    norm), beside the same parameters' difference when the steps are given
+    one routing (``replayed``: ``grad_rel_by_leaf`` of that check). A
+    report: a flip sends a token through another expert, which no
+    tolerance of a smooth difference covers."""
+    with recorded_routing(LM_LAYERS, replay=False) as flips:
+        kern = make_moe_lm(seed)
+        lk, gk = one_step(kern, x, y)
+        with plain_attention_forward(A):
+            plain = make_moe_lm(seed)
+            lp, gp = one_step(plain, x, y)
+    rels = grad_rel_by_leaf(kern.params, gk, gp)
+    del kern, plain, gk, gp
+    torch.cuda.empty_cache()
+    worst = sorted(rels, key=rels.get, reverse=True)[:MOE_WORST_LEAVES]
+    return {"loss_kernel": lk, "loss_plain": lp, "routing_flips": flips["flips"],
+            "routing_flips_max_margin": flips["flips_max_margin"],
+            "max_grad_rel": rels[worst[0]], "max_grad_rel_replayed": max(replayed.values()),
+            "worst_grad_rel_leaves": [{"leaf": n, "grad_rel": rels[n],
+                                       "grad_rel_replayed": replayed[n]} for n in worst]}
+
+
+@contextlib.contextmanager
+def popped_aux_terms():
+    """Within this block every aux term a network's loss pops
+    (``nn/layers/base.pop_aux_losses``) is kept, detached on its device, in
+    the list yielded."""
+    from deeplearning4j_tpu_torch.nn.layers import base
+
+    saved, popped = base.pop_aux_losses, []
+
+    def keeping(loss, states):
+        popped.extend(s["aux_loss"].detach()
+                      for s in (states.values() if isinstance(states, dict) else states)
+                      if isinstance(s, dict) and "aux_loss" in s)
+        return saved(loss, states)
+    base.pop_aux_losses = keeping
+    try:
+        yield popped
+    finally:
+        base.pop_aux_losses = saved
+
+
+def moe_blocks(net):
+    return [(i, layer) for i, layer in enumerate(net.conf.layers)
+            if type(layer).__name__ == "MoETransformerBlock"]
+
+
+def moe_routing(A, net, x, policy):
+    """Per MoE block, on the inputs the network gives it for ``x``: tokens
+    routed to each expert, tokens kept and dropped, the Switch aux term
+    (E·Σ f·p), and the routing flips between the block's attention through
+    the kernel and through the plain version on the same input
+    (``count_flips``), held by ``hold_flips``."""
+    acts = net.feed_forward(x)
+    rows = []
+    with torch.inference_mode():
+        for i, block in moe_blocks(net):
+            a = acts[i - 1]
+            d = a.shape[-1]
+            h = block.mlp_input(net.params[i], a)[1].reshape(-1, d)
+            r = block.route(net.params[i], h)
+            with plain_attention_forward(A):
+                hp = block.mlp_input(net.params[i], a)[1].reshape(-1, d)
+            flips = new_flip_report()
+            count_flips(flips, net.params[i], block.route(net.params[i], hp), r.top, hp)
+            hold_flips(f"block {i}, the kernel and the plain attention", policy, flips)
+            top2 = r.probs.topk(2, dim=-1).values
+            frac = r.routed.float().mean(0)
+            rows.append({"layer": i, "tokens": h.shape[0], "capacity": block.capacity(h.shape[0]),
+                         "per_expert": r.routed.sum(0).tolist(),
+                         "kept": int(r.keep.sum()), "dropped": int((~r.keep).sum()),
+                         "aux": float(block.n_experts * (frac * r.probs.mean(0)).sum()),
+                         **flips, "ties_below_margin":
+                         int((top2[:, 0] - top2[:, 1] < MOE_TIE_MARGIN).sum())})
+    del acts
+    return rows
+
+
+# the MoE block's forward ranges, and the autograd nodes of its backward
+MOE_TAGS = (("flash_attn.backward", "attention_backward"), ("updater.step", "optimizer"),
+            ("moe.router", "router"), ("moe.dispatch", "dispatch_combine"),
+            ("moe.combine", "dispatch_combine"), ("moe.experts", "expert_bmm"),
+            ("BmmBackward0", "expert_bmm"), ("IndexAddBackward0", "dispatch_combine"),
+            ("IndexSelectBackward0", "dispatch_combine"), ("SoftmaxBackward0", "router"))
+
+
+def phase_moe_train(A, policy, seed):
+    """Warm-up, then TIMED_STEPS timed fit steps of the MoE LM under the
+    named policy (6 flash launches a step, every aux term popped), the step
+    check through the plain attention, routing, one profiled step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from deeplearning4j_tpu_torch.utils import dtypes
+
+    (dtypes.bf16_policy if policy == "bf16" else dtypes.f32_policy)()
+    try:
+        rs = np.random.RandomState(seed)
+        x, y = lm_data(rs, LM_BATCH * (WARMUP_STEPS + TIMED_STEPS))
+        check = moe_step_check(A, x[:LM_BATCH], y[:LM_BATCH], seed, policy)
+        free_card()
+        net = make_moe_lm(seed)
+        routing_init = moe_routing(A, net, x[:LM_BATCH], policy)
+        warm = LM_BATCH * WARMUP_STEPS
+        net.fit((x[:warm], y[:warm]), batch_size=LM_BATCH)
+        first_loss = net.score_history[0]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with popped_aux_terms() as popped:
+            A.reset_launches()
+            t0 = time.perf_counter()
+            net.fit((x[warm:], y[warm:]), batch_size=LM_BATCH)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = A.launches
+            by_variant = dict(A.launches_by_variant)
+        peak = torch.cuda.max_memory_allocated()
+        losses = net.score_history
+        if launches != LM_LAYERS * TIMED_STEPS:
+            raise AssertionError(f"flash_attn launched {launches} times in {TIMED_STEPS} steps "
+                                 f"of the {LM_LAYERS}-block MoE LM (expected {LM_LAYERS} a step)")
+        planned = A.plan((LM_BATCH, LM_SEQ, LM_HEADS, LM_WIDTH // LM_HEADS), torch.float32,
+                         ((LM_SEQ * 3 * LM_WIDTH, 3 * LM_WIDTH, LM_WIDTH // LM_HEADS),) * 3)
+        if by_variant != {**dict.fromkeys(A.VARIANTS, 0), planned.variant: launches}:
+            raise AssertionError(f"flash launches by variant {by_variant}: every one should be "
+                                 f"{planned.variant}")
+        if len(popped) != LM_LAYERS * TIMED_STEPS:
+            raise AssertionError(f"{len(popped)} aux terms popped in {TIMED_STEPS} steps of "
+                                 f"{LM_LAYERS} MoE blocks")
+        aux = (torch.stack(popped).view(TIMED_STEPS, LM_LAYERS) / MOE_AUX).tolist()
+        if not all(np.isfinite(losses)) or not losses[-1] < first_loss:
+            raise AssertionError(f"MoE loss did not fall: first {first_loss}, timed {losses}")
+        if not all(np.isfinite(a) and a > 0 for row in aux for a in row) or \
+                any("aux_loss" in s for s in net.state):
+            raise AssertionError(f"aux terms {aux}, state keys {[list(s) for s in net.state]}")
+        tokens = TIMED_STEPS * LM_BATCH * LM_SEQ
+        row = {"policy": policy, "params": net.num_params(), "experts": MOE_EXPERTS,
+               "capacity_factor": MOE_CAPACITY, "aux_weight": MOE_AUX, "batch": LM_BATCH,
+               "seq": LM_SEQ, "steps": TIMED_STEPS, "step_ms": 1e3 * wall / TIMED_STEPS,
+               "tokens_per_s": tokens / wall, "peak_mem_gb": peak / 1e9,
+               "loss_first": first_loss, "loss_last": losses[-1], "losses": losses,
+               "aux_popped": len(popped), "aux_by_step_and_block": aux,
+               "flash_launches": launches, "flash_launches_by_variant": by_variant,
+               "step_check": check, "routing_at_init": routing_init,
+               "routing_after": moe_routing(A, net, x[:LM_BATCH], policy), "card": card_line()}
+        emit("moe.train", **row)
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            net.fit((x[:LM_BATCH], y[:LM_BATCH]))
+            torch.cuda.synchronize()
+            wall_ms = 1e3 * (time.perf_counter() - t0)
+        by_family, busy_ms, share = device_families(prof, wall_ms, tags=MOE_TAGS)
+        emit("moe.profile", policy=policy, wall_ms=wall_ms, wall_unprofiled_ms=row["step_ms"],
+             device_ms_by_family=by_family, device_busy_ms=busy_ms, device_busy_share=share,
+             device_busy_share_unprofiled=busy_ms / row["step_ms"], card=card_line())
+        return row, net
+    finally:
+        dtypes.f32_policy()
+
+
+def leaf_copies(tree):
+    """A nested dict of detached copies of ``tree``'s tensors, requiring grad."""
+    return {k: leaf_copies(v) if hasattr(v, "items") else v.detach().clone().requires_grad_(True)
+            for k, v in tree.items()}
+
+
+def moe_sync_check(A, net):
+    """One MoE block, forward and backward at the path's shape, under
+    ``torch.cuda.set_sync_debug_mode("error")``: any host sync raises."""
+    from deeplearning4j_tpu_torch.utils.trees import tree_leaves
+
+    i, block = moe_blocks(net)[0]
+    params = leaf_copies(net.params[i])
+    leaves = list(tree_leaves(params))
+    x = torch.randn(LM_BATCH, LM_SEQ, LM_WIDTH, device="cuda", requires_grad=True)
+    g = torch.randn(LM_BATCH, LM_SEQ, LM_WIDTH, device="cuda")
+
+    def run():
+        y, state = block.apply(params, {}, x, train=True)
+        return torch.autograd.grad((y * g).sum() + state["aux_loss"], leaves + [x])
+    run()
+    torch.cuda.synchronize()
+    before = A.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        grads = run()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    finite = all(bool(torch.isfinite(t).all()) for t in grads)
+    if not finite:
+        raise AssertionError("the MoE block's gradients are not finite")
+    return {"layer": i, "host_syncs": 0, "sync_debug_mode": "error", "grads": len(grads),
+            "flash_launches": A.launches - before}
+
+
+def moe_fused(A, seed):
+    """``fit(steps_per_dispatch=MOE_K)`` under f32: one dispatch captures
+    the graph, then MOE_K_DISPATCHES timed dispatches whose flash launches
+    all come from replays; the last dispatch's mean loss below the first's."""
+    from deeplearning4j_tpu_torch.nn import fused
+
+    net = make_moe_lm(seed)
+    rs = np.random.RandomState(seed + 3)
+    k = MOE_K
+    x, y = lm_data(rs, LM_BATCH * k * (1 + MOE_K_DISPATCHES))
+    first = LM_BATCH * k
+    net.fit(x[:first], y[:first], batch_size=LM_BATCH, steps_per_dispatch=k)
+    engine = net._train_steps_fused[(k, False)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_launches()
+    A.reset_launches()
+    t0 = time.perf_counter()
+    net.fit(x[first:], y[first:], batch_size=LM_BATCH, steps_per_dispatch=k)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    steps = k * MOE_K_DISPATCHES
+    launches, replayed = A.launches, fused.replay_launches.get("attention", 0)
+    if launches != LM_LAYERS * steps or replayed != launches:
+        raise AssertionError(f"flash_attn launched {launches} times ({replayed} from replays) "
+                             f"in {steps} K={k} steps (expected {LM_LAYERS} a step)")
+    if engine.captures != 1:
+        raise AssertionError(f"{engine.captures} captures for one signature")
+    losses = net.score_history
+    first, last = float(np.mean(losses[:k])), float(np.mean(losses[-k:]))
+    if not all(np.isfinite(losses)) or not last < first:
+        raise AssertionError(f"K={k} MoE loss did not fall, dispatch by dispatch: {losses}")
+    row = {"k": k, "dispatches": MOE_K_DISPATCHES, "steps": steps, "captures": engine.captures,
+           "replays": engine.replays, "step_ms": 1e3 * wall / steps,
+           "tokens_per_s": steps * LM_BATCH * LM_SEQ / wall,
+           "peak_reserved_gb": torch.cuda.max_memory_reserved() / 1e9,
+           "flash_launches": launches, "flash_launches_from_replays": replayed,
+           "loss_first_dispatch": first, "loss_last_dispatch": last, "losses": losses,
+           "card": card_line()}
+    del net, engine, x, y
+    free_card()
+    return row
+
+
+def moe_serve(A, net, seed):
+    """The trained MoE LM in eval mode through the serving registry: batch
+    1 (a row's capacity slots depend on its batch), MOE_SERVE_REQUESTS
+    requests at T = 4096, each answer against ``net.output`` on the same
+    ids; 6 flash launches a device forward; no aux term in the state."""
+    from deeplearning4j_tpu_torch.serving import get_model_registry
+
+    rs = np.random.RandomState(seed + 4)
+    ids = rs.randint(0, LM_VOCAB, size=(MOE_SERVE_REQUESTS, LM_SEQ, 1)).astype(np.float32)
+    registry = get_model_registry()
+    A.reset_launches()
+    t_reg = time.perf_counter()
+    engine = registry.register("moe_lm", net, input_spec=(LM_SEQ, 1), max_batch_size=1,
+                               device="cuda")
+    register_s = time.perf_counter() - t_reg
+    t0 = time.perf_counter()
+    try:
+        futs = [engine.submit(x) for x in ids]
+        outs = [f.get(timeout=300) for f in futs]
+        wall = time.perf_counter() - t0
+        stats = engine.stats()
+    finally:
+        registry.stop()
+    launches, forwards = A.launches, stats["forward"]["forwards"]
+    if launches != LM_LAYERS * forwards:
+        raise AssertionError(f"flash_attn launched {launches} times in {forwards} device "
+                             f"forwards (expected {LM_LAYERS} each)")
+    errs, equal = [], 0
+    for x, got in zip(ids, outs):
+        want = net.output(x[None])[0].cpu().numpy()
+        if got.shape != want.shape or not np.isfinite(got).all():
+            raise AssertionError(f"served {got.shape}, expected {want.shape}, finite")
+        errs.append(float(np.abs(got - want).max()))
+        equal += int(np.array_equal(got, want))
+    if max(errs) > FLASH_F32_ATOL or any("aux_loss" in s for s in net.state):
+        raise AssertionError(f"served answers differ from net.output by {max(errs)}")
+    lats = sorted(f.latency_s for f in futs)
+    return {"requests": len(ids), "seq": LM_SEQ, "device_forwards": stats["forward"]["forwards"],
+            "warmup_forwards": stats["forward"]["warmed"], "flash_launches": launches,
+            "register_s": register_s, "wall_s": wall,
+            "tokens_per_s": len(ids) * LM_SEQ / wall,
+            "p50_ms": 1e3 * float(np.percentile(lats, 50)),
+            "p99_ms": 1e3 * float(np.percentile(lats, 99)),
+            "max_abs_diff_vs_output": max(errs), "bit_equal": equal, "card": card_line()}
+
+
+def phase_moe(A, seed):
+    t0 = time.perf_counter()
+    rows = {}
+    rows["f32"], net = phase_moe_train(A, "f32", seed)
+    sync = moe_sync_check(A, net)
+    emit("moe.sync", **sync, card=card_line())
+    served = moe_serve(A, net, seed)
+    emit("moe.serve", **served)
+    del net
+    free_card()
+    rows["bf16"], net = phase_moe_train(A, "bf16", seed)
+    del net
+    free_card()
+    fused_row = moe_fused(A, seed)
+    emit("moe.fused", **fused_row)
+    out = {"train": rows, "sync": sync, "serve": served, "fused": fused_row,
+           "flash_launches": sum(r["flash_launches"] for r in rows.values())
+           + fused_row["flash_launches"] + served["flash_launches"]}
+    emit("moe", seconds=time.perf_counter() - t0, flash_launches=out["flash_launches"],
+         card=card_line())
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the flash block entry, then ring and Ulysses attention across ranks
+# ---------------------------------------------------------------------------
+
+def seq_block_checks(A, rs):
+    """``flash_attention_block`` against its plain version on the card: out,
+    lse and dq/dk/dv under random nonzero cotangents on out and lse, at
+    B=4, H=8, D=64, T in {1000, 4096}, f32 and bf16, causal or not."""
+    b, h, d = LM_BATCH, LM_HEADS, LM_WIDTH // LM_HEADS
+    cases = []
+    for t, dtype, causal in itertools.product((1000, LM_SEQ), (torch.float32, torch.bfloat16),
+                                              (False, True)):
+        f32 = dtype == torch.float32
+        q, k, v, _ = qkv_views(rs, b, t, h, d, dtype, grad=True)
+        pl = check_flash_plan(A, q, k, v)
+        what = f"flash_attention_block T={t} {dtype} causal={causal} {pl.variant}"
+        before = dict(A.launches_by_variant)
+        out, lse = A.flash_attention_block(q, k, v, causal, None)
+        out_p, lse_p = A.flash_attention_plain(q, k, v, causal=causal)
+        if ran_variants(A, before) != [pl.variant]:
+            raise AssertionError(f"{what}: ran {ran_variants(A, before)}")
+        tol = (FLASH_F32_ATOL, 0.0) if f32 else (FLASH_BF16_TOL, FLASH_BF16_TOL)
+        errs = {"out": check_close(f"{what} out", out, out_p, *tol),
+                "lse": check_close(f"{what} lse", lse, lse_p, FLASH_LSE_ATOL, FLASH_LSE_RTOL)}
+        g_out = torch.from_numpy(rs.randn(b, t, h, d).astype(np.float32)).to("cuda", dtype)
+        g_lse = torch.from_numpy(rs.randn(b, h, t).astype(np.float32)).cuda()
+        got = torch.autograd.grad((out, lse), (q, k, v), (g_out, g_lse))
+        want = torch.autograd.grad((out_p, lse_p), (q, k, v), (g_out, g_lse))
+        gtol = (FLASH_GRAD_ATOL, FLASH_GRAD_RTOL) if f32 else (FLASH_BF16_TOL, FLASH_BF16_TOL)
+        for name, a, w in zip(("dq", "dk", "dv"), got, want):
+            errs[name] = check_close(f"{what} {name}", a, w, *gtol)
+        cases.append({"T": t, "dtype": str(dtype).split(".")[-1], "causal": causal,
+                      "variant": pl.variant, **errs})
+        del q, k, v, out, lse, out_p, lse_p, got, want
+    torch.cuda.empty_cache()
+    return cases
+
+
+def seq_block_timing(A, rs):
+    """The block entry at one ring block's shape (B=2, T_local=4096, H=8,
+    D=64, not causal): forward back to back and on the card beside the
+    bound, the plain version and SDPA's forward, and forward + backward
+    with both cotangents; then flash blocks against the naive blocks of
+    ``parallel/sequence.py``, forward + backward, at T_local in
+    SEQ_BLOCK_T."""
+    from deeplearning4j_tpu_torch.parallel import sequence as S
+
+    b, h, d = SEQ_B, LM_HEADS, LM_WIDTH // LM_HEADS
+    t = SEQ_T // SEQ_RANKS
+    rows = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, _ = qkv_views(rs, b, t, h, d, dtype)
+        qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        kern = lambda: A.flash_attention_block(q, k, v, False, None)  # noqa: E731
+        sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(qh, kh, vh)  # noqa: E731
+        with torch.no_grad():
+            ms = time_ms(kern, iters=10, reps=5)
+            dev_ms = device_ms(kern, iters=10, reps=5)
+            plain_ms = time_ms(lambda: A.flash_attention_plain(q, k, v), iters=10, reps=5)
+            library_ms = time_ms(sdpa, iters=10, reps=5)
+        qg, kg, vg = (x.detach().clone().requires_grad_(True) for x in (q, k, v))
+        g_out, g_lse = torch.randn_like(q), torch.randn(b, h, t, device="cuda")
+        fwd_bwd_ms = time_ms(lambda: torch.autograd.grad(
+            A.flash_attention_block(qg, kg, vg, False, None), (qg, kg, vg), (g_out, g_lse)),
+            iters=3, reps=5)
+        bound_ms, bound_by = flash_bound(b, t, h, d, dtype, False)
+        rows[dtype] = {"B": b, "T": t, "H": h, "D": d, "causal": False,
+                       "dtype": str(dtype).split(".")[-1], "ms": ms, "device_ms": dev_ms,
+                       "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
+                       "bound_by": bound_by, "fwd_bwd_ms": fwd_bwd_ms, "card": card_line()}
+        if dtype == torch.float32:
+            # the route taken: three TF32 products per f32 product
+            rows[dtype]["bound_3xtf32_ms"] = flash_bound_3xtf32(b, t, h, d, False)
+        emit("sequence.block_timing", **rows[dtype])
+        del q, k, v, qh, kh, vh, qg, kg, vg
+    crossover = []
+    for t in SEQ_BLOCK_T:
+        q, k, v, qkv = qkv_views(rs, b, t, h, d, torch.float32, grad=True)
+        g_out, g_lse = torch.randn_like(q), torch.randn(b, h, t, device="cuda")
+        scale = 1.0 / math.sqrt(d)
+        flash_ms = time_ms(lambda: torch.autograd.grad(
+            A.flash_attention_block(q, k, v, False, scale), qkv, (g_out, g_lse)),
+            iters=3, reps=5)
+        naive_ms = time_ms(lambda: torch.autograd.grad(
+            S._naive_block(q, k, v, scale, None), qkv, (g_out, g_lse)), iters=3, reps=5)
+        crossover.append({"T_local": t, "flash_ms": flash_ms, "naive_ms": naive_ms,
+                          "speedup": naive_ms / flash_ms})
+        del q, k, v, qkv
+    torch.cuda.empty_cache()
+    emit("sequence.blocks", B=b, H=h, D=d, causal=False, dtype="float32", rows=crossover,
+         card=card_line())
+    return rows, crossover
+
+
+def seq_reference(A, q, k, v, g, causal):
+    """Whole-T ``flash_attention`` on the card: out and dq, dk, dv of
+    sum(out * g)."""
+    qq, kk, vv = (x.detach().clone().requires_grad_(True) for x in (q, k, v))
+    out = A.flash_attention(qq, kk, vv, causal=causal)
+    return [out.detach()] + list(torch.autograd.grad(out, (qq, kk, vv), g))
+
+
+def seq_compare(what, got, want):
+    errs = {}
+    for name, a, w in zip(("out", "dq", "dk", "dv"), got, want):
+        atol, rtol = (SEQ_FWD_ATOL, SEQ_FWD_RTOL) if name == "out" else \
+            (SEQ_GRAD_ATOL, SEQ_GRAD_RTOL)
+        errs[name] = check_close(f"{what} {name}", a, w, atol, rtol)
+    return errs
+
+
+def sequence_rank(rank, world, seed):
+    """One rank of the sequence phase, in a process of its own on card 0
+    (``run_ranks`` has joined it to the group): ring attention
+    (``make_ring_attention_fn``, causal and not) over the whole [B, T, H, D]
+    and Ulysses on the rank's slice, forward and backward, each held
+    against whole-T ``flash_attention`` on the card; the flash launches of
+    each, the ring's time, and one K/V hop and one block timed. Returns its
+    row."""
+    import torch.distributed as dist
+
+    from deeplearning4j_tpu_torch.ops import attention as A
+    from deeplearning4j_tpu_torch.parallel import (MeshSpec, make_mesh, make_ring_attention_fn,
+                                                   ulysses_self_attention)
+    from deeplearning4j_tpu_torch.parallel import sequence as S
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_mesh(MeshSpec(data=1, seq=world))
+    group = mesh.group("seq")
+    rs = np.random.RandomState(seed)
+    shape = (SEQ_B, SEQ_T, LM_HEADS, LM_WIDTH // LM_HEADS)
+    q, k, v, g = (torch.from_numpy(rs.randn(*shape).astype(np.float32)).cuda()
+                  for _ in range(4))
+    t_local = SEQ_T // world
+    sl = slice(rank * t_local, (rank + 1) * t_local)
+    row = {"rank": rank, "backend": dist.get_backend(group), "T_local": t_local}
+    planned = A.plan((SEQ_B, t_local, LM_HEADS, LM_WIDTH // LM_HEADS), torch.float32).variant
+    # warm-up: the first collectives open the ranks' connections
+    qq, kk, vv = (x.clone().requires_grad_(True) for x in (q, k, v))
+    torch.autograd.grad(make_ring_attention_fn(mesh)(qq, kk, vv), (qq, kk, vv), g)
+    ql, kl, vl = (x[:, sl].clone().requires_grad_(True) for x in (q, k, v))
+    torch.autograd.grad(ulysses_self_attention(ql, kl, vl, group=group), (ql, kl, vl),
+                        g[:, sl].contiguous())
+    for causal in (False, True):
+        fn = make_ring_attention_fn(mesh, causal=causal)
+        qq, kk, vv = (x.clone().requires_grad_(True) for x in (q, k, v))
+        torch.cuda.synchronize()
+        dist.barrier()
+        A.reset_launches()
+        t0 = time.perf_counter()
+        out = fn(qq, kk, vv)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        grads = torch.autograd.grad(out, (qq, kk, vv), g)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        launches, by_variant = A.launches, {n: c for n, c in A.launches_by_variant.items()
+                                            if c}
+        if launches != world or by_variant != {planned: world}:
+            raise AssertionError(f"rank {rank} ring causal={causal}: flash launches "
+                                 f"{by_variant}, expected {world} on {planned}")
+        errs = seq_compare(f"rank {rank} ring causal={causal}", [out.detach(), *grads],
+                           seq_reference(A, q, k, v, g, causal))
+        row[f"ring_causal{int(causal)}"] = {"flash_launches": launches, "max_abs_err": errs,
+                                            "fwd_ms": 1e3 * (t1 - t0),
+                                            "fwd_bwd_ms": 1e3 * (t2 - t0)}
+        del qq, kk, vv, out, grads
+    ql, kl, vl = (x[:, sl].clone().requires_grad_(True) for x in (q, k, v))
+    torch.cuda.synchronize()
+    dist.barrier()
+    A.reset_launches()
+    t0 = time.perf_counter()
+    out = ulysses_self_attention(ql, kl, vl, group=group)
+    grads = torch.autograd.grad(out, (ql, kl, vl), g[:, sl].contiguous())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = A.launches
+    if launches != 1:
+        raise AssertionError(f"rank {rank} Ulysses: {launches} flash launches, expected 1")
+    ref = seq_reference(A, q, k, v, g, False)
+    errs = seq_compare(f"rank {rank} Ulysses", [out.detach(), *grads],
+                       [x[:, sl] for x in ref])
+    row["ulysses"] = {"flash_launches": launches, "max_abs_err": errs,
+                      "fwd_bwd_ms": 1e3 * wall}
+    del ql, kl, vl, out, grads, ref
+    # one K/V hop through the host and one flash block, timed on every rank at once
+    kv = torch.stack((k[:, sl], v[:, sl]))
+    perm = [(j, (j + 1) % world) for j in range(world)]
+    hops = []
+    for _ in range(5):
+        dist.barrier()
+        t0 = time.perf_counter()
+        S.ppermute(kv, perm, group)
+        torch.cuda.synchronize()
+        hops.append(1e3 * (time.perf_counter() - t0))
+    dist.barrier()
+    qb, kb, vb = (x[:, sl].contiguous() for x in (q, k, v))
+    block_ms = time_ms(lambda: A.flash_attention_block(qb, kb, vb, False, None),
+                       iters=10, reps=5)
+    row.update({"hop_ms": statistics.median(hops), "hop_mb": kv.numel() * 4 / 1e6,
+                "block_ms": block_ms})
+    dist.barrier()
+    return row
+
+
+def nccl_probe_rank(rank, world):
+    """One of two ranks on card 0 over NCCL: one all-reduce. NCCL refuses
+    two ranks on one GPU; its error (``DistBackendError``) is what the rank
+    returns, or that the all-reduce ran."""
+    import torch.distributed as dist
+
+    x = torch.ones(1, device="cuda")
+    try:
+        dist.all_reduce(x)
+        torch.cuda.synchronize()
+        return {"accepted": True, "sum": float(x)}
+    except dist.DistBackendError as e:
+        return {"accepted": False, "error": " ".join(str(e).split())[:400]}
+
+
+def seq_degenerate(A, rs):
+    """The ring at world size 1 over NCCL in this process: one diagonal
+    block, equal to ``flash_attention``."""
+    import torch.distributed as dist
+
+    from deeplearning4j_tpu_torch.parallel import MeshSpec, make_mesh, make_ring_attention_fn
+
+    work = WORK / "degenerate"
+    work.mkdir(parents=True)
+    dist.init_process_group("nccl", init_method=f"file://{work / 'rendezvous'}", rank=0,
+                            world_size=1)
+    try:
+        shape = (SEQ_B, SEQ_T // SEQ_RANKS, LM_HEADS, LM_WIDTH // LM_HEADS)
+        q, k, v, g = (torch.from_numpy(rs.randn(*shape).astype(np.float32)).cuda()
+                      for _ in range(4))
+        fn = make_ring_attention_fn(make_mesh(MeshSpec(seq=1)), causal=True)
+        qq, kk, vv = (x.clone().requires_grad_(True) for x in (q, k, v))
+        out = fn(qq, kk, vv)
+        got = [out.detach()] + list(torch.autograd.grad(out, (qq, kk, vv), g))
+        errs = seq_compare("world-1 ring", got, seq_reference(A, q, k, v, g, True))
+        return {"backend": dist.get_backend(), "world": dist.get_world_size(), "shape": shape,
+                "max_abs_err": errs}
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_sequence(A, seed):
+    from deeplearning4j_tpu_torch.parallel.launch import run_ranks
+
+    t0 = time.perf_counter()
+    rs = np.random.RandomState(seed + 5)
+    with library_precision():
+        cases = seq_block_checks(A, rs)
+        timing, crossover = seq_block_timing(A, rs)
+    emit("sequence.block", cases=len(cases), cases_detail=cases, f32_atol=FLASH_F32_ATOL,
+         lse_atol=FLASH_LSE_ATOL, lse_rtol=FLASH_LSE_RTOL, grad_atol=FLASH_GRAD_ATOL,
+         grad_rtol=FLASH_GRAD_RTOL, bf16_tol=FLASH_BF16_TOL,
+         max_abs_err_f32={k: max(c[k] for c in cases if c["dtype"] == "float32")
+                          for k in ("out", "lse", "dq", "dk", "dv")},
+         card=card_line())
+    # NCCL is expected to refuse two ranks on one GPU: a rank that reports
+    # the refusal, fails or hangs leaves the ranks below on gloo
+    probe = run_ranks(nccl_probe_rank, 2, WORK / "nccl_probe", backend="nccl", device=0,
+                      timeout=NCCL_PROBE_TIMEOUT_S, pg_timeout_s=60, required=False)
+    backend = "nccl" if all(r and r["accepted"] for r in probe) else "gloo"
+    emit("sequence.nccl_probe", ranks=2, device=0, results=probe, backend_used=backend)
+    ranks = run_ranks(sequence_rank, SEQ_RANKS, WORK / "ranks", backend=backend, device=0,
+                      timeout=SEQ_TIMEOUT_S, seed=seed + 6)
+    emit("sequence.ranks", world=SEQ_RANKS, backend=backend, B=SEQ_B, T=SEQ_T,
+         H=LM_HEADS, D=LM_WIDTH // LM_HEADS, dtype="float32", ranks=ranks,
+         fwd_rtol=SEQ_FWD_RTOL, fwd_atol=SEQ_FWD_ATOL, grad_rtol=SEQ_GRAD_RTOL,
+         grad_atol=SEQ_GRAD_ATOL, card=card_line())
+    degenerate = seq_degenerate(A, rs)
+    emit("sequence.degenerate", **degenerate, card=card_line())
+    launches = sum(r[key]["flash_launches"] for r in ranks
+                   for key in ("ring_causal0", "ring_causal1", "ulysses"))
+    emit("sequence", seconds=time.perf_counter() - t0, flash_launches_in_ranks=launches,
+         card=card_line())
+    return {"cases": cases, "timing": timing, "crossover": crossover, "backend": backend,
+            "ranks": ranks, "flash_launches": launches,
+            "max_abs_err": max(max(c[k] for k in ("out", "lse", "dq", "dk", "dv"))
+                               for c in cases if c["dtype"] == "float32")}
+
+
 def cuobjdump():
     """The toolkit's cuobjdump, or the copy Triton's package carries; None
     where neither exists."""
@@ -4996,7 +5816,7 @@ def build_all(libs):
 
 
 PHASES = ("kernels", "flash", "train", "conv", "resnet", "serve", "charnn", "zoo", "finetune",
-          "fused", "word2vec", "mnist", "modelimport")
+          "fused", "word2vec", "mnist", "modelimport", "moe", "sequence")
 
 
 def main(argv=None):
@@ -5089,6 +5909,15 @@ def main(argv=None):
             imported = phase_modelimport(L, C, args.seed)
         finally:
             shutil.rmtree(WORK, ignore_errors=True)
+    if "moe" in only:
+        moe_out = phase_moe(A, args.seed)
+    if "sequence" in only:
+        shutil.rmtree(WORK, ignore_errors=True)
+        WORK.mkdir()
+        try:
+            seq_out = phase_sequence(A, args.seed)
+        finally:
+            shutil.rmtree(WORK, ignore_errors=True)
     if only != set(PHASES):
         return
 
@@ -5124,7 +5953,21 @@ def main(argv=None):
         "name": "flash_attn", "route": "cuda",
         "source": "deeplearning4j_tpu_torch/csrc/flash_attn.cu",
         "replaces": "deeplearning4j_tpu/ops/attention_pallas.py:175",
-        "launches": train_rows[0]["flash_launches"], "max_abs_err": flash_err,
+        # launches over the train phase's 10 timed f32 steps, the moe phase
+        # (its timed steps under both policies, its K=4 replays, its served
+        # forwards) and the sequence phase's ranks (ring and Ulysses)
+        "launches": train_rows[0]["flash_launches"] + moe_out["flash_launches"]
+        + seq_out["flash_launches"],
+        "launches_train": train_rows[0]["flash_launches"],
+        "launches_moe": {"train": {p: r["flash_launches"] for p, r in moe_out["train"].items()},
+                         "fused": moe_out["fused"]["flash_launches"],
+                         "serve": moe_out["serve"]["flash_launches"]},
+        "launches_sequence": seq_out["flash_launches"], "max_abs_err": flash_err,
+        # flash_attention_block at one ring block's shape (B=2, T=4096, f32)
+        "block_entry": {k: seq_out["timing"][torch.float32][k]
+                        for k in ("ms", "device_ms", "plain_ms", "library_ms", "bound_ms",
+                                  "bound_by", "bound_3xtf32_ms", "fwd_bwd_ms")},
+        "block_entry_max_abs_err": seq_out["max_abs_err"],
         "ms": fpath["ms"], "plain_ms": fpath["plain_ms"], "bound_ms": fpath["bound_ms"],
         "bound_by": fpath["bound_by"], "library_ms": fpath["library_ms"],
         "device_ms": fpath["device_ms"], "library_device_ms": fpath["library_device_ms"],

@@ -17,6 +17,7 @@ from deeplearning4j_tpu_torch.nn.layers.rnn import (  # noqa: F401
     RnnOutputLayer, SimpleRnn)
 from deeplearning4j_tpu_torch.nn.layers.attention import (  # noqa: F401
     LayerNormalization, MultiHeadAttention, TransformerBlock)
+from deeplearning4j_tpu_torch.nn.layers.moe import MoETransformerBlock  # noqa: F401
 from deeplearning4j_tpu_torch.nn.layers.vae import (  # noqa: F401
     BernoulliReconstruction, CompositeReconstruction, ExponentialReconstruction,
     GaussianReconstruction, LossWrapperReconstruction, VariationalAutoencoder)

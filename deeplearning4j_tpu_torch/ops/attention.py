@@ -31,12 +31,15 @@ input dtype with f32 accumulation, fully masked rows emitting 0.
   ``tf32_round`` and ``matmul_3xtf32`` emulate the split on the CPU, for
   the tests that hold its accuracy.
 - ``flash_attention`` is the differentiable entry point (one
-  ``torch.autograd.Function``): its forward is ``flash_attention_fwd`` and
-  keeps ``lse``; its backward is the port of the JAX package's
+  ``torch.autograd.Function``, whose ``out`` it returns): its forward is
+  ``flash_attention_fwd`` and keeps ``lse``; its backward is the port of the JAX package's
   ``_bwd_core``, which XLA compiles there (it is not a Pallas kernel), so
   here it is PyTorch over blocks of ``BLOCK_K`` keys, recomputing the
   probabilities from ``lse``: memory O(B·H·T·Bk), never O(T²). The mask
   gets no gradient.
+- ``flash_attention_block`` is the block entry of ring attention
+  (``parallel/sequence.py``): the same Function, returning ``lse`` too as
+  a second differentiable output whose cotangent the backward takes.
 
 What bounds the kernel on an H100, and its design, are in the CUDA
 source's header.
@@ -256,15 +259,25 @@ def matmul_3xtf32(a, b):
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
+#: the dtypes the kernel takes
+DTYPES = (torch.float32, torch.bfloat16)
+
+
+def supported(shape, dtype):
+    """Whether the kernel takes self-attention over [B, T, H, D] ``shape``
+    in ``dtype``: float32 or bfloat16, 1 <= D <= 128, B*H <= 65535."""
+    b, t, h, d = shape
+    return dtype in DTYPES and 1 <= d <= 128 and min(b, t, h) >= 1 and b * h <= 65535
+
+
 def _check(q, k, v, mask):
-    if q.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"flash_attn kernel takes float32 or bfloat16, got {q.dtype}")
     if q.dim() != 4:
         raise ValueError(f"q must be [B, T, H, D], got {tuple(q.shape)}")
+    if not supported(tuple(q.shape), q.dtype):
+        raise (ValueError if q.dtype in DTYPES else TypeError)(
+            f"flash_attn kernel takes float32 or bfloat16 with 1 <= D <= 128 and "
+            f"B*H <= 65535, got {q.dtype} {tuple(q.shape)}")
     b, t, h, d = q.shape
-    if d > 128 or min(b, t, h, d) < 1 or b * h > 65535:
-        raise ValueError(f"flash_attn kernel takes 1 <= D <= 128 and B*H <= 65535, "
-                         f"got {tuple(q.shape)}")
     for name, x in (("k", k), ("v", v)):
         if x.shape != q.shape:
             raise ValueError(f"{name} must match q's shape {tuple(q.shape)} "
@@ -317,13 +330,16 @@ def _mm(a, b, dtype):
     return torch.matmul(a.to(dtype).float(), b.to(dtype).float())
 
 
-def flash_attention_bwd(q, k, v, mask, out, lse, g, *, causal, scale, block_k=BLOCK_K):
+def flash_attention_bwd(q, k, v, mask, out, lse, g, *, causal, scale, block_k=BLOCK_K,
+                        g_lse=None):
     """dq, dk, dv for ``flash_attention``: the port of ``_bwd_core``. Key
     blocks of ``block_k`` recompute P = exp(S - lse) one [B,H,T,Bk] tile at
     a time; invalid entries are set to exactly 0 before use (on a fully
     masked row lse is the sentinel and exp(S - lse) would be ~1). Under
     causal masking a key block's rows above its first key contribute
-    nothing, so they are skipped. All [B,T,H,D] in and out."""
+    nothing, so they are skipped. All [B,T,H,D] in and out. ``g_lse``
+    ([B,H,T], optional) is a cotangent on the lse output: d(lse)/d(s) is
+    the softmax row, so it adds ``p * g_lse`` to ds (``flash_attention_block``)."""
     dt = q.dtype
     b, t, h, d = q.shape
     qh, kh, vh, oh = (x.permute(0, 2, 1, 3) for x in (q, k, v, out))
@@ -346,26 +362,45 @@ def flash_attention_bwd(q, k, v, mask, out, lse, g, *, causal, scale, block_k=BL
             dv[:, :, c0:c1] = _mm(p.transpose(-1, -2), g_i, dt)
             dp = _mm(g_i, v_j.transpose(-1, -2), dt)
             ds = p * (dp - delta[:, :, r0:])
+            if g_lse is not None:
+                ds = ds + p * g_lse[:, :, r0:, None].float()
             dq[:, :, r0:] += _mm(ds, k_j, dt) * scale
             dk[:, :, c0:c1] = _mm(ds.transpose(-1, -2), q_i, dt) * scale
     return tuple(x.permute(0, 2, 1, 3).to(dt) for x in (dq, dk, dv))
 
 
 class _FlashAttention(torch.autograd.Function):
+    """(out, lse), both differentiable; an output that takes no part in the
+    loss passes None to the backward (grads are not materialised), so
+    ``flash_attention``'s backward never sees an lse cotangent."""
 
     @staticmethod
     def forward(ctx, q, k, v, mask, causal, scale):
+        ctx.set_materialize_grads(False)
         out, lse = flash_attention_fwd(q, k, v, mask=mask, causal=causal, scale=scale)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.mask, ctx.causal, ctx.scale = mask, causal, scale
-        return out
+        return out, lse
 
     @staticmethod
-    def backward(ctx, g):
+    def backward(ctx, g_out, g_lse):
         q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(q, k, v, ctx.mask, out, lse, g,
-                                         causal=ctx.causal, scale=ctx.scale)
+        if g_out is None:
+            g_out = torch.zeros_like(out)
+        dq, dk, dv = flash_attention_bwd(q, k, v, ctx.mask, out, lse, g_out, causal=ctx.causal,
+                                         scale=ctx.scale, g_lse=g_lse)
         return dq, dk, dv, None, None, None
+
+
+def flash_attention_block(q, k, v, causal, scale):
+    """``(out [B,T,H,D], lse [B,H,T] f32)`` of one ring-attention block pair
+    (the JAX package's ``ops.attention_pallas.flash_attention_block``):
+    both outputs are differentiable, so a caller may combine blocks by
+    log-sum-exp. The forward is ``flash_attention_fwd`` (the kernel on CUDA
+    tensors, the plain version on CPU tensors); the backward is
+    ``flash_attention_bwd`` with the lse cotangent. A fully masked row's
+    lse is the ``NEG_INF`` sentinel, not -inf."""
+    return _FlashAttention.apply(q, k, v, None, bool(causal), _scale(scale, q.shape[-1]))
 
 
 def flash_attention(q, k, v, *, mask=None, causal=False, scale=None):
@@ -375,4 +410,4 @@ def flash_attention(q, k, v, *, mask=None, causal=False, scale=None):
     gradient. Fully masked query rows emit 0."""
     if mask is not None:
         mask = mask.detach()
-    return _FlashAttention.apply(q, k, v, mask, bool(causal), _scale(scale, q.shape[-1]))
+    return _FlashAttention.apply(q, k, v, mask, bool(causal), _scale(scale, q.shape[-1]))[0]

@@ -93,12 +93,13 @@ def test_schedule_configs_round_trip(name):
 
 
 def test_unported_type_raises_a_clear_error():
-    # the mixture-of-experts block waits for ROADMAP queue 1 item 5
-    conf = JNetConf().list(JL.MoETransformerBlock(n_out=8, n_heads=2),
-                           JL.RnnOutputLayer(n_out=2),
-                           input_type=JIn.RecurrentType(8, 4))
+    # every config type of the JAX package is registered in the port now: a
+    # type that no package registers stands in for one that is not ported
+    conf = JNetConf().list(JL.DenseLayer(n_out=2), input_type=JIn.FeedForwardType(3))
+    j_json = conf.to_json().replace('"@type": "DenseLayer"', '"@type": "NoSuchLayer"')
+    assert "NoSuchLayer" in j_json
     with pytest.raises(KeyError, match="not ported"):
-        TConf.from_json(conf.to_json())
+        TConf.from_json(j_json)
 
 
 def _rest_of_core_conf(L, I, NetConf, U):
