@@ -307,6 +307,34 @@ nonzero; nothing is caught):
             time, one K/V hop and one block; last the ring at world size 1
             on NCCL against ``flash_attention``. The ranks' times share one
             card and hop through the host: they are not a scaling result.
+20. parallel ``parallel/`` data parallelism. (a) world 1 over NCCL in this
+            process: ``ParallelTrainer`` on the fused ResNet50 (batch 64,
+            224x224) in the replicated, zero1 and fsdp layouts under each
+            policy, 2 warm-up and 10 timed steps with 36 + 16 conv
+            launches a step on the planned variant and the loss falling;
+            each f32 layout's first step against ``ComputationGraph.fit``'s
+            step from the same weights (bit-equal, or within the noise of
+            fit's step on the batch permuted); then ``fit(steps_per_dispatch
+            =4)`` through the trainer: one capture, the conv launches from
+            replays. ``ParallelInference`` serves a burst to the trained
+            net (every answer against ``output``) and a hot swap answers
+            with the new weights; the LM's fsdp and fsdp_stream steps at
+            world 1 time the streamed step's recompute alone. (b)-(d) four ranks on the one card over
+            gloo (host-staged collectives), each arming
+            ``faulthandler.dump_traceback_later``: (b) one step a layout of
+            the same ResNet50 on the same global batch of 64 (16 a rank)
+            against (a)'s world-1 step within its f32 noise, the BN running
+            statistics equal on every rank, each rank's parameter and
+            updater-state bytes and the collectives' ms; (c) the
+            transformer LM (vocab 8192, 6 x 512, T 4096, global batch 4, 1
+            a rank) under fsdp and fsdp_stream: 6 flash launches a step a
+            rank under fsdp, 12 under fsdp_stream (the recompute), the step
+            against the world-1 step, each rank's peak memory; (d)
+            ``SharedTrainingMaster`` on the fused ResNet50 (16 a worker):
+            3 exact steps, the first against the per-worker-statistics
+            step computed here, then 3 threshold steps with their density
+            and tau, and ``ParameterAveragingTrainingMaster`` on LeNet
+            (431,080 params) with MNIST-shaped data from the seed.
 
 Then a ``kernels`` line (every kernel of the paths with its launches on
 its path, error, times and bound), the card's name and power limit, and
@@ -585,6 +613,19 @@ MOE_K, MOE_K_DISPATCHES, MOE_SERVE_REQUESTS = 4, 2, 8
 SEQ_RANKS, SEQ_B, SEQ_T, SEQ_BLOCK_T = 4, 2, 16_384, (256, 1024, 4096)
 SEQ_FWD_RTOL, SEQ_FWD_ATOL, SEQ_GRAD_RTOL, SEQ_GRAD_ATOL = 2e-4, 2e-5, 1e-3, 1e-4
 SEQ_TIMEOUT_S, NCCL_PROBE_TIMEOUT_S = 300, 120
+# the parallel phase: (a) world 1 over NCCL, (b)-(d) DP_RANKS ranks on the
+# one card over gloo; a rank that hangs dumps its stacks and exits after
+# DP_HANG_S seconds
+DP_LAYOUTS, DP_LM_LAYOUTS, DP_RANKS, DP_K = ("replicated", "zero1", "fsdp"), \
+    ("fsdp", "fsdp_stream"), 4, 4
+DP_SHARED_STEPS, DP_THRESHOLD, DP_PA_FREQ, DP_PA_BATCH, DP_PA_SPLITS = 3, 1e-3, 2, 32, 2
+DP_SERVE_REQUESTS, DP_SERVE_BATCH, DP_SERVE_ATOL = 32, 16, 1e-4
+DP_HANG_S, DP_TIMEOUT_S = 420, 480
+# a step of another summation order (world 4: per-rank partial statistics,
+# the mean of four means) held to 3x the step's permutation noise, plus a
+# few Adam first-step sign flips of near-zero gradients (the MNIST phase's
+# allowance)
+DP_NOISE_FACTOR, DP_SIGN_FLIPS = 3.0, 8
 
 
 def emit(phase, **fields):
@@ -5766,6 +5807,448 @@ def phase_sequence(A, seed):
                                for c in cases if c["dtype"] == "float32")}
 
 
+# ---------------------------------------------------------------------------
+# parallel: ParallelTrainer, the TrainingMasters and ParallelInference
+# ---------------------------------------------------------------------------
+
+def dp_trainer(net, layout, mesh):
+    from deeplearning4j_tpu_torch.parallel import ParallelTrainer
+
+    return ParallelTrainer(net, mesh, shard_optimizer_state=layout != "replicated",
+                           shard_params={"fsdp": "fsdp", "fsdp_stream": "fsdp_stream"}.get(layout))
+
+
+def dp_snapshot(net, loss):
+    """(loss, {path: parameter}, {path: state}) of a net, on the host."""
+    from deeplearning4j_tpu_torch.utils.trees import flatten_tree
+
+    return (float(loss), {k: v.detach().float().cpu() for k, v in flatten_tree(net.params).items()},
+            {k: v.detach().float().cpu() for k, v in flatten_tree(net.state).items()})
+
+
+def dp_diff(a, b):
+    """How far snapshot ``a`` is from ``b``: relative loss difference, the
+    state's max |diff| relative to each tensor's magnitude (at least 1),
+    the parameters' max |diff| and the parameter elements beyond
+    RN_PARAM_ATOL, and whether all are equal to the bit."""
+    return {"loss_rel": abs(a[0] - b[0]) / abs(b[0]),
+            "state_max_rel": max([((a[2][k] - b[2][k]).abs().max() /
+                                   b[2][k].abs().max().clamp_min(1.0)).item() for k in b[2]]
+                                 or [0.0]),
+            "param_max_abs": max((a[1][k] - b[1][k]).abs().max().item() for k in b[1]),
+            "params_beyond_atol": sum(int(((a[1][k] - b[1][k]).abs() > RN_PARAM_ATOL).sum())
+                                      for k in b[1]),
+            "bit_equal": a[0] == b[0] and all(torch.equal(a[1][k], b[1][k]) for k in b[1])
+            and all(torch.equal(a[2][k], b[2][k]) for k in b[2])}
+
+
+def dp_hold(what, kp, qp, factor=DP_NOISE_FACTOR, loss_rtol=RN_LOSS_RTOL):
+    """Hold ``kp`` (a dp_diff from the reference) within ``factor`` x the
+    noise ``qp`` (the reference's step on the batch permuted): loss within
+    ``loss_rtol``, BN state within RN_STATE_ATOL of each tensor's
+    magnitude, parameters beyond RN_PARAM_ATOL at most ``factor`` x the
+    noise's count plus DP_SIGN_FLIPS. Bit-equal passes."""
+    if kp["bit_equal"]:
+        return {"diff": kp, "noise": qp}
+    if not kp["loss_rel"] <= loss_rtol:
+        raise AssertionError(f"{what}: loss differs by {kp['loss_rel']} relative")
+    if not kp["state_max_rel"] <= RN_STATE_ATOL:
+        raise AssertionError(f"{what}: BN state differs by {kp['state_max_rel']} relative")
+    if not kp["params_beyond_atol"] <= factor * qp["params_beyond_atol"] + DP_SIGN_FLIPS:
+        raise AssertionError(f"{what}: {kp['params_beyond_atol']} parameters beyond "
+                             f"{RN_PARAM_ATOL}, against {qp['params_beyond_atol']} from noise")
+    return {"diff": kp, "noise": qp}
+
+
+def dp_fit_step(seed, x, y, make=None):
+    """The first ``fit`` step of a fresh net from ``seed``: its snapshot."""
+    net = (make or make_resnet)(seed)
+    net.fit(x, y, batch_size=x.shape[0])
+    out = dp_snapshot(net, net.score_history[0])
+    del net
+    return out
+
+
+def dp_world1(C, seed, x, y):
+    """(a): the trainer at world 1 over NCCL in this process (see the
+    module docstring). Returns the rows and the timed launches."""
+    import torch.distributed as dist
+
+    from deeplearning4j_tpu_torch.nn import fused
+    from deeplearning4j_tpu_torch.parallel import make_mesh
+    from deeplearning4j_tpu_torch.utils import dtypes
+
+    work = WORK / "dp_nccl"
+    work.mkdir(parents=True)
+    dist.init_process_group("nccl", init_method=f"file://{work / 'rendezvous'}", rank=0,
+                            world_size=1)
+    rows, launched = [], {n: 0 for n in C.launches}
+    try:
+        mesh = make_mesh()
+        x0, y0 = x[:RN_BATCH], y[:RN_BATCH]
+        perm = torch.randperm(RN_BATCH, generator=torch.Generator().manual_seed(seed)).cuda()
+        for policy in ("f32", "bf16"):
+            (dtypes.bf16_policy if policy == "bf16" else dtypes.f32_policy)()
+            if policy == "f32":
+                ref = dp_fit_step(seed, x0, y0)
+                noise = dp_diff(dp_fit_step(seed, x0[perm], y0[perm]), ref)
+            for layout in DP_LAYOUTS:
+                net = make_resnet(seed)
+                tr = dp_trainer(net, layout, mesh).adopt_net_state()
+                first = tr.step(x0, y0)
+                check = None
+                if policy == "f32":
+                    tr.sync_to_net()
+                    check = dp_hold(f"world-1 {layout} step vs fit",
+                                    dp_diff(dp_snapshot(net, first), ref), noise)
+                tr.step(x[RN_BATCH:2 * RN_BATCH], y[RN_BATCH:2 * RN_BATCH])
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                C.reset_launches()
+                t0 = time.perf_counter()
+                losses = [tr.step(x[i * RN_BATCH:(i + 1) * RN_BATCH],
+                                  y[i * RN_BATCH:(i + 1) * RN_BATCH])
+                          for i in range(2, 2 + RN_TIMED_STEPS)]
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                losses = [float(first)] + [float(v) for v in losses]
+                want = {"conv_mm_stats": 36 * RN_TIMED_STEPS, "conv3x3_stats": 16 * RN_TIMED_STEPS}
+                hopper = "bf16_wgmma" if policy == "bf16" else "f32_pipelined"
+                if dict(C.launches) != want or C.launches_by_variant[hopper] != sum(want.values()):
+                    raise AssertionError(f"{layout}/{policy}: conv launches {C.launches} by "
+                                         f"variant {C.launches_by_variant}, expected {want} "
+                                         f"on {hopper}")
+                if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+                    raise AssertionError(f"{layout}/{policy}: loss did not fall: {losses}")
+                for n in launched:
+                    launched[n] += C.launches[n]
+                row = {"layout": layout, "policy": policy, "world": 1, "backend": "nccl",
+                       "steps": RN_TIMED_STEPS, "step_ms": 1e3 * wall / RN_TIMED_STEPS,
+                       "images_per_s": RN_BATCH * RN_TIMED_STEPS / wall,
+                       "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                       "conv_launches": dict(C.launches), "loss_first": losses[0],
+                       "loss_last": losses[-1], "step_check": check, **tr.tree_bytes()}
+                emit("parallel.world1", **row, card=card_line())
+                rows.append(row)
+                del tr, net
+                torch.cuda.empty_cache()
+        dtypes.f32_policy()
+        # K=4 through the trainer: one CUDA graph over the steps and their
+        # collectives, the conv launches from its replays
+        net = make_resnet(seed)
+        tr = dp_trainer(net, "zero1", mesh).adopt_net_state()
+        fused.reset_replay_launches()
+        C.reset_launches()
+        n = 2 * DP_K * RN_BATCH
+        tr.fit(x[:n], y[:n], batch_size=RN_BATCH, steps_per_dispatch=DP_K)
+        torch.cuda.synchronize()
+        eng = tr._steps_fns_fused[DP_K]
+        replayed = {k: fused.replay_launches.get(f"conv_stats.{k}", 0) for k in C.launches}
+        want = {"conv_mm_stats": 36 * 2 * DP_K, "conv3x3_stats": 16 * 2 * DP_K}
+        # the capture's eager warm-up runs (every step a no-op) launch too
+        eager = {k: v * fused.WARMUP_RUNS // 2 for k, v in want.items()}
+        if eng.captures != 1 or eng.replays != 2 or replayed != want or \
+                dict(C.launches) != {k: want[k] + eager[k] for k in want}:
+            raise AssertionError(f"K={DP_K}: captures {eng.captures}, replays {eng.replays}, "
+                                 f"replayed launches {replayed}, counted {C.launches}, "
+                                 f"expected {want} from replays and {eager} eager")
+        losses = [float(v) for v in tr.score_history]
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"K={DP_K}: losses {losses}")
+        for k in launched:
+            launched[k] += C.launches[k]
+        emit("parallel.world1_fused", k=DP_K, layout="zero1", dispatches=eng.replays,
+             captures=eng.captures, replayed_launches=replayed, warmup_launches=eager,
+             losses=losses, card=card_line())
+        serve = dp_serve(seed, tr.sync_to_net(), x)
+        del tr, net
+        torch.cuda.empty_cache()
+        dp_lm_world1(mesh, seed)
+    finally:
+        dtypes.f32_policy()
+        dist.destroy_process_group()
+    return rows, launched, serve, ref, noise
+
+
+def dp_lm_world1(mesh, seed):
+    """The LM's fsdp and fsdp_stream steps at world 1 (every leaf whole, so
+    no collective moves data): what the streamed step's recompute costs
+    without ranks sharing the card. One warm-up and one timed step each."""
+    lx, ly = lm_data(np.random.RandomState(seed + 7), LM_BATCH)
+    rows = {}
+    for layout in DP_LM_LAYOUTS:
+        net = make_lm(seed)
+        tr = dp_trainer(net, layout, mesh).adopt_net_state()
+        tr.step(lx, ly)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        loss = float(tr.step(lx, ly))
+        torch.cuda.synchronize()
+        rows[layout] = {"step_ms": 1e3 * (time.perf_counter() - t0), "loss": loss,
+                        "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        del tr, net
+        torch.cuda.empty_cache()
+    emit("parallel.lm_world1", batch=LM_BATCH, T=LM_SEQ, **rows, card=card_line())
+    return rows
+
+
+def dp_serve(seed, net, x):
+    """ParallelInference over the trained net: a burst of single images
+    against ``output`` on the same rows, then a hot swap to another net
+    whose answers must be its own."""
+    from deeplearning4j_tpu_torch.parallel import ParallelInference
+
+    imgs = x[:DP_SERVE_REQUESTS]
+    pi = ParallelInference(net, max_batch_size=DP_SERVE_BATCH).start()
+    try:
+        futures = [pi.submit(imgs[i].cpu().numpy()) for i in range(DP_SERVE_REQUESTS)]
+        got = np.stack([f.get(timeout=120) for f in futures])
+        want = np.concatenate([net.output(imgs[i:i + DP_SERVE_BATCH]).cpu().numpy()
+                               for i in range(0, DP_SERVE_REQUESTS, DP_SERVE_BATCH)])
+        err = float(np.abs(got - want).max())
+        other = make_resnet(seed + 1)
+        pi.update_model(other)
+        swapped = np.stack([pi.submit(imgs[i].cpu().numpy()).get(timeout=120)
+                            for i in range(DP_SERVE_BATCH)])
+        want2 = other.output(imgs[:DP_SERVE_BATCH]).cpu().numpy()
+        err2 = float(np.abs(swapped - want2).max())
+        moved = float(np.abs(swapped - got[:DP_SERVE_BATCH]).max())
+    finally:
+        pi.stop()
+    if not (err <= DP_SERVE_ATOL and err2 <= DP_SERVE_ATOL and moved > DP_SERVE_ATOL):
+        raise AssertionError(f"ParallelInference: answers off output by {err}, after the "
+                             f"swap by {err2}, moved by {moved}")
+    row = {"requests": DP_SERVE_REQUESTS, "max_batch": DP_SERVE_BATCH, "max_abs_err": err,
+           "swap_max_abs_err": err2, "swap_moved": moved, "atol": DP_SERVE_ATOL}
+    emit("parallel.inference", **row, card=card_line())
+    return row
+
+
+def dp_per_worker_step(seed, x, y, perm=None):
+    """The per-worker-statistics step the exact SharedTrainingMaster takes:
+    each worker's gradient on its own DP_RANKS-th of the batch with its own
+    batch statistics, the gradients averaged, one updater step from fresh
+    state, the BN state the mean of the workers'. ``perm`` permutes the
+    rows within each worker (the step's noise)."""
+    net = make_resnet(seed)
+    b = x.shape[0] // DP_RANKS
+    grads, states, losses = [], [], []
+    for w in range(DP_RANKS):
+        rows = slice(w * b, (w + 1) * b)
+        xw, yw = x[rows], y[rows]
+        if perm is not None:
+            xw, yw = xw[perm], yw[perm]
+        loss, st, g = net.compute_gradients(net.params, net.state, xw, yw)
+        grads.append(g)
+        states.append(st)
+        losses.append(float(loss))
+    from deeplearning4j_tpu_torch.utils.trees import tree_leaves, tree_like
+    mean = tree_like(grads[0], iter([sum(ls) / DP_RANKS for ls in
+                                     zip(*[list(tree_leaves(g)) for g in grads])]))
+    net.state = tree_like(states[0], iter([sum(ls) / DP_RANKS for ls in
+                                           zip(*[list(tree_leaves(s)) for s in states])]))
+    net.opt_state = net.conf.updater.init(net.params)
+    net.apply_update(net.params, net.opt_state, mean, 0)
+    out = dp_snapshot(net, sum(losses) / DP_RANKS)
+    del net
+    return out
+
+
+def dp_rank(rank, world, seed, refs):
+    """One rank of (b)-(d), on card 0 over gloo (see the module docstring).
+    Returns its row."""
+    import faulthandler
+
+    import torch.distributed as dist
+
+    from deeplearning4j_tpu_torch.ops import attention as A
+    from deeplearning4j_tpu_torch.ops import conv_stats as C
+    from deeplearning4j_tpu_torch.parallel import (ParameterAveragingTrainingMaster,
+                                                   SharedTrainingMaster, make_mesh)
+    from deeplearning4j_tpu_torch.utils.trees import flatten_tree
+
+    faulthandler.dump_traceback_later(DP_HANG_S, exit=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_mesh()
+    r = torch.load(refs, map_location="cpu", weights_only=False)
+    x, y = r["x"].cuda(), r["y"].cuda()
+    row = {"rank": rank, "backend": dist.get_backend(), "resnet": {}, "lm": {}}
+
+    def state_equal_on_ranks(net):
+        flat = torch.cat([v.detach().float().reshape(-1).cpu()
+                          for v in flatten_tree(net.state).values()])
+        mine = flat.clone()
+        dist.broadcast(flat, 0)
+        return float((mine - flat).abs().max())
+
+    # (b) one step a layout on the global batch, against world 1, after one
+    # warm-up step (the kernels' first launches, the first exchanges)
+    net = make_resnet(seed)
+    dp_trainer(net, "replicated", mesh).adopt_net_state().step(x, y)
+    del net
+    for layout in DP_LAYOUTS:
+        net2 = make_resnet(seed)
+        tr = dp_trainer(net2, layout, mesh).adopt_net_state()
+        C.reset_launches()
+        tr.timing = True
+        t0 = time.perf_counter()
+        loss = tr.step(x, y)
+        torch.cuda.synchronize()
+        step_ms = 1e3 * (time.perf_counter() - t0)
+        tr.timing = False
+        launches = dict(C.launches)
+        tr.sync_to_net()
+        if launches != {"conv_mm_stats": 36, "conv3x3_stats": 16}:
+            raise AssertionError(f"rank {rank} {layout}: conv launches {launches}")
+        held = dp_hold(f"rank {rank} {layout} step vs world 1",
+                       dp_diff(dp_snapshot(net2, loss), r["ref"]), r["noise"])
+        row["resnet"][layout] = {"loss": float(loss), "step_ms": step_ms,
+                                 "collective_ms": tr.collective_ms[-1], "conv_launches": launches,
+                                 "state_max_abs_vs_rank0": state_equal_on_ranks(net2),
+                                 "check": held, **tr.tree_bytes()}
+        del tr, net2
+        torch.cuda.empty_cache()
+
+    # (c) the LM under fsdp and fsdp_stream, 1 sequence a rank
+    lx, ly = lm_data(np.random.RandomState(seed + 7), LM_BATCH)
+    for layout in DP_LM_LAYOUTS:
+        net = make_lm(seed)
+        tr = dp_trainer(net, layout, mesh).adopt_net_state()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        A.reset_launches()
+        tr.timing = True
+        t0 = time.perf_counter()
+        loss = tr.step(lx, ly)
+        torch.cuda.synchronize()
+        step_ms = 1e3 * (time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated()
+        flash = A.launches
+        tr.sync_to_net()
+        held = dp_hold(f"rank {rank} LM {layout} step vs world 1",
+                       dp_diff(dp_snapshot(net, loss), r["lm_ref"]), r["lm_noise"],
+                       loss_rtol=STEP_LOSS_RTOL)
+        # fsdp_stream recomputes each block's forward in the backward (the
+        # checkpoint region that re-gathers the block): 6 more launches
+        want = LM_LAYERS * (2 if layout == "fsdp_stream" else 1)
+        if flash != want:
+            raise AssertionError(f"rank {rank} LM {layout}: {flash} flash launches a step, "
+                                 f"expected {want}")
+        row["lm"][layout] = {"loss": float(loss), "step_ms": step_ms, "peak_bytes": peak,
+                             "collective_ms": tr.collective_ms[-1], "flash_launches": flash,
+                             "check": held, **tr.tree_bytes()}
+        del tr, net
+        torch.cuda.empty_cache()
+
+    # (d) the exact SharedTrainingMaster against per-worker statistics, then
+    # threshold mode, then parameter averaging on LeNet
+    C.reset_launches()
+    net = make_resnet(seed)
+    net.opt_state = net.conf.updater.init(net.params)
+    master = SharedTrainingMaster(mesh, batch_size_per_worker=RN_BATCH // world)
+    t0 = time.perf_counter()
+    loss_e = master.execute_training(net, x, y)
+    torch.cuda.synchronize()
+    exact_ms = 1e3 * (time.perf_counter() - t0)
+    snap = dp_snapshot(net, loss_e)
+    pw = dp_hold(f"rank {rank} shared exact vs per-worker", dp_diff(snap, r["pw_ref"]),
+                 r["pw_noise"])
+    vs_global = dp_diff(snap, r["ref"])
+    xt, yt = resnet_data(seed + 3, (DP_SHARED_STEPS - 1) * RN_BATCH)
+    losses_e = [loss_e, master.execute_training(net, xt, yt)]  # the exact steps after it
+    del net
+    net = make_resnet(seed)
+    master_t = SharedTrainingMaster(mesh, batch_size_per_worker=RN_BATCH // world,
+                                    threshold=DP_THRESHOLD)
+    xt, yt = resnet_data(seed + 3, DP_SHARED_STEPS * RN_BATCH)
+    loss_t = master_t.execute_training(net, xt, yt)
+    stats = master_t.training_stats()
+    row["shared"] = {"exact_ms": exact_ms, "exact_check": pw, "exact_losses": losses_e,
+                     "exact_steps": master.training_stats()["steps"],
+                     "exact_vs_global_stats_step": vs_global,
+                     "threshold": {"steps": stats["steps"], "densities": stats["densities"],
+                                   "final_threshold": stats["final_threshold"],
+                                   "loss": loss_t},
+                     "conv_launches": dict(C.launches)}
+    del net
+    torch.cuda.empty_cache()
+    lenet = mnist_net(seed)
+    pa = ParameterAveragingTrainingMaster(mesh, batch_size_per_worker=DP_PA_BATCH,
+                                          averaging_frequency=DP_PA_FREQ)
+    losses = [pa.execute_training(lenet, r["mx"], r["my"]) for _ in range(2)]
+    flat = torch.cat([v.detach().reshape(-1).cpu() for v in flatten_tree(lenet.params).values()])
+    mine = flat.clone()
+    dist.broadcast(flat, 0)
+    row["param_averaging"] = {"params": lenet.num_params(), "losses": losses,
+                              "splits": pa.training_stats()["splits"],
+                              "params_max_abs_vs_rank0": float((mine - flat).abs().max())}
+    faulthandler.cancel_dump_traceback_later()
+    return row
+
+
+def phase_parallel(C, A, seed):
+    from deeplearning4j_tpu_torch.parallel.launch import run_ranks
+
+    t0 = time.perf_counter()
+    x, y = resnet_data(seed, RN_BATCH * (2 + RN_TIMED_STEPS))
+    rows, launched, serve, ref, noise = dp_world1(C, seed, x, y)
+    x0, y0 = x[:RN_BATCH], y[:RN_BATCH]
+    # the references the ranks hold their steps to
+    b = RN_BATCH // DP_RANKS
+    perm = torch.randperm(b, generator=torch.Generator().manual_seed(seed)).cuda()
+    pw_ref = dp_per_worker_step(seed, x0, y0)
+    pw_noise = dp_diff(dp_per_worker_step(seed, x0, y0, perm), pw_ref)
+    rs = np.random.RandomState(seed + 7)
+    lx, ly = lm_data(rs, LM_BATCH)
+    lm_ref = dp_fit_step(seed, lx, ly, make_lm)
+    lperm = torch.tensor([1, 0, 3, 2]).cuda()
+    lm_noise = dp_diff(dp_fit_step(seed, lx[lperm], ly[lperm], make_lm), lm_ref)
+    mrs = np.random.RandomState(seed + 9)
+    n_pa = DP_RANKS * DP_PA_FREQ * DP_PA_BATCH * DP_PA_SPLITS
+    mx = mrs.rand(n_pa, 28, 28, 1).astype(np.float32)
+    my = np.eye(10, dtype=np.float32)[mrs.randint(0, 10, n_pa)]
+    refs = WORK / "dp_refs.pt"
+    torch.save({"x": x0.cpu(), "y": y0.cpu(), "ref": ref, "noise": noise, "pw_ref": pw_ref,
+                "pw_noise": pw_noise, "lm_ref": lm_ref, "lm_noise": lm_noise, "mx": mx,
+                "my": my}, refs)
+    del x, y, lx, ly
+    free_card()
+    t_ranks = time.perf_counter()
+    ranks = run_ranks(dp_rank, DP_RANKS, WORK / "dp_ranks", backend="gloo", device=0,
+                      timeout=DP_TIMEOUT_S, seed=seed, refs=str(refs))
+    ranks_s = time.perf_counter() - t_ranks
+    for layout in DP_LAYOUTS:
+        states = [rk["resnet"][layout]["state_max_abs_vs_rank0"] for rk in ranks]
+        if max(states) != 0.0:
+            raise AssertionError(f"{layout}: BN running statistics differ across ranks {states}")
+        emit("parallel.resnet_ranks", layout=layout, world=DP_RANKS, backend="gloo",
+             batch=RN_BATCH, rows_a_rank=RN_BATCH // DP_RANKS,
+             ranks=[{"rank": rk["rank"], **rk["resnet"][layout]} for rk in ranks],
+             card=card_line())
+    peaks = {layout: [rk["lm"][layout]["peak_bytes"] for rk in ranks] for layout in DP_LM_LAYOUTS}
+    emit("parallel.lm_ranks", world=DP_RANKS, backend="gloo", batch=LM_BATCH, T=LM_SEQ,
+         layouts=DP_LM_LAYOUTS, ranks=[{"rank": rk["rank"], **rk["lm"]} for rk in ranks],
+         peak_bytes=peaks, streaming_lowers_peak=max(peaks["fsdp_stream"]) < min(peaks["fsdp"]),
+         card=card_line())
+    if any(rk["param_averaging"]["params_max_abs_vs_rank0"] != 0.0 for rk in ranks):
+        raise AssertionError("parameter averaging left the ranks' parameters unequal")
+    emit("parallel.masters", world=DP_RANKS, backend="gloo",
+         shared=[{"rank": rk["rank"], **rk["shared"]} for rk in ranks],
+         param_averaging=[{"rank": rk["rank"], **rk["param_averaging"]} for rk in ranks],
+         card=card_line())
+    rank_conv = {k: sum(rk["resnet"][lay]["conv_launches"][k] for rk in ranks
+                        for lay in DP_LAYOUTS) + sum(rk["shared"]["conv_launches"][k]
+                                                     for rk in ranks) for k in C.launches}
+    flash = sum(rk["lm"][lay]["flash_launches"] for rk in ranks for lay in DP_LM_LAYOUTS)
+    seconds = time.perf_counter() - t0
+    emit("parallel", seconds=seconds, ranks_seconds=ranks_s, conv_launches_world1=launched,
+         conv_launches_ranks=rank_conv, flash_launches_ranks=flash, card=card_line())
+    return {"rows": rows, "serve": serve, "ranks": ranks,
+            "conv_launches": {k: launched[k] + rank_conv[k] for k in C.launches},
+            "flash_launches": flash}
+
+
 def cuobjdump():
     """The toolkit's cuobjdump, or the copy Triton's package carries; None
     where neither exists."""
@@ -5816,7 +6299,7 @@ def build_all(libs):
 
 
 PHASES = ("kernels", "flash", "train", "conv", "resnet", "serve", "charnn", "zoo", "finetune",
-          "fused", "word2vec", "mnist", "modelimport", "moe", "sequence")
+          "fused", "word2vec", "mnist", "modelimport", "moe", "sequence", "parallel")
 
 
 def main(argv=None):
@@ -5918,6 +6401,13 @@ def main(argv=None):
             seq_out = phase_sequence(A, args.seed)
         finally:
             shutil.rmtree(WORK, ignore_errors=True)
+    if "parallel" in only:
+        shutil.rmtree(WORK, ignore_errors=True)
+        WORK.mkdir()
+        try:
+            par_out = phase_parallel(C, A, args.seed)
+        finally:
+            shutil.rmtree(WORK, ignore_errors=True)
     if only != set(PHASES):
         return
 
@@ -5957,8 +6447,10 @@ def main(argv=None):
         # (its timed steps under both policies, its K=4 replays, its served
         # forwards) and the sequence phase's ranks (ring and Ulysses)
         "launches": train_rows[0]["flash_launches"] + moe_out["flash_launches"]
-        + seq_out["flash_launches"],
+        + seq_out["flash_launches"] + par_out["flash_launches"],
         "launches_train": train_rows[0]["flash_launches"],
+        # the parallel phase's LM steps under fsdp and fsdp_stream, 4 ranks
+        "launches_parallel": par_out["flash_launches"],
         "launches_moe": {"train": {p: r["flash_launches"] for p, r in moe_out["train"].items()},
                          "fused": moe_out["fused"]["flash_launches"],
                          "serve": moe_out["serve"]["flash_launches"]},
@@ -5985,8 +6477,12 @@ def main(argv=None):
         "launches": resnet_rows["bf16"]["conv_launches"][name]
         + sum(zoo_rows[("remat", p)]["conv_launches"][name] for p in ("f32", "bf16"))
         + sum(ft_rows[p]["conv_launches"][name] for p in ("f32", "bf16"))
-        + sum(fused_rows[("resnet", p)]["launches"][name] for p in ("f32", "bf16")),
+        + sum(fused_rows[("resnet", p)]["launches"][name] for p in ("f32", "bf16"))
+        + par_out["conv_launches"][name],
         "launches_resnet": resnet_rows["bf16"]["conv_launches"][name],
+        # the parallel phase: world-1 timed steps of 3 layouts under both
+        # policies and the K=4 replays, the 4 ranks' steps and master steps
+        "launches_parallel": par_out["conv_launches"][name],
         "launches_fused": {p: fused_rows[("resnet", p)]["launches"][name]
                            for p in ("f32", "bf16")},
         "launches_remat": {p: zoo_rows[("remat", p)]["conv_launches"][name]

@@ -30,10 +30,16 @@ Engines say what one dispatch is: ``_PlainEngine`` (K=1, one minibatch
 through ``net.make_train_step``; a batch ``tbptt_fn`` accepts runs the
 net's truncated-BPTT chunks instead) and ``_FusedEngine`` (K > 1, one
 super-batch through the ``nn/fused.py`` engine, assembled and copied to
-the card by the prefetch thread). The JAX driver's spans, flight records,
-registry metrics and ``profile_round`` wait for the port's telemetry
-registry and profiler (ROADMAP queue 1, item 7); its sharded engines wait
-for ``parallel/`` (item 6).
+the card by the prefetch thread). ``ParallelTrainer.fit``
+(``parallel/data_parallel.py``) runs the sharded engines over the trainer,
+which stands in for the net: ``_ShardedPlainEngine`` (K=1, one
+``trainer.step`` on the global batch; a batch whose leading dim does not
+divide by the data axis is skipped and counted, not dispatched) and
+``_ShardedFusedEngine`` (K > 1, the K-step engine over the trainer's step,
+each super-batch cut to the rank's rows before it is copied to the card).
+The JAX driver's spans, flight records, registry metrics and
+``profile_round`` wait for the port's telemetry registry and profiler
+(ROADMAP queue 1, item 7).
 """
 
 from __future__ import annotations
@@ -44,6 +50,7 @@ import time
 import numpy as np
 import torch
 
+from deeplearning4j_tpu_torch.datasets.iterator import DataSetIterator
 from deeplearning4j_tpu_torch.nn import listeners as _listeners
 from deeplearning4j_tpu_torch.nn.layers.base import step_seed
 from deeplearning4j_tpu_torch.telemetry import health as _health
@@ -166,6 +173,109 @@ class _FusedEngine:
         return losses, hb, None
 
 
+class _ShardedPlainEngine:
+    """ParallelTrainer, K=1: one ``trainer.step`` a dispatch on the global
+    batch; a batch whose leading dim does not divide by the data axis is
+    skipped and counted in ``trainer.examples_dropped``."""
+
+    fused = False
+
+    def __init__(self, trainer):
+        self.trainer = trainer
+        self.net = trainer
+
+    def build_source(self, batch_factory):
+        return batch_factory()
+
+    def prepare(self, item):
+        return item
+
+    def note_input(self, prep):
+        pass
+
+    def n_real(self, item):
+        return 1
+
+    def dispatch(self, prep, n_real):
+        x, y, m = prep
+        t = self.trainer
+        rows = _first(x).shape[0]
+        if rows % t.world:
+            t.examples_dropped += int(rows)
+            return None  # skipped: not a dispatch
+        return t.step(x, y, m), None, None
+
+
+class _LocalRows(DataSetIterator):
+    """Super-batches cut to one rank's rows ([K, B, ...] -> [K, B/N, ...]),
+    on the host, before the prefetch copy."""
+
+    def __init__(self, base, trainer):
+        self.base, self.trainer = base, trainer
+
+    @property
+    def batch_size(self):
+        return self.base.batch_size
+
+    def __iter__(self):
+        self.reset()
+        return self
+
+    def reset(self):
+        self.base.reset()
+
+    def __next__(self):
+        from deeplearning4j_tpu_torch.parallel import mesh as _mesh
+        sb = next(self.base)
+        t = self.trainer
+        spec = _mesh.superbatch_sharded(t.mesh)
+
+        def rows(a):
+            if isinstance(a, dict):
+                return {k: rows(v) for k, v in a.items()}
+            return _mesh.local_part(t.mesh, a, spec).contiguous()
+        sb.features, sb.labels, sb.labels_mask = rows(sb.features), rows(sb.labels), \
+            rows(sb.labels_mask)
+        return sb
+
+
+class _ShardedFusedEngine(_FusedEngine):
+    """ParallelTrainer, K > 1: the K-step engine over the trainer's step,
+    each super-batch cut to this rank's rows and copied to the card on the
+    prefetch thread."""
+
+    def __init__(self, trainer, k, batch_size=None, prefetch=True):
+        self.net = trainer
+        self.trainer = trainer
+        self.k = int(k)
+        self.use_health = False
+        self.batch_size = batch_size
+        self.prefetch = prefetch
+        self.steps_fn = trainer._steps_fn(self.k)
+        trainer._plan.timed = False  # a captured step cannot synchronize
+        if trainer.shard_params in ("fsdp", "fsdp_stream"):
+            # the graph gathers into whole tensors it keeps across replays
+            trainer._free_between_steps = False
+            trainer._gather_full()
+
+    def build_source(self, batch_factory):
+        from deeplearning4j_tpu_torch.datasets.iterator import (AsyncDataSetIterator,
+                                                                SuperBatchIterator)
+        sbit = _LocalRows(SuperBatchIterator(batch_factory, self.k, batch_size=self.batch_size),
+                          self.trainer)
+        if not self.prefetch:
+            return sbit
+        return AsyncDataSetIterator(sbit, queue_size=2, device=self.trainer.device)
+
+    def dispatch(self, prep, n_real):
+        t = self.trainer
+        xs, ys, ms, sv = prep
+        losses = self.steps_fn(t.params, t.state, t.opt_state, xs, ys, t.iteration,
+                               t.conf.seed, ms, sv)
+        t.iteration += n_real
+        return losses, None, None
+
+
 def _rearm_net(net, restored):
     """Put a restored network's tensors, counters and step RNG chain on the
     live net (the engines hold the live net). The tensors are new objects:
@@ -190,7 +300,7 @@ class StepDriver:
     epoch."""
 
     def __init__(self, net, batch_factory, *, k=1, batch_size=None, prefetch=True,
-                 tbptt_fn=None):
+                 tbptt_fn=None, engine=None):
         self.net = net
         self.batch_factory = batch_factory
         self.k = int(k)
@@ -201,9 +311,12 @@ class StepDriver:
             net.init()
         if net.opt_state is None:
             net.opt_state = net.conf.updater.init(net.params)
-        self.engine = (_FusedEngine(net, self.k, self._use_health, batch_size=batch_size,
-                                    prefetch=prefetch) if self.k > 1
-                       else _PlainEngine(net, self._use_health, tbptt_fn=tbptt_fn))
+        if engine is not None:
+            self.engine = engine
+        else:
+            self.engine = (_FusedEngine(net, self.k, self._use_health, batch_size=batch_size,
+                                        prefetch=prefetch) if self.k > 1
+                           else _PlainEngine(net, self._use_health, tbptt_fn=tbptt_fn))
         self._pipe = ScorePipeline()
         self._src = None   # a K-step engine's source (it owns the prefetcher)
         self._it = None    # the open epoch's iterator
@@ -269,8 +382,10 @@ class StepDriver:
             except StopIteration:
                 rr.epoch_done = True
                 break
-            rr.dispatches += 1
-            rr.steps += self._dispatch_one(item)
+            n = self._dispatch_one(item)
+            if n:  # an engine may skip an item (a ragged batch of a sharded fit)
+                rr.dispatches += 1
+                rr.steps += n
         if rr.epoch_done:
             self.end_epoch()
         return rr
@@ -305,7 +420,10 @@ class StepDriver:
         eng.note_input(prep)
         step0 = net.iteration
         n_real = eng.n_real(item)
-        loss, hb, chunks = eng.dispatch(prep, n_real)
+        out = eng.dispatch(prep, n_real)
+        if out is None:
+            return 0
+        loss, hb, chunks = out
         meta = {"step": step0, "iteration": net.iteration, "etl_time_s": etl,
                 "k": n_real, "chunks": chunks}
         # queue this dispatch, resolve the previous one: the fetch overlaps

@@ -1,7 +1,7 @@
 from deeplearning4j_tpu_torch.datasets.iterator import (  # noqa: F401
     ArrayDataSetIterator, AsyncDataSetIterator, BenchmarkDataSetIterator, BucketRegistry,
     DataSet, DataSetCallback, EarlyTerminationIterator, InterleavedDataSetCallback,
-    MultipleEpochsIterator, ShapeBuckets, iter_batches, pad_batch, validity_mask,
+    MultipleEpochsIterator, ShapeBuckets, ShardedDataSetIterator, iter_batches, pad_batch, validity_mask,
 )
 from deeplearning4j_tpu_torch.datasets.fetchers import (  # noqa: F401
     Cifar10DataFetcher, EmnistDataFetcher, IrisDataFetcher, LfwDataFetcher,

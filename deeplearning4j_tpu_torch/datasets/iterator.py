@@ -536,6 +536,57 @@ class SuperBatchIterator(DataSetIterator):
                           step_valid=(np.arange(self.k) < n).astype(np.float32), n_steps=n)
 
 
+class ShardedDataSetIterator(DataSetIterator):
+    """One rank's share of a source iterator (reference analog: the Spark
+    tier's partitions): batch k goes to rank k % world and every other
+    batch is skipped, so the ranks stream disjoint data with no
+    coordinator. ``rank``/``world`` default to the default process
+    group's (a single process is index 0 of 1). An incomplete final round
+    ends the epoch on every rank in the same call, so all ranks see the
+    same number of batches (a rank stepping into a collective its peers
+    never join would hang). A source with ``skip(n)`` seeks past the peers'
+    batches without decoding them."""
+
+    def __init__(self, source, rank=None, world=None):
+        import torch.distributed as dist
+        live = dist.is_available() and dist.is_initialized()
+        self.source = source
+        self.process_index = int(rank if rank is not None else
+                                 (dist.get_rank() if live else 0))
+        self.process_count = int(world if world is not None else
+                                 (dist.get_world_size() if live else 1))
+        if not 0 <= self.process_index < self.process_count:
+            raise ValueError(f"rank {self.process_index} outside a world of "
+                             f"{self.process_count}")
+
+    def reset(self):
+        self.source.reset()
+
+    def __next__(self):
+        if callable(getattr(self.source, "skip", None)):
+            self._skip(self.process_index)
+            mine = next(self.source)
+            self._skip(self.process_count - self.process_index - 1)
+            return mine
+        mine = None
+        for i in range(self.process_count):
+            batch = next(self.source)  # StopIteration drops the round
+            if i == self.process_index:
+                mine = batch
+        return mine
+
+    def _skip(self, n):
+        if n <= 0:
+            return
+        skipped = self.source.skip(n)
+        if skipped is not None and skipped < n:
+            raise StopIteration
+
+    @property
+    def batch_size(self):
+        return self.source.batch_size
+
+
 class MultipleEpochsIterator(DataSetIterator):
     """``base`` replayed ``epochs`` times as one stream (reference:
     MultipleEpochsIterator.java)."""

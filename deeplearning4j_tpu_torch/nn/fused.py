@@ -163,7 +163,7 @@ def _dtype(a):
 class TrainSteps:
     """The K-step engine over one net (see the module docstring)."""
 
-    def __init__(self, net, k, with_health=False, base_step=None):
+    def __init__(self, net, k, with_health=False, base_step=None, eager=False):
         if base_step is not None and with_health:
             raise ValueError(
                 "make_train_steps: base_step and with_health=True don't compose: an "
@@ -178,8 +178,11 @@ class TrainSteps:
         self.base = base_step if base_step is not None else net.make_train_step(
             with_health=with_health)
         self.table_width = net.conf.updater.step_table([0]).shape[1]
+        # a base step whose collectives cannot be captured (gloo) runs
+        # eagerly on a card too, and builds no signature's graph
+        self.eager = bool(eager)
         self.calls = 0      # engine calls: one a dispatch
-        self.captures = 0   # signatures built (graphs captured on a card)
+        self.captures = 0   # signatures built (graphs captured on a card); 0 when eager
         self.replays = 0
         self._sigs = {}
 
@@ -245,7 +248,7 @@ class TrainSteps:
             sig = _Signature(self, xs, ys, masks, device)
             sig.ptrs = ptrs
             self._sigs[key] = sig
-            self.captures += 1
+            self.captures += 0 if self.eager else 1
         with torch.no_grad():
             _tmap(lambda dst, src: dst.copy_(as_device(src, device), non_blocking=True),
                   sig.xs, xs)
@@ -257,7 +260,7 @@ class TrainSteps:
             sig.step0.fill_(int(step0))
             table = net.conf.updater.step_table(range(int(step0), int(step0) + self.k))
             sig.table.copy_(as_device(torch.from_numpy(table), device), non_blocking=True)
-        if device.type != "cuda":
+        if device.type != "cuda" or self.eager:
             return self._finish(self._steps(params, state, opt_state, sig, seed))
         if sig.graph is None:
             self._capture(params, state, opt_state, sig, seed, device)
@@ -299,12 +302,14 @@ class TrainSteps:
         sig.graph, sig.out = graph, out
 
 
-def make_train_steps(net, k, with_health=False, base_step=None):
+def make_train_steps(net, k, with_health=False, base_step=None, eager=False):
     """The K-step engine over ``net``'s train step (see the module
     docstring). ``base_step`` substitutes the single step (the signature of
     ``net.make_train_step()``: the seam a sharded trainer injects its step
-    through); it does not compose with ``with_health``."""
-    return TrainSteps(net, k, with_health=with_health, base_step=base_step)
+    through); it does not compose with ``with_health``. ``eager`` runs the
+    steps without a CUDA graph on a card too (a base step whose
+    collectives cannot be captured; ``captures`` stays 0)."""
+    return TrainSteps(net, k, with_health=with_health, base_step=base_step, eager=eager)
 
 
 def _steps_fn_for(net, k, with_health):

@@ -30,6 +30,7 @@ from deeplearning4j_tpu_torch.nn.conf import inputs as _inputs
 from deeplearning4j_tpu_torch.nn.graph import GraphVertex
 from deeplearning4j_tpu_torch.nn.layers.conv import _conv_out_size, _pair, conv
 from deeplearning4j_tpu_torch.ops import conv_stats
+from deeplearning4j_tpu_torch.utils import collectives as _collectives
 from deeplearning4j_tpu_torch.utils import dtypes as _dtypes
 from deeplearning4j_tpu_torch.utils.serde import register_config
 
@@ -99,7 +100,7 @@ class FusedConvBNVertex(GraphVertex):
         zf = z.to(ad)
         axes = (0, 1, 2)
         if train:
-            mean, var = zf.mean(dim=axes), zf.var(dim=axes, correction=0)
+            mean, var = _collectives.batch_moments(zf, axes)
             new_state = self._update(state, mean, var)
         else:
             mean, var = state["mean"].to(ad), state["var"].to(ad)

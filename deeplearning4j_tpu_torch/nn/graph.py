@@ -71,6 +71,7 @@ from deeplearning4j_tpu_torch.nn.layers.rnn import (Bidirectional, GravesBidirec
                                                     last_time_step)
 from deeplearning4j_tpu_torch.nn.multilayer import _as_tensor, _detach, _param_tree
 from deeplearning4j_tpu_torch.telemetry import health as _health
+from deeplearning4j_tpu_torch.utils import collectives as _collectives
 from deeplearning4j_tpu_torch.utils import dtypes as _dtypes
 from deeplearning4j_tpu_torch.utils import serde
 from deeplearning4j_tpu_torch.utils.device import resolve_device
@@ -731,7 +732,8 @@ class ComputationGraph(nn.Module):
                 if layer.input_family is _inputs.FeedForwardType and x.dim() > 2:
                     x = x.reshape(x.shape[0], -1)
                 if v_train and seed is not None and layer.dropout > 0.0:
-                    x = dropout_mask(split_seed(seed, 2)[0], x, layer.dropout)
+                    x = dropout_mask(split_seed(seed, 2)[0], x, layer.dropout,
+                                     _collectives.row_offset(x))
                 l_i, acts[name], new_state[name] = layer.loss_from_features(
                     params[name], state[name], x, labels[name], lm, train=v_train)
                 loss = loss + l_i

@@ -48,6 +48,7 @@ import torch
 
 from deeplearning4j_tpu_torch.nn import activations as _act
 from deeplearning4j_tpu_torch.nn.conf import inputs as _inputs
+from deeplearning4j_tpu_torch.utils import collectives as _collectives
 
 
 @dataclasses.dataclass(frozen=True)
@@ -186,36 +187,39 @@ def step_seed(seed, iteration):
     return _combine(_mix32(int(seed) & _M32), it)
 
 
-def _bits(seed, shape, device, stream=0):
+def _bits(seed, shape, device, stream=0, offset=0):
     """[*shape] int64 of 32 random bits each: the hash of each element's
-    index under ``seed`` (stream ``stream`` of it)."""
+    index (plus ``offset``) under ``seed`` (stream ``stream`` of it)."""
     seed = _as_seed(seed)
     k1, k2 = _combine(seed, 2 * stream + 1), _combine(seed, 2 * stream + 2)
     n = 1
     for d in shape:
         n *= int(d)
-    idx = torch.arange(n, dtype=torch.int64, device=device)
+    idx = torch.arange(offset, offset + n, dtype=torch.int64, device=device)
     return _mix32(_mix32((idx + k1) & _M32) ^ k2).reshape(tuple(shape))
 
 
-def uniform(seed, shape, device):
-    """[*shape] float32 uniform on [0, 1) in steps of 2^-24, from ``seed``."""
-    return (_bits(seed, shape, device) >> 8).to(torch.float32) * (2.0 ** -24)
+def uniform(seed, shape, device, offset=0):
+    """[*shape] float32 uniform on [0, 1) in steps of 2^-24, from ``seed``;
+    ``offset`` is the flat index of the first element (a rank's rows of a
+    global batch, ``utils/collectives.row_offset``)."""
+    return (_bits(seed, shape, device, offset=offset) >> 8).to(torch.float32) * (2.0 ** -24)
 
 
-def normal(seed, shape, device):
+def normal(seed, shape, device, offset=0):
     """[*shape] float32 standard normal from ``seed`` (Box-Muller on two
-    uniform streams)."""
-    u1 = ((_bits(seed, shape, device, 0) >> 8) + 1).to(torch.float32) * (2.0 ** -24)
-    u2 = (_bits(seed, shape, device, 1) >> 8).to(torch.float32) * (2.0 ** -24)
+    uniform streams); ``offset`` as in ``uniform``."""
+    u1 = ((_bits(seed, shape, device, 0, offset) >> 8) + 1).to(torch.float32) * (2.0 ** -24)
+    u2 = (_bits(seed, shape, device, 1, offset) >> 8).to(torch.float32) * (2.0 ** -24)
     return torch.sqrt(-2.0 * torch.log(u1)) * torch.cos((2.0 * np.pi) * u2)
 
 
-def dropout_mask(seed, x, rate):
+def dropout_mask(seed, x, rate, offset=0):
     """Inverted dropout: each element kept with probability 1 - rate and
-    scaled by 1/(1 - rate), the mask drawn from ``seed``."""
+    scaled by 1/(1 - rate), the mask drawn from ``seed``; ``offset`` as in
+    ``uniform``."""
     keep = 1.0 - rate
-    u = uniform(seed, x.shape, x.device)
+    u = uniform(seed, x.shape, x.device, offset)
     return torch.where(u < keep, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
@@ -239,7 +243,7 @@ def apply_layer(layer, params, state, x, *, train=False, rng=None, **kwargs):
         if drop_in or noise is not None or takes_rng:
             drop, rng = split_seed(rng, 2)
             if drop_in:
-                x = dropout_mask(drop, x, layer.dropout)
+                x = dropout_mask(drop, x, layer.dropout, _collectives.row_offset(x))
             if noise is not None:
                 rng, noise_seed = split_seed(rng, 2)
                 params = noise.perturb(noise_seed, layer, params)

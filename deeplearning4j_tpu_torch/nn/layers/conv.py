@@ -45,6 +45,7 @@ import torch.nn.functional as F
 from deeplearning4j_tpu_torch.nn import initializers as _init
 from deeplearning4j_tpu_torch.nn.conf import inputs as _inputs
 from deeplearning4j_tpu_torch.nn.layers.base import Layer, ParamLayer
+from deeplearning4j_tpu_torch.utils import collectives as _collectives
 from deeplearning4j_tpu_torch.utils import dtypes as _dtypes
 from deeplearning4j_tpu_torch.utils.serde import register_config
 
@@ -240,8 +241,8 @@ class BatchNormalization(ParamLayer):
         _, ad = _dtypes.compute_dtypes_for(x.dtype)
         x = x.to(ad)
         if train:
-            mean = x.mean(dim=axes)
-            var = x.var(dim=axes, correction=0)
+            # over the global batch under a batch group (parallel/)
+            mean, var = _collectives.batch_moments(x, axes)
             with torch.no_grad():
                 new_state = {"mean": self.decay * state["mean"] + (1 - self.decay) * mean,
                              "var": self.decay * state["var"] + (1 - self.decay) * var}

@@ -18,6 +18,7 @@ from deeplearning4j_tpu_torch.nn import initializers as _init
 from deeplearning4j_tpu_torch.nn import losses as _losses
 from deeplearning4j_tpu_torch.nn.conf import inputs as _inputs
 from deeplearning4j_tpu_torch.nn.layers.base import Layer, ParamLayer, dropout_mask, normal, uniform
+from deeplearning4j_tpu_torch.utils import collectives as _collectives
 from deeplearning4j_tpu_torch.utils import dtypes as _dtypes
 from deeplearning4j_tpu_torch.utils.serde import register_config
 
@@ -137,16 +138,17 @@ class DropoutLayer(Layer):
     def apply(self, params, state, x, *, train=False, rng=None):
         if not train or self.rate <= 0.0 or rng is None:
             return x, state
+        off = _collectives.row_offset(x)  # a rank's rows draw their global elements' bits
         if self.kind == "dropout":
-            return dropout_mask(rng, x, self.rate), state
+            return dropout_mask(rng, x, self.rate, off), state
         if self.kind == "alpha":
             alpha_p = -1.7580993408473766
             keep = 1.0 - self.rate
             a = (keep + alpha_p ** 2 * keep * (1 - keep)) ** -0.5
             b = -a * alpha_p * (1 - keep)
-            kept = uniform(rng, x.shape, x.device) < keep
+            kept = uniform(rng, x.shape, x.device, off) < keep
             return a * torch.where(kept, x, torch.full_like(x, alpha_p)) + b, state
-        noise = normal(rng, x.shape, x.device).to(x.dtype)
+        noise = normal(rng, x.shape, x.device, off).to(x.dtype)
         if self.kind == "gaussian_dropout":
             return x * (1.0 + (self.rate / (1.0 - self.rate)) ** 0.5 * noise), state
         if self.kind == "gaussian_noise":

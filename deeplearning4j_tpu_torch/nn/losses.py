@@ -16,6 +16,8 @@ from __future__ import annotations
 
 import torch
 
+from deeplearning4j_tpu_torch.utils import collectives as _collectives
+
 _EPS = 1e-8
 
 
@@ -28,7 +30,8 @@ def _apply_mask_and_mean(per_example, mask):
     if mask is None:
         return per_example.mean()
     mask = mask.reshape(-1).to(per_example.dtype)
-    return (per_example * mask).sum() / mask.sum().clamp_min(1.0)
+    # the global count of valid rows under a batch group (parallel/)
+    return (per_example * mask).sum() / _collectives.masked_denominator(mask.sum())
 
 
 def mse(pred, labels, mask=None, weights=None):

@@ -43,6 +43,7 @@ import torch
 import torch.nn.functional as F
 
 from deeplearning4j_tpu_torch.ops import _build
+from deeplearning4j_tpu_torch.utils import collectives as _collectives
 
 SOURCE = _build.CSRC / "conv_stats.cu"
 
@@ -387,6 +388,12 @@ class _FusedConvBNAct(torch.autograd.Function):
         z, stats = conv_z(x.contiguous(), w.contiguous(), stride)
         f32 = _acc_dtype(z.dtype)  # f32 (f64 stays f64 on the CPU)
         n = z.shape[0] * z.shape[1] * z.shape[2]
+        # a batch group: the kernel's per-channel sums are this rank's
+        # partials of the global batch's
+        bg = _collectives.active()
+        if bg is not None:
+            stats = _collectives.all_reduce_(stats.clone(), bg.group)
+            n *= bg.world
         mean = stats[0] / n
         var = torch.clamp(stats[1] / n - mean * mean, min=0.0)
         invstd = torch.rsqrt(var + eps)
@@ -399,6 +406,7 @@ class _FusedConvBNAct(torch.autograd.Function):
         ctx.save_for_backward(x, w, gamma, z, mean, invstd, y)
         ctx.stride, ctx.act, ctx.has_res, ctx.beta_dtype = stride, act, residual is not None, \
             beta.dtype
+        ctx.bg, ctx.n = bg, n
         ctx.mark_non_differentiable(mean, var)
         return y, mean, var
 
@@ -412,13 +420,19 @@ class _FusedConvBNAct(torch.autograd.Function):
         # dy is now the cotangent of (bn_out + residual)
         dres = dy.to(z.dtype) if ctx.has_res else None
         axes = (0, 1, 2)
-        n = z.shape[0] * z.shape[1] * z.shape[2]
+        n = ctx.n
         xhat = (z.to(f32) - mean) * invstd
         dgamma = (dy * xhat).sum(axes)
         dbeta = dy.sum(axes)
         g = gamma.to(f32)
+        sb, sg = dbeta, dgamma
+        if ctx.bg is not None:
+            # the statistics span the group: dz takes the global sums of
+            # the ranks' cotangents, each at its own loss's scale, while
+            # gamma and beta get this rank's share (the trainer averages)
+            sb, sg = _collectives.all_reduce_(torch.stack((dbeta, dgamma)), ctx.bg.group)
         # train-mode BN backward: the batch statistics are part of the graph
-        dz = invstd * (dy * g - dbeta * g / n - xhat * (dgamma * g / n))
+        dz = invstd * (dy * g - sb * g / n - xhat * (sg * g / n))
         dx, dw = _conv_grads(x, w, dz.to(z.dtype), ctx.stride)
         return (dx, dw, dgamma.to(gamma.dtype), dbeta.to(ctx.beta_dtype), dres,
                 None, None, None)

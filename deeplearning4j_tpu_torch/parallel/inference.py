@@ -1,0 +1,156 @@
+"""Batched inference with request coalescing: ``ParallelInference``.
+
+The port of ``deeplearning4j_tpu/parallel/inference.py`` (reference:
+ParallelInference.java, InferenceMode.BATCHED / SEQUENTIAL). One padded
+forward at a fixed maximum batch, the serving tier's ``BucketedForward``;
+queued requests are coalesced into one padded batch (``batched``) or
+served one at a time (``sequential``), and each answer comes back through
+an ``InferenceFuture``. ``update_model`` hot-swaps the served model: a
+request in flight finishes on the old one. The ``mesh=`` mode (the padded
+batch split over the data axis) is not ported yet (ROADMAP queue 1,
+item 6); for continuous batching and admission control use ``serving/``.
+"""
+
+from __future__ import annotations
+
+import queue
+import threading
+import time
+
+import numpy as np
+
+from deeplearning4j_tpu_torch.datasets.iterator import BucketRegistry
+from deeplearning4j_tpu_torch.serving.engine import (BucketedForward, InferenceFuture,
+                                                     ServingShutdown)
+
+
+def _single(y):
+    """A graph's one output out of its {name: array} dict."""
+    return next(iter(y.values())) if isinstance(y, dict) and len(y) == 1 else y
+
+
+class ParallelInference:
+    """``inference_mode``: "batched" coalesces queued requests into one
+    padded batch (the default); "sequential" serves them one at a time."""
+
+    def __init__(self, net, *, max_batch_size=32, mesh=None, timeout_s=0.005,
+                 inference_mode="batched"):
+        if inference_mode not in ("batched", "sequential"):
+            raise ValueError(f"inference_mode must be 'batched' or 'sequential', got "
+                             f"{inference_mode!r}")
+        if mesh is not None:
+            raise NotImplementedError("ParallelInference(mesh=): serving split over the data "
+                                      "axis is not ported yet (ROADMAP queue 1, item 6)")
+        self.mesh = None
+        self.timeout_s = timeout_s
+        self.inference_mode = inference_mode
+        self._nominal_batch = max_batch_size
+        self._serving = self._compile(net)
+        self.max_batch = self._serving[1].buckets.max
+        self._queue: queue.Queue = queue.Queue()
+        self._thread = None
+        self._stop = threading.Event()
+
+    def _compile(self, net):
+        """(net, padded forward, batch-1 forward), one tuple so a hot swap
+        is atomic."""
+        fwd = BucketedForward(net, BucketRegistry([self._nominal_batch]), device=net.device)
+        fwd_one = BucketedForward(net, BucketRegistry([1]), device=net.device)
+        return (net, fwd, fwd_one)
+
+    @property
+    def net(self):
+        return self._serving[0]
+
+    def output(self, x):
+        """Direct batched inference (padded to the maximum batch); a graph
+        of one output answers with that output's array."""
+        return _single(self._serving[1](np.asarray(x)))
+
+    def _output_one(self, x):
+        return _single(self._serving[2](np.asarray(x)[None]))[0]
+
+    def update_model(self, net):
+        """Hot-swap the served model (reference: ParallelInference.updateModel)."""
+        self._serving = self._compile(net)
+
+    def forwards(self):
+        """Device forwards run so far (both forwards, warm-ups included)."""
+        return sum(f.stats()["forwards"] for f in self._serving[1:])
+
+    # -- the request queue ----------------------------------------------
+
+    def start(self):
+        self._thread = threading.Thread(target=self._worker, daemon=True)
+        self._thread.start()
+        return self
+
+    def stop(self):
+        """Stop the worker and fail every request it never picked up;
+        ``submit`` after ``stop`` raises."""
+        self._stop.set()
+        if self._thread:
+            self._thread.join(timeout=5)
+            self._thread = None
+        self._fail_pending()
+
+    def _fail_pending(self):
+        err = ServingShutdown("ParallelInference stopped before serving this request")
+        while True:
+            try:
+                _x, holder = self._queue.get_nowait()
+            except queue.Empty:
+                break
+            if not holder.done():
+                holder._set_error(err)
+
+    def submit(self, x):
+        """Submit one example; returns an ``InferenceFuture``."""
+        if self._stop.is_set():
+            raise ServingShutdown("ParallelInference is stopped")
+        holder = InferenceFuture()
+        self._queue.put((np.asarray(x), holder))
+        if self._stop.is_set():
+            self._fail_pending()
+        return holder
+
+    def _drain_batch(self, first):
+        """What is queued now, then stragglers under one shared
+        ``timeout_s`` deadline while the batch has room."""
+        batch = [first]
+        try:
+            while len(batch) < self.max_batch:
+                batch.append(self._queue.get_nowait())
+        except queue.Empty:
+            deadline = time.perf_counter() + self.timeout_s
+            while len(batch) < self.max_batch:
+                remaining = deadline - time.perf_counter()
+                if remaining <= 0:
+                    break
+                try:
+                    batch.append(self._queue.get(timeout=remaining))
+                except queue.Empty:
+                    break
+        return batch
+
+    def _worker(self):
+        while not self._stop.is_set():
+            try:
+                first = self._queue.get(timeout=0.1)
+            except queue.Empty:
+                continue
+            batch = (self._drain_batch(first) if self.inference_mode == "batched"
+                     else [first])
+            # a failing forward fails these requests, not the serving loop
+            try:
+                if self.inference_mode == "sequential":
+                    for x, holder in batch:
+                        holder._set(self._output_one(x))
+                    continue
+                ys = self.output(np.stack([b[0] for b in batch]))
+                for (_, holder), y in zip(batch, ys):
+                    holder._set(y)
+            except Exception as e:  # noqa: BLE001 -- propagate to the waiters
+                for _, holder in batch:
+                    if not holder.done():
+                        holder._set_error(e)

@@ -1,0 +1,180 @@
+"""Collectives of the data-parallel tier, and the batch group.
+
+Tensor collectives over ``torch.distributed`` that the parallel trainers
+and the TrainingMasters share: ``all_reduce_`` (in place), ``reduce_scatter``
+and ``all_gather`` of flat buffers, and ``AllReduceSum``, a differentiable
+all-reduce whose backward all-reduces the cotangent. Gloo carries CPU
+tensors only: on a gloo group a CUDA tensor goes through a pinned host
+buffer (chosen by backend, never by catching an error); NCCL carries it
+directly.
+
+The batch group: while a ``sync_batch(group)`` block is active, the ranks
+of ``group`` hold the rows of one global batch, rank r the r-th equal
+slice, and the ops whose result depends on the whole batch compute it over
+the whole batch:
+
+* batch statistics (``batch_moments``, and the fused conv's statistics in
+  ``ops/conv_stats.py``) sum their per-rank partials across the group;
+* a masked loss divides by the global count of valid rows
+  (``masked_denominator``);
+* random draws over a batch hash each element's global flat index
+  (``row_offset``), so world N draws what world 1 draws.
+
+Gradients follow one scaling: rank r differentiates its own loss, the mean
+over its rows (N times its share of the global mean), the collectives'
+backwards sum cotangents across the group, and the trainer averages the
+parameter gradients across the group. The result is the gradient of the
+global loss. ``ParallelTrainer`` opens the block around its forward and
+backward at world > 1; the TrainingMasters never do (their workers keep
+per-worker statistics).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import contextvars
+import dataclasses
+
+import torch
+import torch.distributed as dist
+
+
+# ---------------------------------------------------------------------------
+# tensor collectives
+# ---------------------------------------------------------------------------
+
+# the flat-buffer collectives under their newer names where torch has them
+_REDUCE_SCATTER = getattr(dist, "reduce_scatter_single", None) or dist.reduce_scatter_tensor
+_ALL_GATHER = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
+
+
+def host_staged(x, group=None):
+    """Whether ``x`` goes through host memory: a CUDA tensor on gloo."""
+    return x.is_cuda and dist.get_backend(group) == dist.Backend.GLOO
+
+
+def _pinned(x):
+    return torch.empty(x.shape, dtype=x.dtype, pin_memory=True).copy_(x)
+
+
+def all_reduce_(x, group=None, op=dist.ReduceOp.SUM):
+    """``x`` all-reduced over ``group`` in place (``x`` contiguous);
+    returns ``x``."""
+    if host_staged(x, group):
+        h = _pinned(x)
+        dist.all_reduce(h, op=op, group=group)
+        x.copy_(h, non_blocking=True)
+    else:
+        dist.all_reduce(x, op=op, group=group)
+    return x
+
+
+def reduce_scatter(flat, group=None):
+    """[N * c] -> [c]: the sum over the group's ranks of their ``flat``
+    buffers' chunk ``rank``."""
+    n = dist.get_world_size(group)
+    staged = host_staged(flat, group)
+    send = _pinned(flat) if staged else flat.contiguous()
+    out = torch.empty(send.numel() // n, dtype=send.dtype, device=send.device,
+                      pin_memory=staged)
+    _REDUCE_SCATTER(out, send, group=group)
+    return out.to(flat.device, non_blocking=True) if staged else out
+
+
+def all_gather(flat, group=None):
+    """[c] -> [N * c]: the ranks' ``flat`` buffers in rank order."""
+    n = dist.get_world_size(group)
+    staged = host_staged(flat, group)
+    send = _pinned(flat) if staged else flat.contiguous()
+    out = torch.empty(n * send.numel(), dtype=send.dtype, device=send.device,
+                      pin_memory=staged)
+    _ALL_GATHER(out, send, group=group)
+    return out.to(flat.device, non_blocking=True) if staged else out
+
+
+class AllReduceSum(torch.autograd.Function):
+    """The sum of ``x`` over ``group``; the backward sums the cotangent
+    over the group (every rank's loss depends on every rank's ``x``)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return all_reduce_(x.detach().clone().contiguous(), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce_(g.clone().contiguous(), ctx.group), None
+
+
+# ---------------------------------------------------------------------------
+# the batch group
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class BatchGroup:
+    """The ranks of ``group`` hold one global batch; this one is ``rank``
+    of ``world`` and holds rows ``[rank * b, (rank + 1) * b)``."""
+
+    group: object
+    rank: int
+    world: int
+
+
+_ACTIVE = contextvars.ContextVar("batch_group", default=None)
+
+
+def active():
+    """The active ``BatchGroup``, or None."""
+    return _ACTIVE.get()
+
+
+@contextlib.contextmanager
+def sync_batch(bg):
+    """Run the block with ``bg`` (a ``BatchGroup`` or None: no group) as the
+    active batch group."""
+    token = _ACTIVE.set(bg)
+    try:
+        yield bg
+    finally:
+        _ACTIVE.reset(token)
+
+
+def sum_over_batch(t, bg=None):
+    """``t`` (a per-rank partial sum) summed over the active batch group,
+    differentiably; ``t`` itself without one."""
+    bg = bg or active()
+    return t if bg is None else AllReduceSum.apply(t, bg.group)
+
+
+def batch_moments(x, axes):
+    """(mean, biased variance) of ``x`` over ``axes``, over the global
+    batch when a batch group is active (two all-reduces: the mean, then the
+    centred squares), else ``x.mean``/``x.var`` as before."""
+    bg = active()
+    if bg is None:
+        return x.mean(dim=axes), x.var(dim=axes, correction=0)
+    n = 1
+    for a in axes:
+        n *= x.shape[a]
+    n *= bg.world
+    mean = sum_over_batch(x.sum(dim=axes), bg) / n
+    d = x - mean
+    return mean, sum_over_batch((d * d).sum(dim=axes), bg) / n
+
+
+def masked_denominator(count):
+    """A masked loss's denominator, ``max(count, 1)`` for the local count
+    of valid rows; with a batch group, ``max(global count, 1) / world``, so
+    the mean over ranks of the ranks' losses is the global masked mean."""
+    bg = active()
+    if bg is None:
+        return count.clamp_min(1.0)
+    c = all_reduce_(count.detach().clone().contiguous(), bg.group)
+    return c.clamp_min(1.0) / bg.world
+
+
+def row_offset(x):
+    """The flat index of this rank's first element of the batch-leading
+    tensor ``x`` in the global batch (0 without a batch group)."""
+    bg = active()
+    return 0 if bg is None else bg.rank * x.numel()

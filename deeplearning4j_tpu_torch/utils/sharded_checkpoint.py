@@ -1,0 +1,193 @@
+"""Sharded checkpoints of the data-parallel tier.
+
+The port of ``deeplearning4j_tpu/utils/sharded_checkpoint.py``. The JAX
+module writes orbax, which this package does not use; the format here is
+its own, a directory:
+
+    index.json      the world size that wrote it, and for every leaf (by
+                    its keystr path) the whole shape, the dtype and the
+                    dim it was split on (null: whole), plus the scalars
+    shard-<r>.pt    rank r's pieces: its slice of every split leaf, and
+                    (rank 0 only) the whole leaves
+    dl4j_bundle_extras.zip   optional: ``buckets.json``
+
+Every rank writes its own pieces; nothing is gathered to one rank. A
+restore re-splits the saved leaves for the destination's layout and world
+size: each leaf is reassembled from the pieces that hold it and cut to the
+destination's split, so a checkpoint written by a replicated trainer on 4
+ranks resumes into a ZeRO-1, FSDP or FSDP_STREAM trainer on 2 (and back).
+The single-process zip (``utils/serialization.py``) stays the format of a
+whole network; ``ParallelTrainer.adopt_net_state`` places one in any
+layout.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import pathlib
+import zipfile
+
+import torch
+import torch.distributed as dist
+
+from deeplearning4j_tpu_torch.utils.trees import flatten_tree, tree_leaves, tree_like
+
+FORMAT = "dl4j-torch-sharded/1"
+_EXTRAS_NAME = "dl4j_bundle_extras.zip"
+
+
+def _rank_world(group):
+    if not dist.is_initialized():
+        return 0, 1
+    return dist.get_rank(group), dist.get_world_size(group)
+
+
+def _barrier(group):
+    if dist.is_initialized() and dist.get_world_size(group) > 1:
+        dist.barrier(group=group)
+
+
+def _dtype_name(t):
+    return str(t.dtype).replace("torch.", "")
+
+
+def save_sharded(path, tree, splits=None, *, scalars=None, group=None):
+    """Write this rank's pieces of ``tree`` (a tree of tensors; ``splits``
+    the same tree of split dims, None for a whole leaf, default all whole)
+    into the directory ``path``. Every rank of ``group`` calls it. Returns
+    the path."""
+    path = pathlib.Path(path)
+    rank, world = _rank_world(group)
+    if rank == 0:
+        path.mkdir(parents=True, exist_ok=True)
+    _barrier(group)
+    leaves = flatten_tree(tree)
+    dims = (dict(zip(leaves, tree_leaves(splits))) if splits is not None
+            else dict.fromkeys(leaves))
+    pieces = {}
+    index = {}
+    for name, t in leaves.items():
+        d = dims[name]
+        shape = list(t.shape)
+        if d is not None:
+            shape[d] *= world
+        index[name] = {"shape": shape, "dtype": _dtype_name(t), "split": d}
+        if d is not None or rank == 0:
+            pieces[name] = t.detach().cpu().contiguous()
+    torch.save(pieces, path / f"shard-{rank}.pt")
+    if rank == 0:
+        (path / "index.json").write_text(json.dumps(
+            {"format": FORMAT, "world": world, "leaves": index, "scalars": scalars or {}},
+            indent=1))
+    _barrier(group)
+    return str(path)
+
+
+def read_index(path):
+    return json.loads((pathlib.Path(path) / "index.json").read_text())
+
+
+def restore_sharded(path, like, splits=None, *, group=None):
+    """The pieces of the checkpoint at ``path`` for this rank: a tree
+    shaped as ``like`` (each leaf's device and dtype), each leaf cut on its
+    ``splits`` dim (None: whole) for the current rank and world."""
+    path = pathlib.Path(path)
+    index = read_index(path)
+    saved = [torch.load(path / f"shard-{r}.pt", map_location="cpu", weights_only=True)
+             for r in range(index["world"])]
+    rank, world = _rank_world(group)
+    like_leaves = flatten_tree(like)
+    dims = (dict(zip(like_leaves, tree_leaves(splits))) if splits is not None
+            else dict.fromkeys(like_leaves))
+    out = []
+    for name, t in like_leaves.items():
+        meta = index["leaves"].get(name)
+        if meta is None:
+            raise KeyError(f"checkpoint {path} has no leaf {name}")
+        sd = meta["split"]
+        whole = (torch.cat([s[name] for s in saved], dim=sd) if sd is not None
+                 else saved[0][name])
+        d = dims[name]
+        if d is not None:
+            c = whole.shape[d] // world
+            whole = whole.narrow(d, rank * c, c)
+        if tuple(whole.shape) != tuple(t.shape):
+            raise ValueError(f"checkpoint leaf {name}: {tuple(whole.shape)} does not fit "
+                             f"{tuple(t.shape)}")
+        out.append(whole.to(device=t.device, dtype=t.dtype))
+    return tree_like(like, iter(out))
+
+
+# ---------------------------------------------------------------------------
+# trainers
+# ---------------------------------------------------------------------------
+
+class _Split:
+    def __init__(self, dim):
+        self.dim = dim
+
+
+def _trainer_trees(trainer):
+    """(tree, splits) of everything a resume needs: parameters, updater
+    state and layer state, as this trainer stores them."""
+    plan = trainer._plan
+    if trainer.shard_params in ("fsdp", "fsdp_stream"):
+        dims = iter(plan.dims)
+        p_splits = tree_like(trainer.params, (next(dims) if tr else None
+                                              for tr in trainer._trainable_mask))
+    else:
+        p_splits = tree_like(trainer.params, (None for _ in trainer._trainable_mask))
+    if trainer._zero:
+        marked = trainer._opt_sliced(trainer.opt_state, trainer.net.params,
+                                     lambda j, t: _Split(plan.dims[j]))
+        o_splits = tree_like(marked, (m.dim if isinstance(m, _Split) else None
+                                      for m in tree_leaves(marked)))
+    else:
+        o_splits = tree_like(trainer.opt_state, (None for _ in tree_leaves(trainer.opt_state)))
+    tree = {"params": trainer.params, "opt_state": trainer.opt_state, "state": trainer.state}
+    splits = {"params": p_splits, "opt_state": o_splits,
+              "state": tree_like(trainer.state, (None for _ in tree_leaves(trainer.state)))}
+    return tree, splits
+
+
+def save_trainer(path, trainer, *, buckets=None):
+    """Checkpoint a ``ParallelTrainer`` in its layout (every rank calls
+    it): parameters, updater state, layer state, iteration and epoch, and
+    with ``buckets`` (a BucketRegistry or sizes) ``buckets.json`` in the
+    extras zip. Returns the path."""
+    tree, splits = _trainer_trees(trainer)
+    path = save_sharded(path, tree, splits, group=trainer.group,
+                        scalars={"iteration": int(trainer.iteration),
+                                 "epoch": int(trainer.epoch), "layout": trainer.layout})
+    rank, _ = _rank_world(trainer.group)
+    if buckets is not None and rank == 0:
+        from deeplearning4j_tpu_torch.utils.serialization import _bucket_sizes
+        with zipfile.ZipFile(os.path.join(path, _EXTRAS_NAME), "w", zipfile.ZIP_DEFLATED) as z:
+            z.writestr("buckets.json", json.dumps(_bucket_sizes(buckets)))
+    _barrier(trainer.group)
+    return path
+
+
+def restore_trainer(path, trainer):
+    """Restore into ``trainer`` (initialised first if it is not) in ITS
+    layout and world size, whatever wrote the checkpoint: the tensors are
+    copied in place, the counters set, and a bucket registry lands on
+    ``trainer.buckets``. Returns the trainer."""
+    if trainer.params is None:
+        trainer.init()
+    tree, splits = _trainer_trees(trainer)
+    got = restore_sharded(path, tree, splits, group=trainer.group)
+    with torch.no_grad():
+        for dst, src in zip(tree_leaves(tree), tree_leaves(got)):
+            dst.copy_(src)
+    scalars = read_index(path)["scalars"]
+    trainer.iteration = int(scalars.get("iteration", 0))
+    trainer.epoch = int(scalars.get("epoch", 0))
+    extras = pathlib.Path(path) / _EXTRAS_NAME
+    if extras.exists():
+        from deeplearning4j_tpu_torch.datasets.iterator import BucketRegistry
+        with zipfile.ZipFile(extras) as z:
+            if "buckets.json" in z.namelist():
+                trainer.buckets = BucketRegistry(json.loads(z.read("buckets.json")))
+    return trainer
