@@ -335,6 +335,42 @@ nonzero; nothing is caught):
             step computed here, then 3 threshold steps with their density
             and tau, and ``ParameterAveragingTrainingMaster`` on LeNet
             (431,080 params) with MNIST-shaped data from the seed.
+21. model_parallel  ``parallel/`` model parallelism, 4 ranks on card 0
+            over gloo (one spawn), references computed first in this
+            process at world 1 (NCCL for the LMs). (a) the MoE LM
+            (117,620,736 params) under ``ParallelTrainer(tensor_parallel=
+            True)`` on model=4: 2 of the 8 experts a rank, the embedding
+            and output layer split and gathered for their forward; the
+            split step's gradients against the world-1 step's (each leaf
+            within 1e-4 of its own largest, or of 1% of the model's
+            largest where that is more), then one step on 2 sequences
+            (T 4096) against the world-1 ``fit`` step (loss rtol 1e-4, at
+            most 8 parameters beyond 1e-4: Adam's sign flips), the model
+            group's collective ms (EP combine, weight gathers). (b)
+            ``PipelineParallelLM`` (the LM's widths, 29,408,256 params) on
+            data=2 x stage=2 (3 blocks a stage), batch 8 as 4 microbatches
+            a replica, GPipe and 1F1B: the pipelined loss and
+            ``loss_reference`` against the world-1 unpipelined step's
+            (rtol 1e-4), every leaf's gradient held as in (a), then a
+            timed step (ms, time waiting in hops, peak memory,
+            microbatches stashed, flash launches). (c)
+            ``ComposedParallelLM`` on stage=2 x model=2 (4 heads a rank),
+            batch 8 as 4 microbatches, checked and timed as (b). (d)
+            ``PipelinedGraph`` over the fused ResNet50 on stage=4, batch
+            64 as 4 x 16, both schedules: loss and BN running state
+            against the sequential per-microbatch run here (loss rtol
+            1e-4, state 1e-4 of each tensor's magnitude), 144 + 64 conv
+            launches a step over the stages. (e) ``PipelinedNetwork`` over
+            the char-RNN on data=2 x stage=2, batch 64 as 4 x 8 a replica,
+            masked, both schedules: the loss against the whole batch's
+            masked loss (rtol 1e-5), 4 ``lstm_seq`` launches a rank. (f)
+            ``ParallelInference(mesh=)`` over data=4 on the fused
+            ResNet50: 32 requests, every answer row within 1e-5 of its
+            largest of ``output`` on that rank's 8 rows (a row sent
+            elsewhere fails), and the top class of every row equal to
+            ``output`` on the whole batch's where its top-2 margin is
+            more than twice the row's gap to it. A rank's failure fails
+            the phase.
 
 Then a ``kernels`` line (every kernel of the paths with its launches on
 its path, error, times and bound), the card's name and power limit, and
@@ -626,6 +662,21 @@ DP_HANG_S, DP_TIMEOUT_S = 420, 480
 # few Adam first-step sign flips of near-zero gradients (the MNIST phase's
 # allowance)
 DP_NOISE_FACTOR, DP_SIGN_FLIPS = 3.0, 8
+# the model_parallel phase: MP_RANKS ranks on the one card over gloo. (a)
+# the MoE LM at MP_MOE_BATCH sequences on model=MP_TP (2 experts a rank);
+# (b), (c) the LM at batch MP_LM_BATCH, MP_MICRO microbatches a replica;
+# in (a)-(c) each leaf's gradient within MP_GRAD_RTOL of the larger of its
+# own largest and MP_GRAD_FLOOR of the model's largest (a leaf whose
+# gradient is 0 in exact arithmetic, as the key bias's, is rounding noise
+# held to the model's scale); (d) the fused ResNet50's batch 64 as
+# MP_RN_MICRO microbatches; (e) the char-RNN's batch MP_CH_BATCH as
+# MP_CH_MICRO a replica, the masked loss within MP_CH_LOSS_RTOL; (f)
+# MP_INFER_REQUESTS requests, each answer row within MP_INFER_ROW_RTOL of
+# its largest of ``output`` on the same rows
+MP_RANKS, MP_TP, MP_MOE_BATCH = 4, 4, 2
+MP_LM_BATCH, MP_MICRO, MP_GRAD_RTOL, MP_GRAD_FLOOR = 8, 4, 1e-4, 1e-2
+MP_RN_MICRO, MP_CH_BATCH, MP_CH_MICRO, MP_CH_LOSS_RTOL = 4, 64, 4, 1e-5
+MP_INFER_REQUESTS, MP_INFER_ROW_RTOL, MP_HANG_S, MP_TIMEOUT_S = 32, 1e-5, 420, 480
 
 
 def emit(phase, **fields):
@@ -6249,6 +6300,434 @@ def phase_parallel(C, A, seed):
             "flash_launches": flash}
 
 
+# ---------------------------------------------------------------------------
+# model_parallel: tensor/expert parallelism, the pipelines, the composed LM
+# ---------------------------------------------------------------------------
+
+def mp_launches(A, C, L):
+    """Every kernel's launch count so far in this process."""
+    return {"flash_attn": A.launches, "conv_mm_stats": C.launches["conv_mm_stats"],
+            "conv3x3_stats": C.launches["conv3x3_stats"], "lstm_seq": L.launches}
+
+
+def mp_since(A, C, L, before):
+    now = mp_launches(A, C, L)
+    return {k: now[k] - before[k] for k in now}
+
+
+def grad_gap(got, want):
+    """Each leaf's largest |got - want| over the larger of its own largest
+    |want| and MP_GRAD_FLOOR x the largest of all the leaves; (worst, its
+    leaf)."""
+    floor = MP_GRAD_FLOOR * max(float(w.abs().max()) for w in want.values())
+    return max((float((got[k].float().cpu() - want[k]).abs().max())
+                / max(float(want[k].abs().max()), floor), k) for k in want)
+
+
+def mp_lm_grads(lm, ids, labels):
+    """(loss, {path: gradient} of this rank's parameters with blocks named
+    by their index in the model) of one pipelined step without the update."""
+    from deeplearning4j_tpu_torch.parallel.pipeline import _by_block
+    from deeplearning4j_tpu_torch.utils import dtypes
+    from deeplearning4j_tpu_torch.utils.trees import flatten_tree
+
+    with dtypes.policy_precision():
+        loss, grads = lm._loss_and_grads(ids, labels)
+    tree = _by_block(grads, lm.link.s * lm.per_stage, lm.per_stage)
+    return float(loss), flatten_tree(tree)
+
+
+def mp_lm_cell(A, C, L, make, ids, labels, ref, cut=None):
+    """One LM pipeline on this rank, both schedules: the gradients of a
+    step against the world-1 step's (``ref``; ``cut(path, grad)`` takes this
+    rank's slice of a reference gradient), the loss against
+    ``loss_reference`` and the world-1 loss, then one timed step."""
+    out = {}
+    for sched in ("gpipe", "1f1b"):
+        lm = make(sched)
+        before = mp_launches(A, C, L)
+        loss, grads = mp_lm_grads(lm, ids, labels)
+        want = {k: (cut(k, ref["grads"][k]) if cut else ref["grads"][k]) for k in grads}
+        gap, leaf = grad_gap(grads, want)
+        seq_loss = float(lm.loss_reference(ids, labels))
+        for what, got in (("pipelined loss", loss), ("loss_reference", seq_loss)):
+            if not abs(got - ref["loss"]) <= STEP_LOSS_RTOL * abs(ref["loss"]):
+                raise AssertionError(f"{sched}: {what} {got} against the world-1 step's "
+                                     f"{ref['loss']}")
+        if not gap <= MP_GRAD_RTOL:
+            raise AssertionError(f"{sched}: gradient {leaf} off the world-1 step's by {gap} "
+                                 "of its largest")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        lm.timing = True
+        flash0 = A.launches
+        t0 = time.perf_counter()
+        step_loss = float(lm.step(ids, labels))
+        torch.cuda.synchronize()
+        step_ms = 1e3 * (time.perf_counter() - t0)
+        flash = A.launches - flash0
+        want_flash = lm.per_stage * lm.n_micro
+        if flash < want_flash or not np.isfinite(step_loss):
+            raise AssertionError(f"{sched}: {flash} flash launches a step, at least "
+                                 f"{want_flash} expected; loss {step_loss}")
+        out[sched] = {"loss": loss, "loss_reference": seq_loss, "world1_loss": ref["loss"],
+                      "grad_gap": gap, "grad_gap_leaf": leaf, "step_ms": step_ms,
+                      "wait_ms": lm.wait_ms[-1], "bubble_share": lm.wait_ms[-1] / step_ms,
+                      "peak_bytes": torch.cuda.max_memory_allocated(),
+                      "stashed_microbatches": lm.last_peak_stash, "flash_a_step": flash,
+                      "launches": mp_since(A, C, L, before)}
+        del lm
+        torch.cuda.empty_cache()
+    return out
+
+
+def mp_timed_step(model, step):
+    """(ms, ms waiting in hops, peak bytes) of one more step of a pipeline,
+    after its checked one (the warm-up)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    model.timing = True
+    t0 = time.perf_counter()
+    step()
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    model.timing = False
+    return ms, model.wait_ms[-1], torch.cuda.max_memory_allocated()
+
+
+def mp_rank(rank, world, seed, refs):
+    """One rank of the model_parallel cells (a)-(f), on card 0 over gloo
+    (see the module docstring). Returns its row."""
+    import faulthandler
+
+    from deeplearning4j_tpu_torch.models import resnet50
+    from deeplearning4j_tpu_torch.ops import attention as A
+    from deeplearning4j_tpu_torch.ops import conv_stats as C
+    from deeplearning4j_tpu_torch.ops import lstm_seq as L
+    from deeplearning4j_tpu_torch.parallel import (ComposedParallelLM, MeshSpec,
+                                                   ParallelInference, ParallelTrainer,
+                                                   PipelinedGraph, PipelinedNetwork,
+                                                   PipelineParallelLM, make_mesh)
+    from deeplearning4j_tpu_torch.parallel.composed import BLOCK_SPLIT
+    from deeplearning4j_tpu_torch.utils import collectives as K
+    from deeplearning4j_tpu_torch.utils import dtypes
+    from deeplearning4j_tpu_torch.utils.trees import flatten_tree, tree_leaves
+
+    faulthandler.dump_traceback_later(MP_HANG_S, exit=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    r = torch.load(refs, map_location="cpu", weights_only=False)
+    row = {"rank": rank}
+    start = mp_launches(A, C, L)
+
+    # (a) tensor + expert parallelism: the MoE LM on model=4
+    mesh = make_mesh(MeshSpec(data=1, model=MP_TP))
+    net = make_moe_lm(seed)
+    tr = ParallelTrainer(net, mesh, tensor_parallel=True).adopt_net_state()
+    experts = {k: tuple(v.shape) for k, v in flatten_tree(net.params).items() if "expert_" in k}
+    if any(s[0] != MOE_EXPERTS // MP_TP for s in experts.values()):
+        raise AssertionError(f"rank {rank}: expert leaves {experts}")
+    x, y = r["moe_x"].cuda(), r["moe_y"].cuda()
+    # the gradients of the split step, each leaf against this rank's slice
+    # of the world-1 step's
+    before = mp_launches(A, C, L)
+    with K.sync_model(tr._mg), dtypes.policy_precision():
+        leaves = list(tree_leaves(net._watch(net.params)))
+        g_loss, _ = net.loss_fn(net.params, net.state, x, y, train=True)
+        gs = torch.autograd.grad(g_loss, leaves, allow_unused=True)
+    for t in leaves:
+        t.requires_grad_(False)
+    names = list(flatten_tree(net.params))
+    got = {k: (torch.zeros_like(t) if g is None else g)
+           for k, t, g in zip(names, leaves, gs)}
+    want = {k: (r["moe_grads"][k] if d is None else
+                K.local_slice(r["moe_grads"][k], d, mesh.coords["model"], MP_TP))
+            for k, d in zip(names, tr._tp_dims)}
+    grad_gap_a, grad_leaf_a = grad_gap(got, want)
+    if not abs(float(g_loss) - r["moe_grad_loss"]) <= STEP_LOSS_RTOL * abs(r["moe_grad_loss"]):
+        raise AssertionError(f"rank {rank}: split loss {float(g_loss)} against world 1's "
+                             f"{r['moe_grad_loss']}")
+    if not grad_gap_a <= MP_GRAD_RTOL:
+        raise AssertionError(f"rank {rank}: TP+EP gradient {grad_leaf_a} off world 1's by "
+                             f"{grad_gap_a} of its largest")
+    del got, gs, want
+    torch.cuda.synchronize()
+    tr.timing = True
+    t0 = time.perf_counter()
+    loss = tr.step(x, y)
+    torch.cuda.synchronize()
+    step_ms = 1e3 * (time.perf_counter() - t0)
+    launched = mp_since(A, C, L, before)
+    stored = tr.tree_bytes()
+    tr.sync_to_net()
+    # no permutation noise here: the sequences' order decides which tokens
+    # the experts' capacity drops, so a swap is another step; the gradient
+    # check above is the gate, and the update may flip at most
+    # DP_SIGN_FLIPS near-zero gradients' Adam steps
+    held = dp_hold(f"rank {rank} TP+EP step vs world 1", dp_diff(dp_snapshot(net, loss),
+                                                                 r["moe_ref"]),
+                   {"params_beyond_atol": 0}, loss_rtol=STEP_LOSS_RTOL)
+    if launched["flash_attn"] < LM_LAYERS:
+        raise AssertionError(f"rank {rank}: {launched['flash_attn']} flash launches in the "
+                             f"TP+EP step, at least {LM_LAYERS} expected")
+    row["tp_ep"] = {"loss": float(loss), "world1_loss": r["moe_ref"][0], "step_ms": step_ms,
+                    "grad_gap": grad_gap_a, "grad_gap_leaf": grad_leaf_a,
+                    "model_collective_ms": tr.model_collective_ms[-1],
+                    "data_collective_ms": tr.collective_ms[-1], "expert_leaf_shapes": experts,
+                    "check": held, "launches": launched, **stored}
+    del tr, net
+    free_card()
+
+    ids, labels = r["lm_ids"].cuda(), r["lm_labels"].cuda()
+    lm_kw = dict(vocab_size=LM_VOCAB, n_layers=LM_LAYERS, d_model=LM_WIDTH, n_heads=LM_HEADS,
+                 seq_len=LM_SEQ, device="cuda")
+
+    # (b) PipelineParallelLM on data=2 x stage=2
+    mesh2 = make_mesh(MeshSpec(data=2, stage=2))
+    row["pipeline_lm"] = mp_lm_cell(
+        A, C, L, lambda s: PipelineParallelLM(mesh=mesh2, schedule=s, n_microbatches=MP_MICRO,
+                                              **lm_kw).init(torch.Generator().manual_seed(seed)),
+        ids, labels, r["lm_ref"])
+    free_card()
+
+    # (c) ComposedParallelLM on stage=2 x model=2
+    mesh22 = make_mesh(MeshSpec(data=1, model=2, stage=2))
+
+    def cut(path, g):
+        key = path.split("['")[-1].rstrip("']")
+        d = BLOCK_SPLIT.get(key) if "blocks" in path else None
+        return g if d is None else K.local_slice(g, d, mesh22.coords["model"], 2)
+    row["composed"] = mp_lm_cell(
+        A, C, L, lambda s: ComposedParallelLM(mesh=mesh22, schedule=s, n_microbatches=MP_MICRO,
+                                              **lm_kw).init(torch.Generator().manual_seed(seed)),
+        ids, labels, r["comp_ref"], cut)
+    free_card()
+
+    # (d) PipelinedGraph over the fused ResNet50 on stage=4
+    mesh4 = make_mesh(MeshSpec(data=1, stage=4))
+    rx, ry = r["rn_x"].cuda(), r["rn_y"].cuda()
+    conf = resnet50(RN_HW, RN_HW, n_classes=RN_CLASSES, fused=True)
+    row["resnet"] = {}
+    for sched in ("gpipe", "1f1b"):
+        pg = PipelinedGraph(conf, mesh4, n_microbatches=MP_RN_MICRO, schedule=sched,
+                            device="cuda").init(torch.Generator().manual_seed(seed))
+        before = mp_launches(A, C, L)
+        loss = float(pg.step(rx, ry))  # the checked step, from the seed's weights
+        launched = mp_since(A, C, L, before)
+        state = {k: v.float().cpu() for k, v in flatten_tree(pg.state).items()}
+        step_ms, wait_ms, peak = mp_timed_step(pg, lambda: pg.step(rx, ry))
+        ref_state = r["rn_ref"]["state"]
+        mine = {k: ref_state[k] for k in state}
+        state_gap = max([float(((state[k] - mine[k]).abs().max()
+                                / mine[k].abs().max().clamp_min(1.0))) for k in state] or [0.0])
+        if not abs(loss - r["rn_ref"]["loss"]) <= RN_LOSS_RTOL * abs(r["rn_ref"]["loss"]):
+            raise AssertionError(f"rank {rank} resnet {sched}: loss {loss} against the "
+                                 f"sequential per-microbatch run's {r['rn_ref']['loss']}")
+        if not state_gap <= RN_STATE_ATOL:
+            raise AssertionError(f"rank {rank} resnet {sched}: BN state off by {state_gap}")
+        row["resnet"][sched] = {"loss": loss, "ref_loss": r["rn_ref"]["loss"],
+                                "state_gap": state_gap, "step_ms": step_ms,
+                                "wait_ms": wait_ms, "peak_bytes": peak,
+                                "stashed_microbatches": pg.last_peak_stash,
+                                "vertices": len(pg.groups[pg.stage]), "launches": launched}
+        del pg
+        free_card()
+
+    # (e) PipelinedNetwork over the char-RNN on data=2 x stage=2, masked
+    from deeplearning4j_tpu_torch.models.misc import text_generation_lstm
+    cx, cy, cm = r["ch_x"].cuda(), r["ch_y"].cuda(), r["ch_mask"].cuda()
+    conf = text_generation_lstm(VOCAB, hidden=HIDDEN, seq_len=SEQ)
+    row["charnn"] = {}
+    for sched in ("gpipe", "1f1b"):
+        pn = PipelinedNetwork(conf, mesh2, n_microbatches=MP_CH_MICRO,
+                              stage_layers=[[0], [1, 2]], schedule=sched,
+                              device="cuda").init(torch.Generator().manual_seed(seed))
+        before = mp_launches(A, C, L)
+        loss = float(pn.step(cx, cy, mask=cm))  # the checked step
+        launched = mp_since(A, C, L, before)
+        step_ms, wait_ms, _ = mp_timed_step(pn, lambda: pn.step(cx, cy, mask=cm))
+        if not abs(loss - r["ch_ref"]) <= MP_CH_LOSS_RTOL * abs(r["ch_ref"]):
+            raise AssertionError(f"rank {rank} charnn {sched}: loss {loss} against the "
+                                 f"sequential run's {r['ch_ref']}")
+        if launched["lstm_seq"] != MP_CH_MICRO:
+            raise AssertionError(f"rank {rank} charnn {sched}: {launched['lstm_seq']} "
+                                 f"lstm_seq launches, {MP_CH_MICRO} expected")
+        row["charnn"][sched] = {"loss": loss, "ref_loss": r["ch_ref"], "step_ms": step_ms,
+                                "wait_ms": wait_ms, "launches": launched}
+        del pn
+    free_card()
+
+    # (f) ParallelInference over data=4 on the fused ResNet50, unpipelined
+    net = make_resnet(seed)
+    pi = ParallelInference(net, max_batch_size=MP_INFER_REQUESTS,
+                           mesh=make_mesh(MeshSpec(data=MP_RANKS)))
+    ix = r["inf_x"].cuda()
+    before = mp_launches(A, C, L)
+    got = np.asarray(pi.output(ix.cpu().numpy()))  # requests arrive from the host
+    launched = mp_since(A, C, L, before)
+
+    def output(rows):
+        y = net.output(rows)
+        y = next(iter(y.values())) if isinstance(y, dict) else y
+        return y if isinstance(y, np.ndarray) else y.detach().cpu().numpy()
+    per = pi.max_batch // MP_RANKS  # the rows each rank answers
+    by_rank = np.concatenate([output(ix[i:i + per]) for i in range(0, ix.shape[0], per)])
+    whole = output(ix)
+    if got.shape != whole.shape:
+        raise AssertionError(f"rank {rank}: split answers {got.shape}, {whole.shape} expected")
+    row_gap = (np.abs(got - by_rank).max(1) / np.abs(by_rank).max(1)).max()
+    if not row_gap <= MP_INFER_ROW_RTOL:
+        raise AssertionError(f"rank {rank}: a split answer row off output() on its rank's rows "
+                             f"by {row_gap} of its largest")
+    gap = np.abs(got - whole).max(1)
+    top2 = np.sort(whole, 1)[:, -2:]
+    decided = top2[:, 1] - top2[:, 0] > 2 * gap
+    flips = int((decided & (got.argmax(1) != whole.argmax(1))).sum())
+    if flips:
+        raise AssertionError(f"rank {rank}: {flips} split answers' top class differs from "
+                             "output() on the whole batch")
+    row["inference"] = {"requests": int(ix.shape[0]), "row_gap_by_rank": float(row_gap),
+                        "max_abs_err_whole": float(gap.max()),
+                        "row_gap_whole": float((gap / np.abs(whole).max(1)).max()),
+                        "top_class_decided": int(decided.sum()), "max_batch": pi.max_batch,
+                        "launches": launched}
+    del pi, net
+    free_card()
+    row["launches"] = mp_since(A, C, L, start)
+    faulthandler.cancel_dump_traceback_later()
+    return row
+
+
+def mp_world1_grads(lm, ids, labels):
+    """The world-1 step's loss and gradients (whole, by path) of an LM
+    pipeline, on the host."""
+    loss, grads = mp_lm_grads(lm, ids, labels)
+    return {"loss": loss, "grads": {k: v.float().cpu() for k, v in grads.items()}}
+
+
+def mp_references(seed):
+    """What the ranks hold their cells to, computed here at world 1."""
+    import torch.distributed as dist
+
+    from deeplearning4j_tpu_torch.parallel import (ComposedParallelLM, MeshSpec,
+                                                   PipelineParallelLM, make_mesh)
+    from deeplearning4j_tpu_torch.utils import dtypes
+    from deeplearning4j_tpu_torch.utils.trees import flatten_tree
+
+    refs = {}
+    # (a) the MoE LM's first fit step and its gradients
+    rs = np.random.RandomState(seed + 11)
+    mx, my = lm_data(rs, MP_MOE_BATCH)
+    refs["moe_ref"] = dp_fit_step(seed, mx, my, make_moe_lm)
+    refs["moe_x"], refs["moe_y"] = mx.cpu(), my.cpu()
+    net = make_moe_lm(seed)
+    with dtypes.policy_precision():  # as every training step runs
+        loss, _, grads = net.compute_gradients(net.params, net.state, mx, my)
+    refs["moe_grad_loss"] = float(loss)
+    refs["moe_grads"] = {k: v.float().cpu() for k, v in flatten_tree(grads).items()}
+    del net, grads
+    free_card()
+    # (b), (c) one unpipelined step of each LM on the whole batch at world 1
+    x, y = lm_data(np.random.RandomState(seed + 13), MP_LM_BATCH)
+    ids, labels = x[..., 0].long(), y.argmax(-1)
+    work = WORK / "mp_nccl"
+    work.mkdir(parents=True)
+    dist.init_process_group("nccl", init_method=f"file://{work / 'rendezvous'}", rank=0,
+                            world_size=1)
+    try:
+        mesh = make_mesh(MeshSpec())
+        kw = dict(vocab_size=LM_VOCAB, n_layers=LM_LAYERS, d_model=LM_WIDTH, n_heads=LM_HEADS,
+                  seq_len=LM_SEQ, n_microbatches=1, mesh=mesh, device="cuda")
+        lm = PipelineParallelLM(**kw).init(torch.Generator().manual_seed(seed))
+        if lm.num_params() != LM_PARAMS:
+            raise AssertionError(f"PipelineParallelLM has {lm.num_params()} params")
+        refs["lm_ref"] = mp_world1_grads(lm, ids, labels)
+        del lm
+        lm = ComposedParallelLM(**kw).init(torch.Generator().manual_seed(seed))
+        refs["comp_ref"] = mp_world1_grads(lm, ids, labels)
+        del lm
+    finally:
+        dist.destroy_process_group()
+    refs["lm_ids"], refs["lm_labels"] = ids.cpu(), labels.cpu()
+    free_card()
+    # (d) the sequential per-microbatch run of the fused ResNet50 (state
+    # threaded from microbatch k to k + 1, train-mode statistics)
+    rx, ry = resnet_data(seed + 17, RN_BATCH)
+    net = make_resnet(seed)
+    mb = RN_BATCH // MP_RN_MICRO
+    state, losses = net.state, []
+    with torch.no_grad(), dtypes.policy_precision():
+        for k in range(MP_RN_MICRO):
+            loss, (state, _) = net.loss_fn(net.params, state, rx[k * mb:(k + 1) * mb],
+                                           ry[k * mb:(k + 1) * mb], train=True)
+            losses.append(float(loss))
+    refs["rn_ref"] = {"loss": float(np.mean(losses)),
+                      "state": {k: v.float().cpu() for k, v in flatten_tree(state).items()}}
+    refs["rn_x"], refs["rn_y"] = rx.cpu(), ry.cpu()
+    del net
+    free_card()
+    # (e) the char-RNN's masked loss on the whole batch (no batch statistics:
+    # the sequential per-microbatch run's loss)
+    crs = np.random.RandomState(seed + 19)
+    cx, cy = charnn_data(crs, MP_CH_BATCH, SEQ)
+    cm = torch.from_numpy((crs.rand(MP_CH_BATCH, SEQ) > 0.3).astype(np.float32)).cuda()
+    cm[:, 0] = 1.0
+    net = make_charnn(seed)
+    with torch.no_grad(), dtypes.policy_precision():
+        refs["ch_ref"] = float(net.loss_fn(net.params, net.state, cx, cy, train=True,
+                                           mask=cm)[0])
+    refs["ch_x"], refs["ch_y"], refs["ch_mask"] = cx.cpu(), cy.cpu(), cm.cpu()
+    del net
+    # (f) the requests
+    refs["inf_x"] = resnet_data(seed + 23, MP_INFER_REQUESTS)[0].cpu()
+    free_card()
+    return refs
+
+
+def phase_model_parallel(seed):
+    from deeplearning4j_tpu_torch.parallel.launch import run_ranks
+
+    t0 = time.perf_counter()
+    refs = mp_references(seed)
+    emit("model_parallel.references", moe_grad_loss=refs["moe_grad_loss"],
+         lm_loss=refs["lm_ref"]["loss"], composed_loss=refs["comp_ref"]["loss"],
+         resnet_loss=refs["rn_ref"]["loss"], charnn_loss=refs["ch_ref"],
+         seconds=time.perf_counter() - t0, card=card_line())
+    path = WORK / "mp_refs.pt"
+    torch.save(refs, path)
+    del refs
+    free_card()
+    t_ranks = time.perf_counter()
+    ranks = run_ranks(mp_rank, MP_RANKS, WORK / "mp_ranks", backend="gloo", device=0,
+                      timeout=MP_TIMEOUT_S, seed=seed, refs=str(path))
+    ranks_s = time.perf_counter() - t_ranks
+    emit("model_parallel.tp_ep", mesh="model=4", world=MP_RANKS, backend="gloo",
+         batch=MP_MOE_BATCH, T=LM_SEQ, params=MOE_PARAMS,
+         ranks=[{"rank": rk["rank"], **rk["tp_ep"]} for rk in ranks], card=card_line())
+    for cell, mesh in (("pipeline_lm", "data=2 x stage=2"), ("composed", "stage=2 x model=2")):
+        emit(f"model_parallel.{cell}", mesh=mesh, batch=MP_LM_BATCH, microbatches=MP_MICRO,
+             T=LM_SEQ, params=LM_PARAMS, ranks=[{"rank": rk["rank"], **rk[cell]} for rk in ranks],
+             card=card_line())
+    conv = {k: sum(rk["resnet"][s]["launches"][k] for rk in ranks for s in ("gpipe", "1f1b"))
+            for k in ("conv_mm_stats", "conv3x3_stats")}
+    want = {"conv_mm_stats": 2 * 36 * MP_RN_MICRO, "conv3x3_stats": 2 * 16 * MP_RN_MICRO}
+    if conv != want:
+        raise AssertionError(f"pipelined ResNet50: conv launches {conv}, expected {want}")
+    emit("model_parallel.resnet", mesh="stage=4", batch=RN_BATCH, microbatches=MP_RN_MICRO,
+         params=RN_PARAMS, ranks=[{"rank": rk["rank"], **rk["resnet"]} for rk in ranks],
+         conv_launches=conv, card=card_line())
+    emit("model_parallel.charnn", mesh="data=2 x stage=2", batch=MP_CH_BATCH,
+         microbatches=MP_CH_MICRO, T=SEQ, params=N_PARAMS,
+         ranks=[{"rank": rk["rank"], **rk["charnn"]} for rk in ranks], card=card_line())
+    emit("model_parallel.inference", mesh="data=4",
+         ranks=[{"rank": rk["rank"], **rk["inference"]} for rk in ranks], card=card_line())
+    launches = {k: sum(rk["launches"][k] for rk in ranks) for k in ranks[0]["launches"]}
+    if min(launches.values()) == 0:
+        raise AssertionError(f"a kernel of the model-parallel paths never launched: {launches}")
+    emit("model_parallel", seconds=time.perf_counter() - t0, ranks_seconds=ranks_s,
+         launches=launches, card=card_line())
+    return {"ranks": ranks, "launches": launches}
+
+
 def cuobjdump():
     """The toolkit's cuobjdump, or the copy Triton's package carries; None
     where neither exists."""
@@ -6299,7 +6778,8 @@ def build_all(libs):
 
 
 PHASES = ("kernels", "flash", "train", "conv", "resnet", "serve", "charnn", "zoo", "finetune",
-          "fused", "word2vec", "mnist", "modelimport", "moe", "sequence", "parallel")
+          "fused", "word2vec", "mnist", "modelimport", "moe", "sequence", "parallel",
+          "model_parallel")
 
 
 def main(argv=None):
@@ -6327,22 +6807,34 @@ def main(argv=None):
     card = card_line()
     emit("env", python=sys.version.split()[0], torch=torch.__version__, cuda=torch.version.cuda,
          device=torch.cuda.get_device_name(0), count=torch.cuda.device_count(), card=card)
+    # each phase's wall seconds, printed on a line of its own at the end
+    marks = [("build", time.perf_counter())]
+
+    def mark(name):
+        marks.append((name, time.perf_counter()))
+
     build_all([L, A, C])
 
+    mark("kernels")
     if "kernels" in only:
         with library_precision():
             timings, max_err_path = phase_kernels(L)
+    mark("flash")
     if "flash" in only:
         with library_precision():
             flash_timings, flash_err = phase_flash(A)
         phase_crossover(TA)
+    mark("train")
     if "train" in only:
         train_rows = [phase_train(A, policy, args.seed) for policy in ("f32", "bf16")]
+    mark("conv")
     if "conv" in only:
         with library_precision():
             conv_totals, conv_err = phase_conv(C)
+    mark("resnet")
     if "resnet" in only:
         resnet_rows = {policy: phase_resnet(C, policy, args.seed) for policy in ("f32", "bf16")}
+    mark("serve")
     if "serve" in only:
         shutil.rmtree(WORK, ignore_errors=True)
         WORK.mkdir()
@@ -6353,8 +6845,10 @@ def main(argv=None):
             phase_cli(zip_path)
         finally:
             shutil.rmtree(WORK, ignore_errors=True)
+    mark("charnn")
     if "charnn" in only:
         charnn_rows = {policy: phase_charnn(L, policy, args.seed) for policy in ("f32", "bf16")}
+    mark("zoo")
     if "zoo" in only:
         shutil.rmtree(WORK, ignore_errors=True)
         WORK.mkdir()
@@ -6362,6 +6856,7 @@ def main(argv=None):
             zoo_rows = phase_zoo(C, args.seed)
         finally:
             shutil.rmtree(WORK, ignore_errors=True)
+    mark("finetune")
     if "finetune" in only:
         shutil.rmtree(WORK, ignore_errors=True)
         WORK.mkdir()
@@ -6369,6 +6864,7 @@ def main(argv=None):
             ft_rows = phase_finetune(C, args.seed)
         finally:
             shutil.rmtree(WORK, ignore_errors=True)
+    mark("fused")
     if "fused" in only:
         shutil.rmtree(WORK, ignore_errors=True)
         WORK.mkdir()
@@ -6376,8 +6872,10 @@ def main(argv=None):
             fused_rows = phase_fused(args.seed)
         finally:
             shutil.rmtree(WORK, ignore_errors=True)
+    mark("word2vec")
     if "word2vec" in only:
         phase_word2vec(args.seed)
+    mark("mnist")
     if "mnist" in only:
         shutil.rmtree(WORK, ignore_errors=True)
         WORK.mkdir()
@@ -6385,6 +6883,7 @@ def main(argv=None):
             phase_mnist(args.seed)
         finally:
             shutil.rmtree(WORK, ignore_errors=True)
+    mark("modelimport")
     if "modelimport" in only:
         shutil.rmtree(WORK, ignore_errors=True)
         WORK.mkdir()
@@ -6392,8 +6891,10 @@ def main(argv=None):
             imported = phase_modelimport(L, C, args.seed)
         finally:
             shutil.rmtree(WORK, ignore_errors=True)
+    mark("moe")
     if "moe" in only:
         moe_out = phase_moe(A, args.seed)
+    mark("sequence")
     if "sequence" in only:
         shutil.rmtree(WORK, ignore_errors=True)
         WORK.mkdir()
@@ -6401,6 +6902,7 @@ def main(argv=None):
             seq_out = phase_sequence(A, args.seed)
         finally:
             shutil.rmtree(WORK, ignore_errors=True)
+    mark("parallel")
     if "parallel" in only:
         shutil.rmtree(WORK, ignore_errors=True)
         WORK.mkdir()
@@ -6408,6 +6910,17 @@ def main(argv=None):
             par_out = phase_parallel(C, A, args.seed)
         finally:
             shutil.rmtree(WORK, ignore_errors=True)
+    mark("model_parallel")
+    if "model_parallel" in only:
+        shutil.rmtree(WORK, ignore_errors=True)
+        WORK.mkdir()
+        try:
+            mp_out = phase_model_parallel(args.seed)
+        finally:
+            shutil.rmtree(WORK, ignore_errors=True)
+    mark("end")
+    emit("phase_seconds", **{a[0]: round(b[1] - a[1], 1) for a, b in zip(marks, marks[1:])
+                             if a[0] == "build" or a[0] in only})
     if only != set(PHASES):
         return
 
@@ -6424,8 +6937,10 @@ def main(argv=None):
         "launches": served["lstm_seq_launches"] + sum(r["path_launches"]
                                                       for r in charnn_rows.values())
         + sum(fused_rows[("charnn", p)]["launches"]["lstm_seq"] for p in ("f32", "bf16"))
-        + imported["lstm_seq_launches"],
+        + imported["lstm_seq_launches"] + mp_out["launches"]["lstm_seq"],
         "launches_serve": served["lstm_seq_launches"],
+        # the model_parallel phase: the char-RNN pipelined over 2 stages
+        "launches_model_parallel": mp_out["launches"]["lstm_seq"],
         # the modelimport phase: the char-RNN restored from its DL4J zip and
         # served, the Keras imdb_lstm forward, the GravesLSTM fixture
         "launches_modelimport": imported["lstm_seq_launches"],
@@ -6447,7 +6962,11 @@ def main(argv=None):
         # (its timed steps under both policies, its K=4 replays, its served
         # forwards) and the sequence phase's ranks (ring and Ulysses)
         "launches": train_rows[0]["flash_launches"] + moe_out["flash_launches"]
-        + seq_out["flash_launches"] + par_out["flash_launches"],
+        + seq_out["flash_launches"] + par_out["flash_launches"]
+        + mp_out["launches"]["flash_attn"],
+        # the model_parallel phase's ranks: the TP+EP MoE step, the
+        # pipelined and composed LMs (checks, references and timed steps)
+        "launches_model_parallel": mp_out["launches"]["flash_attn"],
         "launches_train": train_rows[0]["flash_launches"],
         # the parallel phase's LM steps under fsdp and fsdp_stream, 4 ranks
         "launches_parallel": par_out["flash_launches"],
@@ -6478,8 +6997,11 @@ def main(argv=None):
         + sum(zoo_rows[("remat", p)]["conv_launches"][name] for p in ("f32", "bf16"))
         + sum(ft_rows[p]["conv_launches"][name] for p in ("f32", "bf16"))
         + sum(fused_rows[("resnet", p)]["launches"][name] for p in ("f32", "bf16"))
-        + par_out["conv_launches"][name],
+        + par_out["conv_launches"][name] + mp_out["launches"][name],
         "launches_resnet": resnet_rows["bf16"]["conv_launches"][name],
+        # the model_parallel phase: the pipelined ResNet50's steps (the
+        # split inference runs no conv-stats kernel)
+        "launches_model_parallel": mp_out["launches"][name],
         # the parallel phase: world-1 timed steps of 3 layouts under both
         # policies and the K=4 replays, the 4 ranks' steps and master steps
         "launches_parallel": par_out["conv_launches"][name],

@@ -237,6 +237,10 @@ def apply_layer(layer, params, state, x, *, train=False, rng=None, **kwargs):
     noise (``layer.weight_noise``) has perturbed ``params`` from a split of
     that half. Gradients flow through the perturbed parameters."""
     takes_rng = takes(type(layer), "rng")
+    # a layer whose parameters are split over the active model group runs
+    # through the group's tensor-parallel application
+    mg = _collectives.active_model()
+    tp = mg is not None and mg.holds_split(params)
     if rng is not None:
         drop_in = train and layer.dropout > 0.0
         noise = getattr(layer, "weight_noise", None) if train and len(params) else None
@@ -249,4 +253,6 @@ def apply_layer(layer, params, state, x, *, train=False, rng=None, **kwargs):
                 params = noise.perturb(noise_seed, layer, params)
     if takes_rng:
         kwargs["rng"] = rng
+    if tp:
+        return mg.apply(layer, params, state, x, mg, train=train, **kwargs)
     return layer.apply(params, state, x, train=train, **kwargs)

@@ -48,6 +48,7 @@ from deeplearning4j_tpu_torch.nn import initializers as _init
 from deeplearning4j_tpu_torch.nn.conf import inputs as _inputs
 from deeplearning4j_tpu_torch.nn.layers.attention import LayerNormalization, MultiHeadAttention
 from deeplearning4j_tpu_torch.nn.layers.base import Layer
+from deeplearning4j_tpu_torch.utils import collectives as _collectives
 from deeplearning4j_tpu_torch.utils.serde import register_config
 
 
@@ -142,22 +143,48 @@ class MoETransformerBlock(Layer):
         return Routing(probs, top, onehot.t(), keep, slot, gate)
 
     def moe_mlp(self, params, x2d):
-        """x2d [N, d] -> (y [N, d] in x2d's dtype, aux loss f32 scalar)."""
+        """x2d [N, d] -> (y [N, d] in x2d's dtype, aux loss f32 scalar).
+
+        Expert parallelism: when the ``expert_*`` leaves hold E/m experts
+        (this rank's slice of an active model group of m ranks, which all
+        hold the same tokens), the rank runs its own experts' products on
+        its slots of the dispatch buffer and the combine sums the ranks'
+        partial outputs over the group (each token's expert lives on one
+        rank, so the sum adds zeros elsewhere and equals the replicated
+        combine). The dispatched tokens and the gates enter through
+        ``IdPsumBwd`` (the ranks' partial cotangents sum) and the combine
+        leaves through ``PsumIdBwd``; routing, capacity, dropping and the
+        aux loss are computed whole on every rank, as without the group."""
         n, d = x2d.shape
         e, cap = self.n_experts, self.capacity(n)
+        el = params["expert_W1"].shape[0]
+        mg = _collectives.active_model() if el != e else None
+        if el != e and (mg is None or el * mg.world != e):
+            raise ValueError(f"MoETransformerBlock: {el} of {e} experts here and no model "
+                             "group that splits them")
         with record_function("moe.router"):
             r = self.route(params, x2d)
         with record_function("moe.dispatch"):
             xf = x2d.float()
+            gate = r.gate
+            if mg is not None:
+                xf = _collectives.IdPsumBwd.apply(xf, mg.group)
+                gate = _collectives.IdPsumBwd.apply(gate, mg.group)
             xe = xf.new_zeros((e * cap + 1, d)).index_add(0, r.slot, xf)[:e * cap]
+            e0 = 0 if mg is None else mg.rank * el
+            xe = xe[e0 * cap:(e0 + el) * cap]
         with record_function("moe.experts"):
             act = _act.get(self.activation)
-            h = act(torch.bmm(xe.view(e, cap, d), params["expert_W1"].float())
+            h = act(torch.bmm(xe.view(el, cap, d), params["expert_W1"].float())
                     + params["expert_b1"].float()[:, None])
             ye = torch.bmm(h, params["expert_W2"].float()) + params["expert_b2"].float()[:, None]
         with record_function("moe.combine"):
-            ye = torch.cat([ye.reshape(e * cap, d), ye.new_zeros((1, d))])
-            y = ye.index_select(0, r.slot) * r.gate[:, None]
+            ye = torch.cat([ye.new_zeros((e0 * cap, d)), ye.reshape(el * cap, d),
+                            ye.new_zeros(((e - e0 - el) * cap + 1, d))])
+            y = ye.index_select(0, r.slot) * gate[:, None]
+            if mg is not None:
+                y = mg.timed_call("ep_combine",
+                                  lambda t: _collectives.PsumIdBwd.apply(t, mg.group), y)
         aux = e * (r.routed.float().mean(dim=0) * r.probs.mean(dim=0)).sum()
         return y.to(x2d.dtype), aux
 

@@ -44,8 +44,17 @@ Four storage layouts, the JAX names:
 engine (``nn/fused.py``) with this trainer's step as its base step; on NCCL
 the K steps, collectives included, are one CUDA graph; on gloo (no
 collective can be captured) they run eagerly and the engine's
-``captures`` stays 0. Tensor parallelism is not
-ported yet (ROADMAP queue 1, item 6).
+``captures`` stays 0.
+
+``tensor_parallel=True`` splits parameters over the mesh's ``model`` axis
+by the JAX rule (``parallel/tensor_parallel.py``): each model rank stores,
+differentiates and updates its slice of every split leaf (MoE experts
+included: expert parallelism), the forward runs under the model group
+(``utils/collectives.sync_model``) with explicit collectives whose
+transposes keep every gradient the replicated step's, and the ``data``
+axis exchanges the slices' gradients as above, in any of the layouts but
+``fsdp_stream``. Checkpoints of a tensor-parallel trainer go through
+``sync_to_net`` and the network's own zip.
 """
 
 from __future__ import annotations
@@ -62,6 +71,7 @@ from deeplearning4j_tpu_torch.nn.conf import inputs as _inputs
 from deeplearning4j_tpu_torch.nn.layers import base as _base
 from deeplearning4j_tpu_torch.nn.layers.base import apply_layer, split_seed, step_seed
 from deeplearning4j_tpu_torch.parallel import mesh as _mesh
+from deeplearning4j_tpu_torch.parallel import tensor_parallel as _tp
 from deeplearning4j_tpu_torch.utils import collectives as C
 from deeplearning4j_tpu_torch.utils import dtypes as _dtypes
 from deeplearning4j_tpu_torch.utils.trees import tree_leaves, tree_like
@@ -125,10 +135,10 @@ def streamable_trunk(net, params, state):
 
 def make_param_shardings(mesh, net, params, tensor_parallel=False):
     """The compute-layout spec tree of ``params``: every leaf whole
-    (``P()``); tensor-parallel specs come with the next slice."""
+    (``P()``), or with ``tensor_parallel`` the JAX rule's split over
+    'model' (``tensor_parallel.tp_param_specs``)."""
     if tensor_parallel:
-        raise NotImplementedError("tensor parallelism is not ported yet "
-                                  "(ROADMAP queue 1, item 6)")
+        return _tp.tp_param_specs(mesh, net, params)
     return tree_like(params, (_mesh.P() for _ in tree_leaves(params)))
 
 
@@ -281,18 +291,18 @@ class ParallelTrainer:
 
     def __init__(self, net, mesh=None, *, tensor_parallel=False, donate=True,
                  shard_optimizer_state=True, shard_params=None):
-        if tensor_parallel:
-            raise NotImplementedError(
-                "ParallelTrainer(tensor_parallel=True): tensor parallelism is not ported "
-                "yet (ROADMAP queue 1, item 6)")
         if shard_params not in (None, "fsdp", "fsdp_stream"):
             raise ValueError(
                 f"shard_params={shard_params!r}: None (replicated between steps), 'fsdp' "
                 "(parameters stored split between steps, gathered at step entry) or "
                 "'fsdp_stream' (the homogeneous trunk gathered block by block inside the "
                 "step)")
+        if tensor_parallel and shard_params == "fsdp_stream":
+            raise ValueError("tensor_parallel=True with shard_params='fsdp_stream': the "
+                             "streamed trunk gathers whole blocks; use 'fsdp'")
         self.net = net
         self.mesh = mesh if mesh is not None else _mesh.make_mesh()
+        self.tensor_parallel = bool(tensor_parallel)
         self.group = self.mesh.group("data")
         self.world = self.mesh.shape["data"]
         self.rank = self.mesh.coords["data"]
@@ -301,6 +311,12 @@ class ParallelTrainer:
         self.shard_params = shard_params
         # world 1: every collective is an identity and the step is net.fit's
         self._bg = C.BatchGroup(self.group, self.rank, self.world) if self.world > 1 else None
+        tp = self.mesh.shape["model"]
+        #: the model group of a tensor-parallel trainer (None without one)
+        self._mg = (C.ModelGroup(self.mesh.group("model"), self.mesh.coords["model"], tp,
+                                 apply=_tp.tp_apply)
+                    if self.tensor_parallel and tp > 1 else None)
+        self._tp_whole = False
         self.params = None
         self.state = None
         self.opt_state = None
@@ -319,6 +335,9 @@ class ParallelTrainer:
         #: ``collective_ms``
         self.timing = False
         self.collective_ms = []
+        #: tensor-parallel steps with ``timing``: {kind: ms} of the model
+        #: group's forward collectives ('tp_gather', 'tp_weights', 'ep_combine')
+        self.model_collective_ms = []
 
     # -- the net's face (listeners and the StepDriver see the trainer) ----
 
@@ -408,6 +427,8 @@ class ParallelTrainer:
                     "shapes) below a standard loss head. This net has none; use "
                     "shard_params='fsdp' (whole-tree gather) instead")
         self._n_params = int(sum(t.numel() for t in tree_leaves(params)))
+        if self._mg is not None:
+            opt = self._tp_place(params, opt)
         self._derive(params, opt)
         plan = self._plan
         if self._zero:
@@ -432,6 +453,60 @@ class ParallelTrainer:
         net.init(generator)
         self._place(net.params, net.state, net.conf.updater.init(net.params))
         return self
+
+    # -- tensor parallelism -------------------------------------------------
+
+    def _tp_place(self, params, opt):
+        """Cut every split leaf of ``params`` (in place: the net's own
+        parameter keeps its identity) and of each params-shaped entry of
+        ``opt`` to this model rank's slice; returns the cut ``opt``."""
+        for layer in getattr(self.net.conf, "layers", ()) or ():
+            if getattr(layer, "weight_noise", None) is not None:
+                raise ValueError("tensor_parallel=True with weight noise: the noise is "
+                                 "drawn on whole parameters")
+        mg = self._mg
+        self._tp_specs = make_param_shardings(self.mesh, self.net, params, True)
+        dims = [_tp.split_dim(s) for s in tree_leaves(self._tp_specs)]
+        self._tp_dims = dims
+        for p, d in zip(tree_leaves(params), dims):
+            if d is not None:
+                p.data = C.local_slice(p.data, d, mg.rank, mg.world).clone()
+        mg.split = _tp.split_map(params, self._tp_specs)
+        p_struct = _mesh._structure(params)
+
+        def cut(sub):
+            if _mesh._structure(sub) != p_struct:
+                return sub
+            out = []
+            for t, d in zip(tree_leaves(sub), dims):
+                if d is not None:
+                    t = C.local_slice(t, d, mg.rank, mg.world).clone()
+                out.append(t)
+            return tree_like(sub, iter(out))
+
+        if _mesh._structure(opt) == p_struct:
+            return cut(opt)
+        if hasattr(opt, "items"):
+            return {k: cut(v) for k, v in opt.items()}
+        return opt
+
+    def _tp_local(self):
+        """After ``sync_to_net`` made the net whole: the split leaves back
+        to this rank's slice."""
+        if not self._tp_whole:
+            return
+        mg = self._mg
+        for p, d in zip(tree_leaves(self.net.params), self._tp_dims):
+            if d is not None:
+                p.data = C.local_slice(p.data, d, mg.rank, mg.world).clone()
+        self._tp_whole = False
+
+    def _tp_gathered(self, tree):
+        """Whole copies of a params-shaped tree's split leaves (the others
+        as they are), gathered over the model group."""
+        out = [C.gather_dim(t, d, self._mg.group) if d is not None else t
+               for t, d in zip(tree_leaves(tree), self._tp_dims)]
+        return tree_like(tree, iter(out))
 
     def adopt_net_state(self):
         """Place the wrapped net's parameters, state and updater state (a
@@ -534,6 +609,10 @@ class ParallelTrainer:
                 loss = loss + layers[i].regularization_penalty(full[i])
         return _base.pop_aux_losses(loss, new_state)
 
+    def _tp_trainable_split(self):
+        """Per trainable leaf: whether it is split over the model group."""
+        return [d is not None for d, tr in zip(self._tp_dims, self._trainable_mask) if tr]
+
     def _layer_leaf_js(self):
         """Trainable leaf indices of each top-level entry of the params."""
         out, j = [], 0
@@ -559,13 +638,18 @@ class ParallelTrainer:
         order = list(dict.fromkeys(keys))
         pos = {k: i for i, k in enumerate(order)}
         sq = torch.zeros(len(order), dtype=torch.float32, device=grads[0].device)
+        tp_split = self._tp_trainable_split() if self._mg is not None else None
         for j, g in enumerate(grads):
             s = (g.float() * g.float()).sum()
             if self._plan.dims[j] is None and self._zero:
                 s = s / self.world
+            if tp_split is not None and not tp_split[j]:
+                s = s / self._mg.world  # a whole leaf is counted once over the model group
             sq[pos[keys[j]]] += s
         if self._zero:
             C.all_reduce_(sq, self.group)
+        if tp_split is not None:
+            C.all_reduce_(sq, self._mg.group)
         norm = torch.sqrt(sq + 1e-32)
         if mode.startswith("renormalize"):  # divided, as nn/gradnorm.py divides
             return [g / norm[pos[keys[j]]].to(g.dtype) for j, g in enumerate(grads)]
@@ -586,7 +670,7 @@ class ParallelTrainer:
         if fsdp:
             self._gather_full(skip=trunk_js)
         full = net.params
-        with C.sync_batch(self._bg):
+        with C.sync_batch(self._bg), C.sync_model(self._mg):
             if stream:
                 for p in tree_leaves(full):
                     p.requires_grad_(False)
@@ -609,8 +693,11 @@ class ParallelTrainer:
         updater = net.conf.updater
         if not self._zero:
             grads = plan.reduce_scatter_mean(list(range(len(gs))), gs)
+            if self._mg is not None:
+                grads = self._normalize_sharded(grads)
             tree = tree_like(net._trainable(full), iter(grads))
-            tree = _normalize_full(net, tree)
+            if self._mg is None:
+                tree = _normalize_full(net, tree)
             net.apply_update(full, opt_state, tree, step)
         else:
             js = [j for j in range(len(gs)) if j not in trunk_js]
@@ -654,6 +741,9 @@ class ParallelTrainer:
         arrays on every rank); returns the global loss (a device scalar)."""
         if self.params is None:
             self.init()
+        if self._mg is not None:
+            self._tp_local()
+            self._mg.timed, self._mg.spent_ms = self.timing, {}
         xl, yl, ml = self._local(x), self._local(y), self._local(mask)
         self.last_input = _first(xl)
         self._plan.timed, self._plan.spent_ms = self.timing, 0.0
@@ -663,6 +753,8 @@ class ParallelTrainer:
         self.state = self.net.state = out[1]
         if self.timing:
             self.collective_ms.append(self._plan.spent_ms)
+            if self._mg is not None:
+                self.model_collective_ms.append(dict(self._mg.spent_ms))
         if self.shard_params in ("fsdp", "fsdp_stream") and self._free_between_steps:
             self._free_full()
         loss = out[3]
@@ -701,6 +793,9 @@ class ParallelTrainer:
                              "iterator owns its own batching and per-batch masks")
         if self.params is None:
             self.init()
+        if self._mg is not None:
+            self._tp_local()
+            self._mg.timed = False
         k = int(steps_per_dispatch)
         if k > 1:
             feats = x[0] if (y is None and isinstance(x, (tuple, list))) else x
@@ -763,10 +858,12 @@ class ParallelTrainer:
         if self.params is None:
             self.init()
         fsdp = self.shard_params in ("fsdp", "fsdp_stream")
+        if self._mg is not None:
+            self._tp_local()
         if fsdp:
             self._gather_full()
         try:
-            with _dtypes.policy_precision(), C.sync_batch(self._bg):
+            with _dtypes.policy_precision(), C.sync_batch(self._bg), C.sync_model(self._mg):
                 loss, _ = self.net.loss_fn(self.net.params, self.state, self._local(x),
                                            self._local(y), train=False, mask=self._local(mask))
         finally:
@@ -809,7 +906,7 @@ class ParallelTrainer:
         net, gathered one leaf at a time (at most one gathered leaf in
         flight), with the counters; returns the net."""
         net, plan = self.net, self._plan
-        if self.params is None:
+        if self.params is None or self._tp_whole:
             return net
         if self.shard_params in ("fsdp", "fsdp_stream"):
             stored = self._stored()
@@ -828,6 +925,20 @@ class ParallelTrainer:
             net.opt_state = self._opt_sliced(opt, params, whole)
         else:
             net.opt_state = self.opt_state
+        if self._mg is not None and not self._tp_whole:
+            # whole parameters in place (the next step cuts them again) and a
+            # whole copy of the updater state
+            for p, d in zip(tree_leaves(net.params), self._tp_dims):
+                if d is not None:
+                    p.data = C.gather_dim(p.data, d, self._mg.group)
+            self._tp_whole = True
+            p_struct = _mesh._structure(net.params)
+            opt = net.opt_state
+            if _mesh._structure(opt) == p_struct:
+                net.opt_state = self._tp_gathered(opt)
+            elif hasattr(opt, "items"):
+                net.opt_state = {k: self._tp_gathered(v) if _mesh._structure(v) == p_struct
+                                 else v for k, v in opt.items()}
         net.iteration = self.iteration
         net.epoch = self.epoch
         return net

@@ -34,6 +34,7 @@ from __future__ import annotations
 import contextlib
 import contextvars
 import dataclasses
+import time
 
 import torch
 import torch.distributed as dist
@@ -178,3 +179,128 @@ def row_offset(x):
     tensor ``x`` in the global batch (0 without a batch group)."""
     bg = active()
     return 0 if bg is None else bg.rank * x.numel()
+
+
+# ---------------------------------------------------------------------------
+# the model group (tensor and expert parallelism)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class ModelGroup:
+    """The ranks of ``group`` hold the same activations and each holds one
+    slice of the split parameters: ``split`` maps ``id`` of a local
+    parameter tensor to the dim it is split on, and ``apply(layer, params,
+    state, x, mg, train=, **kwargs)`` runs a layer whose parameters are
+    split (``parallel/tensor_parallel.py tp_apply``). With ``timed`` (eager
+    steps only: it synchronizes the card) the milliseconds of the forward
+    collectives accumulate in ``spent_ms`` under their kind."""
+
+    group: object
+    rank: int
+    world: int
+    split: dict = dataclasses.field(default_factory=dict)
+    apply: object = None
+    timed: bool = False
+    spent_ms: dict = dataclasses.field(default_factory=dict)
+
+    def holds_split(self, params):
+        """Whether any leaf of ``params`` (a layer's tree) is split here."""
+        return any(id(t) in self.split for t in _leaves(params))
+
+    def timed_call(self, kind, fn, x):
+        if not self.timed:
+            return fn(x)
+        if x.is_cuda:
+            torch.cuda.synchronize(x.device)
+        t0 = time.perf_counter()
+        out = fn(x)
+        if x.is_cuda:
+            torch.cuda.synchronize(x.device)
+        self.spent_ms[kind] = self.spent_ms.get(kind, 0.0) + 1e3 * (time.perf_counter() - t0)
+        return out
+
+
+def _leaves(tree):
+    if hasattr(tree, "items"):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+_MODEL = contextvars.ContextVar("model_group", default=None)
+
+
+def active_model():
+    """The active ``ModelGroup``, or None."""
+    return _MODEL.get()
+
+
+@contextlib.contextmanager
+def sync_model(mg):
+    """Run the block with ``mg`` (a ``ModelGroup`` or None) as the active
+    model group."""
+    token = _MODEL.set(mg)
+    try:
+        yield mg
+    finally:
+        _MODEL.reset(token)
+
+
+def gather_dim(x, dim, group):
+    """The ranks' ``x`` concatenated on ``dim`` in rank order (one
+    all-gather)."""
+    n = dist.get_world_size(group)
+    moved = x.movedim(dim, 0).contiguous()
+    flat = all_gather(moved.reshape(-1), group).view((n,) + tuple(moved.shape))
+    return flat.reshape((n * moved.shape[0],) + tuple(moved.shape[1:])).movedim(0, dim)
+
+
+def local_slice(x, dim, rank, world):
+    c = x.shape[dim] // world
+    return x.narrow(dim, rank * c, c)
+
+
+class PsumIdBwd(torch.autograd.Function):
+    """``g`` of the Megatron pair: the forward sums the ranks' partial
+    ``x`` over ``group``; the backward passes the cotangent through (every
+    rank holds the same downstream cotangent)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce_(x.detach().clone().contiguous(), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class IdPsumBwd(torch.autograd.Function):
+    """``f`` of the Megatron pair: the forward is the identity on a
+    replicated activation; the backward sums the ranks' partial cotangents
+    over ``group`` (each rank saw only its own columns, heads or
+    experts)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce_(g.clone().contiguous(), ctx.group), None
+
+
+class GatherSliceBwd(torch.autograd.Function):
+    """The ranks' slices of a tensor gathered whole on ``dim``; the
+    backward takes this rank's slice of the cotangent (the same on every
+    rank, so summing it would count it once a rank)."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.rank, ctx.world = dim, dist.get_rank(group), dist.get_world_size(group)
+        return gather_dim(x.detach(), dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return local_slice(g, ctx.dim, ctx.rank, ctx.world).contiguous(), None, None

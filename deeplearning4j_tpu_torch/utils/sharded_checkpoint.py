@@ -131,6 +131,9 @@ class _Split:
 def _trainer_trees(trainer):
     """(tree, splits) of everything a resume needs: parameters, updater
     state and layer state, as this trainer stores them."""
+    if getattr(trainer, "_mg", None) is not None:
+        raise ValueError("a tensor-parallel ParallelTrainer checkpoints whole: "
+                         "sync_to_net() and utils.serialization.save_model")
     plan = trainer._plan
     if trainer.shard_params in ("fsdp", "fsdp_stream"):
         dims = iter(plan.dims)
@@ -151,11 +154,45 @@ def _trainer_trees(trainer):
     return tree, splits
 
 
+def _save_named(path, trainer):
+    """The pipelines' form: every rank writes the tensors it holds under
+    their global names (``trainer.checkpoint_leaves()``); a restore takes
+    each name from whichever shard holds it."""
+    path = pathlib.Path(path)
+    rank, world = _rank_world(None)
+    if rank == 0:
+        path.mkdir(parents=True, exist_ok=True)
+    _barrier(None)
+    torch.save({k: t.detach().cpu().contiguous()
+                for k, t in trainer.checkpoint_leaves().items()}, path / f"shard-{rank}.pt")
+    if rank == 0:
+        (path / "index.json").write_text(json.dumps(
+            {"format": FORMAT, "kind": "named", "world": world,
+             "scalars": {"iteration": int(trainer.iteration)}}, indent=1))
+    _barrier(None)
+    return str(path)
+
+
+def _restore_named(path, trainer, index):
+    named = {}
+    for r in range(index["world"]):
+        for k, t in torch.load(pathlib.Path(path) / f"shard-{r}.pt", map_location="cpu",
+                               weights_only=True).items():
+            named.setdefault(k, t)
+    trainer.load_checkpoint_leaves(named)
+    trainer.iteration = int(index["scalars"].get("iteration", 0))
+    return trainer
+
+
 def save_trainer(path, trainer, *, buckets=None):
     """Checkpoint a ``ParallelTrainer`` in its layout (every rank calls
     it): parameters, updater state, layer state, iteration and epoch, and
     with ``buckets`` (a BucketRegistry or sizes) ``buckets.json`` in the
-    extras zip. Returns the path."""
+    extras zip. A pipelined trainer (``PipelinedNetwork``, ``PipelinedGraph``,
+    ``PipelineParallelLM``, ``ComposedParallelLM``) writes the tensors
+    each rank holds by their global names. Returns the path."""
+    if hasattr(trainer, "checkpoint_leaves"):
+        return _save_named(path, trainer)
     tree, splits = _trainer_trees(trainer)
     path = save_sharded(path, tree, splits, group=trainer.group,
                         scalars={"iteration": int(trainer.iteration),
@@ -176,6 +213,9 @@ def restore_trainer(path, trainer):
     ``trainer.buckets``. Returns the trainer."""
     if trainer.params is None:
         trainer.init()
+    index = read_index(path)
+    if index.get("kind") == "named":
+        return _restore_named(path, trainer, index)
     tree, splits = _trainer_trees(trainer)
     got = restore_sharded(path, tree, splits, group=trainer.group)
     with torch.no_grad():

@@ -40,6 +40,7 @@ from deeplearning4j_tpu.nn.conf import inputs as JI
 from deeplearning4j_tpu.nn.conf.network import NeuralNetConfig as JNNC
 from deeplearning4j_tpu.nn.multilayer import MultiLayerNetwork as JNet
 from deeplearning4j_tpu.parallel import MeshSpec as JMeshSpec
+from deeplearning4j_tpu.parallel import ParallelInference as JInference
 from deeplearning4j_tpu.parallel import data_utils as jdu
 from deeplearning4j_tpu.parallel import distributed as JD
 from deeplearning4j_tpu.parallel import make_mesh as j_make_mesh
@@ -295,8 +296,19 @@ def test_parallel_inference_batched_sequential_and_hot_swap():
             pi.stop()
         with pytest.raises(Exception):
             pi.submit(x[0])
-    with pytest.raises(NotImplementedError, match="item 6"):
-        ParallelInference(net, mesh=object())
+    # a mesh of one data rank: the split-and-gather path answers as the JAX
+    # package's ParallelInference(mesh=) on the same weights, and the
+    # per-rank request queue is refused (the mesh form is collective)
+    from deeplearning4j_tpu_torch.parallel.mesh import Mesh
+    jnet = JNet(TDP.plain_mln_conf(JL, JU, JI, JNNC))
+    jnet.init()
+    jpi = JInference(jnet, max_batch_size=4,
+                     mesh=j_make_mesh(JMeshSpec(data=1), devices=jax.devices()[:1]))
+    pi = ParallelInference(TDP.port_mln(_np(jnet.params), None, plain=True), max_batch_size=4,
+                           mesh=Mesh((1, 1, 1, 1), 0, {}, {}))
+    np.testing.assert_allclose(pi.output(x[:3]), np.asarray(jpi.output(x[:3])), **F32)
+    with pytest.raises(ValueError, match="collective"):
+        pi.start()
 
 
 def test_initialize_distributed_noop_single_process():

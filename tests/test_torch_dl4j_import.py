@@ -31,6 +31,11 @@ import numpy as np
 import pytest
 import torch
 
+import torch_native_guard  # noqa: E402
+
+# before any test runs: the JAX package's native library, built without the race
+torch_native_guard.heal_reference_native()
+
 from deeplearning4j_tpu.modelimport import dl4j as jdl4j
 from deeplearning4j_tpu.nn import layers as JL
 from deeplearning4j_tpu.nn import updaters as JU

@@ -13,6 +13,11 @@ import os
 import numpy as np
 import pytest
 
+import torch_native_guard  # noqa: E402
+
+# before any test runs: the JAX package's native library, built without the race
+torch_native_guard.heal_reference_native()
+
 from test_keras_config_corpus import BASE, _all_configs
 
 pytestmark = pytest.mark.skipif(

@@ -12,6 +12,11 @@ import numpy as np
 import pytest
 import torch
 
+import torch_native_guard  # noqa: E402
+
+# before any test runs: the JAX package's native library, built without the race
+torch_native_guard.heal_reference_native()
+
 from test_keras_genuine import FIXTURES
 
 pytestmark = pytest.mark.skipif(

@@ -20,6 +20,11 @@ import numpy as np
 import pytest
 import torch
 
+import torch_native_guard  # noqa: E402
+
+# before any test runs: the JAX package's native library, built without the race
+torch_native_guard.heal_reference_native()
+
 from deeplearning4j_tpu import modelimport as jmi
 from deeplearning4j_tpu_torch import native
 from deeplearning4j_tpu_torch import modelimport as tmi

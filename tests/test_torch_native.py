@@ -11,6 +11,11 @@ import time
 import numpy as np
 import pytest
 
+import torch_native_guard  # noqa: E402
+
+# before any test runs: the JAX package's native library, built without the race
+torch_native_guard.heal_reference_native()
+
 from deeplearning4j_tpu import native as jnative
 from deeplearning4j_tpu.native import codec as jcodec
 from deeplearning4j_tpu.native import etl as jetl

@@ -16,6 +16,11 @@ from pathlib import Path
 import numpy as np
 import pytest
 
+import torch_native_guard  # noqa: E402
+
+# before any test runs: the JAX package's native library, built without the race
+torch_native_guard.heal_reference_native()
+
 from deeplearning4j_tpu.modelimport import dl4j as jdl4j
 from deeplearning4j_tpu.models import zoo as jzoo
 from deeplearning4j_tpu.models.misc import text_generation_lstm as jcharnn

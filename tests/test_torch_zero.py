@@ -208,12 +208,22 @@ def test_world1_checkpoint_round_trip(world1, tmp_path):
 
 
 def test_refusals(world1):
+    """The refusals that stand, and tensor parallelism's spec tree: the
+    JAX rule on a model=2 mesh (a divisible Dense W splits its columns, the
+    3-wide output layer stays whole, BN's gamma/beta split), all whole on
+    a model=1 mesh."""
     net = TDP.port_mln()
-    with pytest.raises(NotImplementedError, match="item 6"):
-        ParallelTrainer(net, world1, tensor_parallel=True)
     assert all(s == () for s in tree_leaves(TDPL.make_param_shardings(world1, net, net.params)))
-    with pytest.raises(NotImplementedError, match="item 6"):
-        TDPL.make_param_shardings(world1, net, net.params, tensor_parallel=True)
+    assert all(s == () for s in tree_leaves(
+        TDPL.make_param_shardings(world1, net, net.params, tensor_parallel=True)))
+    from deeplearning4j_tpu_torch.parallel.mesh import Mesh
+    tp2 = Mesh((1, 2, 1, 1), 0, {}, {})
+    specs = TDPL.make_param_shardings(tp2, net, net.params, tensor_parallel=True)
+    assert specs[0]["W"] == (None, "model") and specs[0]["b"] == ("model",)
+    assert specs[1]["gamma"] == ("model",) and specs[1]["beta"] == ("model",)
+    assert specs[-1]["W"] == () and specs[-1]["b"] == ()
+    with pytest.raises(ValueError, match="fsdp_stream"):
+        ParallelTrainer(net, world1, tensor_parallel=True, shard_params="fsdp_stream")
     with pytest.raises(ValueError, match="shard_params"):
         ParallelTrainer(net, world1, shard_params="zero3")
     with pytest.raises(ValueError, match="homogeneous trunk"):
