@@ -209,7 +209,19 @@ nonzero; nothing is caught):
             events a step, the largest kernels' device ms a step). Last the toy-topic checks of the JAX package's
             tests with every NLP trainer on the card: SGNS, HS and CBOW
             orderings, PV-DBOW and ``infer_vector``, GloVe, DeepWalk,
-            KMeans, t-SNE.
+            KMeans, t-SNE. Then ``SequenceVectors(mesh=)`` at the same width
+            over 4 gloo ranks on the card (``word2vec.mesh``), every
+            model's vocabulary and tables built on the whole 10M-word
+            corpus (V ~100,000): the replicated-table fit on the corpus's
+            first 250k words and the ``shard_tables=True`` fit (V/4 rows a
+            rank) on its first 125k, with the same host-drawn negatives,
+            each against the world-1 fit of the same pairs (replicated
+            within 2e-6, sharded within 1e-5 relative + 1e-6, or 3x the
+            world-1 fit's distance from itself where that is more), pairs
+            dropped at most 3; words/s and the bytes a rank puts into a
+            step's collectives; then both fits of the 125k words at world
+            1 over NCCL, each chunk captured into its CUDA graph with its
+            collectives, against the same world-1 fit.
 16. mnist   BASELINE config 1 as DL4J's LenetMnistExample runs it: MNIST-
             format IDX files at MNIST's size (60,000 + 10,000 images,
             28x28, 10 class templates plus noise and shifts, from the seed;
@@ -339,14 +351,26 @@ nonzero; nothing is caught):
             over gloo (one spawn), references computed first in this
             process at world 1 (NCCL for the LMs). (a) the MoE LM
             (117,620,736 params) under ``ParallelTrainer(tensor_parallel=
-            True)`` on model=4: 2 of the 8 experts a rank, the embedding
-            and output layer split and gathered for their forward; the
-            split step's gradients against the world-1 step's (each leaf
+            True)`` on data=2 x model=2: 4 of the 8 experts a rank, routed
+            over the global batch (each block's drops summed over the data
+            group, printed beside world 1's; the capacity factor lowered
+            until a block drops), the embedding and output layer split and
+            gathered for their forward; the split step's gradients (each
+            data group's mean) against the world-1 step's (each leaf
             within 1e-4 of its own largest, or of 1% of the model's
             largest where that is more), then one step on 2 sequences
             (T 4096) against the world-1 ``fit`` step (loss rtol 1e-4, at
-            most 8 parameters beyond 1e-4: Adam's sign flips), the model
-            group's collective ms (EP combine, weight gathers). (b)
+            most 8 parameters beyond 1e-4: Adam's sign flips); its sharded
+            checkpoint written by the 4 ranks and restored at world 1
+            over NCCL here (``model_parallel.tp_checkpoint``: parameters
+            against the saving ranks', save and restore seconds). The LM
+            (29,408,256) under ``tensor_parallel=True`` with
+            ``fsdp_stream`` (12 flash launches a rank: the recompute), and
+            with weight noise on its split layers, on data=2 x model=2:
+            the gradient each rank's updater receives against its piece
+            of the world-1 step's (the same hashed draws), the loss within
+            rtol 1e-4. Cell (a) also prints the model group's collective
+            ms (EP combine, weight gathers). (b)
             ``PipelineParallelLM`` (the LM's widths, 29,408,256 params) on
             data=2 x stage=2 (3 blocks a stage), batch 8 as 4 microbatches
             a replica, GPipe and 1F1B: the pipelined loss and
@@ -371,6 +395,26 @@ nonzero; nothing is caught):
             ``output`` on the whole batch's where its top-2 margin is
             more than twice the row's gap to it. A rank's failure fails
             the phase.
+
+22. telemetry  the port's telemetry core: the transformer LM (T 4096, 6
+            flash launches a step) 10 timed ``fit`` steps with telemetry
+            off, then on, twice over (the watchdog off in both): step ms
+            (medians within 3%) and the host's waits on the card counted
+            under ``set_sync_debug_mode("warn")`` (equal); the
+            ``train_step_seconds`` count and the iteration counter equal
+            the steps, the score gauge the last loss read; one
+            ``profile_round`` window around one round: its
+            ``torch.profiler`` trace holds one ``fit.step`` range and the
+            flash kernels' device events launched inside it, each of the 6
+            launches accounted for by its device event or as a launch the
+            trace kept without one (``launch_check``, printed with where in
+            the step each lost launch fell), and, with none lost,
+            ``top_ops``' top 8 lists the kernel; the HBM gauges against ``memory_allocated`` and
+            ``max_memory_allocated``; a burst of 64 requests to the served
+            char-RNN (``lstm_seq`` 2 a forward): the request counter, the
+            latency histogram and the completed traces count 64; a NaN in
+            the last of 4 char-RNN batches with the watchdog recording:
+            one anomaly and one flight dump.
 
 Then a ``kernels`` line (every kernel of the paths with its launches on
 its path, error, times and bound), the card's name and power limit, and
@@ -606,6 +650,21 @@ W2V_CHECK_FACTOR, W2V_TIMED_REPLAYS, W2V_PROFILED_REPLAYS, W2V_TOP_KERNELS = 3.0
 # spread is decided by last-bit chaos on this data (JAX f64 passes, JAX
 # f32 fails, the port the other way round), so it is not used here
 W2V_TSNE_SILHOUETTE = 0.25
+# SequenceVectors over a mesh: W2V_MESH_RANKS gloo ranks on the one card;
+# the replicated-table fit on the phase's first W2V_MESH_WORDS words within
+# W2V_MESH_ATOL of the world-1 fit of the same pairs (its ragged tail cut to
+# a multiple of the axis, as the mesh cuts it; the CPU test's fit
+# tolerance), the table-sharded fit on the first W2V_SHARD_WORDS within
+# W2V_SHARD_RTOL + W2V_SHARD_ATOL of the world-1 fit (the CPU test's), each
+# or within W2V_CHECK_FACTOR x the world-1 fit's distance from itself run
+# again where that is more (the card's scatter sums add in no fixed order).
+# Every fit builds its vocabulary on the phase's whole corpus first, so the
+# tables have the production width (V ~100,000 rows x 300, V/4 a rank when
+# sharded) and only the words fitted are cut: from 1M to the slices, to keep
+# the script inside its time limit (ranks sharing one card over gloo step at
+# ~40-60 ms)
+W2V_MESH_WORDS, W2V_SHARD_WORDS, W2V_MESH_RANKS, W2V_MESH_ATOL = 250_000, 125_000, 4, 2e-6
+W2V_SHARD_RTOL, W2V_SHARD_ATOL, W2V_MESH_TIMEOUT_S = 1e-5, 1e-6, 600
 
 
 # the mnist phase: BASELINE config 1 as DL4J's LenetMnistExample runs it
@@ -663,7 +722,11 @@ DP_HANG_S, DP_TIMEOUT_S = 420, 480
 # allowance)
 DP_NOISE_FACTOR, DP_SIGN_FLIPS = 3.0, 8
 # the model_parallel phase: MP_RANKS ranks on the one card over gloo. (a)
-# the MoE LM at MP_MOE_BATCH sequences on model=MP_TP (2 experts a rank);
+# the MoE LM at MP_MOE_BATCH sequences on data=MP_DATA x model=MP_TP (4
+# experts a rank, routed over the global batch; the capacity factor lowered
+# by MP_CAPACITY_STEP, down to MP_CAPACITY_MIN, until a block drops tokens);
+# the LM under tensor_parallel + fsdp_stream and with weight noise, at
+# MP_STREAM_BATCH sequences on data=MP_DATA x model=MP_TP;
 # (b), (c) the LM at batch MP_LM_BATCH, MP_MICRO microbatches a replica;
 # in (a)-(c) each leaf's gradient within MP_GRAD_RTOL of the larger of its
 # own largest and MP_GRAD_FLOOR of the model's largest (a leaf whose
@@ -673,10 +736,15 @@ DP_NOISE_FACTOR, DP_SIGN_FLIPS = 3.0, 8
 # MP_CH_MICRO a replica, the masked loss within MP_CH_LOSS_RTOL; (f)
 # MP_INFER_REQUESTS requests, each answer row within MP_INFER_ROW_RTOL of
 # its largest of ``output`` on the same rows
-MP_RANKS, MP_TP, MP_MOE_BATCH = 4, 4, 2
+MP_RANKS, MP_DATA, MP_TP, MP_MOE_BATCH = 4, 2, 2, 2
+MP_CAPACITY_STEP, MP_CAPACITY_MIN, MP_STREAM_BATCH, MP_NOISE_STD = 0.8, 0.25, 2, 0.01
 MP_LM_BATCH, MP_MICRO, MP_GRAD_RTOL, MP_GRAD_FLOOR = 8, 4, 1e-4, 1e-2
 MP_RN_MICRO, MP_CH_BATCH, MP_CH_MICRO, MP_CH_LOSS_RTOL = 4, 64, 4, 1e-5
 MP_INFER_REQUESTS, MP_INFER_ROW_RTOL, MP_HANG_S, MP_TIMEOUT_S = 32, 1e-5, 420, 480
+# the telemetry phase: TEL_ROUNDS alternations of TEL_STEPS LM steps with
+# telemetry off and on (the medians' ratio at most TEL_OVERHEAD, the host
+# syncs equal), a burst of TEL_REQUESTS requests to the served char-RNN
+TEL_STEPS, TEL_ROUNDS, TEL_OVERHEAD, TEL_REQUESTS = 10, 2, 1.03, 64
 
 
 def emit(phase, **fields):
@@ -3992,13 +4060,226 @@ def w2v_quality():
     return out
 
 
+def w2v_mesh_model(seed, **kw):
+    """The production model's settings at the mesh cell's slice, its
+    negatives the host alias draws of one ``RandomState(seed)`` (the same
+    on every rank and at world 1)."""
+    from deeplearning4j_tpu_torch.text.word2vec import SequenceVectors
+
+    m = SequenceVectors(vector_size=W2V_DIM, window=W2V_WINDOW, min_count=1,
+                        negative=W2V_NEGATIVE, epochs=1, seed=seed, batch_size=W2V_BATCH,
+                        subsample=W2V_SUBSAMPLE, learning_rate=W2V_LR, device="cuda", **kw)
+    rs = np.random.RandomState(seed)
+    m._draw_negatives = lambda shape: m._neg_alias.draw(rs, shape)
+    return m
+
+
+def w2v_mesh_vocab(model, vocab):
+    """``model``'s vocabulary and tables built from ``vocab`` (a path to,
+    or the dict of, the whole corpus's distinct words and their counts:
+    ``build_vocab``'s flat-corpus entry, one ``np.unique`` of the corpus
+    instead of one a model)."""
+    from deeplearning4j_tpu_torch.text.vocab import FlatCorpus
+
+    v = np.load(vocab) if isinstance(vocab, str) else vocab
+    return model.build_vocab(None, _flat=FlatCorpus(v["words"].tolist(), None, v["counts"],
+                                                     None))
+
+
+def w2v_mesh_fit(model, sents):
+    """(seconds, steps) of one fit, on the host clock to a synchronize;
+    steps counted at the update functions' one entry a batch."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model.fit(sents)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, len(model.loss_history)
+
+
+def w2v_mesh_rank(rank, world, seed, corpus, vocab, world1):
+    """One rank of the mesh cell: the replicated-table fit and the
+    table-sharded fit of their slices on a data=4 mesh, each on the
+    vocabulary of the whole corpus and against the world-1 tables (rank 0
+    compares)."""
+    import faulthandler
+
+    from deeplearning4j_tpu_torch.parallel import MeshSpec, make_mesh
+
+    faulthandler.dump_traceback_later(W2V_MESH_TIMEOUT_S - 60, exit=True)
+    sents = np.load(corpus).tolist()
+    mesh = make_mesh(MeshSpec(data=world))
+    refs = ({k: v.numpy() for k, v in torch.load(world1, weights_only=True).items()}
+            if rank == 0 else None)
+    row = {"rank": rank}
+    for name, kw, n in (("replicated", {}, W2V_MESH_WORDS),
+                        ("sharded", {"shard_tables": True}, W2V_SHARD_WORDS)):
+        m = w2v_mesh_vocab(w2v_mesh_model(seed, mesh=mesh, **kw), vocab)
+        part = sents[:n // W2V_SENT_LEN]
+        secs, steps = w2v_mesh_fit(m, part)
+        syn0, syn1 = m.whole_tables()
+        cell = {"words": n, "fit_s": secs, "steps": steps,
+                "examples_dropped": m.examples_dropped, "vocab": len(m.vocab),
+                "table_rows_here": int(m.syn0.shape[0]), "words_per_s": n / secs,
+                "words_per_s_a_rank": n / secs / world,
+                "loss_last": float(m.loss_history[-1])}
+        if refs is not None:
+            # the replicated fit cuts its ragged tail: the world-1 fit of the same pairs
+            ref = {t: refs[("cut_" if name == "replicated" else "") + t] for t in ("syn0", "syn1")}
+            v = len(m.vocab)
+            cell["syn0_max_abs"] = float(np.abs(syn0[:v] - ref["syn0"]).max())
+            cell["syn1_max_abs"] = float(np.abs(syn1[:v] - ref["syn1"][:v]).max())
+            cell["syn0_rel_excess"] = float((np.abs(syn0[:v] - ref["syn0"])
+                                             - W2V_SHARD_RTOL * np.abs(ref["syn0"])).max())
+            cell["syn1_rel_excess"] = float((np.abs(syn1[:v] - ref["syn1"][:v])
+                                             - W2V_SHARD_RTOL * np.abs(ref["syn1"][:v])).max())
+        row[name] = cell
+        del m
+        free_card()
+    faulthandler.cancel_dump_traceback_later()
+    return row
+
+
+def w2v_nccl_rank(rank, world, seed, corpus, vocab, world1):
+    """The mesh trainers at world 1 over NCCL: the sharded slice fitted
+    with replicated tables and with ``shard_tables=True``, each chunk
+    captured into its CUDA graph with its collectives (the all-gathers of
+    the exchange, the shard's all-reduce). Returns each fit's captures,
+    eager chunk engines and distance from the world-1 tables."""
+    from deeplearning4j_tpu_torch.parallel import MeshSpec, make_mesh
+
+    sents = np.load(corpus).tolist()
+    mesh = make_mesh(MeshSpec(data=world))
+    ref = {k: v.numpy() for k, v in torch.load(world1, weights_only=True).items()}
+    row = {}
+    for name, kw in (("replicated", {}), ("sharded", {"shard_tables": True})):
+        m = w2v_mesh_vocab(w2v_mesh_model(seed, mesh=mesh, **kw), vocab)
+        secs, steps = w2v_mesh_fit(m, sents[:W2V_SHARD_WORDS // W2V_SENT_LEN])
+        engines = list(m._chunk_steps.values())
+        syn0, syn1 = m.whole_tables()
+        v = len(m.vocab)
+        row[name] = {"fit_s": secs, "steps": steps, "vocab": v,
+                     "captures": sum(e.captures for e in engines),
+                     "eager_engines": sum(e.eager for e in engines),
+                     "syn0_max_abs": float(np.abs(syn0[:v] - ref["syn0"]).max()),
+                     "syn1_max_abs": float(np.abs(syn1[:v] - ref["syn1"][:v]).max())}
+        del m
+        free_card()
+    return row
+
+
+def w2v_mesh(seed):
+    """SequenceVectors(mesh=) at full width over 4 gloo ranks on the one
+    card: every model's vocabulary and tables built on the phase's whole
+    corpus, then world-1 fits of the slices (the sharded slice's twice: its
+    distance from itself sets the card's noise), then the replicated-table
+    and table-sharded fits of the same slices with the same negatives,
+    held to the world-1 tables; words/s and the bytes a rank puts into the
+    collectives a step."""
+    from deeplearning4j_tpu_torch.parallel.launch import run_ranks
+
+    corpus = np.asarray(w2v_corpus(seed), np.int64)  # the phase's: the vocabulary's
+    words, counts = np.unique(corpus, return_counts=True)
+    vocab = {"words": words, "counts": counts}
+    sents = corpus[:W2V_MESH_WORDS // W2V_SENT_LEN].tolist()
+    shard_sents = sents[:W2V_SHARD_WORDS // W2V_SENT_LEN]
+    work = WORK / "w2v_mesh"
+    work.mkdir(parents=True)
+    one = []
+    for cut, part in ((False, shard_sents), (False, shard_sents), (True, sents)):
+        m = w2v_mesh_vocab(w2v_mesh_model(seed), vocab)
+        if cut:
+            def run(math_fn, arrays, lr, run=m._run_batched):
+                n = len(arrays[0]) // W2V_MESH_RANKS * W2V_MESH_RANKS
+                return run(math_fn, tuple(a[:n] for a in arrays), lr)
+            m._run_batched = run
+        secs, steps = w2v_mesh_fit(m, part)
+        one.append({"syn0": m.syn0.cpu().numpy().copy(), "syn1": m.syn1.cpu().numpy().copy(),
+                    "fit_s": secs, "steps": steps, "vocab": len(m.vocab)})
+        del m
+        free_card()
+    noise = max(float(np.abs(one[0][k] - one[1][k]).max()) for k in ("syn0", "syn1"))
+    np.save(work / "corpus.npy", np.asarray(sents, np.int64))
+    np.savez(work / "vocab.npz", **vocab)
+    torch.save({**{k: torch.from_numpy(one[0][k]) for k in ("syn0", "syn1")},
+                **{"cut_" + k: torch.from_numpy(one[2][k]) for k in ("syn0", "syn1")}},
+               work / "world1.pt")
+    t0 = time.perf_counter()
+    ranks = run_ranks(w2v_mesh_rank, W2V_MESH_RANKS, work / "ranks", backend="gloo", device=0,
+                      timeout=W2V_MESH_TIMEOUT_S, seed=seed, corpus=str(work / "corpus.npy"),
+                      vocab=str(work / "vocab.npz"), world1=str(work / "world1.pt"))
+    ranks_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    nccl = run_ranks(w2v_nccl_rank, 1, work / "nccl", backend="nccl", device=0,
+                     timeout=W2V_MESH_TIMEOUT_S, seed=seed,
+                     corpus=str(work / "corpus.npy"), vocab=str(work / "vocab.npz"),
+                     world1=str(work / "world1.pt"))[0]
+    nccl_s = time.perf_counter() - t0
+    for name, cell in nccl.items():
+        if cell["captures"] < 1 or cell["eager_engines"]:
+            raise AssertionError(f"word2vec mesh over NCCL ({name}): {cell['captures']} "
+                                 f"captures, {cell['eager_engines']} eager chunk engines")
+        if not max(cell["syn0_max_abs"], cell["syn1_max_abs"]) <= max(
+                W2V_MESH_ATOL, W2V_CHECK_FACTOR * noise):
+            raise AssertionError(f"word2vec mesh over NCCL ({name}): tables off world 1 by "
+                                 f"{cell['syn0_max_abs']}, {cell['syn1_max_abs']}")
+    r0 = ranks[0]
+    rep = r0["replicated"]
+    if not max(rep["syn0_max_abs"], rep["syn1_max_abs"]) <= max(W2V_MESH_ATOL,
+                                                                 W2V_CHECK_FACTOR * noise):
+        raise AssertionError(f"word2vec mesh: replicated tables off world 1 by "
+                             f"{rep['syn0_max_abs']}, {rep['syn1_max_abs']}")
+    if not rep["examples_dropped"] <= W2V_MESH_RANKS - 1:
+        raise AssertionError(f"word2vec mesh: {rep['examples_dropped']} pairs dropped, at most "
+                             f"{W2V_MESH_RANKS - 1} an epoch")
+    sh = r0["sharded"]
+    if not (max(sh["syn0_rel_excess"], sh["syn1_rel_excess"]) <= W2V_SHARD_ATOL
+            or max(sh["syn0_max_abs"], sh["syn1_max_abs"]) <= W2V_CHECK_FACTOR * noise):
+        raise AssertionError(f"word2vec mesh: sharded tables off world 1 by "
+                             f"{sh['syn0_max_abs']}, {sh['syn1_max_abs']}")
+    v = one[0]["vocab"]
+    vp = -(-v // W2V_MESH_RANKS) * W2V_MESH_RANKS
+    if any(rk[c]["vocab"] != v for rk in ranks for c in ("replicated", "sharded")):
+        raise AssertionError("word2vec mesh: a rank built another vocabulary than world 1")
+    if any(rk["sharded"]["table_rows_here"] != vp // W2V_MESH_RANKS for rk in ranks):
+        raise AssertionError("word2vec mesh: a rank holds another number of rows than V/n")
+    b, k, d, n = W2V_BATCH, W2V_NEGATIVE, W2V_DIM, W2V_MESH_RANKS
+    out = {"words": {"replicated": W2V_MESH_WORDS, "sharded": W2V_SHARD_WORDS}, "ranks": n,
+           "vocab": v, "vocab_corpus_words": int(counts.sum()),
+           "sharded_rows_a_rank": vp // n,
+           "world1_fit_s": {"sharded_slice": [o["fit_s"] for o in one[:2]],
+                            "replicated_slice_cut": one[2]["fit_s"]},
+           "world1_steps": {"sharded_slice": one[0]["steps"], "replicated_slice": one[2]["steps"]},
+           "world1_words_per_s": W2V_MESH_WORDS / one[2]["fit_s"],
+           "world1_self_distance": noise, "ranks_seconds": ranks_s,
+           "nccl_world1": {"seconds": nccl_s, **nccl},
+           # the bytes a rank puts into the collectives of one step: the
+           # all-gathered (indices, gradients) of both tables' updates and
+           # the loss's all-reduce; sharded, the all-reduced row gathers
+           "replicated_bytes_a_step_a_rank": (b // n) * (2 + k) * (8 + 4 * d) + 4,
+           "sharded_bytes_a_step_a_rank": 4 * b * d * (2 + k),
+           "replicated": [{"rank": rk["rank"], **rk["replicated"]} for rk in ranks],
+           "sharded": [{"rank": rk["rank"], **rk["sharded"]} for rk in ranks],
+           "card": card_line()}
+    emit("word2vec.mesh", **out)
+    shutil.rmtree(work, ignore_errors=True)
+    free_card()
+    return out
+
+
 def phase_word2vec(seed):
     """BASELINE config 3 on the card: the full-width chunk check, the
-    production fit, the toy-topic quality checks of every NLP trainer."""
+    production fit, the toy-topic quality checks of every NLP trainer, and
+    the mesh trainers over 4 ranks."""
     check = w2v_chunk_check(seed)
     fit = w2v_production(seed)
     quality = w2v_quality()
-    return {"check": check, "fit": fit, "quality": quality, "card": card_line()}
+    shutil.rmtree(WORK, ignore_errors=True)
+    WORK.mkdir()
+    try:
+        mesh = w2v_mesh(seed)
+    finally:
+        shutil.rmtree(WORK, ignore_errors=True)
+    return {"check": check, "fit": fit, "quality": quality, "mesh": mesh, "card": card_line()}
 
 
 # ---------------------------------------------------------------------------
@@ -5134,10 +5415,10 @@ def phase_modelimport(L, C, seed):
 # the MoE transformer LM (the long-context tier)
 # ---------------------------------------------------------------------------
 
-def make_moe_lm(seed):
+def make_moe_lm(seed, capacity=MOE_CAPACITY):
     """The train phase's LM with every TransformerBlock an
-    MoETransformerBlock, from the config DSL (the JAX package's zoo has
-    no function for it)."""
+    MoETransformerBlock (capacity factor ``capacity``), from the config
+    DSL (the JAX package's zoo has no function for it)."""
     from deeplearning4j_tpu_torch.nn import layers as TL
     from deeplearning4j_tpu_torch.nn import updaters as TU
     from deeplearning4j_tpu_torch.nn.conf import inputs as TI
@@ -5147,7 +5428,7 @@ def make_moe_lm(seed):
     conf = NeuralNetConfig(seed=seed, updater=TU.Adam(learning_rate=3e-4)).list(
         TL.EmbeddingSequenceLayer(n_in=LM_VOCAB, n_out=LM_WIDTH, add_positional=True),
         *[TL.MoETransformerBlock(n_out=LM_WIDTH, n_heads=LM_HEADS, n_experts=MOE_EXPERTS,
-                                 mlp_ratio=4, capacity_factor=MOE_CAPACITY,
+                                 mlp_ratio=4, capacity_factor=capacity,
                                  aux_loss_weight=MOE_AUX, causal=True)
           for _ in range(LM_LAYERS)],
         TL.RnnOutputLayer(n_out=LM_VOCAB, loss="mcxent"),
@@ -6395,6 +6676,104 @@ def mp_timed_step(model, step):
     return ms, model.wait_ms[-1], torch.cuda.max_memory_allocated()
 
 
+def moe_block_drops(net, x):
+    """Tokens each MoE block of ``net`` (whole parameters) drops on ``x``:
+    over the whole batch, or under an active batch group over the global
+    one (``x`` this rank's rows, the count this rank's share)."""
+    acts = net.feed_forward(x)
+    out = []
+    with torch.inference_mode():
+        for i, block in moe_blocks(net):
+            h = block.mlp_input(net.params[i], acts[i - 1])[1]
+            out.append(int((~block.route(net.params[i], h.reshape(-1, h.shape[-1])).keep).sum()))
+    del acts
+    return out
+
+
+@contextlib.contextmanager
+def captured_update_grads(tr):
+    """The gradients a ZeRO trainer's updater receives (this rank's shard
+    of each trainable leaf's exchanged gradient), on the host, a list a
+    step."""
+    upd = tr.net.conf.updater
+    seen, update = [], upd.update_
+
+    def update_(views, grads, opt, step):
+        seen.append([g.detach().float().cpu() for g in grads])
+        return update(views, grads, opt, step)
+    object.__setattr__(upd, "update_", update_)
+    try:
+        yield seen
+    finally:
+        object.__delattr__(upd, "update_")
+
+
+def shard_of_world1(tr, mesh, w1):
+    """{path: this rank's piece of the world-1 gradient} for a trainer's
+    trainable leaves: its model slice, then its data shard."""
+    from deeplearning4j_tpu_torch.utils import collectives as K
+    from deeplearning4j_tpu_torch.utils.trees import flatten_tree
+
+    names = list(flatten_tree(tr.net.params))
+    out, j = {}, 0
+    for i, (name, tr_leaf) in enumerate(zip(names, tr._trainable_mask)):
+        if not tr_leaf:
+            continue
+        g = w1[name]
+        d = tr._tp_dims[i] if tr._mg is not None else None
+        if d is not None:
+            g = K.local_slice(g, d, mesh.coords["model"], mesh.shape["model"])
+        out[name] = tr._plan.shard(j, g).contiguous()
+        j += 1
+    return out
+
+
+def mp_split_step(A, C, L, tr, mesh, x, y, ref, what):
+    """One step of a data x model trainer on the global batch: the gradient
+    each rank's updater receives against its piece of the world-1 step's
+    (``ref``: loss and gradients), the loss against world 1's, flash
+    launches a rank."""
+    want = shard_of_world1(tr, mesh, ref["grads"])
+    before = mp_launches(A, C, L)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with captured_update_grads(tr) as seen:
+        loss = float(tr.step(x, y))
+    torch.cuda.synchronize()
+    step_ms = 1e3 * (time.perf_counter() - t0)
+    launched = mp_since(A, C, L, before)
+    got = dict(zip(want, seen[0]))
+    gap, leaf = grad_gap(got, want)
+    if not abs(loss - ref["loss"]) <= STEP_LOSS_RTOL * abs(ref["loss"]):
+        raise AssertionError(f"{what}: loss {loss} against world 1's {ref['loss']}")
+    if not gap <= MP_GRAD_RTOL:
+        raise AssertionError(f"{what}: gradient {leaf} off world 1's by {gap} of its largest")
+    return {"loss": loss, "world1_loss": ref["loss"], "grad_gap": gap, "grad_gap_leaf": leaf,
+            "step_ms": step_ms, "launches": launched}
+
+
+def make_noisy_lm(seed):
+    """The LM with additive normal weight noise (std MP_NOISE_STD) on its
+    embedding and output layer, the leaves tensor parallelism splits."""
+    import dataclasses
+
+    from deeplearning4j_tpu_torch.models.misc import transformer_lm
+    from deeplearning4j_tpu_torch.nn.initializers import Distribution
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.nn.weightnoise import WeightNoise
+
+    conf = transformer_lm(LM_VOCAB, n_layers=LM_LAYERS, d_model=LM_WIDTH, n_heads=LM_HEADS,
+                          seq_len=LM_SEQ)
+    wn = WeightNoise(distribution=Distribution(kind="normal", mean=0.0, std=MP_NOISE_STD),
+                     apply_to_bias=True)
+    layers = list(conf.layers)
+    for i in (0, len(layers) - 1):
+        layers[i] = dataclasses.replace(layers[i], weight_noise=wn)
+    net = MultiLayerNetwork(dataclasses.replace(conf, layers=tuple(layers)), device="cuda")
+    net.init(torch.Generator().manual_seed(seed))
+    return net
+
+
 def mp_rank(rank, world, seed, refs):
     """One rank of the model_parallel cells (a)-(f), on card 0 over gloo
     (see the module docstring). Returns its row."""
@@ -6411,6 +6790,7 @@ def mp_rank(rank, world, seed, refs):
     from deeplearning4j_tpu_torch.parallel.composed import BLOCK_SPLIT
     from deeplearning4j_tpu_torch.utils import collectives as K
     from deeplearning4j_tpu_torch.utils import dtypes
+    from deeplearning4j_tpu_torch.utils import sharded_checkpoint as SC
     from deeplearning4j_tpu_torch.utils.trees import flatten_tree, tree_leaves
 
     faulthandler.dump_traceback_later(MP_HANG_S, exit=True)
@@ -6419,32 +6799,43 @@ def mp_rank(rank, world, seed, refs):
     row = {"rank": rank}
     start = mp_launches(A, C, L)
 
-    # (a) tensor + expert parallelism: the MoE LM on model=4
-    mesh = make_mesh(MeshSpec(data=1, model=MP_TP))
-    net = make_moe_lm(seed)
+    # (a) tensor + expert parallelism under a data axis: the MoE LM on
+    # data=2 x model=2, routed over the global batch
+    mesh = make_mesh(MeshSpec(data=MP_DATA, model=MP_TP))
+    net = make_moe_lm(seed, r["moe_capacity"])
     tr = ParallelTrainer(net, mesh, tensor_parallel=True).adopt_net_state()
     experts = {k: tuple(v.shape) for k, v in flatten_tree(net.params).items() if "expert_" in k}
     if any(s[0] != MOE_EXPERTS // MP_TP for s in experts.values()):
         raise AssertionError(f"rank {rank}: expert leaves {experts}")
     x, y = r["moe_x"].cuda(), r["moe_y"].cuda()
-    # the gradients of the split step, each leaf against this rank's slice
-    # of the world-1 step's
+    xl, yl = tr._local(x), tr._local(y)
+    # the first step's routing over the global batch: each block's drops
+    # (this rank's share, summed over the data group) against world 1's
+    tr.sync_to_net()
+    with K.sync_batch(tr._bg), dtypes.policy_precision():
+        drops = torch.tensor(moe_block_drops(net, xl), dtype=torch.float64)
+    drops = [int(v) for v in K.all_reduce_(drops, tr.group)]
+    tr._tp_local()
+    # the gradients of the split step, each leaf (its data group's mean)
+    # against this rank's slice of the world-1 step's
     before = mp_launches(A, C, L)
-    with K.sync_model(tr._mg), dtypes.policy_precision():
+    with K.sync_batch(tr._bg), K.sync_model(tr._mg), dtypes.policy_precision():
         leaves = list(tree_leaves(net._watch(net.params)))
-        g_loss, _ = net.loss_fn(net.params, net.state, x, y, train=True)
+        g_loss, _ = net.loss_fn(net.params, net.state, xl, yl, train=True)
         gs = torch.autograd.grad(g_loss, leaves, allow_unused=True)
     for t in leaves:
         t.requires_grad_(False)
     names = list(flatten_tree(net.params))
-    got = {k: (torch.zeros_like(t) if g is None else g)
+    got = {k: K.all_reduce_((torch.zeros_like(t) if g is None else g).contiguous().clone(),
+                            tr.group) / tr.world
            for k, t, g in zip(names, leaves, gs)}
+    g_loss = float(K.all_reduce_(g_loss.detach().reshape(1).clone(), tr.group)[0]) / tr.world
     want = {k: (r["moe_grads"][k] if d is None else
                 K.local_slice(r["moe_grads"][k], d, mesh.coords["model"], MP_TP))
             for k, d in zip(names, tr._tp_dims)}
     grad_gap_a, grad_leaf_a = grad_gap(got, want)
-    if not abs(float(g_loss) - r["moe_grad_loss"]) <= STEP_LOSS_RTOL * abs(r["moe_grad_loss"]):
-        raise AssertionError(f"rank {rank}: split loss {float(g_loss)} against world 1's "
+    if not abs(g_loss - r["moe_grad_loss"]) <= STEP_LOSS_RTOL * abs(r["moe_grad_loss"]):
+        raise AssertionError(f"rank {rank}: split loss {g_loss} against world 1's "
                              f"{r['moe_grad_loss']}")
     if not grad_gap_a <= MP_GRAD_RTOL:
         raise AssertionError(f"rank {rank}: TP+EP gradient {grad_leaf_a} off world 1's by "
@@ -6469,11 +6860,44 @@ def mp_rank(rank, world, seed, refs):
     if launched["flash_attn"] < LM_LAYERS:
         raise AssertionError(f"rank {rank}: {launched['flash_attn']} flash launches in the "
                              f"TP+EP step, at least {LM_LAYERS} expected")
-    row["tp_ep"] = {"loss": float(loss), "world1_loss": r["moe_ref"][0], "step_ms": step_ms,
-                    "grad_gap": grad_gap_a, "grad_gap_leaf": grad_leaf_a,
+    digest = {k: (float(v.double().sum()), float((v.double() ** 2).sum()))
+              for k, v in flatten_tree(net.params).items()}
+    # the TP trainer's sharded checkpoint: each rank writes its pieces
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    SC.save_trainer(r["ckpt"], tr)
+    save_s = time.perf_counter() - t0
+    row["tp_ep"] = {"mesh": f"data={MP_DATA} x model={MP_TP}", "loss": float(loss),
+                    "world1_loss": r["moe_ref"][0], "step_ms": step_ms,
+                    "capacity_factor": r["moe_capacity"], "drops": drops,
+                    "world1_drops": r["moe_drops"], "grad_gap": grad_gap_a,
+                    "grad_gap_leaf": grad_leaf_a,
                     "model_collective_ms": tr.model_collective_ms[-1],
                     "data_collective_ms": tr.collective_ms[-1], "expert_leaf_shapes": experts,
-                    "check": held, "launches": launched, **stored}
+                    "check": held, "launches": launched, "ckpt_save_s": save_s,
+                    "ckpt_digest": digest if rank == 0 else None, **stored}
+    del tr, net
+    free_card()
+
+    # the LM under tensor_parallel + fsdp_stream, then with weight noise,
+    # on data=2 x model=2: one step each against world 1
+    sx, sy = r["stream_x"].cuda(), r["stream_y"].cuda()
+    net = make_lm(seed)
+    tr = ParallelTrainer(net, mesh, tensor_parallel=True,
+                         shard_params="fsdp_stream").adopt_net_state()
+    row["tp_stream"] = mp_split_step(A, C, L, tr, mesh, sx, sy, r["stream_ref"],
+                                     f"rank {rank} TP + fsdp_stream")
+    row["tp_stream"]["trunk"] = list(tr._trunk)
+    if row["tp_stream"]["launches"]["flash_attn"] != 2 * LM_LAYERS:
+        raise AssertionError(f"rank {rank}: {row['tp_stream']['launches']['flash_attn']} flash "
+                             f"launches in the streamed step, {2 * LM_LAYERS} expected (the "
+                             "recompute)")
+    del tr, net
+    free_card()
+    net = make_noisy_lm(seed)
+    tr = ParallelTrainer(net, mesh, tensor_parallel=True).adopt_net_state()
+    row["tp_noise"] = mp_split_step(A, C, L, tr, mesh, sx, sy, r["noise_ref"],
+                                    f"rank {rank} TP + weight noise")
     del tr, net
     free_card()
 
@@ -6613,19 +7037,47 @@ def mp_references(seed):
     from deeplearning4j_tpu_torch.utils import dtypes
     from deeplearning4j_tpu_torch.utils.trees import flatten_tree
 
+    from deeplearning4j_tpu_torch.nn.layers.base import step_seed
+
     refs = {}
-    # (a) the MoE LM's first fit step and its gradients
+    # (a) the MoE LM's first fit step and its gradients, at a capacity at
+    # which a block drops tokens
     rs = np.random.RandomState(seed + 11)
     mx, my = lm_data(rs, MP_MOE_BATCH)
-    refs["moe_ref"] = dp_fit_step(seed, mx, my, make_moe_lm)
-    refs["moe_x"], refs["moe_y"] = mx.cpu(), my.cpu()
-    net = make_moe_lm(seed)
+    cap = MOE_CAPACITY
+    while True:
+        net = make_moe_lm(seed, cap)
+        with dtypes.policy_precision():
+            drops = moe_block_drops(net, mx)
+        if sum(drops) or cap <= MP_CAPACITY_MIN:
+            break
+        del net
+        cap = round(cap * MP_CAPACITY_STEP, 4)
+    if not sum(drops):
+        raise AssertionError(f"no MoE block drops a token down to capacity factor {cap}")
+    refs["moe_capacity"], refs["moe_drops"] = cap, drops
     with dtypes.policy_precision():  # as every training step runs
         loss, _, grads = net.compute_gradients(net.params, net.state, mx, my)
     refs["moe_grad_loss"] = float(loss)
     refs["moe_grads"] = {k: v.float().cpu() for k, v in flatten_tree(grads).items()}
     del net, grads
     free_card()
+    refs["moe_ref"] = dp_fit_step(seed, mx, my, lambda s: make_moe_lm(s, cap))
+    refs["moe_x"], refs["moe_y"] = mx.cpu(), my.cpu()
+    free_card()
+    # the LM's gradients at world 1 for the TP + fsdp_stream cell, and the
+    # noisy LM's with the step's seed (the same hashed draws)
+    sx, sy = lm_data(np.random.RandomState(seed + 29), MP_STREAM_BATCH)
+    for key, make in (("stream_ref", make_lm), ("noise_ref", make_noisy_lm)):
+        net = make(seed)
+        with dtypes.policy_precision():
+            loss, _, grads = net.compute_gradients(net.params, net.state, sx, sy,
+                                                   rng=step_seed(net.conf.seed, 0))
+        refs[key] = {"loss": float(loss),
+                     "grads": {k: v.float().cpu() for k, v in flatten_tree(grads).items()}}
+        del net, grads
+        free_card()
+    refs["stream_x"], refs["stream_y"] = sx.cpu(), sy.cpu()
     # (b), (c) one unpipelined step of each LM on the whole batch at world 1
     x, y = lm_data(np.random.RandomState(seed + 13), MP_LM_BATCH)
     ids, labels = x[..., 0].long(), y.argmax(-1)
@@ -6683,6 +7135,55 @@ def mp_references(seed):
     return refs
 
 
+def mp_restore_world1(seed, ranks):
+    """Cell (a)'s TP sharded checkpoint (data=2 x model=2) restored into a
+    world-1 trainer over NCCL here: the parameters against the saving
+    ranks' (per-leaf sums and sums of squares, float64), the iteration,
+    one more finite step; save and restore wall times."""
+    import torch.distributed as dist
+
+    from deeplearning4j_tpu_torch.parallel import MeshSpec, ParallelTrainer, make_mesh
+    from deeplearning4j_tpu_torch.utils import sharded_checkpoint as SC
+    from deeplearning4j_tpu_torch.utils.trees import flatten_tree
+
+    ckpt = WORK / "mp_ckpt"
+    index = SC.read_index(ckpt)
+    shard_bytes = sum(f.stat().st_size for f in ckpt.glob("shard-*.pt"))
+    want = ranks[0]["tp_ep"]["ckpt_digest"]
+    work = WORK / "mp_restore"
+    work.mkdir(parents=True)
+    dist.init_process_group("nccl", init_method=f"file://{work / 'rendezvous'}", rank=0,
+                            world_size=1)
+    try:
+        net = make_moe_lm(seed, ranks[0]["tp_ep"]["capacity_factor"])
+        tr = ParallelTrainer(net, make_mesh(MeshSpec())).adopt_net_state()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        SC.restore_trainer(ckpt, tr)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        gap = 0.0
+        for k, v in flatten_tree(tr.net.params).items():
+            s1, s2 = float(v.double().sum()), float((v.double() ** 2).sum())
+            gap = max(gap, abs(s1 - want[k][0]) / max(abs(want[k][0]), 1e-12),
+                      abs(s2 - want[k][1]) / max(abs(want[k][1]), 1e-12))
+        if not gap <= 1e-9 or tr.iteration != 1:
+            raise AssertionError(f"restored TP checkpoint: digest gap {gap}, iteration "
+                                 f"{tr.iteration}")
+        x, y = lm_data(np.random.RandomState(seed + 11), MP_MOE_BATCH)
+        loss = float(tr.step(x, y))
+        if not np.isfinite(loss):
+            raise AssertionError(f"the restored trainer's step gave {loss}")
+        del tr, net
+    finally:
+        dist.destroy_process_group()
+    free_card()
+    return {"saved_by": f"data={index['world']} x model={index['model_world']}",
+            "restored_at": "world 1", "bytes": shard_bytes,
+            "save_s": [rk["tp_ep"]["ckpt_save_s"] for rk in ranks], "restore_s": restore_s,
+            "digest_gap": gap, "next_loss": loss, "card": card_line()}
+
+
 def phase_model_parallel(seed):
     from deeplearning4j_tpu_torch.parallel.launch import run_ranks
 
@@ -6693,6 +7194,7 @@ def phase_model_parallel(seed):
          resnet_loss=refs["rn_ref"]["loss"], charnn_loss=refs["ch_ref"],
          seconds=time.perf_counter() - t0, card=card_line())
     path = WORK / "mp_refs.pt"
+    refs["ckpt"] = str(WORK / "mp_ckpt")
     torch.save(refs, path)
     del refs
     free_card()
@@ -6700,9 +7202,19 @@ def phase_model_parallel(seed):
     ranks = run_ranks(mp_rank, MP_RANKS, WORK / "mp_ranks", backend="gloo", device=0,
                       timeout=MP_TIMEOUT_S, seed=seed, refs=str(path))
     ranks_s = time.perf_counter() - t_ranks
-    emit("model_parallel.tp_ep", mesh="model=4", world=MP_RANKS, backend="gloo",
-         batch=MP_MOE_BATCH, T=LM_SEQ, params=MOE_PARAMS,
-         ranks=[{"rank": rk["rank"], **rk["tp_ep"]} for rk in ranks], card=card_line())
+    tp_ep = [{"rank": rk["rank"], **{k: v for k, v in rk["tp_ep"].items() if k != "ckpt_digest"}}
+             for rk in ranks]
+    if not any(sum(rk["drops"]) for rk in tp_ep):
+        raise AssertionError("no MoE block dropped a token on the global batch")
+    emit("model_parallel.tp_ep", mesh=f"data={MP_DATA} x model={MP_TP}", world=MP_RANKS,
+         backend="gloo", batch=MP_MOE_BATCH, T=LM_SEQ, params=MOE_PARAMS, ranks=tp_ep,
+         card=card_line())
+    for cell, what in (("tp_stream", "tensor_parallel + fsdp_stream"),
+                       ("tp_noise", f"tensor_parallel + weight noise (std {MP_NOISE_STD})")):
+        emit(f"model_parallel.{cell}", what=what, mesh=f"data={MP_DATA} x model={MP_TP}",
+             batch=MP_STREAM_BATCH, T=LM_SEQ, params=LM_PARAMS,
+             ranks=[{"rank": rk["rank"], **rk[cell]} for rk in ranks], card=card_line())
+    emit("model_parallel.tp_checkpoint", **mp_restore_world1(seed, ranks))
     for cell, mesh in (("pipeline_lm", "data=2 x stage=2"), ("composed", "stage=2 x model=2")):
         emit(f"model_parallel.{cell}", mesh=mesh, batch=MP_LM_BATCH, microbatches=MP_MICRO,
              T=LM_SEQ, params=LM_PARAMS, ranks=[{"rank": rk["rank"], **rk[cell]} for rk in ranks],
@@ -6726,6 +7238,223 @@ def phase_model_parallel(seed):
     emit("model_parallel", seconds=time.perf_counter() - t0, ranks_seconds=ranks_s,
          launches=launches, card=card_line())
     return {"ranks": ranks, "launches": launches}
+
+
+# ---------------------------------------------------------------------------
+# telemetry: the port's telemetry core on the card (registry, spans, traces,
+# flight recorder, HBM gauges, the profile window)
+# ---------------------------------------------------------------------------
+
+def tel_lm_fit(net, x, y, steps):
+    """``steps`` fit steps of the LM on one batch, on the host clock to a
+    synchronize, with the host's waits on the card counted. Returns (ms a
+    step, syncs)."""
+    with counted_syncs() as box:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        net.fit(((x, y) for _ in range(steps)))
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0) / steps
+    return ms, box["n"]
+
+
+def tel_profile_window(A, net, x, y):
+    """One ``profile_round`` window around one StepDriver round of one
+    dispatch: the trace's ``fit.step`` ranges, the flash kernels' device
+    events (one a block, each launched inside the range), the trace's
+    launches without a device event and the lag of device events behind
+    their launches (``launch_check``), and ``top_ops``."""
+    from deeplearning4j_tpu_torch.continuous.driver import StepDriver
+    from deeplearning4j_tpu_torch.telemetry import profiling as TPR
+    from deeplearning4j_tpu_torch.utils import dtypes
+    from deeplearning4j_tpu_torch.utils import profiling as UP
+
+    logdir = WORK / "tel_profile"
+    drv = StepDriver(net, lambda: iter([(x, y, None)] * 2))
+    drv.profile_round(2, str(logdir))
+    flash0 = A.launches
+    with dtypes.policy_precision():
+        drv.run_round(1)   # not profiled
+        drv.run_round(1)   # the window
+        drv.sync()
+    drv.close_source()
+    doc = json.loads((logdir / TPR.TRACE_NAME).read_text())
+    evs = doc["traceEvents"]
+    cpu_ranges = [e for e in evs if e.get("name") == "fit.step" and e.get("ph") == "X"
+                  and e.get("cat") != "gpu_user_annotation"]
+    kernels = [e for e in evs if e.get("cat") == "kernel" and "flash" in e.get("name", "")]
+    launch_ts = {e.get("args", {}).get("correlation"): e["ts"] for e in evs
+                 if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                 and "Launch" in e.get("name", "")}
+    inside = [any(r["ts"] <= launch_ts.get(k.get("args", {}).get("correlation"), -1)
+                  <= r["ts"] + r["dur"] for r in cpu_ranges) for k in kernels]
+    check = UP.launch_check(doc)
+    # the step's launches that the trace holds without their device events,
+    # in ms from the step's start
+    lost = [(t - r["ts"]) / 1e3 for r in cpu_ranges for t in check["missing_ts"]
+            if r["ts"] <= t <= r["ts"] + r["dur"]]
+    top = UP.top_ops(logdir, k=8)  # warns when launches lack their events
+    flash_rank = next((i for i, r in enumerate(top) if "flash" in (r["expression"] or "")),
+                      None)
+    # every flash launch of the step is accounted for: by its device event,
+    # launched inside the range, or as a launch the trace kept without one;
+    # with no launch lost, all 6 device events are there
+    if (len(cpu_ranges) != 1 or not kernels or not all(inside)
+            or not len(kernels) <= LM_LAYERS <= len(kernels) + len(lost)):
+        raise AssertionError(f"profile window: {len(cpu_ranges)} fit.step ranges, "
+                             f"{len(kernels)} flash kernels ({sum(inside)} launched inside), "
+                             f"{A.launches - flash0} launched; launches without a device "
+                             f"event {check}")
+    if flash_rank is None and not check["missing"]:
+        raise AssertionError(f"top_ops' top 8 lists no flash kernel: "
+                             f"{[r['expression'][:60] for r in top]}")
+    return {"fit_step_ranges": len(cpu_ranges), "flash_kernels": len(kernels),
+            "flash_launched_in_range": sum(inside), "complete": not check["missing"],
+            "lost_in_step_ms": lost, "launch_check": {k: v for k, v in check.items()
+                                                      if k != "missing_ts"},
+            "dispatch_launches": A.launches - flash0, "top_ops_flash_rank": flash_rank,
+            "top_ops": [{"name": (r["expression"] or "")[:80], "us": r["total_self_us"],
+                         "n": r["occurrences"]} for r in top]}
+
+
+def tel_serve(L, seed):
+    """A burst of TEL_REQUESTS requests to the served char-RNN with
+    telemetry on: the request counter, the latency histogram and the
+    completed traces each count every request."""
+    from deeplearning4j_tpu_torch import telemetry as TT
+    from deeplearning4j_tpu_torch.serving.engine import ServingEngine
+    from deeplearning4j_tpu_torch.telemetry import tracectx
+
+    net = make_charnn(seed)
+    eng = ServingEngine(net, name="charnn_tel", input_spec=(SEQ, VOCAB), max_batch_size=64,
+                        max_queue=TEL_REQUESTS, device="cuda").start()
+    rs = np.random.RandomState(seed + 31)
+    xs = np.eye(VOCAB, dtype=np.float32)[rs.randint(0, VOCAB, (TEL_REQUESTS, SEQ))]
+    lstm0, fwd0 = L.launches, eng.stats()["forward"]["forwards"]
+    try:
+        t0 = time.perf_counter()
+        futs = [eng.submit(x) for x in xs]
+        outs = [f.get(timeout=120) for f in futs]
+        burst_s = time.perf_counter() - t0
+    finally:
+        eng.stop()
+    reg = TT.get_registry()
+    served = reg.get("serving_model_requests_total").value(model="charnn_tel", outcome="served")
+    hist = reg.get("serving_model_latency_seconds").count(model="charnn_tel")
+    traced = sum(1 for f in futs if f.trace_id)
+    forwards = eng.stats()["forward"]["forwards"] - fwd0
+    launches = L.launches - lstm0
+    if not (served == hist == traced == len(outs) == TEL_REQUESTS):
+        raise AssertionError(f"served burst: counter {served}, histogram {hist}, traces "
+                             f"{traced}, answers {len(outs)} of {TEL_REQUESTS}")
+    if tracectx.open_trace_count() or launches != 2 * forwards:
+        raise AssertionError(f"served burst: {tracectx.open_trace_count()} traces open, "
+                             f"{launches} lstm_seq launches for {forwards} forwards")
+    del eng, net
+    free_card()
+    return {"requests": TEL_REQUESTS, "served_counter": served, "latency_hist_count": hist,
+            "completed_traces": traced, "ring_kept": len(tracectx.get_ring().snapshot().get(
+                "serving.request", [])), "forwards": forwards, "lstm_seq_launches": launches,
+            "burst_s": burst_s, "p50_ms": 1e3 * reg.get("serving_latency_p50_seconds").value(
+                model="charnn_tel")}
+
+
+def tel_watchdog(seed):
+    """A NaN in the last of 4 char-RNN batches with the watchdog recording
+    and telemetry on: one anomaly, one flight dump in $DL4J_TPU_FLIGHT_DIR."""
+    from deeplearning4j_tpu_torch.telemetry import flight, health
+
+    flight_dir = WORK / "flight"
+    os.environ["DL4J_TPU_FLIGHT_DIR"] = str(flight_dir)
+    net = make_charnn(seed)
+    x, y = charnn_data(np.random.RandomState(seed + 37), 16, SEQ)
+    bad = x.clone()
+    bad[0, 0, 0] = float("nan")
+    health.enable(policy="record")
+    try:
+        net.fit([(x, y), (x, y), (x, y), (bad, y)].__iter__())
+        anomalies = health.get_monitor().summary()["nonfinite_steps"]
+    finally:
+        health.get_monitor().reset()
+        os.environ.pop("DL4J_TPU_FLIGHT_DIR")
+    dumps = sorted(flight_dir.glob("dl4j_tpu_flight_*.json"))
+    if anomalies != 1 or len(dumps) != 1:
+        raise AssertionError(f"watchdog: {anomalies} anomalies, {len(dumps)} flight dumps")
+    doc = json.loads(dumps[0].read_text())
+    del net
+    free_card()
+    return {"anomalies": anomalies, "flight_dumps": len(dumps), "reason": doc["reason"],
+            "records": doc["n_records"], "recorder_dumps": len(flight.get_recorder().dumps)}
+
+
+def phase_telemetry(A, L, seed):
+    """The telemetry core on the card (see the module docstring): the LM's
+    step with telemetry off and on, the registry's train series, one
+    profile window, the served burst, the HBM gauges and the watchdog's
+    flight dump."""
+    from deeplearning4j_tpu_torch import telemetry as TT
+    from deeplearning4j_tpu_torch.telemetry import devices
+
+    t_phase = time.perf_counter()
+    TT.reset()
+    TT.disable()
+    net = make_lm(seed)
+    x, y = lm_data(np.random.RandomState(seed + 41), LM_BATCH)
+    flash0 = A.launches
+    tel_lm_fit(net, x, y, 2)  # warm-up
+    rows = {"off": [], "on": []}
+    for _ in range(TEL_ROUNDS):
+        for mode in ("off", "on"):
+            (TT.enable if mode == "on" else TT.disable)()
+            TT.reset()
+            rows[mode].append(tel_lm_fit(net, x, y, TEL_STEPS))
+    reg = TT.get_registry()
+    step_count = reg.get("train_step_seconds").count()
+    iters = reg.get("train_iterations_total").value()
+    score = reg.get("train_score").value()
+    if step_count != TEL_STEPS or iters != TEL_STEPS or score != net.score_history[-1]:
+        raise AssertionError(f"train series: {step_count} step observations, {iters} "
+                             f"iterations, score {score} against {net.score_history[-1]}")
+    ms = {m: statistics.median(r[0] for r in rows[m]) for m in rows}
+    syncs = {m: [r[1] for r in rows[m]] for m in rows}
+    if syncs["on"] != syncs["off"]:
+        raise AssertionError(f"telemetry on added host syncs to the LM step: {syncs}")
+    if not ms["on"] <= TEL_OVERHEAD * ms["off"]:
+        raise AssertionError(f"telemetry on: {ms['on']} ms a step against {ms['off']} off")
+    lm_launches = A.launches - flash0
+    window = tel_profile_window(A, net, x, y)
+    del net
+    free_card()
+    # the HBM gauges against the allocator's own counters
+    keep = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    torch.cuda.synchronize()
+    polled = devices.poll_memory()
+    summary = devices.memory_summary()["devices"]["cuda:0"]
+    allocated, peak = torch.cuda.memory_allocated(), torch.cuda.max_memory_allocated()
+    gauge = reg.get("device_bytes_in_use").value(device="cuda:0")
+    del keep
+    if not (polled["device_bytes_in_use"] == gauge == allocated == summary["bytes_in_use"]
+            and summary["peak_bytes"] == peak):
+        raise AssertionError(f"HBM gauges {polled}, {summary} against allocated {allocated}, "
+                             f"peak {peak}")
+    served = tel_serve(L, seed)
+    watchdog = tel_watchdog(seed)
+    TT.disable()
+    TT.reset()
+    out = {"lm": {"steps": TEL_STEPS, "rounds": TEL_ROUNDS, "step_ms_off": ms["off"],
+                  "step_ms_on": ms["on"], "on_over_off": ms["on"] / ms["off"],
+                  "step_ms_all": {m: [r[0] for r in rows[m]] for m in rows},
+                  "host_syncs": syncs, "train_step_seconds_count": step_count,
+                  "score_gauge": score, "flash_launches": lm_launches,
+                  "watchdog": "off"},
+           "profile_window": window,
+           "hbm": {"bytes_in_use": allocated, "gauge": gauge, "peak_bytes": peak,
+                   "limit": summary["bytes_limit"], "reserved": summary["reserved_bytes"]},
+           "serve": served, "watchdog": watchdog, "seconds": time.perf_counter() - t_phase,
+           "card": card_line()}
+    emit("telemetry", **out)
+    return {"flash_launches": lm_launches + window["dispatch_launches"],
+            "lstm_seq_launches": served["lstm_seq_launches"]}
 
 
 def cuobjdump():
@@ -6779,7 +7508,7 @@ def build_all(libs):
 
 PHASES = ("kernels", "flash", "train", "conv", "resnet", "serve", "charnn", "zoo", "finetune",
           "fused", "word2vec", "mnist", "modelimport", "moe", "sequence", "parallel",
-          "model_parallel")
+          "model_parallel", "telemetry")
 
 
 def main(argv=None):
@@ -6918,6 +7647,14 @@ def main(argv=None):
             mp_out = phase_model_parallel(args.seed)
         finally:
             shutil.rmtree(WORK, ignore_errors=True)
+    mark("telemetry")
+    if "telemetry" in only:
+        shutil.rmtree(WORK, ignore_errors=True)
+        WORK.mkdir()
+        try:
+            tel_out = phase_telemetry(A, L, args.seed)
+        finally:
+            shutil.rmtree(WORK, ignore_errors=True)
     mark("end")
     emit("phase_seconds", **{a[0]: round(b[1] - a[1], 1) for a, b in zip(marks, marks[1:])
                              if a[0] == "build" or a[0] in only})
@@ -6937,8 +7674,11 @@ def main(argv=None):
         "launches": served["lstm_seq_launches"] + sum(r["path_launches"]
                                                       for r in charnn_rows.values())
         + sum(fused_rows[("charnn", p)]["launches"]["lstm_seq"] for p in ("f32", "bf16"))
-        + imported["lstm_seq_launches"] + mp_out["launches"]["lstm_seq"],
+        + imported["lstm_seq_launches"] + mp_out["launches"]["lstm_seq"]
+        + tel_out["lstm_seq_launches"],
         "launches_serve": served["lstm_seq_launches"],
+        # the telemetry phase: the served burst with telemetry on
+        "launches_telemetry": tel_out["lstm_seq_launches"],
         # the model_parallel phase: the char-RNN pipelined over 2 stages
         "launches_model_parallel": mp_out["launches"]["lstm_seq"],
         # the modelimport phase: the char-RNN restored from its DL4J zip and
@@ -6963,7 +7703,10 @@ def main(argv=None):
         # forwards) and the sequence phase's ranks (ring and Ulysses)
         "launches": train_rows[0]["flash_launches"] + moe_out["flash_launches"]
         + seq_out["flash_launches"] + par_out["flash_launches"]
-        + mp_out["launches"]["flash_attn"],
+        + mp_out["launches"]["flash_attn"] + tel_out["flash_launches"],
+        # the telemetry phase: the LM's steps with telemetry off and on and
+        # the profiled round
+        "launches_telemetry": tel_out["flash_launches"],
         # the model_parallel phase's ranks: the TP+EP MoE step, the
         # pipelined and composed LMs (checks, references and timed steps)
         "launches_model_parallel": mp_out["launches"]["flash_attn"],

@@ -37,9 +37,21 @@ which stands in for the net: ``_ShardedPlainEngine`` (K=1, one
 divide by the data axis is skipped and counted, not dispatched) and
 ``_ShardedFusedEngine`` (K > 1, the K-step engine over the trainer's step,
 each super-batch cut to the rank's rows before it is copied to the card).
-The JAX driver's spans, flight records, registry metrics and
-``profile_round`` wait for the port's telemetry registry and profiler
-(ROADMAP queue 1, item 7).
+Telemetry (JAX ``driver.py:386-401``, ``:446``, ``:499``, ``:543-561``,
+``:602``): a network's fit loop is instrumented — with telemetry on, the
+whole fit runs in a ``fit`` span and each dispatch in a request trace with
+``fit.etl`` and ``fit.step`` spans (the one-late score fetch of the
+previous dispatch recorded in that dispatch's trace as
+``train.score_fetch``), ``telemetry.scorepipe.StepRecordEmitter`` records
+each resolved step (histograms, counter, score gauge, HBM gauges, flight
+ring), ``devices.note_jit_cache`` counts a K-step engine's CUDA-graph
+captures, and an uncaught exception dumps the flight ring. A span opens
+around a dispatch (a graph's replay), never inside a capture. Telemetry
+off, each site is one branch. A ``ParallelTrainer`` fit runs the lite loop
+(scores and listeners only), as in the JAX package. ``profile_round(n,
+logdir)`` runs the n-th round from now inside a ``torch.profiler`` window
+(``telemetry/profiling.py``). The goodput ledger calls (JAX ``:397``,
+``:660``) are ROADMAP queue 1 item 7.2.
 """
 
 from __future__ import annotations
@@ -53,8 +65,11 @@ import torch
 from deeplearning4j_tpu_torch.datasets.iterator import DataSetIterator
 from deeplearning4j_tpu_torch.nn import listeners as _listeners
 from deeplearning4j_tpu_torch.nn.layers.base import step_seed
+from deeplearning4j_tpu_torch import telemetry as _tm
+from deeplearning4j_tpu_torch.telemetry import devices as _devices
+from deeplearning4j_tpu_torch.telemetry import flight as _flight
 from deeplearning4j_tpu_torch.telemetry import health as _health
-from deeplearning4j_tpu_torch.telemetry.scorepipe import ScorePipeline
+from deeplearning4j_tpu_torch.telemetry.scorepipe import ScorePipeline, StepRecordEmitter
 
 __all__ = ["StepDriver", "RoundResult"]
 
@@ -92,12 +107,16 @@ class _PlainEngine:
     train step."""
 
     fused = False
+    trace_root = "train.step"
 
     def __init__(self, net, use_health, tbptt_fn=None):
         self.net = net
         self.use_health = use_health
         self.tbptt_fn = tbptt_fn
         self.step_fn = net.make_train_step(with_health=use_health)
+
+    def cache_fn(self):
+        return self.step_fn
 
     def build_source(self, batch_factory):
         return batch_factory()
@@ -135,6 +154,7 @@ class _FusedEngine:
     prefetch thread."""
 
     fused = True
+    trace_root = "train.dispatch"
 
     def __init__(self, net, k, use_health, batch_size=None, prefetch=True):
         from deeplearning4j_tpu_torch.nn import fused as _fused
@@ -155,6 +175,10 @@ class _FusedEngine:
 
     def prepare(self, sb):
         return sb.features, sb.labels, sb.labels_mask, sb.step_valid
+
+    def cache_fn(self):
+        """The K-step engine (its ``captures`` count the CUDA graphs)."""
+        return self.steps_fn
 
     def note_input(self, prep):
         if self.net.listeners:
@@ -179,6 +203,7 @@ class _ShardedPlainEngine:
     skipped and counted in ``trainer.examples_dropped``."""
 
     fused = False
+    sharded = True
 
     def __init__(self, trainer):
         self.trainer = trainer
@@ -243,6 +268,8 @@ class _ShardedFusedEngine(_FusedEngine):
     """ParallelTrainer, K > 1: the K-step engine over the trainer's step,
     each super-batch cut to this rank's rows and copied to the card on the
     prefetch thread."""
+
+    sharded = True
 
     def __init__(self, trainer, k, batch_size=None, prefetch=True):
         self.net = trainer
@@ -321,6 +348,14 @@ class StepDriver:
         self._src = None   # a K-step engine's source (it owns the prefetcher)
         self._it = None    # the open epoch's iterator
         self._t_etl = None
+        self._tctx = None  # the last dispatch's trace (exception cleanup)
+        self.profile = None  # an armed ProfileSchedule (profile_round)
+        # a network's loop is instrumented; a ParallelTrainer's is the lite one
+        self.instrumented = not getattr(self.engine, "sharded", False)
+        reg, step_h, etl_h, iters_c, score_g = _tm.train_metrics()
+        self._reg = reg
+        self._frec = _flight.get_recorder()
+        self._emitter = StepRecordEmitter(net, step_h, etl_h, iters_c, score_g, self._frec)
 
     # -- epochs ---------------------------------------------------------
 
@@ -348,31 +383,32 @@ class StepDriver:
         self._it = None
 
     def _emit(self, score, meta):
-        net = self.net
-        if isinstance(score, list):
-            # a K-step dispatch: its real steps, one record each
-            scores = score[:meta["k"]]
-            it0 = meta["iteration"] - len(scores)
-            etl = meta["etl_time_s"] / max(len(scores), 1)
-            for j, s in enumerate(scores):
-                net.score_history.append(s)
-                for l in net.listeners:
-                    l.iteration_done(net, it0 + j + 1, s, etl)
-            return
-        net.score_history.append(score)
-        if meta.get("chunks"):
-            for (it, _), v in zip(meta["chunks"], meta["chunk_scores"]):
-                for l in net.listeners:
-                    l.iteration_done(net, it, v)
-            return
-        for l in net.listeners:
-            l.iteration_done(net, meta["iteration"], score, meta["etl_time_s"])
+        self._emitter.emit(score, meta)
 
     # -- rounds ---------------------------------------------------------
 
+    def profile_round(self, rounds_from_now, logdir, force=None):
+        """Arm a ``torch.profiler`` window around the n-th future
+        ``run_round`` (1: the next): exactly that round runs inside a
+        profiler session whose Chrome trace lands under ``logdir``. A
+        guarded no-op off a card (``telemetry/profiling.py``); idle, it
+        costs one attribute check a round."""
+        from deeplearning4j_tpu_torch.telemetry import profiling as _profiling
+        if self.profile is None:
+            self.profile = _profiling.ProfileSchedule()
+        self.profile.arm(rounds_from_now, logdir, force=force)
+        return self.profile
+
     def run_round(self, k_dispatches=None):
         """Consume up to ``k_dispatches`` dispatches of the current epoch
-        (``None``: to its end). Returns a ``RoundResult``."""
+        (``None``: to its end). Returns a ``RoundResult``. An armed
+        ``profile_round`` brackets exactly its round in a profiler window."""
+        if self.profile is not None and self.profile.armed:
+            with self.profile.window():
+                return self._run_round(k_dispatches)
+        return self._run_round(k_dispatches)
+
+    def _run_round(self, k_dispatches):
         if self._it is None:
             self.start_epoch()
         rr = RoundResult()
@@ -394,16 +430,26 @@ class StepDriver:
         """The fit loop: ``epochs`` epochs to their ends; the health tail
         is resolved (its policy may raise) before it returns."""
         try:
-            for _ in range(epochs):
-                self.run_round(None)
+            if self.instrumented:
+                with _tm.span("fit", net=type(self.net).__name__):
+                    for _ in range(epochs):
+                        self.run_round(None)
+            else:
+                for _ in range(epochs):
+                    self.run_round(None)
             if self._use_health:
                 self._hm.flush()
-        except BaseException:
+        except BaseException as e:
             if self._use_health:
                 try:
                     self._hm.flush(apply_policy=False)
                 except Exception:
                     pass
+            if self._tctx is not None:
+                # the dispatch that failed never resolved: close its trace
+                self._tctx.abandon()
+            if self.instrumented:
+                _flight.crash_dump(e)
             raise
         finally:
             self._pipe.abandon()
@@ -414,10 +460,53 @@ class StepDriver:
         return self.net
 
     def _dispatch_one(self, item):
+        if not self.instrumented:
+            return self._dispatch_lite(item)
+        eng, net = self.engine, self.net
+        rec = self._reg.enabled  # one read a dispatch
+        tctx = _tm.tracectx.maybe_start(eng.trace_root)
+        self._tctx = tctx
+        with _tm.tracectx.attach(tctx):
+            with _tm.span("fit.etl"):
+                prep = eng.prepare(item)
+            etl = time.perf_counter() - self._t_etl
+            eng.note_input(prep)
+            step0 = net.iteration
+            n_real = eng.n_real(item)
+            span_kw = {"iteration": step0, "fused_k": n_real} if eng.fused else {
+                "iteration": step0}
+            step_start = time.perf_counter() if rec else None
+            with _tm.span("fit.step", **span_kw):
+                loss, hb, chunks = eng.dispatch(prep, n_real)
+                meta = {"step": step0, "iteration": net.iteration, "etl_time_s": etl,
+                        "k": n_real, "chunks": chunks, "rec": rec, "health": self._use_health,
+                        "trace": tctx, "trace_id": None if tctx is None else tctx.trace_id}
+                # queue this dispatch, resolve the previous one inside the
+                # span: the fetch overlaps the dispatch just issued
+                t_res = time.perf_counter() if tctx is not None else None
+                resolved = self._pipe.push(loss, meta)
+                if resolved is not None and tctx is not None:
+                    prev = resolved[1].get("trace")
+                    if prev is not None:
+                        prev.add_span("train.score_fetch", t_res, time.perf_counter())
+        if rec:
+            meta["step_time_s"] = time.perf_counter() - step_start
+        if resolved is not None:
+            self._emit(*resolved)
+        if rec:
+            _devices.note_jit_cache("fit.step", eng.cache_fn())
+        if hb is not None:
+            # the policy may raise NumericsError one dispatch late
+            self._hm.on_step(hb, step=step0, k=n_real if eng.fused else None)
+        self._t_etl = time.perf_counter()
+        return n_real
+
+    def _dispatch_lite(self, item):
+        """A ``ParallelTrainer`` dispatch: no spans, traces or flight
+        records; the scores reach the trainer's listeners one late."""
         eng, net = self.engine, self.net
         prep = eng.prepare(item)
         etl = time.perf_counter() - self._t_etl
-        eng.note_input(prep)
         step0 = net.iteration
         n_real = eng.n_real(item)
         out = eng.dispatch(prep, n_real)
@@ -426,14 +515,9 @@ class StepDriver:
         loss, hb, chunks = out
         meta = {"step": step0, "iteration": net.iteration, "etl_time_s": etl,
                 "k": n_real, "chunks": chunks}
-        # queue this dispatch, resolve the previous one: the fetch overlaps
-        # the dispatch just issued
         resolved = self._pipe.push(loss, meta)
         if resolved is not None:
             self._emit(*resolved)
-        if hb is not None:
-            # the policy may raise NumericsError one dispatch late
-            self._hm.on_step(hb, step=step0, k=n_real if eng.fused else None)
         self._t_etl = time.perf_counter()
         return n_real
 

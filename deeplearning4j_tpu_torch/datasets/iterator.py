@@ -27,10 +27,12 @@ import bisect
 import dataclasses
 import queue
 import threading
+import time
 
 import numpy as np
 import torch
 
+from deeplearning4j_tpu_torch import telemetry as _tm
 from deeplearning4j_tpu_torch.utils.device import as_device
 
 
@@ -345,7 +347,13 @@ class AsyncDataSetIterator(DataSetIterator):
     a SuperBatch, whose extra fields ride along) is placed there on the
     producer thread; on a card the consumer's current stream waits on the
     copy's event when it takes the item. A ``callback``
-    (``DataSetCallback``) takes each batch instead and places it itself."""
+    (``DataSetCallback``) takes each batch instead and places it itself.
+
+    Telemetry (JAX ``iterator.py:495``, ``:544``, ``:560-562``): the
+    producer's work runs in ``etl.prefetch`` spans (the placement in
+    ``etl.device_put``), and with telemetry on the consumer's wait on the
+    queue lands in ``etl_fetch_stall_seconds``, the queue's depth in
+    ``etl_queue_depth`` and each delivered batch in ``etl_batches_total``."""
 
     def __init__(self, base, queue_size=2, device=None, callback=None):
         if callback is not None and device is not None:
@@ -360,6 +368,15 @@ class AsyncDataSetIterator(DataSetIterator):
         self._error = None
         self._stop = None
         self._stream = None
+        reg = self._reg = _tm.get_registry()
+        # fetch stall: time the training thread spent blocked on the prefetcher
+        self._m_stall = reg.histogram(
+            "etl_fetch_stall_seconds",
+            "consumer time blocked waiting on the prefetch queue")
+        self._m_batches = reg.counter(
+            "etl_batches_total", "batches delivered by async prefetch")
+        self._m_depth = reg.gauge(
+            "etl_queue_depth", "prefetched batches ready in the queue")
 
     @property
     def batch_size(self):
@@ -385,9 +402,10 @@ class AsyncDataSetIterator(DataSetIterator):
             return ds
         put = lambda tree: None if tree is None else _map(
             lambda a: _stage(a, self.device, self._stream), tree)
-        item = dataclasses.replace(ds, features=put(ds.features), labels=put(ds.labels),
-                                   features_mask=put(ds.features_mask),
-                                   labels_mask=put(ds.labels_mask))
+        with _tm.span("etl.device_put"):
+            item = dataclasses.replace(ds, features=put(ds.features), labels=put(ds.labels),
+                                       features_mask=put(ds.features_mask),
+                                       labels_mask=put(ds.labels_mask))
         if self._stream is not None:
             ev = torch.cuda.Event()
             ev.record(self._stream)
@@ -400,11 +418,13 @@ class AsyncDataSetIterator(DataSetIterator):
         q, stop = self._queue, self._stop
         try:
             while not stop.is_set():
-                try:
-                    ds = next(self.base)
-                except StopIteration:
-                    break
-                q.put(self._place(ds))
+                with _tm.span("etl.prefetch"):
+                    try:
+                        ds = next(self.base)
+                    except StopIteration:
+                        break
+                    item = self._place(ds)
+                q.put(item)
         except Exception as e:  # surfaced on the consumer side
             if self._queue is q:
                 self._error = e
@@ -417,11 +437,19 @@ class AsyncDataSetIterator(DataSetIterator):
         if self._error is not None:
             # a dead producer surfaces at once, not after the queued batches
             raise self._error
-        item = self._queue.get()
+        if self._reg.enabled:
+            t0 = time.perf_counter()
+            item = self._queue.get()
+            self._m_stall.observe(time.perf_counter() - t0)
+            self._m_depth.set(self._queue.qsize())
+        else:
+            item = self._queue.get()
         if item is _SENTINEL:
             if self._error is not None:
                 raise self._error
             raise StopIteration
+        if self._reg.enabled:
+            self._m_batches.inc()
         ev = getattr(item, "_ready", None)
         if ev is not None:
             cur = torch.cuda.current_stream(self.device)

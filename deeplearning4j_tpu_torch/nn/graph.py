@@ -990,7 +990,11 @@ class ComputationGraph(nn.Module):
         ``steps_per_dispatch=K`` and ``pad_ragged`` as in
         ``MultiLayerNetwork.fit``. Both bucket with one validity mask, so a
         graph whose outputs mix label layouts (pooled and time-distributed,
-        or two lengths) is refused, and so is TBPTT at K > 1."""
+        or two lengths) is refused, and so is TBPTT at K > 1.
+
+        Telemetry is the StepDriver's, TBPTT batches included (JAX
+        ``graph.py:1052-1072``'s ``fit`` and ``fit.step`` spans, step
+        histogram, iteration counter, score gauge and crash dump)."""
         from deeplearning4j_tpu_torch.continuous.driver import StepDriver
 
         if self.params is None:

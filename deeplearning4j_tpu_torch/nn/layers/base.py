@@ -189,20 +189,43 @@ def step_seed(seed, iteration):
 
 def _bits(seed, shape, device, stream=0, offset=0):
     """[*shape] int64 of 32 random bits each: the hash of each element's
-    index (plus ``offset``) under ``seed`` (stream ``stream`` of it)."""
+    index (plus ``offset``) under ``seed`` (stream ``stream`` of it).
+    ``offset`` may instead be an int64 tensor of ``shape``: each element's
+    own index (``slice_offsets``)."""
     seed = _as_seed(seed)
     k1, k2 = _combine(seed, 2 * stream + 1), _combine(seed, 2 * stream + 2)
     n = 1
     for d in shape:
         n *= int(d)
-    idx = torch.arange(offset, offset + n, dtype=torch.int64, device=device)
+    if torch.is_tensor(offset):
+        idx = offset.reshape(-1)
+    else:
+        idx = torch.arange(offset, offset + n, dtype=torch.int64, device=device)
     return _mix32(_mix32((idx + k1) & _M32) ^ k2).reshape(tuple(shape))
+
+
+def slice_offsets(whole_shape, dim, start, length, device):
+    """[*slice] int64: the flat index in a tensor of ``whole_shape`` of each
+    element of its slice ``[start, start + length)`` on ``dim``, to draw a
+    slice what the whole tensor draws there (a tensor-parallel rank's part
+    of a parameter)."""
+    shape = list(whole_shape)
+    idx = torch.zeros((), dtype=torch.int64, device=device)
+    stride = 1
+    for d in reversed(range(len(shape))):
+        lo, n = (start, length) if d == dim else (0, shape[d])
+        view = [1] * len(shape)
+        view[d] = n
+        idx = idx + torch.arange(lo, lo + n, dtype=torch.int64, device=device).view(view) * stride
+        stride *= shape[d]
+    return idx
 
 
 def uniform(seed, shape, device, offset=0):
     """[*shape] float32 uniform on [0, 1) in steps of 2^-24, from ``seed``;
     ``offset`` is the flat index of the first element (a rank's rows of a
-    global batch, ``utils/collectives.row_offset``)."""
+    global batch, ``utils/collectives.row_offset``) or a tensor of each
+    element's index (``slice_offsets``)."""
     return (_bits(seed, shape, device, offset=offset) >> 8).to(torch.float32) * (2.0 ** -24)
 
 
@@ -229,18 +252,23 @@ def takes(cls, arg):
     return arg in inspect.signature(cls.apply).parameters
 
 
-def apply_layer(layer, params, state, x, *, train=False, rng=None, **kwargs):
+def apply_layer(layer, params, state, x, *, train=False, rng=None, tp_split=None, **kwargs):
     """``layer.apply`` as a network runs it: in train mode with a seed, the
     input dropped first (``layer.dropout``) from one half of ``rng``, the
     other half passed on to a layer that draws (as the JAX package's
     ``MultiLayerNetwork._apply_layer`` splits its key), after the weight
     noise (``layer.weight_noise``) has perturbed ``params`` from a split of
-    that half. Gradients flow through the perturbed parameters."""
+    that half. Gradients flow through the perturbed parameters.
+
+    A layer whose parameters are split over the active model group runs
+    through the group's tensor-parallel application; ``tp_split`` ({key:
+    dim}) names the split leaves where ``params`` are not the stored
+    tensors (a streamed block's gathered slices). Weight noise draws each
+    split leaf's slice at the whole parameter's element indices, so the
+    split step applies the noise the whole step applies."""
     takes_rng = takes(type(layer), "rng")
-    # a layer whose parameters are split over the active model group runs
-    # through the group's tensor-parallel application
     mg = _collectives.active_model()
-    tp = mg is not None and mg.holds_split(params)
+    split = {} if mg is None else (tp_split if tp_split is not None else mg.split_of(params))
     if rng is not None:
         drop_in = train and layer.dropout > 0.0
         noise = getattr(layer, "weight_noise", None) if train and len(params) else None
@@ -250,9 +278,22 @@ def apply_layer(layer, params, state, x, *, train=False, rng=None, **kwargs):
                 x = dropout_mask(drop, x, layer.dropout, _collectives.row_offset(x))
             if noise is not None:
                 rng, noise_seed = split_seed(rng, 2)
-                params = noise.perturb(noise_seed, layer, params)
+                params = noise.perturb(noise_seed, layer, params,
+                                       offsets=_split_offsets(params, split, mg))
     if takes_rng:
         kwargs["rng"] = rng
-    if tp:
-        return mg.apply(layer, params, state, x, mg, train=train, **kwargs)
+    if split:
+        return mg.apply(layer, params, state, x, mg, split=split, train=train, **kwargs)
     return layer.apply(params, state, x, train=train, **kwargs)
+
+
+def _split_offsets(params, split, mg):
+    """{key: slice_offsets} of each leaf split over ``mg``: this rank's
+    slice within the whole parameter."""
+    out = {}
+    for k, d in split.items():
+        t = params[k]
+        whole = list(t.shape)
+        whole[d] *= mg.world
+        out[k] = slice_offsets(whole, d, mg.rank * t.shape[d], t.shape[d], t.device)
+    return out

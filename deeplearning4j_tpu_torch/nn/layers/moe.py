@@ -33,6 +33,15 @@ graph (``nn/fused.py``). The forward's parts run under the profiler ranges
 A token's capacity slot depends on the tokens before it in the same call,
 so a row's output depends on the batch it came in (as in the JAX package):
 a served answer equals ``output`` on the same batch.
+
+Under an active batch group (``utils/collectives.py``: a data-parallel
+step, rank r holding the r-th contiguous block of the global batch) the
+block routes the global batch, as the JAX trainer's one global program
+does: the capacity comes from the global N, each rank's queue positions
+are offset by the per-expert counts of the lower ranks (one all-gather of
+an [E] integer vector a block, no host read), a token is kept while its
+global position is below the capacity, and f_e and p_e of the aux term are
+global means (``sum_over_batch``: p_e's gradient summed over the group).
 """
 
 from __future__ import annotations
@@ -122,6 +131,13 @@ class MoETransformerBlock(Layer):
         """Slots an expert for ``n`` tokens (the JAX package's rule)."""
         return int(-(-n // self.n_experts) * self.capacity_factor) or 1
 
+    @staticmethod
+    def routed_tokens(n):
+        """The N the queues are counted over: ``n`` local tokens times the
+        active batch group's world (the global batch), else ``n``."""
+        bg = _collectives.active()
+        return n if bg is None else n * bg.world
+
     def route(self, params, x2d):
         """The ``Routing`` of ``x2d`` [N, d]: top-1 on the f32 softmax."""
         probs = torch.softmax(x2d.float() @ params["router_W"].float(), dim=-1)
@@ -134,9 +150,15 @@ class MoETransformerBlock(Layer):
         it (``jnp.cumsum`` in the JAX package, exact in integers), taken
         along the contiguous token axis of an [E, N] one-hot."""
         e, n = self.n_experts, top.shape[0]
-        cap = self.capacity(n)
+        bg = _collectives.active()
+        cap = self.capacity(self.routed_tokens(n))
         onehot = top[None, :] == torch.arange(e, device=top.device)[:, None]
-        pos = onehot.long().cumsum(1).gather(0, top[None, :])[0] - 1
+        counts = onehot.long().cumsum(1)
+        pos = counts.gather(0, top[None, :])[0] - 1
+        if bg is not None:
+            # the lower ranks' tokens come first in the global order
+            per_rank = _collectives.all_gather(counts[:, -1].contiguous(), bg.group).view(-1, e)
+            pos = pos + per_rank[:bg.rank].sum(0).gather(0, top)
         keep = pos < cap
         slot = torch.where(keep, top * cap + pos, e * cap)
         gate = probs.gather(1, top[:, None])[:, 0]
@@ -156,7 +178,7 @@ class MoETransformerBlock(Layer):
         leaves through ``PsumIdBwd``; routing, capacity, dropping and the
         aux loss are computed whole on every rank, as without the group."""
         n, d = x2d.shape
-        e, cap = self.n_experts, self.capacity(n)
+        e, cap = self.n_experts, self.capacity(self.routed_tokens(n))
         el = params["expert_W1"].shape[0]
         mg = _collectives.active_model() if el != e else None
         if el != e and (mg is None or el * mg.world != e):
@@ -185,7 +207,13 @@ class MoETransformerBlock(Layer):
             if mg is not None:
                 y = mg.timed_call("ep_combine",
                                   lambda t: _collectives.PsumIdBwd.apply(t, mg.group), y)
-        aux = e * (r.routed.float().mean(dim=0) * r.probs.mean(dim=0)).sum()
+        if _collectives.active() is None:
+            frac, mean_p = r.routed.float().mean(dim=0), r.probs.mean(dim=0)
+        else:  # global means; p_e's cotangent sums over the group
+            n_all = self.routed_tokens(n)
+            frac = _collectives.sum_over_batch(r.routed.float().sum(dim=0)) / n_all
+            mean_p = _collectives.sum_over_batch(r.probs.sum(dim=0)) / n_all
+        aux = e * (frac * mean_p).sum()
         return y.to(x2d.dtype), aux
 
     def mlp_input(self, params, x, mask=None):

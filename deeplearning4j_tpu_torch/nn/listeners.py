@@ -112,6 +112,32 @@ class PerformanceListener(TrainingListener):
             return {}
         return {"device_mb_in_use": torch.cuda.memory_allocated(dev) / 2**20}
 
+    @staticmethod
+    def _telemetry_fields():
+        """The gauges the instrumented fit loop just refreshed (JAX
+        ``listeners.py:91-98``), read back from the shared registry (no
+        device sync, no recompute) when telemetry is on; {} otherwise."""
+        from deeplearning4j_tpu_torch import telemetry
+        reg = telemetry.get_registry()
+        if not reg.enabled:
+            return {}
+        out = {}
+        # grad_norm only while the watchdog refreshes it: a stale gauge of
+        # an earlier watchdog-on fit must not misreport this run
+        if telemetry.health.get_monitor().active:
+            g = reg.get("train_grad_norm")
+            if g is not None and g.labelsets():
+                out["grad_norm"] = g.value()
+        g = reg.get("device_bytes_in_use")
+        if g is not None:
+            vals = [g.value(**ls) for ls in g.labelsets()]
+            if vals:
+                out["device_mb_in_use"] = max(vals) / 2**20
+        g = reg.get("live_array_bytes")
+        if g is not None and g.labelsets():
+            out["live_array_mb"] = g.value() / 2**20
+        return out
+
     def iteration_done(self, model, iteration, score, etl_time=0.0):
         now = time.perf_counter()  # the only clock read per iteration
         if self._last is not None:
@@ -122,6 +148,7 @@ class PerformanceListener(TrainingListener):
             if bs:
                 rec["samples_per_sec"] = bs / dt if dt > 0 else 0.0
             rec.update(self._device_fields(model))
+            rec.update(self._telemetry_fields())
             self.records.append(rec)
             if iteration % self.frequency == 0:
                 parts = [f"iteration {iteration}: {dt * 1e3:.2f} ms/iter"]

@@ -28,33 +28,37 @@ from deeplearning4j_tpu_torch.nn.layers import base as _base
 from deeplearning4j_tpu_torch.utils.serde import register_config
 
 
-def _sample(dist, seed, shape, device, dtype):
-    """``dist`` drawn from ``seed`` with the counter-based draws."""
+def _sample(dist, seed, shape, device, dtype, offset=0):
+    """``dist`` drawn from ``seed`` with the counter-based draws (``offset``
+    as in ``base.uniform``)."""
     if dist.kind == "normal":
-        z = _base.normal(seed, shape, device)
+        z = _base.normal(seed, shape, device, offset)
         return (dist.mean + dist.std * z).to(dtype)
     if dist.kind == "uniform":
-        u = _base.uniform(seed, shape, device)
+        u = _base.uniform(seed, shape, device, offset)
         return (dist.lower + (dist.upper - dist.lower) * u).to(dtype)
     if dist.kind == "constant":
         return torch.full(tuple(shape), dist.value, dtype=dtype, device=device)
     if dist.kind == "truncated_normal":
         # inverse CDF over the [-2, 2] band: Phi(-2) + u (Phi(2) - Phi(-2))
         lo = 0.022750131948179195
-        u = _base.uniform(seed, shape, device).double()
+        u = _base.uniform(seed, shape, device, offset).double()
         z = torch.special.ndtri(lo + u * (1.0 - 2.0 * lo)).to(torch.float32)
         return (dist.mean + dist.std * z).to(dtype)
     raise ValueError(f"weight noise cannot draw from a {dist.kind!r} distribution")
 
 
-def _perturbed(layer, params, seed, apply_to_bias, fn):
-    """``params`` with ``fn(seed_i, value)`` in place of each weight (and
-    each bias with ``apply_to_bias``); one seed a parameter, in key order."""
+def _perturbed(layer, params, seed, apply_to_bias, fn, offsets):
+    """``params`` with ``fn(seed_i, value, offset)`` in place of each weight
+    (and each bias with ``apply_to_bias``); one seed a parameter, in key
+    order; ``offsets`` {key: element indices} for a leaf that is a slice of
+    its parameter (tensor parallelism), else 0."""
     bias_keys = getattr(layer, "BIAS_KEYS", ("b",))
+    offsets = offsets or {}
     out = {}
     for k, sub in zip(params.keys(), _base.split_seed(seed, len(params))):
         v = params[k]
-        out[k] = v if k in bias_keys and not apply_to_bias else fn(sub, v)
+        out[k] = v if k in bias_keys and not apply_to_bias else fn(sub, v, offsets.get(k, 0))
     return out
 
 
@@ -69,11 +73,11 @@ class WeightNoise:
     additive: bool = True
     apply_to_bias: bool = False
 
-    def perturb(self, seed, layer, params):
-        def noisy(s, v):
-            n = _sample(self.distribution, s, v.shape, v.device, v.dtype)
+    def perturb(self, seed, layer, params, offsets=None):
+        def noisy(s, v, off):
+            n = _sample(self.distribution, s, v.shape, v.device, v.dtype, off)
             return v + n if self.additive else v * n
-        return _perturbed(layer, params, seed, self.apply_to_bias, noisy)
+        return _perturbed(layer, params, seed, self.apply_to_bias, noisy, offsets)
 
 
 @register_config
@@ -86,7 +90,7 @@ class DropConnect:
     weight_retain_prob: float = 0.5
     apply_to_bias: bool = False
 
-    def perturb(self, seed, layer, params):
+    def perturb(self, seed, layer, params, offsets=None):
         rate = 1.0 - self.weight_retain_prob
         return _perturbed(layer, params, seed, self.apply_to_bias,
-                          lambda s, v: _base.dropout_mask(s, v, rate))
+                          lambda s, v, off: _base.dropout_mask(s, v, rate, off), offsets)

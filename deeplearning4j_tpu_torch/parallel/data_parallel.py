@@ -52,9 +52,13 @@ differentiates and updates its slice of every split leaf (MoE experts
 included: expert parallelism), the forward runs under the model group
 (``utils/collectives.sync_model``) with explicit collectives whose
 transposes keep every gradient the replicated step's, and the ``data``
-axis exchanges the slices' gradients as above, in any of the layouts but
-``fsdp_stream``. Checkpoints of a tensor-parallel trainer go through
-``sync_to_net`` and the network's own zip.
+axis exchanges the slices' gradients as above, in any of the layouts
+(``fsdp_stream`` gathers each streamed block's data-axis shards of the
+model rank's slices). Weight noise draws each slice at the whole
+parameter's element indices (``nn/layers/base.py apply_layer``), so a
+split step applies the noise the world-1 step applies. A sharded
+checkpoint (``utils/sharded_checkpoint.py``) records both splits of every
+leaf and restores into any data x model layout.
 """
 
 from __future__ import annotations
@@ -297,9 +301,6 @@ class ParallelTrainer:
                 "(parameters stored split between steps, gathered at step entry) or "
                 "'fsdp_stream' (the homogeneous trunk gathered block by block inside the "
                 "step)")
-        if tensor_parallel and shard_params == "fsdp_stream":
-            raise ValueError("tensor_parallel=True with shard_params='fsdp_stream': the "
-                             "streamed trunk gathers whole blocks; use 'fsdp'")
         self.net = net
         self.mesh = mesh if mesh is not None else _mesh.make_mesh()
         self.tensor_parallel = bool(tensor_parallel)
@@ -446,6 +447,10 @@ class ParallelTrainer:
             self._free_full()
         else:
             self.params = params
+        # the HBM ledger of this layout (JAX data_parallel.py:337)
+        from deeplearning4j_tpu_torch.telemetry import devices as _devices
+        _devices.note_train_tree_bytes(params=self.params, opt_state=self.opt_state,
+                                       site="parallel_trainer")
 
     def init(self, generator=None):
         """Initialise the net (from its seed) and place its trees."""
@@ -460,10 +465,6 @@ class ParallelTrainer:
         """Cut every split leaf of ``params`` (in place: the net's own
         parameter keeps its identity) and of each params-shaped entry of
         ``opt`` to this model rank's slice; returns the cut ``opt``."""
-        for layer in getattr(self.net.conf, "layers", ()) or ():
-            if getattr(layer, "weight_noise", None) is not None:
-                raise ValueError("tensor_parallel=True with weight noise: the noise is "
-                                 "drawn on whole parameters")
         mg = self._mg
         self._tp_specs = make_param_shardings(self.mesh, self.net, params, True)
         dims = [_tp.split_dim(s) for s in tree_leaves(self._tp_specs)]
@@ -558,8 +559,10 @@ class ParallelTrainer:
         """``MultiLayerNetwork.loss_fn`` with the trunk run block by block:
         each block's parameters gathered from their shards inside a
         checkpoint region (the backward gathers again), the penalties
-        re-added in layer order so the sum's order is the net's. Returns
-        (loss, new_state)."""
+        re-added in layer order so the sum's order is the net's. Under
+        tensor parallelism the gather brings back this model rank's slice
+        of each leaf (never the whole block), and the block runs through the
+        model group as outside the trunk. Returns (loss, new_state)."""
         net = self.net
         layers = net.conf.layers
         n = len(layers)
@@ -571,6 +574,7 @@ class ParallelTrainer:
         cur_type = net.conf.input_type
         seeds = split_seed(rng, n) if rng is not None else [None] * n
         pens = [0.0] * n
+        mg = self._mg
         h = x
         for i, layer in enumerate(layers):
             fam = layer.input_family
@@ -585,11 +589,16 @@ class ParallelTrainer:
                 js = layer_js[i]
                 shards = [stored[j] for j in js]
 
-                def block(h_in, *sh, i=i, layer=layer, js=js, kwargs=kwargs, l_train=l_train):
+                # under tensor parallelism a block's leaves are this model
+                # rank's slices, gathered over data only
+                tp_split = mg.split_of(full[i]) if mg is not None else None
+
+                def block(h_in, *sh, i=i, layer=layer, js=js, kwargs=kwargs, l_train=l_train,
+                          tp_split=tp_split):
                     whole = _GatherBlock.apply(self._plan, js, *sh)
                     p_full = tree_like(full[i], iter(whole))
                     out, _ = apply_layer(layer, p_full, state[i], h_in, train=l_train,
-                                         rng=seeds[i], **kwargs)
+                                         rng=seeds[i], tp_split=tp_split, **kwargs)
                     pen = layer.regularization_penalty(p_full)
                     if not torch.is_tensor(pen):
                         pen = torch.zeros((), dtype=h_in.dtype, device=h_in.device) + pen
@@ -811,6 +820,7 @@ class ParallelTrainer:
         self.examples_dropped = 0
         self.score_history = []
         drv = StepDriver(self, lambda: self._batches(x, y, batch_size, mask), engine=engine)
+        drv.profile = getattr(self, "_profile_schedule", None)
         try:
             with _dtypes.policy_precision():
                 self._run_epochs(drv, epochs)
@@ -825,6 +835,19 @@ class ParallelTrainer:
         if self.score_history:
             self.score_value = self.score_history[-1]
         return self.score_value
+
+    def profile_round(self, rounds_from_now, logdir, force=None):
+        """Arm a ``torch.profiler`` window around the n-th future fit round
+        (one epoch of the driver loop; 1: the next), JAX
+        ``data_parallel.py:620``. A guarded no-op off a card
+        (``telemetry/profiling.py``); the armed schedule goes to the
+        StepDriver the next ``fit`` builds."""
+        from deeplearning4j_tpu_torch.telemetry import profiling as _profiling
+        sched = getattr(self, "_profile_schedule", None)
+        if sched is None:
+            sched = self._profile_schedule = _profiling.ProfileSchedule()
+        sched.arm(rounds_from_now, logdir, force=force)
+        return sched
 
     def _run_epochs(self, drv, epochs):
         """The JAX trainer's epoch contract: an empty first epoch, or an
@@ -881,17 +904,17 @@ class ParallelTrainer:
     def step_memory_analysis(self, x, y, mask=None):
         """Run one train step (it trains) with the card's peak counter reset
         and return ``{"layout", "peak_bytes", "param_bytes",
-        "opt_state_bytes"}`` for this rank; None off a card."""
+        "opt_state_bytes"}`` for this rank; None off a card. The step's
+        ledger also goes to ``step_peak_bytes{site="parallel_trainer"}``
+        (JAX ``data_parallel.py:842``)."""
+        from deeplearning4j_tpu_torch.telemetry import devices as _devices
         if self.params is None:
             self.init()
         if self.device.type != "cuda":
             return None
-        torch.cuda.synchronize(self.device)
-        torch.cuda.reset_peak_memory_stats(self.device)
-        self.step(x, y, mask)
-        torch.cuda.synchronize(self.device)
-        return {"layout": self.layout, "peak_bytes": torch.cuda.max_memory_allocated(self.device),
-                **self.tree_bytes()}
+        stats = _devices.step_peak_stats(lambda: self.step(x, y, mask), self.device)
+        _devices.note_step_peak_bytes("parallel_trainer", stats, layout=self.layout)
+        return {"layout": self.layout, "peak_bytes": stats["peak_bytes"], **self.tree_bytes()}
 
     def tree_bytes(self):
         """This rank's stored bytes between steps: parameters and updater

@@ -33,6 +33,17 @@ the workers after the step, as the JAX masters ``pmean`` it.
 The threshold step is elementwise PyTorch (it is no Pallas kernel in the
 JAX package either). ``initialize_distributed`` joins a process group from
 its arguments or the environment (``torchrun``'s variables).
+
+Telemetry (JAX ``distributed.py:81``, ``:149``, ``:239``, ``:263``,
+``:476-491``, ``:705``, ``:717-728``): joins count into
+``distributed_init_total{outcome}``; with telemetry on each round is a
+``distributed.round`` trace and span, timed into
+``distributed_round_seconds{master, host}`` and counted into
+``distributed_rounds_total`` (host wall time: over gloo it covers the
+collective, over NCCL its dispatch — no sync is added), the worker rollup
+runs in a ``distributed.worker_rollup`` span and sets the per-worker
+gauges, and the shared master records its trees' bytes
+(``devices.note_train_tree_bytes``).
 """
 
 from __future__ import annotations
@@ -47,6 +58,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from deeplearning4j_tpu_torch import telemetry as _tm
 from deeplearning4j_tpu_torch.native import codec as _codec
 from deeplearning4j_tpu_torch.native.queue import FancyBlockingQueue
 from deeplearning4j_tpu_torch.nn.layers.base import split_seed, step_seed
@@ -59,6 +71,24 @@ from deeplearning4j_tpu_torch.utils.trees import tree_leaves, tree_like
 # ----------------------------------------------------------------------
 # the process group
 # ----------------------------------------------------------------------
+
+def _host_label():
+    """This process's rank in the default group ("0" without one): the
+    ``host`` label of the round series."""
+    return str(dist.get_rank()) if dist.is_initialized() else "0"
+
+
+def _init_counter():
+    reg = _tm.get_registry()
+    c = reg.counter(
+        "distributed_init_total",
+        "process-group joins, by outcome (ok = joined, retried = one "
+        "attempt failed and was retried with backoff, failed = the retry "
+        "budget ran out)")
+    if reg.enabled:
+        for outcome in ("ok", "retried", "failed"):
+            c.inc(0, outcome=outcome)
+    return c
 
 
 def initialize_distributed(coordinator_address=None, num_processes=None, process_id=None,
@@ -92,14 +122,18 @@ def initialize_distributed(coordinator_address=None, num_processes=None, process
                   rank=int(process_id or 0))
     else:
         kw.update(init_method="env://")
+    counter = _init_counter()
     for attempt in range(int(connect_retries) + 1):
         try:
             dist.init_process_group(backend, **kw)
+            counter.inc(outcome="ok")
             return True
         except Exception:  # noqa: BLE001 -- a failed join: retry or raise
             shutdown_distributed()
             if attempt >= int(connect_retries):
+                counter.inc(outcome="failed")
                 raise
+            counter.inc(outcome="retried")
             time.sleep(float(retry_backoff_s) * (2 ** attempt))
     return False
 
@@ -136,13 +170,46 @@ class TrainingMaster:
         self.n_workers = self.mesh.shape["data"]
         self.worker = self.mesh.coords["data"]
 
+    @staticmethod
+    def _round_metrics():
+        """(registry, round_hist, rounds_counter): the per-round series
+        every master shares, split by ``master`` and ``host``."""
+        reg = _tm.get_registry()
+        return (reg,
+                reg.histogram("distributed_round_seconds",
+                              "wall time of one distributed round (local steps + "
+                              "parameter/gradient exchange), labeled by master and host"),
+                reg.counter("distributed_rounds_total",
+                            "distributed rounds executed, labeled by master and host"))
+
+    def _round_done(self, master, t_round, tctx):
+        reg, round_h, rounds_c = self._round_metrics()
+        if reg.enabled:
+            round_h.observe(time.perf_counter() - t_round, master=master, host=_host_label())
+            rounds_c.inc(master=master, host=_host_label())
+        if tctx is not None:
+            tctx.finish()
+
     def _worker_health_rollup(self, nonfinite, norm, norm_key, master, step):
         """Gather each worker's non-finite flag and norm (one all-gather),
-        record them in ``training_stats()["workers"]`` and tell the numerics
-        watchdog which workers went non-finite, before the average smears a
-        bad worker across the fleet."""
-        v = torch.stack([nonfinite.float().reshape(()), norm.float().reshape(())])
-        vals = C.all_gather(v.reshape(-1), self.group).view(self.n_workers, 2).cpu().numpy()
+        record them in ``training_stats()["workers"]`` (and the per-worker
+        gauges) and tell the numerics watchdog which workers went
+        non-finite, before the average smears a bad worker across the
+        fleet."""
+        with _tm.span("distributed.worker_rollup", master=master):
+            v = torch.stack([nonfinite.float().reshape(()), norm.float().reshape(())])
+            vals = C.all_gather(v.reshape(-1), self.group).view(self.n_workers, 2).cpu().numpy()
+            reg = _tm.get_registry()
+            if reg.enabled:
+                g_nf = reg.gauge("distributed_worker_nonfinite",
+                                 "1 when this worker's last round saw NaN/Inf, labeled by "
+                                 "master, host and worker")
+                g_norm = reg.gauge(f"distributed_worker_{norm_key}",
+                                   f"per-worker {norm_key.replace('_', ' ')} at the last "
+                                   "exchange, labeled by master, host and worker")
+                for w in range(self.n_workers):
+                    g_nf.set(float(vals[w, 0]), master=master, host=_host_label(), worker=w)
+                    g_norm.set(float(vals[w, 1]), master=master, host=_host_label(), worker=w)
         self._stats["workers"] = [{"worker": w, "nonfinite": bool(vals[w, 0]),
                                    norm_key: float(vals[w, 1])} for w in range(self.n_workers)]
         bad = [w for w in range(self.n_workers) if vals[w, 0]]
@@ -220,25 +287,30 @@ class ParameterAveragingTrainingMaster(TrainingMaster):
             start = (ep * rem) % (rem + 1) if rem else 0
             self._stats["examples_dropped"] = self._stats.get("examples_dropped", 0) + rem
             for s0 in range(start, n - split_examples + 1, split_examples):
-                base = s0 + self.worker * f * b
-                seed = split_seed(step_seed(net.conf.seed + 1, it0), w)[self.worker]
-                losses = []
-                for i in range(f):
-                    rows = slice(base + i * b, base + (i + 1) * b)
-                    out = step_fn(net.params, net.state, net.opt_state,
-                                  self._dev(net, data, rows), self._dev(net, labels, rows),
-                                  it0 + i, None, step_seed(seed, i))
-                    net.state = out[1]
-                    losses.append(out[3])
-                local = torch.stack(losses)
-                if with_health:
-                    self._worker_health_rollup(
-                        ~torch.isfinite(local).all(), _health.tree_sq_sum(net.params).sqrt(),
-                        "param_norm", "parameter_averaging", it0)
-                self._mean(list(tree_leaves(net.params)))
-                if self.average_updaters:
-                    self._mean(list(tree_leaves(net.opt_state)))
-                loss = C.all_reduce_(local.mean().reshape(1), self.group)[0] / w
+                t_round = time.perf_counter()
+                tctx = _tm.tracectx.maybe_start("distributed.round", master="parameter_averaging")
+                with _tm.tracectx.attach(tctx), _tm.span("distributed.round",
+                                                         master="parameter_averaging"):
+                    base = s0 + self.worker * f * b
+                    seed = split_seed(step_seed(net.conf.seed + 1, it0), w)[self.worker]
+                    losses = []
+                    for i in range(f):
+                        rows = slice(base + i * b, base + (i + 1) * b)
+                        out = step_fn(net.params, net.state, net.opt_state,
+                                      self._dev(net, data, rows), self._dev(net, labels, rows),
+                                      it0 + i, None, step_seed(seed, i))
+                        net.state = out[1]
+                        losses.append(out[3])
+                    local = torch.stack(losses)
+                    if with_health:
+                        self._worker_health_rollup(
+                            ~torch.isfinite(local).all(), _health.tree_sq_sum(net.params).sqrt(),
+                            "param_norm", "parameter_averaging", it0)
+                    self._mean(list(tree_leaves(net.params)))
+                    if self.average_updaters:
+                        self._mean(list(tree_leaves(net.opt_state)))
+                    loss = C.all_reduce_(local.mean().reshape(1), self.group)[0] / w
+                self._round_done("parameter_averaging", t_round, tctx)
                 it0 += f
                 self._stats["splits"] += 1
                 self._stats["worker_steps"] += w * f
@@ -364,6 +436,8 @@ class SharedTrainingMaster(TrainingMaster):
                         s.copy_(self._flat_shard(f))
         else:
             opt = net.opt_state
+        from deeplearning4j_tpu_torch.telemetry import devices as _devices
+        _devices.note_train_tree_bytes(params=params, opt_state=opt, site="shared_master")
         self.residual = [torch.zeros_like(p.detach()) for p in trainable]
         tau = torch.tensor(self.threshold if self.threshold is not None else 0.0,
                            dtype=torch.float32, device=net.device)
@@ -377,14 +451,18 @@ class SharedTrainingMaster(TrainingMaster):
             start = (ep * rem) % (rem + 1) if rem else 0
             self._stats["examples_dropped"] = self._stats.get("examples_dropped", 0) + rem
             for s0 in range(start, n - step_examples + 1, step_examples):
-                rows = slice(s0 + self.worker * b, s0 + (self.worker + 1) * b)
-                net.state, loss, tau, density, nonfinite, norm = self._step(
-                    net, params, opt, self._dev(net, data, rows), self._dev(net, labels, rows),
-                    it, step_seed(net.conf.seed + 2, it), tau)
-                if density is not None:
-                    densities.append(density)
-                if nonfinite is not None:
-                    self._worker_health_rollup(nonfinite, norm, "grad_norm", "shared", it)
+                t_round = time.perf_counter()
+                tctx = _tm.tracectx.maybe_start("distributed.round", master="shared")
+                with _tm.tracectx.attach(tctx), _tm.span("distributed.round", master="shared"):
+                    rows = slice(s0 + self.worker * b, s0 + (self.worker + 1) * b)
+                    net.state, loss, tau, density, nonfinite, norm = self._step(
+                        net, params, opt, self._dev(net, data, rows),
+                        self._dev(net, labels, rows), it, step_seed(net.conf.seed + 2, it), tau)
+                    if density is not None:
+                        densities.append(density)
+                    if nonfinite is not None:
+                        self._worker_health_rollup(nonfinite, norm, "grad_norm", "shared", it)
+                self._round_done("shared", t_round, tctx)
                 it += 1
                 self._stats["steps"] += 1
                 if listeners:

@@ -15,6 +15,13 @@ its rows) and one all-gather brings every answer to every rank, equal to
 the single-process ``output``. Every rank of the mesh calls ``output``
 with the same batch, so the request queue, which coalesces by arrival
 time on each rank, is not used with a mesh.
+
+Telemetry (JAX ``inference.py:59``, ``:91``, ``:215-219``): a direct
+``output`` runs in a ``serving.output`` span, a coalesced batch in a
+``serving.batch`` span and a sequential request in ``serving.sequential``;
+with telemetry on the queue depth, the latency by mode and the examples
+served by mode land in ``serving_queue_depth``,
+``serving_request_latency_seconds`` and ``serving_requests_total``.
 """
 
 from __future__ import annotations
@@ -26,6 +33,7 @@ import time
 import numpy as np
 import torch
 
+from deeplearning4j_tpu_torch import telemetry as _tm
 from deeplearning4j_tpu_torch.datasets.iterator import BucketRegistry
 from deeplearning4j_tpu_torch.parallel import mesh as _mesh
 from deeplearning4j_tpu_torch.utils import collectives as C
@@ -57,6 +65,15 @@ class ParallelInference:
         self._queue: queue.Queue = queue.Queue()
         self._thread = None
         self._stop = threading.Event()
+        reg = self._reg = _tm.get_registry()
+        self._m_depth = reg.gauge(
+            "serving_queue_depth", "pending requests in the serving queue")
+        self._m_latency = reg.histogram(
+            "serving_request_latency_seconds",
+            "request latency by mode (direct / batched / sequential)")
+        self._m_requests = reg.counter(
+            "serving_requests_total",
+            "examples served, by mode (direct / batched / sequential)")
 
     def _compile(self, net):
         """(net, padded forward, batch-1 forward), one tuple so a hot swap
@@ -73,6 +90,18 @@ class ParallelInference:
     def output(self, x):
         """Direct batched inference (padded to the maximum batch); a graph
         of one output answers with that output's array."""
+        enabled = self._reg.enabled
+        t0 = time.perf_counter() if enabled else 0.0
+        with _tm.span("serving.output"):
+            out = self._forward(x)
+        if enabled:
+            self._m_latency.observe(time.perf_counter() - t0, mode="direct")
+            self._m_requests.inc(np.shape(out if not isinstance(out, dict)
+                                          else next(iter(out.values())))[0], mode="direct")
+            self._m_depth.set(self._queue.qsize())
+        return out
+
+    def _forward(self, x):
         x = np.asarray(x)
         if self.mesh is None:
             return _single(self._serving[1](x))
@@ -133,7 +162,7 @@ class ParallelInference:
         err = ServingShutdown("ParallelInference stopped before serving this request")
         while True:
             try:
-                _x, holder = self._queue.get_nowait()
+                _x, holder, _t = self._queue.get_nowait()
             except queue.Empty:
                 break
             if not holder.done():
@@ -144,7 +173,7 @@ class ParallelInference:
         if self._stop.is_set():
             raise ServingShutdown("ParallelInference is stopped")
         holder = InferenceFuture()
-        self._queue.put((np.asarray(x), holder))
+        self._queue.put((np.asarray(x), holder, time.perf_counter()))
         if self._stop.is_set():
             self._fail_pending()
         return holder
@@ -179,13 +208,22 @@ class ParallelInference:
             # a failing forward fails these requests, not the serving loop
             try:
                 if self.inference_mode == "sequential":
-                    for x, holder in batch:
-                        holder._set(self._output_one(x))
+                    for x, holder, t_sub in batch:
+                        with _tm.span("serving.sequential"):
+                            y = self._output_one(x)
+                        self._finish(holder, y, t_sub, "sequential")
                     continue
-                ys = self.output(np.stack([b[0] for b in batch]))
-                for (_, holder), y in zip(batch, ys):
-                    holder._set(y)
+                with _tm.span("serving.batch", size=len(batch)):
+                    ys = self._forward(np.stack([b[0] for b in batch]))
+                for (_, holder, t_sub), y in zip(batch, ys):
+                    self._finish(holder, y, t_sub, "batched")
             except Exception as e:  # noqa: BLE001 -- propagate to the waiters
-                for _, holder in batch:
+                for _, holder, _t in batch:
                     if not holder.done():
                         holder._set_error(e)
+
+    def _finish(self, holder, value, t_submit, mode):
+        holder._set(value)
+        if self._reg.enabled:
+            self._m_requests.inc(mode=mode)
+            self._m_latency.observe(time.perf_counter() - t_submit, mode=mode)

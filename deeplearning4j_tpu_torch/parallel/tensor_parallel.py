@@ -93,7 +93,7 @@ def split_dim(spec):
     return next((i for i, e in enumerate(spec) if "model" in _mesh._axes(e)), None)
 
 
-def _columns_exact(layer, params, mg):
+def _columns_exact(layer, params, split):
     """Whether the split layer can compute its own output columns: one of
     the column layers, an elementwise activation, and every split leaf on
     its output dim."""
@@ -105,24 +105,23 @@ def _columns_exact(layer, params, mg):
     for k, t in params.items():
         if hasattr(t, "items"):
             return False
-        d = mg.split.get(id(t))
+        d = split.get(k)
         want = t.dim() - 1 if k in ("W",) else 0
         if d is not None and d != want:
             return False
     return True
 
 
-def tp_apply(layer, params, state, x, mg, *, train=False, **kwargs):
-    """``layer.apply`` with some of ``params`` split over ``mg`` (see the
-    module docstring). Returns (output, new state) equal to the whole
-    layer's."""
-    split = {k: mg.split.get(id(t)) for k, t in params.items() if not hasattr(t, "items")}
-    if all(k.startswith("expert_") for k, d in split.items() if d is not None):
+def tp_apply(layer, params, state, x, mg, *, split, train=False, **kwargs):
+    """``layer.apply`` with the leaves ``split`` ({key: dim}) of ``params``
+    split over ``mg`` (see the module docstring). Returns (output, new
+    state) equal to the whole layer's."""
+    if all(k.startswith("expert_") for k in split):
         # only experts split (a nested sub-dict never is): the MoE block
         # runs its own experts where they live
         return layer.apply(params, state, x, train=train, **kwargs)
     group = mg.group
-    if _columns_exact(layer, params, mg):
+    if _columns_exact(layer, params, split):
         if x.requires_grad:
             x = C.IdPsumBwd.apply(x, group)
         st = state
@@ -136,10 +135,10 @@ def tp_apply(layer, params, state, x, mg, *, train=False, **kwargs):
         elif new_st is st:
             new_st = state
         return y, new_st
-    whole = {k: (mg.timed_call("tp_weights", lambda t, d=d: C.GatherSliceBwd.apply(t, d, group),
-                               params[k]) if d is not None else params[k])
-             for k, d in split.items()}
-    whole.update({k: t for k, t in params.items() if hasattr(t, "items")})
+    whole = dict(params)
+    for k, d in split.items():
+        whole[k] = mg.timed_call("tp_weights", lambda t, d=d: C.GatherSliceBwd.apply(t, d, group),
+                                 params[k])
     return layer.apply(whole, state, x, train=train, **kwargs)
 
 

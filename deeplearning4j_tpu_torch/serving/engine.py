@@ -22,9 +22,19 @@ graph's first input) or a dict of arrays keyed by input name, every leaf
 padded to the bucket (a seq bucket pads axis 1 of every leaf with a
 sequence axis), and the result is the dict of the graph's outputs
 (``apply_fn``'s form), one or several. A batched submit whose leaves
-disagree on their leading dimension is refused. Not ported yet: the warm
-AOT manifest and compile cache, metering, causal tracing, telemetry
-metrics, the mesh path and hot swap.
+disagree on their leading dimension is refused.
+
+Telemetry (JAX ``engine.py:310``, ``:559``, ``:639``, ``:812-817``,
+``:881``, ``:1113``, ``:1239``): with telemetry on, every request (queued
+or direct) is a causal trace (``serving.request``: queue wait, the
+batch's forward, resolve), each device batch a ``serving.batch`` span and
+each forward a ``serving.forward`` span, and the registry carries the
+batch and token fill histograms, the admission queue depth, the
+submit-to-result latency histogram and its rolling p50/p99 gauges, the
+requests by outcome, the shed requests by reason and the warmup seconds.
+Off, each site is one branch. Not ported yet: the warm AOT manifest and
+compile cache, metering, the health and recompile reports (ROADMAP queue
+1 item 7.3), the mesh path and hot swap.
 """
 
 from __future__ import annotations
@@ -37,9 +47,15 @@ import time
 import numpy as np
 import torch
 
+from deeplearning4j_tpu_torch import telemetry as _tm
 from deeplearning4j_tpu_torch.datasets.iterator import BucketRegistry, ShapeBuckets
+from deeplearning4j_tpu_torch.telemetry import tracectx as _tracectx
 from deeplearning4j_tpu_torch.utils import dtypes as _dtypes
 from deeplearning4j_tpu_torch.utils.device import resolve_device
+
+
+#: buckets of the fill-ratio histograms (eighths)
+FILL_BUCKETS = tuple(i / 8.0 for i in range(1, 9))
 
 
 class ServingOverloaded(RuntimeError):
@@ -68,7 +84,7 @@ class InferenceFuture:
     from the original (re-raising one shared instance across waiter
     threads would mutate its traceback concurrently)."""
 
-    __slots__ = ("_event", "_value", "_error", "latency_s")
+    __slots__ = ("_event", "_value", "_error", "latency_s", "trace_id")
 
     def __init__(self):
         self._event = threading.Event()
@@ -76,6 +92,8 @@ class InferenceFuture:
         self._error = None
         #: submit-to-result seconds, stamped by the worker on completion
         self.latency_s = None
+        #: the request's trace id when tracing is on
+        self.trace_id = None
 
     def done(self):
         """True once a result or error is set (never blocks)."""
@@ -188,6 +206,17 @@ class BucketedForward:
         self.dtype = np.dtype(dtype)
         self._lock = threading.Lock()
         self._counts = {"warmed": 0, "forwards": 0}
+        reg = self._reg = _tm.get_registry()
+        self._m_fill = reg.histogram(
+            "serving_batch_fill_ratio",
+            "fraction of each padded device batch holding real examples",
+            buckets=FILL_BUCKETS)
+        self._m_token_fill = reg.histogram(
+            "serving_batch_token_fill_ratio",
+            "fraction of each padded (batch, seq) device shape holding "
+            "real tokens — the padded-FLOPs waste signal; equals the row "
+            "fill on batch-only (1-D) buckets",
+            buckets=FILL_BUCKETS)
 
     def warmup(self, input_spec):
         """Run every registered bucket once (zeros of the per-example
@@ -253,8 +282,14 @@ class BucketedForward:
                 bucket, seq_bucket = shape
             else:
                 bucket, seq_bucket = self.buckets.bucket_for(real), None
-            y = _tree_map(lambda a: a[:real],
-                          self._run(_pad_rows_np(chunk, bucket, seq_target=seq_bucket)))
+            fill = real / bucket
+            token_fill = fill if seq_bucket is None else fill * seq_in / seq_bucket
+            if self._reg.enabled:
+                self._m_fill.observe(fill)
+                self._m_token_fill.observe(token_fill)
+            with _tm.span("serving.forward", fill=fill, bucket=bucket, seq_bucket=seq_bucket):
+                y = _tree_map(lambda a: a[:real],
+                              self._run(_pad_rows_np(chunk, bucket, seq_target=seq_bucket)))
             if seq_bucket is not None:
                 y = _slice_seq(y, seq_bucket, seq_in)
             outs.append(y)
@@ -305,6 +340,35 @@ class ServingEngine:
                         "shed_deadline": 0, "errors": 0}
         self._recent_latencies = []  # bounded ring for p50/p99
         self._warmup_s = None
+        reg = self._reg = _tm.get_registry()
+        self._m_depth = reg.gauge(
+            "serving_admission_queue_depth",
+            "pending requests in the bounded admission queue, per model")
+        self._m_latency = reg.histogram(
+            "serving_model_latency_seconds",
+            "submit-to-result request latency, per model")
+        self._m_p50 = reg.gauge(
+            "serving_latency_p50_seconds",
+            "rolling p50 request latency per model (SLO gauge)")
+        self._m_p99 = reg.gauge(
+            "serving_latency_p99_seconds",
+            "rolling p99 request latency per model (SLO gauge)")
+        self._m_requests = reg.counter(
+            "serving_model_requests_total",
+            "requests by model and outcome "
+            "(submitted/served/shed_queue_full/shed_deadline/error)")
+        self._m_shed = reg.counter(
+            "serving_shed_total",
+            "load-shed requests per model and reason "
+            "(queue_full / deadline / shutdown)")
+        self._m_warm = reg.gauge(
+            "serving_warmup_seconds",
+            "wall seconds the bucket warmup took at startup, per model")
+        if reg.enabled:
+            # every outcome series exists from the start, at zero
+            for outcome in ("submitted", "served", "served_direct",
+                            "shed_queue_full", "shed_deadline", "error"):
+                self._m_requests.inc(0, model=self.name, outcome=outcome)
         if warmup is None:
             warmup = input_spec is not None
         if warmup:
@@ -318,6 +382,8 @@ class ServingEngine:
         if self._input_spec is None:
             raise ValueError("warmup needs input_spec (per-example feature shape)")
         self._warmup_s = self._fwd.warmup(self._input_spec)
+        if self._reg.enabled:
+            self._m_warm.set(self._warmup_s, model=self.name)
         return self._warmup_s
 
     def start(self):
@@ -351,7 +417,11 @@ class ServingEngine:
                 while dq:
                     drained.append(self._pop_locked(dq))
         for entry in drained:
-            fut = entry[1]
+            fut, tctx = entry[1], entry[6]
+            if tctx is not None:
+                tctx.finish(status="shed")
+            if self._reg.enabled:
+                self._m_shed.inc(model=self.name, reason="shutdown")
             if not fut.done():
                 fut._set_error(err)
                 self._count("errors")
@@ -364,11 +434,26 @@ class ServingEngine:
 
     def output(self, x):
         """Synchronous direct inference (no queue), through the same
-        buckets as the batched path; counted into ``stats()``."""
+        buckets as the batched path; counted into ``stats()``. With tracing
+        on it is a ``serving.request_direct`` trace."""
+        tctx = _tracectx.maybe_start("serving.request_direct", model=self.name)
         t0 = time.perf_counter()
-        out = self._fwd(x)
-        self._count("served", _first_leaf(out).shape[0])
-        self._note_latencies([time.perf_counter() - t0])
+        try:
+            with _tracectx.attach(tctx):
+                with _tm.span("serving.output", model=self.name):
+                    out = self._fwd(x)
+        except BaseException:
+            if tctx is not None:
+                tctx.finish(status="error")
+            raise
+        dt = time.perf_counter() - t0
+        if tctx is not None:
+            tctx.finish()
+        n = _first_leaf(out).shape[0]
+        self._count("served", n)
+        self._note_latencies([dt], ctxs=[tctx])
+        if self._reg.enabled:
+            self._m_requests.inc(n, model=self.name, outcome="served_direct")
         return out
 
     def submit(self, x, deadline_s=None, *, batched=False):
@@ -386,11 +471,52 @@ class ServingEngine:
         if self._stop.is_set():
             raise ServingShutdown(f"serving engine {self.name!r} is stopped")
         fut = InferenceFuture()
+        # the request's trace starts here; the worker adds its queue wait,
+        # the batch's forward and the resolve. Tracing off: None, a branch.
+        tctx = _tracectx.maybe_start("serving.request", model=self.name)
+        if tctx is not None:
+            fut.trace_id = tctx.trace_id
         now = time.perf_counter()
         if deadline_s is None:
             deadline_s = self.default_deadline_s
         deadline = None if deadline_s is None else now + deadline_s
         self._count("submitted")
+        if self._reg.enabled:
+            self._m_requests.inc(model=self.name, outcome="submitted")
+        try:
+            item, nrows, seq, skey = self._admit_input(x, batched)
+        except BaseException:
+            if tctx is not None:
+                tctx.abandon()  # never queued: don't leak the trace
+            raise
+        rows = 1 if nrows is None else nrows
+        try:
+            with self._not_empty:
+                if self._pending_rows + rows > self.max_queue:
+                    raise queue.Full
+                self._pending_rows += rows
+                self._queues.setdefault(skey, collections.deque()).append(
+                    (item, fut, now, deadline, nrows, seq, tctx))
+                self._not_empty.notify()
+        except queue.Full:
+            self._count("shed_queue_full")
+            if self._reg.enabled:
+                self._m_shed.inc(model=self.name, reason="queue_full")
+                self._m_requests.inc(model=self.name, outcome="shed_queue_full")
+            if tctx is not None:
+                tctx.finish(status="shed")
+            raise _overloaded(
+                f"model {self.name!r}: admission queue full "
+                f"({self.max_queue} pending)", "queue_full") from None
+        if self._stop.is_set():
+            # raced stop(): its drain may already have run, leaving this
+            # request in a queue nobody reads
+            self._fail_pending()
+        return fut
+
+    def _admit_input(self, x, batched):
+        """(rows [n, ...], n or None, seq length or None, seq bucket key) of
+        one submit, or ValueError for a request that can never be served."""
         item = _as_input(x, self._fwd.graph_inputs)
         if batched:
             # every leaf carries the examples on a shared axis 0: a dict whose
@@ -428,25 +554,7 @@ class ServingEngine:
                 raise ValueError(
                     f"model {self.name!r}: sequence of {seq} steps exceeds the "
                     f"largest registered seq bucket ({self._fwd.buckets.max_seq})")
-        rows = 1 if nrows is None else nrows
-        try:
-            with self._not_empty:
-                if self._pending_rows + rows > self.max_queue:
-                    raise queue.Full
-                self._pending_rows += rows
-                self._queues.setdefault(skey, collections.deque()).append(
-                    (item, fut, now, deadline, nrows, seq))
-                self._not_empty.notify()
-        except queue.Full:
-            self._count("shed_queue_full")
-            raise _overloaded(
-                f"model {self.name!r}: admission queue full "
-                f"({self.max_queue} pending)", "queue_full") from None
-        if self._stop.is_set():
-            # raced stop(): its drain may already have run, leaving this
-            # request in a queue nobody reads
-            self._fail_pending()
-        return fut
+        return item, nrows, seq, skey
 
     # ---- worker ----
 
@@ -498,14 +606,23 @@ class ServingEngine:
             now = time.perf_counter()
             live = []
             for entry in batch:
-                _x, fut, t_sub, deadline, _n, _seq = entry
+                _x, fut, t_sub, deadline, _n, _seq, tctx = entry
                 if deadline is not None and now > deadline:
                     self._count("shed_deadline")
+                    if self._reg.enabled:
+                        self._m_shed.inc(model=self.name, reason="deadline")
+                        self._m_requests.inc(model=self.name, outcome="shed_deadline")
+                    if tctx is not None:
+                        tctx.add_span("serving.queue_wait", t_sub, now)
+                        tctx.add_span("serving.shed", now, now, reason="deadline")
+                        tctx.finish(status="shed")
                     fut._set_error(_overloaded(
                         f"model {self.name!r}: deadline exceeded while queued "
                         f"({1e3 * (now - t_sub):.1f} ms)", "deadline"))
                     continue
                 live.append(entry)
+            if self._reg.enabled:
+                self._m_depth.set(self._pending_rows, model=self.name)
             if not live:
                 continue
             # a failing forward must fail THESE requests, not the loop
@@ -519,10 +636,13 @@ class ServingEngine:
                     batch_seq = max(e[5] for e in live)
                     parts = [_pad_rows_np(p, e[4] or 1, seq_target=batch_seq)
                              for p, e in zip(parts, live)]
-                ys = self._fwd(_concat(parts))
+                n_rows = sum(e[4] or 1 for e in live)
+                t_fwd = time.perf_counter()
+                with _tm.span("serving.batch", model=self.name, size=n_rows):
+                    ys = self._fwd(_concat(parts))
                 done = time.perf_counter()
-                lats, off = [], 0
-                for _x, fut, t_sub, _dl, n, seq in live:
+                lats, ctxs, off = [], [], 0
+                for _x, fut, t_sub, _dl, n, seq, tctx in live:
                     width = n or 1
                     y = _tree_map(lambda a: a[off:off + width], ys)
                     if batch_seq is not None:
@@ -531,24 +651,50 @@ class ServingEngine:
                         y = _tree_map(lambda a: a[0], y)
                     off += width
                     lats.append(done - t_sub)
+                    ctxs.append(tctx)
+                    if tctx is not None:
+                        # the device batch is one event shared by its requests
+                        tctx.add_span("serving.queue_wait", t_sub, now)
+                        tctx.add_span("serving.forward", t_fwd, done, size=n_rows)
+                        tctx.add_span("serving.resolve", done, time.perf_counter())
+                        tctx.finish()
                     fut.latency_s = done - t_sub
+                    # resolve last: a waiter that wakes here sees a complete trace
                     fut._set(y)
                 self._count("served", off)
-                self._note_latencies(lats)
+                self._note_latencies(lats, outcome="served", ctxs=ctxs)
             except Exception as e:  # noqa: BLE001 — propagate to waiters
                 for entry in live:
+                    if entry[6] is not None:
+                        entry[6].finish(status="error")
                     if not entry[1].done():
                         entry[1]._set_error(e)
+                    if self._reg.enabled:
+                        self._m_requests.inc(model=self.name, outcome="error")
                 self._count("errors", len(live))
 
     def _count(self, key, n=1):
         with self._lock:
             self._counts[key] += n
 
-    def _note_latencies(self, lats):
+    def _note_latencies(self, lats, outcome=None, ctxs=None):
+        """Record request latencies into the rolling ring; with telemetry
+        on, observe each into the latency histogram (under its request's
+        trace, so a bucket's exemplar names a trace), count it by
+        ``outcome`` and refresh the p50/p99 gauges."""
         with self._lock:
             self._recent_latencies.extend(lats)
             del self._recent_latencies[:-512]
+            recent = list(self._recent_latencies)
+        if self._reg.enabled:
+            for i, dt in enumerate(lats):
+                with _tracectx.attach(ctxs[i] if ctxs else None):
+                    self._m_latency.observe(dt, model=self.name)
+                if outcome is not None:
+                    self._m_requests.inc(model=self.name, outcome=outcome)
+            if recent:
+                self._m_p50.set(float(np.percentile(recent, 50)), model=self.name)
+                self._m_p99.set(float(np.percentile(recent, 99)), model=self.name)
 
     # ---- status ----
 

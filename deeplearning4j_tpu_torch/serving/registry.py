@@ -6,7 +6,7 @@ each with its own continuous-batching engine, and one status surface (the
 (``engine_kwargs``). Hot swap, A/B registration (``update_model``,
 ``register_like``), warm manifest gating, per-tenant metering
 (``submit``'s ``tenant=``/``origin=``) and ``health`` wait for the
-serving extras (ROADMAP queue 1, item 7).
+serving extras (ROADMAP queue 1, item 7.3).
 """
 
 from __future__ import annotations
@@ -78,7 +78,7 @@ class ModelRegistry:
         if tenant is not None or origin is not None:
             raise NotImplementedError(
                 "submit(tenant=, origin=) is serving/metering.py, which is not ported yet "
-                "(ROADMAP queue 1, item 7)")
+                "(ROADMAP queue 1, item 7.3)")
         return self.engine(name).submit(x, deadline_s=deadline_s, batched=batched)
 
     def output(self, name, x):

@@ -13,11 +13,12 @@ The port of ``deeplearning4j_tpu/telemetry/health.py``:
   runs the policy on an anomaly: ``record`` counts it, ``warn`` logs it,
   ``raise`` raises ``NumericsError``. ``flush`` drains the tail.
 
-The JAX monitor's registry gauges and counters (``train_grad_norm``,
-``train_layer_grad_norm``, ``train_layer_gw_ratio``,
-``train_numerics_anomalies_total``) and its flight-recorder dumps wait for
-the port's ``telemetry/registry.py`` and ``flight.py`` (ROADMAP queue 1,
-item 7); the anomaly records, counts, ``last`` and ``summary`` are here.
+As the JAX monitor, it exports the registry gauges and counter
+``train_grad_norm``, ``train_layer_grad_norm``, ``train_layer_gw_ratio``
+and ``train_numerics_anomalies_total`` (when telemetry is on), annotates
+each resolved step's flight-recorder record with its health fields (JAX
+``health.py:243``) and dumps the flight ring once an anomaly streak (JAX
+``:277``; a healthy step ends the streak, ``note_healthy``).
 """
 
 from __future__ import annotations
@@ -28,6 +29,8 @@ import threading
 
 import torch
 
+from deeplearning4j_tpu_torch.telemetry import registry as _registry
+
 logger = logging.getLogger("deeplearning4j_tpu_torch")
 
 POLICIES = ("record", "warn", "raise")
@@ -37,10 +40,11 @@ class NumericsError(FloatingPointError):
     """Raised by the watchdog under ``policy='raise'``; carries the step
     index and the anomaly record."""
 
-    def __init__(self, msg, step=None, record=None):
+    def __init__(self, msg, step=None, record=None, flight_dump=None):
         super().__init__(msg)
         self.step = step
         self.record = record
+        self.flight_dump = flight_dump
 
 
 def _named_groups(tree):
@@ -113,6 +117,7 @@ class HealthMonitor:
         self.steps_checked = 0
         self.last = None
         self._pending = None
+        self._dumped = False  # one flight dump per anomaly streak
 
     def enable(self, policy="record", grad_norm_limit=None):
         """Arm the watchdog. ``policy``: 'record' | 'warn' | 'raise';
@@ -124,6 +129,7 @@ class HealthMonitor:
             self.active = True
             self.policy = policy
             self.grad_norm_limit = None if grad_norm_limit is None else float(grad_norm_limit)
+            self._dumped = False  # re-arming starts a fresh dump streak
         return self
 
     def disable(self):
@@ -136,6 +142,19 @@ class HealthMonitor:
         with self._lock:
             self._defaults()
         return self
+
+    def _instruments(self):
+        reg = _registry.get_registry()
+        return (reg,
+                reg.gauge("train_grad_norm",
+                          "global gradient L2 norm (numerics watchdog)"),
+                reg.gauge("train_layer_grad_norm",
+                          "per-layer gradient L2 norm, labeled by layer"),
+                reg.gauge("train_layer_gw_ratio",
+                          "per-layer grad-to-weight L2 ratio "
+                          "(update/weight proxy), labeled by layer"),
+                reg.counter("train_numerics_anomalies_total",
+                            "watchdog anomalies observed, labeled by kind"))
 
     def on_step(self, bundle, **meta):
         """Queue this dispatch's bundle; resolve the previous one (its
@@ -173,30 +192,61 @@ class HealthMonitor:
                 for k, v in zip(keys, column)}
 
     def _consume(self, rec, step, apply_policy=True):
+        reg, g_norm, g_layer, g_ratio, _ = self._instruments()
+        if reg.enabled:
+            g_norm.set(rec["grad_norm"])
+            for k, v in rec.items():
+                if k.startswith("layer/"):
+                    _, name, kind = k.split("/", 2)
+                    (g_layer if kind == "grad_norm" else g_ratio).set(v, layer=name)
         flat = {k: v for k, v in rec.items() if not k.startswith("layer/")}
         with self._lock:
             self.steps_checked += 1
             self.last = {"step": step, **flat}
+        # annotate the flight-recorder ring BEFORE any dump so the offending
+        # step's record carries its health fields in the postmortem
+        from deeplearning4j_tpu_torch.telemetry import flight as _flight
+        _flight.get_recorder().annotate(step, **flat)
         nonfinite = rec["loss_nonfinite"] or rec["grad_nonfinite"]
         exploded = self.grad_norm_limit is not None and rec["grad_norm"] > self.grad_norm_limit
         if nonfinite or exploded:
             self.note_anomaly("nonfinite" if nonfinite else "grad_norm_limit", step=step,
                               apply_policy=apply_policy, **flat)
+        else:
+            self.note_healthy()
+
+    def note_healthy(self):
+        """A healthy observation ends the current anomaly streak: the next
+        anomaly is a new incident and earns its own flight dump."""
+        with self._lock:
+            self._dumped = False
 
     def note_anomaly(self, kind, step=None, apply_policy=True, **fields):
-        """Record one anomaly and run the policy."""
+        """Record one anomaly and run the policy; the first of a streak
+        dumps the flight ring."""
         a = {"kind": kind, "step": step, **fields}
         with self._lock:
             self.nonfinite_steps += 1
             self.anomalies.append(a)
+            first = not self._dumped
+            self._dumped = True
+        *_, c_anom = self._instruments()
+        c_anom.inc(kind=kind)
+        from deeplearning4j_tpu_torch.telemetry import flight as _flight
+        path = None
+        if first:
+            # one dump per anomaly streak: once the params are NaN every
+            # later step is anomalous, and a dump a step would bury the
+            # postmortem under identical files
+            path = _flight.get_recorder().dump(reason=f"numerics:{kind}", extra={"anomaly": a})
         if not apply_policy:
             return a
         msg = (f"numerics watchdog: {kind} at step {step} "
                f"(loss={fields.get('loss')}, grad_norm={fields.get('grad_norm')})")
         if self.policy == "warn":
-            logger.warning("%s", msg)
+            logger.warning("%s%s", msg, f" [flight dump: {path}]" if path else "")
         elif self.policy == "raise":
-            raise NumericsError(msg, step=step, record=a)
+            raise NumericsError(msg, step=step, record=a, flight_dump=path)
         return a
 
     def summary(self):

@@ -6,15 +6,21 @@ the step it just issued, so a loop pushes dispatch *i*'s device losses
 and gets dispatch *i - 1*'s back resolved, a fetch the dispatch just
 issued overlaps. A K-step dispatch (``nn/fused.py``) pushes a ``[K]``
 tensor and resolves it in one host transfer: one fetch per K steps. Every
-fit loop of the port resolves its scores here (``continuous/driver.py``);
-the JAX package's ``StepRecordEmitter`` waits for the telemetry registry.
+fit loop of the port resolves its scores here (``continuous/driver.py``).
+
+``StepRecordEmitter`` (JAX ``scorepipe.py:137``, ``:164``) fans one
+resolved dispatch into its step records: ``score_history``, the listeners'
+``iteration_done``, and with telemetry on the per-iteration instruments
+(``train_step_seconds``, ``train_etl_seconds``, ``train_iterations_total``,
+``train_score``), the HBM gauges and a flight-recorder record a step (also
+with the watchdog armed), and the dispatch's trace closed.
 """
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["ScorePipeline"]
+__all__ = ["ScorePipeline", "StepRecordEmitter"]
 
 
 class ScorePipeline:
@@ -60,3 +66,68 @@ class ScorePipeline:
             values = torch.stack([c for _, c in meta["chunks"]]).tolist()
             return float(loss), dict(meta, chunk_scores=values)
         return float(loss), meta
+
+
+class StepRecordEmitter:
+    """Turns a resolved ``(score, meta)`` into the per-step record of one
+    fit loop: ``net.score_history``, listener callbacks, and (``meta['rec']``:
+    telemetry was on at the dispatch) the registry instruments, the memory
+    gauges and the flight ring. A list ``score`` is a K-step dispatch: one
+    record a real step, the dispatch's times split evenly (the captured
+    graph exposes no per-step boundary)."""
+
+    def __init__(self, net, step_hist, etl_hist, iters, score_gauge, recorder):
+        self.net = net
+        self.step_hist, self.etl_hist = step_hist, etl_hist
+        self.iters, self.score_gauge = iters, score_gauge
+        self.recorder = recorder
+
+    def _record(self, meta, step, score, step_t, etl_t, mem, **extra):
+        fr = {"step": step, "step_time_s": step_t, "etl_time_s": etl_t, "score": score,
+              **extra}
+        if meta.get("trace_id"):
+            # StepRecords are traceable: the flight-recorder ring (and any
+            # dump built from it) links each step to its causal timeline
+            fr["trace_id"] = meta["trace_id"]
+        if meta.get("rec"):
+            self.step_hist.observe(step_t)
+            self.etl_hist.observe(etl_t)
+            self.iters.inc()
+            self.score_gauge.set(score)
+            if mem:
+                fr.update(mem)
+        if meta.get("rec") or meta.get("health"):
+            self.recorder.note(**fr)
+
+    def emit(self, score, meta):
+        from deeplearning4j_tpu_torch.telemetry import devices as _devices
+        net = self.net
+        mem = _devices.poll_memory() if meta.get("rec") else None
+        if isinstance(score, list):
+            k = max(int(meta.get("k") or 1), 1)
+            scores = score[:k]
+            it0 = meta["iteration"] - len(scores)
+            step_t = meta.get("step_time_s", 0.0) / max(len(scores), 1)
+            etl_t = meta["etl_time_s"] / max(len(scores), 1)
+            for j, s in enumerate(scores):
+                net.score_history.append(s)
+                self._record(meta, meta["step"] + j, s, step_t, etl_t, mem, fused_k=k)
+                for lst in net.listeners:
+                    lst.iteration_done(net, it0 + j + 1, s, etl_t)
+        else:
+            net.score_history.append(score)
+            self._record(meta, meta["step"], score, meta.get("step_time_s", 0.0),
+                         meta["etl_time_s"], mem)
+            if meta.get("chunks"):
+                # a graph's TBPTT batch: one callback a chunk
+                for (it, _), v in zip(meta["chunks"], meta["chunk_scores"]):
+                    for lst in net.listeners:
+                        lst.iteration_done(net, it, v)
+            else:
+                for lst in net.listeners:
+                    lst.iteration_done(net, meta["iteration"], score, meta["etl_time_s"])
+        tctx = meta.get("trace")
+        if tctx is not None:
+            # the dispatch's causal story ends when its score resolved (one
+            # dispatch late) and its records and callbacks landed
+            tctx.finish()

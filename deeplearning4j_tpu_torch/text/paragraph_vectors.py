@@ -63,6 +63,12 @@ class ParagraphVectors(SequenceVectors):
 
     def fit_documents(self, documents):
         """documents: list of (label, token list)."""
+        if self.mesh is not None:
+            raise ValueError(
+                "ParagraphVectors doc-vector training is single-device (the "
+                "per-document loop does not batch across the mesh); construct "
+                "without mesh=. Word co-occurrence tables can still be "
+                "pre-trained distributed via SequenceVectors(mesh=...).fit().")
         self.doc_labels = [label for label, _ in documents]
         seqs = [list(tokens) for _, tokens in documents]
         if self.vocab is None:

@@ -33,8 +33,32 @@ pairs, permutations) is the JAX package's, draw for draw from the same
   chunks: the method and the distribution are the JAX package's, the bits
   are not (JAX draws threefry).
 
-``mesh=`` and ``shard_tables=`` (the JAX package's multi-device trainers)
-raise ``NotImplementedError`` until ROADMAP queue 1 item 6.
+Over a mesh (``mesh=``, the port's ``parallel/mesh.py`` mesh, one process
+a rank of its ``data`` axis; the JAX package's ``_dist_fns`` and
+``_dist_fns_table_sharded``):
+
+* replicated tables (SGNS, CBOW, HS): every rank holds both tables whole
+  and takes its equal share of the rows of each global batch (each rank is
+  handed the same epoch: the host pipeline and the negatives are drawn from
+  the same seeds everywhere). A step all-gathers every rank's (indices,
+  gradients, loss) first, one collective a dtype, and applies the
+  scatter-mean of the global batch, so every rank applies the one-device
+  update of that batch, at O(batch x dim) traffic a step; the loss is the
+  mean over the ranks. The ragged tail is
+  cut to a multiple of the axis (``examples_dropped``: at most n - 1 pairs
+  an epoch). ``batch_size`` must divide by the axis.
+* ``shard_tables=True`` (SGNS only): the vocabulary is padded to a
+  multiple of the axis and each rank holds V/n consecutive rows of syn0 and
+  syn1neg; the batches are whole on every rank, the step's row gathers are
+  masked local reads summed over the group in one all-reduce, and each
+  rank applies the update to its own rows only.
+
+A chunk over NCCL is captured into its CUDA graph with its collectives
+(held on an H100 at world 1 only, by ``chip_smoke.py``'s word2vec phase;
+across cards it has not been run); gloo cannot be captured, so over gloo
+the chunk runs eagerly. With
+telemetry on, a chunk engine's captures count into ``compiles_total`` and
+``recompiles_total`` (site ``word2vec.<update function>``).
 """
 
 from __future__ import annotations
@@ -42,8 +66,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from deeplearning4j_tpu_torch import telemetry as _telemetry
+from deeplearning4j_tpu_torch.telemetry import devices as _devices
 from deeplearning4j_tpu_torch.text.vocab import (VocabCache, VocabConstructor,
                                                  flatten_corpus)
+from deeplearning4j_tpu_torch.utils import collectives as _C
 from deeplearning4j_tpu_torch.utils.device import as_device, resolve_device
 from deeplearning4j_tpu_torch.utils.hostsync import fetch_losses
 
@@ -125,19 +152,51 @@ def _rows(table, idx):
     return table.index_select(0, idx.reshape(-1).long()).reshape(*idx.shape, table.shape[1])
 
 
+def _gathered(group, tensors):
+    """``tensors`` (one dtype) all-gathered over ``group`` in one
+    collective: each ``[world * n, ...]``, the ranks' rows in rank order
+    (the JAX package's tiled ``all_gather`` of each)."""
+    world = _C.dist.get_world_size(group)
+    flat = _C.all_gather(torch.cat([t.reshape(-1) for t in tensors]), group).view(world, -1)
+    out, off = [], 0
+    for t in tensors:
+        n = t.numel()
+        out.append(flat[:, off:off + n].reshape((world * t.shape[0],) + tuple(t.shape[1:])))
+        off += n
+    return out
+
+
+def _exchanged(group, idx, vals):
+    """A replicated-table update's exchange over ``group`` (None: none):
+    every rank's index tensors ``idx`` and float tensors ``vals`` (the
+    gradients, and the loss last) gathered in rank order, two collectives
+    a step; the loss comes back as the mean over the ranks (the JAX
+    ``pmean``)."""
+    if group is None:
+        return list(idx), list(vals)
+    idx = _gathered(group, [i.reshape(-1).long() for i in idx])
+    vals = _gathered(group, [v for v in vals[:-1]] + [vals[-1].reshape(1)])
+    return idx, vals[:-1] + [vals[-1].mean()]
+
+
 def _ns_loss(s_pos, s_neg):
     """-mean(log σ(v·u+) + Σ log σ(-v·u-)), clipped as the JAX package does."""
     return -torch.mean(torch.log(s_pos.clamp(1e-9, 1.0))
                        + torch.sum(torch.log((1.0 - s_neg).clamp(1e-9, 1.0)), dim=1))
 
 
-def _sgns_core(syn0, syn1neg, centers, contexts, negatives):
+def _sgns_rows(syn0, syn1neg, centers, contexts, negatives):
+    """The rows an SGNS batch reads: (v [B,D], u+ [B,D], u- [B,K,D])."""
+    return _rows(syn0, centers), _rows(syn1neg, contexts), _rows(syn1neg, negatives)
+
+
+def _sgns_core(syn0, syn1neg, centers, contexts, negatives, rows=_sgns_rows):
     """Closed-form gradients and loss of one skip-gram negative-sampling
     batch, -log σ(v·u+) - Σ log σ(-v·u-), from the tables as they are (no
-    writes): ``(grad_v [B,D], u_idx [B(1+K)], u_grads [B(1+K),D], loss)``."""
-    v = _rows(syn0, centers)                       # [B,D]
-    u_pos = _rows(syn1neg, contexts)               # [B,D]
-    u_neg = _rows(syn1neg, negatives)              # [B,K,D]
+    writes): ``(grad_v [B,D], u_idx [B(1+K)], u_grads [B(1+K),D], loss)``.
+    ``rows`` reads the batch's rows (``_sgns_rows``; a row-sharded table's
+    gather)."""
+    v, u_pos, u_neg = rows(syn0, syn1neg, centers, contexts, negatives)
     s_pos = torch.sigmoid(torch.sum(v * u_pos, dim=1))                    # [B]
     s_neg = torch.sigmoid(torch.bmm(u_neg, v.unsqueeze(2)).squeeze(2))   # [B,K]
     g_pos = (s_pos - 1.0)[:, None]
@@ -148,17 +207,81 @@ def _sgns_core(syn0, syn1neg, centers, contexts, negatives):
     return grad_v, u_idx, u_grads, _ns_loss(s_pos, s_neg)
 
 
-def _sgns_math(syn0, syn1neg, centers, contexts, negatives, lr, scratch=None):
+def _sgns_math(syn0, syn1neg, centers, contexts, negatives, lr, scratch=None, group=None):
     """One batched skip-gram negative-sampling update, in place.
 
-    centers [B], contexts [B], negatives [B,K]; returns the loss."""
+    centers [B], contexts [B], negatives [B,K]; returns the loss. With
+    ``group`` the batch is this rank's share of the global one
+    (``_exchanged``)."""
     grad_v, u_idx, u_grads, loss = _sgns_core(syn0, syn1neg, centers, contexts, negatives)
+    (centers, u_idx), (grad_v, u_grads, loss) = _exchanged(group, (centers, u_idx),
+                                                           (grad_v, u_grads, loss))
     _scatter_mean_update(syn0, centers, grad_v, lr, scratch)
     _scatter_mean_update(syn1neg, u_idx, u_grads, lr, scratch)
     return loss
 
 
-def _hs_math(syn0, syn1, centers, points, codes, path_mask, lr, scratch=None):
+class TableShard:
+    """This rank's ``rows`` consecutive rows, from ``lo``, of tables split
+    over ``group``."""
+
+    def __init__(self, group, lo, rows):
+        self.group, self.lo, self.rows = group, lo, rows
+
+    def _local(self, idx):
+        local = idx.long() - self.lo
+        ok = (local >= 0) & (local < self.rows)
+        return local.clamp(0, self.rows - 1), ok
+
+    def _held(self, table_l, idx):
+        safe, ok = self._local(idx)
+        return _rows(table_l, safe) * ok[..., None].to(table_l.dtype)
+
+    def sgns_rows(self, syn0_l, syn1_l, centers, contexts, negatives):
+        """``_sgns_rows`` of the whole tables: each rank's reads of the
+        rows it holds (zeros elsewhere), summed over the group in one
+        all-reduce."""
+        parts = [self._held(syn0_l, centers), self._held(syn1_l, contexts),
+                 self._held(syn1_l, negatives)]
+        flat = _C.all_reduce_(torch.cat([p.reshape(-1) for p in parts]), self.group)
+        out, off = [], 0
+        for p in parts:
+            out.append(flat[off:off + p.numel()].view(p.shape))
+            off += p.numel()
+        return tuple(out)
+
+    def scatter_mean(self, table_l, idx, grads, lr, scratch):
+        """The scatter-mean update of the rows held here (the others'
+        gradients masked out of both the sums and the counts)."""
+        safe, ok = self._local(idx.reshape(-1))
+        okf = ok.to(grads.dtype)
+        num, cnt = scratch
+        num.index_add_(0, safe, grads * okf[:, None])
+        cnt.index_add_(0, safe, okf)
+        # a masked index clamped onto a held row computes that row's own new
+        # value (its sums hold only the held gradients), so every duplicate
+        # writes the same value
+        rows = table_l.index_select(0, safe) - lr * num.index_select(0, safe) \
+            / cnt.index_select(0, safe).clamp_min(1.0)[:, None]
+        table_l.index_copy_(0, safe, rows)
+        num.index_fill_(0, safe, 0.0)
+        cnt.index_fill_(0, safe, 0.0)
+
+
+def _sgns_math_table_sharded(syn0_l, syn1_l, centers, contexts, negatives, lr, scratch=None,
+                             shard=None):
+    """One SGNS update with row-sharded tables (``shard``: a
+    ``TableShard``) and the batch whole on every rank: the gathers sum the
+    ranks' masked reads, each rank updates its own rows. Returns the loss
+    (the same on every rank)."""
+    grad_v, u_idx, u_grads, loss = _sgns_core(syn0_l, syn1_l, centers, contexts, negatives,
+                                              rows=shard.sgns_rows)
+    shard.scatter_mean(syn0_l, centers, grad_v, lr, scratch)
+    shard.scatter_mean(syn1_l, u_idx, u_grads, lr, scratch)
+    return loss
+
+
+def _hs_math(syn0, syn1, centers, points, codes, path_mask, lr, scratch=None, group=None):
     """Hierarchical-softmax skip-gram update, in place.
 
     points/codes/path_mask: [B, L] padded Huffman paths. Loss:
@@ -173,13 +296,15 @@ def _hs_math(syn0, syn1, centers, points, codes, path_mask, lr, scratch=None):
     grad_u = g[..., None] * v[:, None, :]
     loss = -torch.sum(torch.log(s.clamp(1e-9, 1.0)) * path_mask) \
         / torch.sum(path_mask).clamp_min(1.0)
+    (centers, points), (grad_v, grad_u, loss) = _exchanged(
+        group, (centers, points), (grad_v, grad_u.reshape(-1, v.shape[1]), loss))
     _scatter_mean_update(syn0, centers, grad_v, lr, scratch)
-    _scatter_mean_update(syn1, points, grad_u.reshape(-1, v.shape[1]), lr, scratch)
+    _scatter_mean_update(syn1, points, grad_u, lr, scratch)
     return loss
 
 
 def _cbow_math(syn0, syn1neg, context_idx, context_mask, targets, negatives, lr,
-               scratch=None):
+               scratch=None, group=None):
     """CBOW-NS: the mean of the context vectors predicts the target
     (reference: CBOW.java); in place, returns the loss. Padded context slots
     point at row 0 with a zero gradient and count in its mean, as in the
@@ -198,7 +323,9 @@ def _cbow_math(syn0, syn1neg, context_idx, context_mask, targets, negatives, lr,
     u_idx = torch.cat([targets.reshape(-1), negatives.reshape(-1)])
     u_grads = torch.cat([g_pos * h, (s_neg[..., None] * h[:, None, :]).reshape(-1, h.shape[1])])
     loss = _ns_loss(s_pos, s_neg)
-    _scatter_mean_update(syn0, context_idx, grad_ctx.reshape(-1, h.shape[1]), lr, scratch)
+    (context_idx, u_idx), (grad_ctx, u_grads, loss) = _exchanged(
+        group, (context_idx, u_idx), (grad_ctx.reshape(-1, h.shape[1]), u_grads, loss))
+    _scatter_mean_update(syn0, context_idx, grad_ctx, lr, scratch)
     _scatter_mean_update(syn1neg, u_idx, u_grads, lr, scratch)
     return loss
 
@@ -207,14 +334,16 @@ class _ChunkSteps:
     """``k`` batches of one update function over static buffers: one replay
     of a CUDA graph on a card (captured at the first call, and again when
     the model's tables or scratch are other tensors than those captured),
-    the same steps run eagerly on the CPU. Calling it with a chunk's arrays
-    (``[k * B, ...]`` each, on the model's device) returns the ``[k]``
-    losses."""
+    the same steps run eagerly on the CPU and, with ``eager``, on a card
+    (collectives over gloo cannot be captured). Calling it with a chunk's
+    arrays (``[k * B, ...]`` each, on the model's device) returns the
+    ``[k]`` losses."""
 
-    def __init__(self, math_fn, k, arrays, device):
+    def __init__(self, math_fn, k, arrays, device, eager=False):
         self.math_fn = math_fn
         self.k = k
         self.device = device
+        self.eager = eager or device.type != "cuda"
         # index arrays as int64 (what the index ops take), the rest as given
         self.bufs = [torch.zeros((k, a.shape[0] // k, *a.shape[1:]),
                                  dtype=a.dtype if a.is_floating_point() else torch.int64,
@@ -228,7 +357,7 @@ class _ChunkSteps:
     def _steps(self, model):
         return torch.stack([
             self.math_fn(model.syn0, model.syn1, *(b[i] for b in self.bufs), model._lr,
-                         scratch=model._scratch)
+                         scratch=model._scratch, **model._math_kw)
             for i in range(self.k)])
 
     def _ptrs(self, model):
@@ -237,7 +366,7 @@ class _ChunkSteps:
     def __call__(self, model, chunk):
         for buf, a in zip(self.bufs, chunk):
             buf.copy_(a.reshape(buf.shape))
-        if self.device.type != "cuda":
+        if self.eager:
             return self._steps(model)
         if self.graph is None or self.ptrs != self._ptrs(model):
             self._capture(model)
@@ -281,11 +410,21 @@ class SequenceVectors:
                  batch_size=2048, subsample=1e-3, use_hierarchic_softmax=False,
                  algorithm="skipgram", seed=123, mesh=None,
                  shard_tables=False, device="cuda"):
-        if mesh is not None or shard_tables:
-            raise NotImplementedError(
-                "SequenceVectors(mesh=..., shard_tables=...): the multi-device "
-                "embedding trainers wait for ROADMAP queue 1 item 6 (parallel "
-                "trainers); train on one device")
+        # mesh: the port's Mesh (parallel/mesh.py); its 'data' axis splits
+        # the batches (replicated tables) or the tables' rows (shard_tables)
+        if shard_tables and mesh is None:
+            raise ValueError("shard_tables=True requires mesh= (the tables "
+                             "shard over the mesh 'data' axis)")
+        if shard_tables and (use_hierarchic_softmax or algorithm != "skipgram"):
+            raise ValueError("shard_tables supports skipgram-negative-"
+                             "sampling only")
+        if mesh is not None and not shard_tables and batch_size % mesh.shape["data"]:
+            raise ValueError(
+                f"batch_size {batch_size} must divide by the mesh data "
+                f"axis size {mesh.shape['data']}")
+        self.mesh = mesh
+        self.shard_tables = bool(shard_tables)
+        self.examples_dropped = 0
         self.device = resolve_device(device)
         self.vector_size = vector_size
         self.window = window
@@ -307,6 +446,10 @@ class SequenceVectors:
         # the learning rate the chunks' graphs read (written before each run)
         self._lr = torch.zeros((), dtype=torch.float32, device=self.device)
         self._chunk_steps = {}
+        #: keywords every update takes: the data group of a replicated-table
+        #: mesh, or the TableShard of a sharded one (set in build_vocab)
+        self._math_kw = {}
+        self._group = mesh.group("data") if mesh is not None else None
 
     # ---- vocab + tables ----
 
@@ -320,9 +463,18 @@ class SequenceVectors:
         rs = np.random.RandomState(self.seed)
         syn0_host = (rs.rand(v, d).astype(np.float32) - 0.5) / d
         rows = v if not self.use_hs else max(v - 1, 1)
-        self.syn0 = torch.from_numpy(syn0_host).to(self.device)
+        if self.shard_tables:
+            # rows padded to the shard count; V/n of each table here
+            nd, r = self.mesh.shape["data"], self.mesh.coords["data"]
+            vp = -(-v // nd) * nd
+            self._rows_per_shard = rows = vp // nd
+            syn0_host = np.pad(syn0_host, ((0, vp - v), (0, 0)))[r * rows:(r + 1) * rows]
+            self._math_kw = {"shard": TableShard(self._group, r * rows, rows)}
+        elif self.mesh is not None:
+            self._math_kw = {"group": self._group}
+        self.syn0 = torch.from_numpy(np.ascontiguousarray(syn0_host)).to(self.device)
         self.syn1 = torch.zeros((rows, d), dtype=torch.float32, device=self.device)
-        self._scratch = new_scratch(max(v, rows), d, device=self.device)
+        self._scratch = new_scratch(max(self.syn0.shape[0], rows), d, device=self.device)
         counts = self.vocab.counts().astype(np.float64)
         probs = counts ** 0.75
         self._neg_table = (probs / probs.sum()).astype(np.float64)
@@ -453,6 +605,7 @@ class SequenceVectors:
         Losses stay on the device until the fit ends (one fetch), so the
         host prepares the next epoch while the card runs this one."""
         seq_list = [list(s) for s in sequences]
+        self.examples_dropped = 0
         flat = flatten_corpus(seq_list)  # ONE pass feeds vocab + encoding
         if self.vocab is None:
             self.build_vocab(seq_list, _flat=flat)
@@ -487,19 +640,43 @@ class SequenceVectors:
     # capture serves every epoch and corpus of a model
     SCAN_CHUNK = 32
 
-    def _chunk_engine(self, math_fn, arrays):
-        key = (math_fn.__name__,) + tuple((tuple(a.shape[1:]), a.dtype) for a in arrays)
+    def _chunk_engine(self, math_fn, chunk):
+        key = (math_fn.__name__,) + tuple((tuple(a.shape[1:]), a.dtype) for a in chunk)
         if key not in self._chunk_steps:
-            ck, bs = self.SCAN_CHUNK, self.batch_size
-            self._chunk_steps[key] = _ChunkSteps(
-                math_fn, ck, [a[:ck * bs] for a in arrays], self.device)
+            # collectives over gloo cannot be captured into a CUDA graph
+            gloo = (self._group is not None
+                    and _C.dist.get_backend(self._group) == _C.dist.Backend.GLOO)
+            self._chunk_steps[key] = _ChunkSteps(math_fn, self.SCAN_CHUNK, chunk, self.device,
+                                                 eager=gloo)
         return self._chunk_steps[key]
+
+    def _mine(self, a, k):
+        """This rank's rows of each of the ``k`` global batches stacked in
+        ``a`` (replicated tables over a mesh: the r-th equal share of each,
+        as the JAX ``P('data')`` split); ``a`` itself otherwise."""
+        if self.mesh is None or self.shard_tables:
+            return a
+        nd, r = self.mesh.shape["data"], self.mesh.coords["data"]
+        b = a.shape[0] // k // nd
+        return a.reshape(k, nd * b, *a.shape[1:])[:, r * b:(r + 1) * b].reshape(
+            k * b, *a.shape[1:])
 
     def _run_batched(self, math_fn, arrays, lr):
         """Split aligned arrays into SCAN_CHUNK-sized groups of [B, ...]
         full batches, each group run as one chunk (one CUDA-graph replay on
         a card); leftover full batches and the ragged tail run one step at
-        a time. Returns the list of (device) per-batch losses."""
+        a time. Returns the list of (device) per-batch losses.
+
+        Over a mesh the batches split over the ``data`` axis, the ragged
+        tail cut to a multiple of it (``examples_dropped``); with
+        ``shard_tables`` the tables' rows split instead."""
+        if self.shard_tables:
+            math_fn = _sgns_math_table_sharded
+        elif self.mesh is not None:
+            nd = self.mesh.shape["data"]
+            n_keep = (len(arrays[0]) // nd) * nd
+            self.examples_dropped += len(arrays[0]) - n_keep
+            arrays = tuple(a[:n_keep] for a in arrays)
         arrays = tuple(as_device(a, self.device) for a in arrays)
         n = len(arrays[0])
         bs = self.batch_size
@@ -508,14 +685,29 @@ class SequenceVectors:
         losses = []
         i = 0
         while n - i >= ck * bs:
-            chunk = self._chunk_engine(math_fn, arrays)
-            losses += list(chunk(self, tuple(a[i:i + ck * bs] for a in arrays)))
+            chunk = tuple(self._mine(a[i:i + ck * bs], ck) for a in arrays)
+            engine = self._chunk_engine(math_fn, chunk)
+            losses += list(engine(self, chunk))
+            if _telemetry.enabled():
+                # the chunk's CUDA-graph captures (a recapture storm shows here)
+                _devices.note_jit_cache(f"word2vec.{math_fn.__name__}", engine)
             i += ck * bs
         while i < n:
-            losses.append(math_fn(self.syn0, self.syn1, *(a[i:i + bs] for a in arrays),
-                                  self._lr, scratch=self._scratch))
+            losses.append(math_fn(self.syn0, self.syn1,
+                                  *(self._mine(a[i:i + bs], 1) for a in arrays),
+                                  self._lr, scratch=self._scratch, **self._math_kw))
             i += bs
         return losses
+
+    def whole_tables(self):
+        """(syn0, syn1) whole, as numpy arrays: under ``shard_tables`` the
+        ranks' rows all-gathered (every rank of the mesh calls it) and cut
+        back to the vocabulary."""
+        if not self.shard_tables:
+            return _host(self.syn0), _host(self.syn1)
+        v = len(self.vocab)
+        return tuple(_host(_C.gather_dim(t.contiguous(), 0, self._group))[:v]
+                     for t in (self.syn0, self.syn1))
 
     def _huffman_batch(self, targets):
         """Padded Huffman paths for a batch — one fancy index into the
@@ -527,7 +719,9 @@ class SequenceVectors:
 
     def get_word_vector(self, word):
         i = self.vocab.index_of(word)
-        return None if i < 0 else _host(self.syn0[i])
+        if i < 0:
+            return None
+        return self.whole_tables()[0][i] if self.shard_tables else _host(self.syn0[i])
 
     def has_word(self, word):
         return self.vocab is not None and word in self.vocab
@@ -542,7 +736,7 @@ class SequenceVectors:
         i = self.vocab.index_of(word)
         if i < 0:
             return []
-        m = _host(self.syn0)
+        m = self.whole_tables()[0]
         norms = m / (np.linalg.norm(m, axis=1, keepdims=True) + 1e-12)
         sims = norms @ norms[i]
         order = np.argsort(-sims)

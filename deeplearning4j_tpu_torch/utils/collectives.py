@@ -190,8 +190,9 @@ class ModelGroup:
     """The ranks of ``group`` hold the same activations and each holds one
     slice of the split parameters: ``split`` maps ``id`` of a local
     parameter tensor to the dim it is split on, and ``apply(layer, params,
-    state, x, mg, train=, **kwargs)`` runs a layer whose parameters are
-    split (``parallel/tensor_parallel.py tp_apply``). With ``timed`` (eager
+    state, x, mg, split=, train=, **kwargs)`` runs a layer whose leaves
+    ``split`` ({key: dim}, ``split_of``) are split
+    (``parallel/tensor_parallel.py tp_apply``). With ``timed`` (eager
     steps only: it synchronizes the card) the milliseconds of the forward
     collectives accumulate in ``spent_ms`` under their kind."""
 
@@ -203,9 +204,13 @@ class ModelGroup:
     timed: bool = False
     spent_ms: dict = dataclasses.field(default_factory=dict)
 
-    def holds_split(self, params):
-        """Whether any leaf of ``params`` (a layer's tree) is split here."""
-        return any(id(t) in self.split for t in _leaves(params))
+    def split_of(self, params):
+        """{key: split dim} of the leaves of ``params`` (a layer's dict)
+        split here; empty when none is (a nested sub-dict never is)."""
+        if not hasattr(params, "items"):
+            return {}
+        return {k: self.split[id(t)] for k, t in params.items()
+                if not hasattr(t, "items") and id(t) in self.split}
 
     def timed_call(self, kind, fn, x):
         if not self.timed:
@@ -218,14 +223,6 @@ class ModelGroup:
             torch.cuda.synchronize(x.device)
         self.spent_ms[kind] = self.spent_ms.get(kind, 0.0) + 1e3 * (time.perf_counter() - t0)
         return out
-
-
-def _leaves(tree):
-    if hasattr(tree, "items"):
-        for v in tree.values():
-            yield from _leaves(v)
-    else:
-        yield tree
 
 
 _MODEL = contextvars.ContextVar("model_group", default=None)

@@ -21,8 +21,8 @@ Both packages get the same numpy inputs made from a seed:
 * the device alias draw against the negative-sampling distribution, the
   touched-rows update against the dense form, ``tables_from_numpy``, the
   chunk engine's bookkeeping, no host sync inside a step (a card captures
-  it), and the contracts: ``mesh=`` raises naming ROADMAP queue 1 item 6,
-  ``device="cuda"`` raises without a card.
+  it), and the contract that ``device="cuda"`` raises without a card (the
+  mesh trainers are ``test_torch_word2vec_mesh.py``'s).
 """
 
 import numpy as np
@@ -359,13 +359,6 @@ def test_chunk_runs_no_host_sync(algo):
 
 
 # ---- contracts ----
-
-def test_mesh_and_shard_tables_raise_naming_the_queue_item():
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        TW.SequenceVectors(mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        TW.SequenceVectors(shard_tables=True, device="cpu")
-
 
 def test_trainers_default_to_cuda_and_raise_without_a_card():
     if torch.cuda.is_available():

@@ -211,7 +211,8 @@ def test_refusals(world1):
     """The refusals that stand, and tensor parallelism's spec tree: the
     JAX rule on a model=2 mesh (a divisible Dense W splits its columns, the
     3-wide output layer stays whole, BN's gamma/beta split), all whole on
-    a model=1 mesh."""
+    a model=1 mesh. Tensor parallelism with fsdp_stream is a layout that
+    runs (the JAX trainer takes it), not a refusal."""
     net = TDP.port_mln()
     assert all(s == () for s in tree_leaves(TDPL.make_param_shardings(world1, net, net.params)))
     assert all(s == () for s in tree_leaves(
@@ -222,8 +223,8 @@ def test_refusals(world1):
     assert specs[0]["W"] == (None, "model") and specs[0]["b"] == ("model",)
     assert specs[1]["gamma"] == ("model",) and specs[1]["beta"] == ("model",)
     assert specs[-1]["W"] == () and specs[-1]["b"] == ()
-    with pytest.raises(ValueError, match="fsdp_stream"):
-        ParallelTrainer(net, world1, tensor_parallel=True, shard_params="fsdp_stream")
+    tr = ParallelTrainer(net, world1, tensor_parallel=True, shard_params="fsdp_stream")
+    assert tr.tensor_parallel and tr.layout == "fsdp_stream"
     with pytest.raises(ValueError, match="shard_params"):
         ParallelTrainer(net, world1, shard_params="zero3")
     with pytest.raises(ValueError, match="homogeneous trunk"):

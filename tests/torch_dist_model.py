@@ -17,10 +17,14 @@ STEPS = 3
 #: intra-op threads a rank: four ranks share the host with the other test
 #: workers, and the tiny shapes gain nothing from more
 RANK_THREADS = 1
-TP_LAYOUTS = ("replicated", "zero1", "fsdp")
+TP_LAYOUTS = ("replicated", "zero1", "fsdp", "fsdp_stream")
 LM = dict(vocab_size=16, n_layers=4, d_model=8, n_heads=2, seq_len=6)
 LM_BATCH = 8
 LR = 0.1
+#: a capacity factor at which the MoE LM's experts overflow on its batch
+MOE_TIGHT = 0.5
+#: the weight noise of the noisy MLN (additive normal)
+NOISE_STD = 0.05
 
 
 # ---------------------------------------------------------------------------
@@ -42,16 +46,40 @@ def tp_graph_conf(L, U, I, GraphBuilder):
     return b.build()
 
 
-def moe_conf(L, U, I, NeuralNetConfig):
+def moe_conf(L, U, I, NeuralNetConfig, capacity_factor=1.25):
     """The JAX MoE test's LM with 8 experts (2 a rank on a model=4 mesh),
     under plain SGD: the attention's key bias has a zero gradient, whose
     rounding noise Adam would blow up to a full step."""
     return NeuralNetConfig(seed=3, updater=U.Sgd(learning_rate=0.1)).list(
         L.EmbeddingSequenceLayer(n_in=20, n_out=16, add_positional=True),
         L.MoETransformerBlock(n_out=16, n_heads=2, n_experts=8, causal=True,
-                              capacity_factor=1.25, aux_loss_weight=0.01),
+                              capacity_factor=capacity_factor, aux_loss_weight=0.01),
         L.RnnOutputLayer(n_out=20, loss="mcxent"),
         input_type=I.RecurrentType(1, 8))
+
+
+def lm_conf(L, U, I, NeuralNetConfig):
+    """A transformer LM at ``LM``'s widths with 2 blocks, the homogeneous
+    trunk ``fsdp_stream`` streams; the embedding and the output layer split
+    over 'model'. SGD, for gradients read from one step."""
+    return NeuralNetConfig(seed=7, updater=U.Sgd(learning_rate=LR)).list(
+        L.EmbeddingSequenceLayer(n_in=LM["vocab_size"], n_out=LM["d_model"],
+                                 add_positional=True),
+        *[L.TransformerBlock(n_out=LM["d_model"], n_heads=LM["n_heads"], causal=True)
+          for _ in range(2)],
+        L.RnnOutputLayer(n_out=LM["vocab_size"], loss="mcxent"),
+        input_type=I.RecurrentType(1, LM["seq_len"]))
+
+
+def noise_conf(L, U, I, NeuralNetConfig, WeightNoise, Distribution, std=NOISE_STD):
+    """Three Dense layers (each W and b split over 'model') under additive
+    normal weight noise of ``std``, and a softmax output; SGD."""
+    wn = WeightNoise(distribution=Distribution(kind="normal", mean=0.0, std=std),
+                     apply_to_bias=True)
+    return NeuralNetConfig(seed=11, updater=U.Sgd(learning_rate=LR)).list(
+        *[L.DenseLayer(n_out=8, activation="tanh", weight_noise=wn) for _ in range(3)],
+        L.OutputLayer(n_out=3, loss="mcxent"),
+        input_type=I.FeedForwardType(5))
 
 
 def resnet_mln_conf(resnet50_mln):
@@ -121,17 +149,22 @@ def _modules():
     return L, U, I, NeuralNetConfig, GraphBuilder
 
 
-def _tp_run(net, mesh, layout, x, y, steps=STEPS):
+def _trainer(net, mesh, layout, tensor_parallel=True):
     from deeplearning4j_tpu_torch.parallel import ParallelTrainer
-    tr = ParallelTrainer(net, mesh, tensor_parallel=True,
-                         shard_optimizer_state=layout != "replicated",
-                         shard_params="fsdp" if layout == "fsdp" else None).adopt_net_state()
+    return ParallelTrainer(net, mesh, tensor_parallel=tensor_parallel,
+                           shard_optimizer_state=layout != "replicated",
+                           shard_params=layout if layout.startswith("fsdp") else None
+                           ).adopt_net_state()
+
+
+def _tp_run(net, mesh, layout, x, y, steps=STEPS, tensor_parallel=True):
+    tr = _trainer(net, mesh, layout, tensor_parallel)
     losses = [float(tr.step(x, y)) for _ in range(steps)]
-    local = _np(net.params) if layout != "fsdp" else None
+    local = _np(net.params) if not layout.startswith("fsdp") else None
     stored = tr.tree_bytes()
     tr.sync_to_net()
     return {"losses": losses, "params": _np(net.params), "state": _np(net.state),
-            "local": local, "specs": tr._tp_specs, "bytes": stored}
+            "local": local, "specs": getattr(tr, "_tp_specs", None), "bytes": stored}
 
 
 def _fg_check(rank, group, world):
@@ -162,12 +195,71 @@ def _fg_check(rank, group, world):
 # tensor and expert parallelism
 # ---------------------------------------------------------------------------
 
-def tp_program(rank, world, mln, graph, moe, plain, x, y, gx, gy, mx, my, fx):
+def moe_drops(net, x):
+    """Tokens each MoE block of ``net`` drops on the global batch ``x`` at
+    its current parameters (the world-1 routing, which the global routing
+    of a data-parallel step reproduces)."""
+    from deeplearning4j_tpu_torch.nn.layers.moe import MoETransformerBlock
+    h = torch.as_tensor(np.asarray(x))
+    drops = []
+    with torch.no_grad():
+        for layer, p in zip(net.conf.layers, net.params):
+            if isinstance(layer, MoETransformerBlock):
+                res, h2 = layer.mlp_input(p, h)
+                drops.append(int((~layer.route(p, h2.reshape(-1, h2.shape[-1])).keep).sum()))
+                h, _ = layer.apply(p, {}, h)
+            else:
+                h, _ = layer.apply(p, {}, h)
+    return drops
+
+
+def _sgd_grads(before, after):
+    """{path: (before - after) / LR}: the gradient of one SGD step."""
+    from deeplearning4j_tpu_torch.utils.trees import flatten_tree
+    a, b = flatten_tree(before), flatten_tree(after)
+    return {k: (np.asarray(a[k], np.float64) - np.asarray(b[k], np.float64)) / LR for k in a}
+
+
+def _one_step_grads(tr, net, x, y):
+    """(loss, gradients) of one SGD step of trainer ``tr`` on ``net``."""
+    tr.sync_to_net()
+    before = _np(net.params)
+    loss = float(tr.step(x, y))
+    tr.sync_to_net()
+    return loss, _sgd_grads(before, _np(net.params))
+
+
+def _tp_checkpoint(mln, x, y, mesh22, mesh4, ckpt):
+    """The TP trainer's sharded checkpoint: 2 steps on data=2 x model=2,
+    saved; the uninterrupted 3rd step; the checkpoint restored on data=4 x
+    model=1 and its 3rd step."""
+    from deeplearning4j_tpu_torch.utils import sharded_checkpoint as SC
+    tr = _trainer(TDP.port_mln(*mln), mesh22, "zero1")
+    for _ in range(2):
+        tr.step(x, y)
+    SC.save_trainer(ckpt, tr)
+    third = float(tr.step(x, y))
+    tr.sync_to_net()
+    out = {"loss": third, "params": _np(tr.net.params), "state": _np(tr.net.state)}
+    tr4 = SC.restore_trainer(ckpt, _trainer(TDP.port_mln(), mesh4, "zero1", False))
+    out["data4"] = {"iteration": tr4.iteration, "loss": float(tr4.step(x, y))}
+    tr4.sync_to_net()
+    out["data4"].update(params=_np(tr4.net.params), state=_np(tr4.net.state))
+    return out
+
+
+def tp_program(rank, world, mln, graph, moe, plain, x, y, gx, gy, mx, my, fx, moe_tight, lm,
+               lx, ly, noisy, ckpt):
     """Every tensor/expert-parallel check on one rank of 4: the MLN on a
     data=2 x model=2 mesh in each layout, the float64 graph, the MoE LM on
-    model=4 (2 experts a rank) and its world-1 replicated step, the f/g
-    pair, and ParallelInference over data=4."""
+    model=4 (2 experts a rank) and its world-1 replicated step, the
+    overflowing MoE LM on data=2 x model=2 and on data=2 alone (the model
+    axis replicating), the LM under fsdp_stream, the noisy MLN against its
+    world-1 step, the TP sharded checkpoint, the f/g pair, and
+    ParallelInference over data=4."""
     torch.set_num_threads(RANK_THREADS)
+    from deeplearning4j_tpu_torch.nn.initializers import Distribution
+    from deeplearning4j_tpu_torch.nn.weightnoise import WeightNoise
     from deeplearning4j_tpu_torch.parallel import MeshSpec, ParallelInference, make_mesh
     from deeplearning4j_tpu_torch.utils import collectives as C
 
@@ -180,6 +272,25 @@ def tp_program(rank, world, mln, graph, moe, plain, x, y, gx, gy, mx, my, fx):
                            mesh22, "zero1", gx, gy)
     mesh4 = make_mesh(MeshSpec(data=1, model=4))
     out["moe"] = _tp_run(_port(moe_conf(L, U, I, NNC), *moe), mesh4, "zero1", mx, my, steps=2)
+    tight = moe_conf(L, U, I, NNC, capacity_factor=MOE_TIGHT)
+    out["moe_drops"] = moe_drops(_port(tight, *moe_tight), mx)
+    out["moe_global"] = {
+        "data2_model2": _tp_run(_port(tight, *moe_tight), mesh22, "zero1", mx, my, steps=2),
+        "data2": _tp_run(_port(tight, *moe_tight), mesh22, "zero1", mx, my, steps=2,
+                         tensor_parallel=False)}
+    net = _port(lm_conf(L, U, I, NNC), *lm)
+    out["lm_stream"] = _one_step_grads(_trainer(net, mesh22, "fsdp_stream"), net, lx, ly)
+    noise = {}
+    for std in (NOISE_STD, 0.0):
+        conf = noise_conf(L, U, I, NNC, WeightNoise, Distribution, std=std)
+        net = _port(conf, *noisy)
+        noise[std] = _one_step_grads(_trainer(net, mesh22, "zero1"), net, x, y)
+    whole = _port(noise_conf(L, U, I, NNC, WeightNoise, Distribution), *noisy)
+    before = _np(whole.params)
+    whole.fit(x, y)
+    noise["world1"] = (float(whole.score_history[0]), _sgd_grads(before, _np(whole.params)))
+    out["noise"] = noise
+    out["ckpt"] = _tp_checkpoint(mln, x, y, mesh22, make_mesh(MeshSpec(data=4)), ckpt)
     out["fg"] = _fg_check(mesh22.coords["model"], mesh22.group("model"), 2)
     out["model_group_off_after"] = C.active_model() is None
     net = TDP.port_mln(*plain, plain=True)
