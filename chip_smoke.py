@@ -177,8 +177,8 @@ nonzero; nothing is caught):
             steps and a padded batch) trained at K=4 and at K=1 with
             ``pad_ragged`` from identical weights, held within 3x the card's
             f32 noise (the K=1 run on each batch's rows reordered); one
-            capture over 3 epochs; 10 timed dispatches (40 steps) against
-            10 timed K=1 steps with their peak memory; 3 profiled
+            capture over 3 epochs; 5 timed dispatches (20 steps) against
+            5 timed K=1 steps with their peak memory; 3 profiled
             dispatches whose replays show every conv kernel (52 a step) and
             the persistent LSTM kernel; 36 + 16 conv launches and 2
             ``lstm_seq`` launches a step, all from replays, on the planned
@@ -198,8 +198,9 @@ nonzero; nothing is caught):
             chunk of 32 SGNS steps at that width from tables installed with
             ``tables_from_numpy`` and fixed indices, twice on the card (one
             capture, two replays), against the plain step in float64 and
-            float32 on the CPU. Then a warm fit and a timed fit of a fresh
-            model (as the bench times it): words/s, the host's stages
+            float32 on the CPU. Then a warm-up of the fit's host stages
+            on the whole corpus and a timed fit of a fresh model (as the
+            bench times it): words/s, the host's stages
             (vocab and encoding, pairs, the rest) against the steps, pairs,
             steps, chunk replays (every full chunk one replay of the CUDA
             graph, asserted, with one capture and its ms), tables, scratch,
@@ -213,13 +214,13 @@ nonzero; nothing is caught):
             over 4 gloo ranks on the card (``word2vec.mesh``), every
             model's vocabulary and tables built on the whole 10M-word
             corpus (V ~100,000): the replicated-table fit on the corpus's
-            first 250k words and the ``shard_tables=True`` fit (V/4 rows a
-            rank) on its first 125k, with the same host-drawn negatives,
+            first 62.5k words and the ``shard_tables=True`` fit (V/4 rows a
+            rank) on its first 31.25k, with the same host-drawn negatives,
             each against the world-1 fit of the same pairs (replicated
             within 2e-6, sharded within 1e-5 relative + 1e-6, or 3x the
             world-1 fit's distance from itself where that is more), pairs
             dropped at most 3; words/s and the bytes a rank puts into a
-            step's collectives; then both fits of the 125k words at world
+            step's collectives; then both fits of the 31.25k words at world
             1 over NCCL, each chunk captured into its CUDA graph with its
             collectives, against the same world-1 fit.
 16. mnist   BASELINE config 1 as DL4J's LenetMnistExample runs it: MNIST-
@@ -415,6 +416,30 @@ nonzero; nothing is caught):
             latency histogram and the completed traces count 64; a NaN in
             the last of 4 char-RNN batches with the watchdog recording:
             one anomaly and one flight dump.
+23. operations  (a) the fused ResNet50 (f32 policy) through ``StepDriver``:
+            2 warm-up and 10 timed dispatches with telemetry off, then on
+            with the goodput ledger (``set_flops_per_step(3 x
+            resnet50_flops_per_example() x 64)``, ``device_peak_flops()``),
+            one ``checkpoint()`` between the timed rounds: the six
+            categories sum to the window within 5%, the noted checkpoint
+            seconds within 5% of the host clock around the call, MFU in
+            (0, 1] and within 5% of the host clock's, 36 + 16 conv launches
+            a step, host syncs equal off and on; (b) the char-RNN
+            registered on the serve phase's buckets, 256 requests of seq
+            32-128 from two tenants and 16 ``origin="probe"``, with
+            ``update_model`` to a second set of weights after 128 submits:
+            nothing dropped or failed, each answer within 1e-4 of exactly
+            one net's ``output`` on its row, one swap, the usage rows by
+            tenant the rows served, ``health()`` with the stats, recapture
+            counts and usage, ``lstm_seq`` 2 a device forward; (c) on (b)'s
+            registry: the default SLO rules silent over (b) (sampled every
+            32 submits with the history), ``rate_over`` equal to the SLO
+            engine's rate on the same samples, ``ShapeBuckets.from_demand``
+            on that history covering every length requested, a flood on a
+            queue of 8 firing ``serving_shed_ratio`` (named in a flight
+            dump), and ``federate`` over the local registry and a closed
+            localhost port: back within its timeout, the dead member
+            counted, an SLO rule over it ok, ok, then firing on a real burn.
 
 Then a ``kernels`` line (every kernel of the paths with its launches on
 its path, error, times and bound), the card's name and power limit, and
@@ -631,7 +656,8 @@ LAYER_BATCH, LAYER_HW, LAYER_C, LAYER_RTOL = 4, 56, 128, 1e-4
 # batch; the K-step run held against K=1 within 3x the card's f32 noise
 FUSED_K, FUSED_EPOCHS, FUSED_NOISE_FACTOR = 4, 3, 3.0
 FUSED_RAGGED_N = 10 * RN_BATCH - RN_BATCH // 2
-FUSED_TIMED_DISPATCHES, FUSED_PROFILED_DISPATCHES = 10, 3
+# (the timed dispatches were 10 until the operations phase joined the script)
+FUSED_TIMED_DISPATCHES, FUSED_PROFILED_DISPATCHES = 5, 3
 FUSED_DC_RETAIN, FUSED_DC_STEPS = 0.9, 8
 FUSED_NAN_BATCH, FUSED_RESUME_ROUNDS = 5, 2
 
@@ -662,8 +688,9 @@ W2V_TSNE_SILHOUETTE = 0.25
 # tables have the production width (V ~100,000 rows x 300, V/4 a rank when
 # sharded) and only the words fitted are cut: from 1M to the slices, to keep
 # the script inside its time limit (ranks sharing one card over gloo step at
-# ~40-60 ms)
-W2V_MESH_WORDS, W2V_SHARD_WORDS, W2V_MESH_RANKS, W2V_MESH_ATOL = 250_000, 125_000, 4, 2e-6
+# ~40-60 ms; cut to a quarter with the operations phase, when full runs took
+# 1142.7 and 1172.7 s of 1200 on slower hosts)
+W2V_MESH_WORDS, W2V_SHARD_WORDS, W2V_MESH_RANKS, W2V_MESH_ATOL = 62_500, 31_250, 4, 2e-6
 W2V_SHARD_RTOL, W2V_SHARD_ATOL, W2V_MESH_TIMEOUT_S = 1e-5, 1e-6, 600
 
 
@@ -745,6 +772,20 @@ MP_INFER_REQUESTS, MP_INFER_ROW_RTOL, MP_HANG_S, MP_TIMEOUT_S = 32, 1e-5, 420, 4
 # telemetry off and on (the medians' ratio at most TEL_OVERHEAD, the host
 # syncs equal), a burst of TEL_REQUESTS requests to the served char-RNN
 TEL_STEPS, TEL_ROUNDS, TEL_OVERHEAD, TEL_REQUESTS = 10, 2, 1.03, 64
+# the operations phase: (a) the fused ResNet50 through StepDriver with the
+# goodput ledger, RN_WARMUP_STEPS + RN_TIMED_STEPS dispatches over
+# OPS_RN_BATCHES distinct batches, one checkpoint halfway through the timed
+# ones; the categories within OPS_GOODPUT_RTOL of the window, the noted
+# checkpoint seconds and the MFU within it of the host clock's; (b)
+# OPS_REQUESTS requests of seq OPS_MIN_SEQ..SEQ from two tenants plus
+# OPS_PROBES probes to the served char-RNN, hot-swapped after OPS_SWAP_AT,
+# the history sampled every OPS_SAMPLE_EVERY submits; (c) a flood of
+# OPS_FLOOD submits on a queue of OPS_FLOOD_QUEUE, federation with one dead
+# member under a OPS_FED_TIMEOUT_S timeout
+OPS_RN_BATCHES, OPS_GOODPUT_RTOL = 4, 0.05
+OPS_REQUESTS, OPS_PROBES, OPS_MIN_SEQ, OPS_SWAP_AT, OPS_SAMPLE_EVERY = 256, 16, 32, 128, 32
+OPS_FLOOD, OPS_FLOOD_QUEUE, OPS_FED_TIMEOUT_S, OPS_BURN_ROWS = 512, 8, 1.0, 64
+OPS_FLOOD_SEED = 53
 
 
 def emit(phase, **fields):
@@ -3829,8 +3870,26 @@ def w2v_step_bytes(engine, model):
     return nbytes / engine.k, ops / engine.k
 
 
+def w2v_warm_host(model, sents):
+    """The host stages a fit runs before its first step, at the corpus's
+    full size (the token lists copied, ``flatten_corpus``, ``build_vocab``,
+    ``_encode_corpus``): the timed fit's vocabulary pass then finds the
+    process's memory as a second fit does (a fit after a warm-up on a tenth
+    of the corpus spent 26.3 s there against 18.8). The card's side is warm
+    from the chunk check's capture and replays. Returns the seconds."""
+    from deeplearning4j_tpu_torch.text.vocab import flatten_corpus
+
+    t0 = time.perf_counter()
+    seq_list = [list(s) for s in sents]
+    flat = flatten_corpus(seq_list)
+    model.build_vocab(seq_list, _flat=flat)
+    model._encode_corpus(seq_list, _flat=flat)
+    return time.perf_counter() - t0
+
+
 def w2v_production(seed):
-    """The main path: a warm fit, then a timed fit of a fresh model (as
+    """The main path: a warm-up of the fit's host stages on the whole corpus
+    (``w2v_warm_host``), then a timed fit of a fresh model (as
     bench_word2vec times it), its chunks' replays asserted; then the
     engine's replays timed on the card, profiled, and set against the
     step's bytes."""
@@ -3840,7 +3899,7 @@ def w2v_production(seed):
     sents = w2v_corpus(seed)
     corpus_s = time.perf_counter() - t0
     n_words = len(sents) * W2V_SENT_LEN
-    warm = w2v_timed_fit(make_w2v(seed), sents)
+    warm_s = w2v_warm_host(make_w2v(seed), sents)
     free_card()
     torch.cuda.reset_peak_memory_stats()
     model = make_w2v(seed)
@@ -3877,7 +3936,7 @@ def w2v_production(seed):
     bound_ms, bound_by = roofline(nbytes, ops, torch.float32)
     step_ms = chunk_ms / engine.k
     out = {"words": n_words, "words_per_s": n_words / row["fit_s"], "corpus_s": corpus_s,
-           "warm_fit_s": warm["fit_s"], "warm_captures_ms": warm["captures_ms"], **row,
+           "warm_host_s": warm_s, **row,
            "vocab": len(model.vocab), "steps": steps, "chunks": chunks,
            "eager_steps": steps - chunks * engine.k, "replays": engine.replays,
            "peak_allocated_gb": peak[0] / 1e9, "peak_reserved_gb": peak[1] / 1e9,
@@ -7457,6 +7516,360 @@ def phase_telemetry(A, L, seed):
             "lstm_seq_launches": served["lstm_seq_launches"]}
 
 
+# ---------------------------------------------------------------------------
+# operations: the goodput ledger, hot swap, metering, health, the SLO engine,
+# the metrics history, demand-derived buckets and federation
+# ---------------------------------------------------------------------------
+
+def ops_goodput(C, seed):
+    """(a) The fused ResNet50 (f32 policy) through ``StepDriver``: the same
+    rounds with telemetry off, then on with the goodput ledger, a
+    checkpoint between the timed rounds. Returns the goodput row."""
+    from deeplearning4j_tpu_torch import telemetry as TT
+    from deeplearning4j_tpu_torch.continuous.driver import StepDriver
+    from deeplearning4j_tpu_torch.models import resnet50_flops_per_example
+    from deeplearning4j_tpu_torch.telemetry import goodput
+    from deeplearning4j_tpu_torch.utils import dtypes
+
+    dtypes.f32_policy()
+    net = make_resnet(seed)
+    x, y = resnet_data(seed + 43, RN_BATCH * OPS_RN_BATCHES)
+    i_name, o_name = net.conf.inputs[0], net.conf.outputs[0]
+    items = [({i_name: x[j * RN_BATCH:(j + 1) * RN_BATCH]},
+              {o_name: y[j * RN_BATCH:(j + 1) * RN_BATCH]}, None) for j in range(OPS_RN_BATCHES)]
+    n_items = RN_WARMUP_STEPS + RN_TIMED_STEPS
+    flops_step = 3 * resnet50_flops_per_example() * RN_BATCH
+    peak = goodput.device_peak_flops()
+    if peak is None:
+        raise AssertionError(f"device_peak_flops() knows no {torch.cuda.get_device_name(0)!r}")
+    rows = {}
+    launches = {"conv_mm_stats": 0, "conv3x3_stats": 0}
+    for mode in ("off", "on"):
+        (TT.enable if mode == "on" else TT.disable)()
+        TT.reset()
+        drv = StepDriver(net, lambda: iter([items[i % OPS_RN_BATCHES] for i in range(n_items)]))
+        if goodput.get_ledger().active != (mode == "on"):
+            raise AssertionError(f"telemetry {mode}: the driver left the goodput window "
+                                 f"{'closed' if mode == 'on' else 'open'}")
+        with dtypes.policy_precision():
+            drv.run_round(RN_WARMUP_STEPS)
+            drv.sync()
+            torch.cuda.synchronize()
+            C.reset_launches()
+            ledger = goodput.get_ledger()
+            ledger.set_flops_per_step(flops_step)
+            ledger.set_peak_flops(peak)
+            t0 = time.perf_counter()
+            ledger.start()
+            syncs, ckpt = [], {}
+            for half in range(2):  # two rounds, a checkpoint between them
+                with counted_syncs() as box:
+                    drv.run_round(RN_TIMED_STEPS // 2)
+                    drv.sync()
+                syncs.append(box["n"])
+                if half == 0 and mode == "on":
+                    tc = time.perf_counter()
+                    drv.checkpoint(str(WORK / "ops_ckpt.zip"))
+                    ckpt["host_s"] = time.perf_counter() - tc
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            snap = ledger.snapshot()
+        drv.close_source()
+        got = dict(C.launches)
+        want = {"conv_mm_stats": 36 * RN_TIMED_STEPS, "conv3x3_stats": 16 * RN_TIMED_STEPS}
+        if got != want:
+            raise AssertionError(f"telemetry {mode}: conv kernels launched {got} times in "
+                                 f"{RN_TIMED_STEPS} steps (expected {want}: 36 + 16 a step)")
+        for k in launches:
+            launches[k] += got[k]
+        rows[mode] = {"wall_s": wall, "host_syncs": syncs, "snapshot": snap, **ckpt}
+    on = rows["on"]
+    snap = on["snapshot"]
+    if rows["off"]["host_syncs"] != on["host_syncs"]:
+        raise AssertionError(f"the goodput ledger changed the fit's host syncs: off "
+                             f"{rows['off']['host_syncs']}, on {on['host_syncs']}")
+    total = sum(snap["seconds"].values())
+    if not (snap["active"] and snap["steps"] == RN_TIMED_STEPS
+            and abs(total - snap["window_s"]) <= OPS_GOODPUT_RTOL * snap["window_s"]):
+        raise AssertionError(f"goodput: {snap['steps']} steps, categories {total} s against a "
+                             f"window of {snap['window_s']} s")
+    if not abs(snap["seconds"]["checkpoint"] - on["host_s"]) <= OPS_GOODPUT_RTOL * on["host_s"]:
+        raise AssertionError(f"goodput checkpoint {snap['seconds']['checkpoint']} s against "
+                             f"{on['host_s']} s on the host clock")
+    mfu_host = flops_step * RN_TIMED_STEPS / (on["wall_s"] * peak)
+    if not (snap["mfu"] is not None and 0 < snap["mfu"] <= 1
+            and abs(snap["mfu"] - mfu_host) <= OPS_GOODPUT_RTOL * mfu_host):
+        raise AssertionError(f"goodput MFU {snap['mfu']} against {mfu_host} from the host clock")
+    losses = net.score_history
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"ResNet50 losses not finite: {losses}")
+    del net, x, y, items, drv
+    free_card()
+    return {"params": RN_PARAMS, "batch": RN_BATCH, "steps": RN_TIMED_STEPS,
+            "flops_per_step": flops_step, "peak_flops": peak, "goodput": snap,
+            "categories_sum_s": total, "checkpoint_host_s": on["host_s"],
+            "mfu_host_clock": mfu_host,
+            # the steps alone, without the checkpoint: the off run's wall
+            "mfu_steps_off": flops_step * RN_TIMED_STEPS / (rows["off"]["wall_s"] * peak),
+            "wall_s": {m: r["wall_s"] for m, r in rows.items()},
+            "host_syncs": {m: r["host_syncs"] for m, r in rows.items()},
+            "conv_launches": launches}, launches
+
+
+def ops_requests(seed):
+    """(b)'s traffic: OPS_REQUESTS one-hot requests of OPS_MIN_SEQ..SEQ
+    steps from tenants acme and beta, with OPS_PROBES ``origin="probe"``
+    requests spread among them (tenant None)."""
+    rs = np.random.RandomState(seed + 47)
+    probe_at = set(rs.choice(OPS_REQUESTS + OPS_PROBES, OPS_PROBES, replace=False).tolist())
+    reqs, n_org = [], 0
+    for i in range(OPS_REQUESTS + OPS_PROBES):
+        steps = int(rs.randint(OPS_MIN_SEQ, SEQ + 1))
+        x = np.eye(VOCAB, dtype=np.float32)[rs.randint(0, VOCAB, steps)]
+        if i in probe_at:
+            reqs.append((x, {"origin": "probe"}))
+        else:
+            reqs.append((x, {"tenant": ("acme", "beta")[n_org % 2]}))
+            n_org += 1
+    return reqs
+
+
+def ops_serving(L, seed, hist, eng_slo, parity):
+    """(b) The char-RNN registered, OPS_REQUESTS + OPS_PROBES requests
+    streamed, ``update_model`` to a second set of weights after
+    OPS_SWAP_AT; the history, the default rules and the parity rules
+    sampled every OPS_SAMPLE_EVERY submits. Returns (row, registry, the
+    requested lengths, the lstm_seq launches)."""
+    from deeplearning4j_tpu_torch.serving import ModelRegistry, metering
+
+    nets = [make_charnn(seed), make_charnn(seed + 1)]
+    reqs = ops_requests(seed)
+    samples = []
+
+    def sample():
+        t = time.time()
+        s = hist.sample_now(now=t)
+        eng_slo.evaluate(s["metrics"], now=t)
+        parity.evaluate(s["metrics"], now=t)
+        samples.append(t)
+
+    L.reset_launches()
+    reg = ModelRegistry()
+    engine = reg.register("charnn_ops", nets[0], input_spec=(SEQ, VOCAB), max_batch_size=64,
+                          seq_buckets=(32, 64, 128), max_queue=4 * len(reqs), device="cuda")
+    fwds = [engine._fwd]
+    sample()
+    futs = []
+    t0 = time.perf_counter()
+    for i, (x, kw) in enumerate(reqs):
+        futs.append(reg.submit("charnn_ops", x, **kw))
+        if i + 1 == OPS_SWAP_AT:
+            t_swap = time.perf_counter()
+            reg.update_model("charnn_ops", nets[1])
+            swap_s = time.perf_counter() - t_swap
+            fwds.append(engine._fwd)
+        if (i + 1) % OPS_SAMPLE_EVERY == 0:
+            sample()
+    outs = [f.get(timeout=300) for f in futs]
+    wall = time.perf_counter() - t0
+    sample()
+    stats = engine.stats()
+    launches = L.launches
+    forwards = sum(f.stats()["forwards"] for f in fwds)
+    if stats["requests"]["swaps"] != 1 or stats["requests"]["errors"] \
+            or stats["requests"]["shed_queue_full"] or stats["requests"]["shed_deadline"] \
+            or stats["requests"]["served"] != len(reqs) or len(outs) != len(reqs):
+        raise AssertionError(f"hot-swapped stream: {stats['requests']}, {len(outs)} answers "
+                             f"of {len(reqs)}")
+    if launches != 2 * forwards:
+        raise AssertionError(f"lstm_seq launched {launches} times for {forwards} device "
+                             "forwards of a 2-layer LSTM (expected 2 a forward)")
+    # every answer against both nets' direct output on its row (after the
+    # stream: these launches are not the path's)
+    by_len = {}
+    for i, (x, _) in enumerate(reqs):
+        by_len.setdefault(x.shape[0], []).append(i)
+    refs = [[None] * len(reqs) for _ in nets]
+    for t, idx in by_len.items():
+        xb = torch.from_numpy(np.stack([reqs[i][0] for i in idx])).cuda()
+        for k, net in enumerate(nets):
+            yb = net.output(xb).cpu().numpy()
+            for j, i in enumerate(idx):
+                refs[k][i] = yb[j]
+    served_by, max_err, min_gap = [0, 0], 0.0, float("inf")
+    for i, y in enumerate(outs):
+        errs = [float(np.abs(y - r[i]).max()) for r in refs]
+        min_gap = min(min_gap, float(np.abs(refs[0][i] - refs[1][i]).max()))
+        ok = [e <= SERVE_ATOL for e in errs]
+        if sum(ok) != 1:
+            raise AssertionError(f"request {i}: answer {errs} from the two nets' outputs "
+                                 f"(one within {SERVE_ATOL} expected)")
+        served_by[ok.index(True)] += 1
+        max_err = max(max_err, min(errs))
+    if not all(served_by):
+        raise AssertionError(f"answers by net {served_by}: the swap served nothing or everything")
+    usage = metering.get_meter().usage()["models"]["charnn_ops"]
+    tenants = {t: sum(1 for _, kw in reqs if kw.get("tenant") == t) for t in ("acme", "beta")}
+    tenants[metering.NO_TENANT] = OPS_PROBES
+    got = {t: v["rows"] for t, v in usage["tenants"].items()}
+    if got != tenants or usage["rows"] != stats["requests"]["served"]:
+        raise AssertionError(f"usage rows by tenant {got} against {tenants} served "
+                             f"({usage['rows']} rows metered, {stats['requests']['served']} "
+                             "served)")
+    health = reg.health()["models"]["charnn_ops"]
+    if not (health["stats"]["requests"]["served"] == len(reqs)
+            and isinstance(health["recompiles"], dict) and health["usage"] == usage
+            and health["compile_cache_events"] == {}):
+        raise AssertionError(f"health(): {health}")
+    lats = sorted(f.latency_s for f in futs)
+    row = {"params": N_PARAMS, "requests": len(reqs), "probes": OPS_PROBES,
+           "answers_by_net": served_by, "max_abs_err": max_err, "min_gap_between_nets": min_gap,
+           "atol": SERVE_ATOL, "swaps": stats["requests"]["swaps"], "swap_s": swap_s,
+           "device_forwards": forwards, "lstm_seq_launches": launches, "wall_s": wall,
+           "p50_ms": 1e3 * float(np.percentile(lats, 50)),
+           "p99_ms": 1e3 * float(np.percentile(lats, 99)),
+           "usage_rows_by_tenant": got, "usage": {k: v for k, v in usage.items()
+                                                  if k != "tenants"},
+           "health_keys": sorted(health), "recompiles": health["recompiles"],
+           "history_samples": len(samples)}
+    del refs
+    return row, reg, [x.shape[0] for x, _ in reqs], launches
+
+
+def ops_slo_history_federation(seed, reg, hist, eng_slo, parity, lengths):
+    """(c) On (b)'s registry: the default rules silent on (b), a flood that
+    fires ``serving_shed_ratio`` (named in a flight dump), ``rate_over``
+    against the SLO engine's delta rate, demand-derived edges, and
+    federation with a dead member under the SLO engine."""
+    import socket
+
+    from deeplearning4j_tpu_torch import telemetry as TT
+    from deeplearning4j_tpu_torch.datasets.iterator import ShapeBuckets
+    from deeplearning4j_tpu_torch.serving import ServingOverloaded
+    from deeplearning4j_tpu_torch.telemetry import federate, flight, slo
+
+    quiet = eng_slo.status()
+    if quiet["firing"] or quiet["warning"] or quiet["evaluations"] < 3:
+        raise AssertionError(f"default rules on healthy traffic: {quiet['firing']} firing, "
+                             f"{quiet['warning']} warning in {quiet['evaluations']} evaluations")
+    # rate_over against the engine's delta rate on the same samples
+    rates = {}
+    for r in parity.status()["rules"]:
+        mine = hist.rate_over(r["metric"], r["window_s"], now=hist.samples()[-1]["t"])
+        if r["value"] is None or mine is None or abs(mine - r["value"]) > 1e-9 * abs(r["value"]):
+            raise AssertionError(f"{r['name']}: rate_over {mine} against the engine's "
+                                 f"{r['value']}")
+        rates[r["name"]] = {"rate_over": mine, "slo_engine": r["value"]}
+    # demand-derived edges over (b)'s requested lengths
+    grid = ShapeBuckets.from_demand([1, 2, 4, 8, 16, 32, 64], SEQ, history=hist)
+    if grid.max_seq != SEQ or not all(grid.bucket_for(1, t) for t in lengths):
+        raise AssertionError(f"from_demand grid {grid} does not cover the lengths requested")
+    # the shed storm, in two bursts: a series born in an interval counts
+    # from the next one (the delta discipline), so the first burst's sheds
+    # open the shed series and the second's are judged
+    flood = reg.register_like("charnn_ops", "charnn_flood", make_charnn(seed + OPS_FLOOD_SEED),
+                              max_queue=OPS_FLOOD_QUEUE)
+    rs = np.random.RandomState(seed + OPS_FLOOD_SEED)
+    x = np.eye(VOCAB, dtype=np.float32)[rs.randint(0, VOCAB, SEQ)]
+    shed = 0
+    for _ in range(2):
+        futs = []
+        for _ in range(OPS_FLOOD // 2):
+            try:
+                futs.append(flood.submit(x))
+            except ServingOverloaded:
+                shed += 1
+        for f in futs:
+            f.get(timeout=300)
+        t = time.time()
+        s = hist.sample_now(now=t)
+        st = eng_slo.evaluate(s["metrics"], now=t)
+    if not shed > 0.2 * OPS_FLOOD or "serving_shed_ratio" not in st["firing"]:
+        raise AssertionError(f"a flood shedding {shed} of {OPS_FLOOD} did not fire "
+                             f"serving_shed_ratio: {st['firing']}, {st['warning']}")
+    ratio = next(r["value"] for r in st["rules"] if r["name"] == "serving_shed_ratio")
+    flight.get_recorder().note(step=0, wall_ms=0.0)
+    doc = json.loads(pathlib.Path(flight.get_recorder().dump(
+        "operations_shed_storm", path=str(WORK / "ops_flight.json"))).read_text())
+    if "serving_shed_ratio" not in doc["slo"]["firing"]:
+        raise AssertionError(f"the flight dump's slo section: {doc['slo']}")
+    # federation: the local registry plus a closed localhost port
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    dead = f"http://127.0.0.1:{sock.getsockname()[1]}/metrics"
+    sock.close()
+    rule = slo.SloRule("served_rows_burn", "rate", "usage_rows_total", fire=1.0, window_s=60.0)
+    fed_eng = slo.SloEngine(rules=[rule])
+    states, fed_s = [], []
+    for step in range(3):
+        if step == 2:  # a real burn on the live member
+            reg.submit("charnn_ops", np.stack([x[:OPS_MIN_SEQ]] * OPS_BURN_ROWS),
+                       batched=True).get(timeout=300)
+        tf = time.perf_counter()
+        fed = federate.federate([("local", TT.get_registry().snapshot), ("dead", dead)],
+                                timeout_s=OPS_FED_TIMEOUT_S)
+        fed_s.append(time.perf_counter() - tf)
+        states.append(fed_eng.evaluate(fed, now=time.time())["rules"][0]["state"])
+        if fed["scrapes"] != {"ok": 1, "error": 1} or fed["members"]["dead"]["ok"]:
+            raise AssertionError(f"federation: {fed['scrapes']}, {fed['members']}")
+    counted = TT.series_map("federate_scrape_total").get("instance=dead|outcome=error")
+    if states != ["ok", "ok", "firing"] or counted != 3 \
+            or max(fed_s) > OPS_FED_TIMEOUT_S + 1.0:
+        raise AssertionError(f"SLO over the federation: states {states} (ok, ok, firing "
+                             f"expected), dead member counted {counted} times, scrapes "
+                             f"{fed_s} s")
+    return {"quiet": {"evaluations": quiet["evaluations"], "firing": quiet["firing"],
+                      "warning": quiet["warning"]},
+            "rate_parity": rates, "demand_edges": grid.seq.sizes(),
+            "flood": {"submits": OPS_FLOOD, "shed": shed, "max_queue": OPS_FLOOD_QUEUE,
+                      "shed_ratio": ratio, "firing": st["firing"],
+                      "dump_slo_firing": doc["slo"]["firing"]},
+            "federation": {"states": states, "dead_counted": counted, "seconds": fed_s,
+                           "timeout_s": OPS_FED_TIMEOUT_S},
+            "flood_forwards": flood._fwd.stats()["forwards"]}
+
+
+def phase_operations(C, L, seed):
+    """The operations tier on the card (see the module docstring): (a)
+    goodput on the fused ResNet50, (b) hot swap, metering and health on
+    the served char-RNN, (c) the SLO engine, the history, demand-derived
+    buckets and federation on (b)'s registry."""
+    from deeplearning4j_tpu_torch import telemetry as TT
+    from deeplearning4j_tpu_torch.telemetry import history, slo
+    from deeplearning4j_tpu_torch.utils import dtypes
+
+    t_phase = time.perf_counter()
+    try:
+        goodput_row, conv = ops_goodput(C, seed)
+    finally:
+        dtypes.f32_policy()
+    emit("operations.goodput", **goodput_row, card=card_line())
+    TT.enable()
+    TT.reset()
+    hist = history.MetricsHistory()
+    eng_slo = slo.get_engine()
+    parity = slo.SloEngine(rules=[
+        slo.SloRule("rows_all", "rate", "usage_rows_total", fire=1e18, window_s=3600.0),
+        slo.SloRule("rows_short", "rate", "usage_rows_total", fire=1e18, window_s=0.5)])
+    serve_row, reg, lengths, lstm = ops_serving(L, seed, hist, eng_slo, parity)
+    emit("operations.serving", **serve_row, card=card_line())
+    try:
+        L.reset_launches()
+        c_row = ops_slo_history_federation(seed, reg, hist, eng_slo, parity, lengths)
+        lstm_c = L.launches
+    finally:
+        reg.stop()
+        TT.disable()
+        TT.reset()
+    if lstm_c != 2 * (c_row["flood_forwards"] + 1):
+        raise AssertionError(f"(c): lstm_seq launched {lstm_c} times for "
+                             f"{c_row['flood_forwards']} + 1 forwards")
+    emit("operations.slo", **c_row, lstm_seq_launches=lstm_c,
+         seconds=time.perf_counter() - t_phase, card=card_line())
+    free_card()
+    return {"conv_launches": conv, "lstm_seq_launches": lstm + lstm_c}
+
+
 def cuobjdump():
     """The toolkit's cuobjdump, or the copy Triton's package carries; None
     where neither exists."""
@@ -7508,7 +7921,7 @@ def build_all(libs):
 
 PHASES = ("kernels", "flash", "train", "conv", "resnet", "serve", "charnn", "zoo", "finetune",
           "fused", "word2vec", "mnist", "modelimport", "moe", "sequence", "parallel",
-          "model_parallel", "telemetry")
+          "model_parallel", "telemetry", "operations")
 
 
 def main(argv=None):
@@ -7655,6 +8068,14 @@ def main(argv=None):
             tel_out = phase_telemetry(A, L, args.seed)
         finally:
             shutil.rmtree(WORK, ignore_errors=True)
+    mark("operations")
+    if "operations" in only:
+        shutil.rmtree(WORK, ignore_errors=True)
+        WORK.mkdir()
+        try:
+            ops_out = phase_operations(C, L, args.seed)
+        finally:
+            shutil.rmtree(WORK, ignore_errors=True)
     mark("end")
     emit("phase_seconds", **{a[0]: round(b[1] - a[1], 1) for a, b in zip(marks, marks[1:])
                              if a[0] == "build" or a[0] in only})
@@ -7675,8 +8096,11 @@ def main(argv=None):
                                                       for r in charnn_rows.values())
         + sum(fused_rows[("charnn", p)]["launches"]["lstm_seq"] for p in ("f32", "bf16"))
         + imported["lstm_seq_launches"] + mp_out["launches"]["lstm_seq"]
-        + tel_out["lstm_seq_launches"],
+        + tel_out["lstm_seq_launches"] + ops_out["lstm_seq_launches"],
         "launches_serve": served["lstm_seq_launches"],
+        # the operations phase: the hot-swapped stream (both nets' warm-ups),
+        # the flood engine's warm-up and flood, the burn batch
+        "launches_operations": ops_out["lstm_seq_launches"],
         # the telemetry phase: the served burst with telemetry on
         "launches_telemetry": tel_out["lstm_seq_launches"],
         # the model_parallel phase: the char-RNN pipelined over 2 stages
@@ -7740,8 +8164,12 @@ def main(argv=None):
         + sum(zoo_rows[("remat", p)]["conv_launches"][name] for p in ("f32", "bf16"))
         + sum(ft_rows[p]["conv_launches"][name] for p in ("f32", "bf16"))
         + sum(fused_rows[("resnet", p)]["launches"][name] for p in ("f32", "bf16"))
-        + par_out["conv_launches"][name] + mp_out["launches"][name],
+        + par_out["conv_launches"][name] + mp_out["launches"][name]
+        + ops_out["conv_launches"][name],
         "launches_resnet": resnet_rows["bf16"]["conv_launches"][name],
+        # the operations phase: the goodput cell's timed StepDriver steps,
+        # telemetry off and on (10 each)
+        "launches_operations": ops_out["conv_launches"][name],
         # the model_parallel phase: the pipelined ResNet50's steps (the
         # split inference runs no conv-stats kernel)
         "launches_model_parallel": mp_out["launches"][name],

@@ -50,8 +50,10 @@ around a dispatch (a graph's replay), never inside a capture. Telemetry
 off, each site is one branch. A ``ParallelTrainer`` fit runs the lite loop
 (scores and listeners only), as in the JAX package. ``profile_round(n,
 logdir)`` runs the n-th round from now inside a ``torch.profiler`` window
-(``telemetry/profiling.py``). The goodput ledger calls (JAX ``:397``,
-``:660``) are ROADMAP queue 1 item 7.2.
+(``telemetry/profiling.py``). The goodput ledger (JAX ``:397``, ``:660``):
+with telemetry on, an instrumented driver opens the process's goodput
+window as it is built, and ``checkpoint`` notes its seconds under
+``checkpoint``.
 """
 
 from __future__ import annotations
@@ -356,6 +358,9 @@ class StepDriver:
         self._reg = reg
         self._frec = _flight.get_recorder()
         self._emitter = StepRecordEmitter(net, step_h, etl_h, iters_c, score_g, self._frec)
+        if self.instrumented and reg.enabled:
+            # the first instrumented driver opens the wall-clock goodput window
+            _tm.goodput.get_ledger().ensure_started()
 
     # -- epochs ---------------------------------------------------------
 
@@ -411,6 +416,9 @@ class StepDriver:
     def _run_round(self, k_dispatches):
         if self._it is None:
             self.start_epoch()
+        # the ETL clock restarts with the round: time between rounds (a
+        # checkpoint, the caller's code) is not batch assembly
+        self._t_etl = time.perf_counter()
         rr = RoundResult()
         while k_dispatches is None or rr.dispatches < k_dispatches:
             try:
@@ -537,7 +545,12 @@ class StepDriver:
         rounds; ``restore`` of it is bit-exact."""
         from deeplearning4j_tpu_torch.utils import serialization as _ser
         self.sync()
-        return _ser.save_bundle(self.net, path, buckets=buckets, save_updater=save_updater)
+        t0 = time.perf_counter()
+        out = _ser.save_bundle(self.net, path, buckets=buckets, save_updater=save_updater)
+        if self.instrumented:
+            # wall clock the step loop did not compute in: goodput's `checkpoint`
+            _tm.goodput.get_ledger().note("checkpoint", time.perf_counter() - t0)
+        return out
 
     def restore(self, path_or_bundle):
         """Drop what is in flight, then re-arm params, state, updater state

@@ -1,7 +1,8 @@
 """Minibatch sources, shape buckets and the prefetching iterators.
 
 The same semantics as the JAX package's ``iter_batches``, ``pad_batch``,
-``validity_mask``, ``BucketRegistry``, ``ShapeBuckets``, the
+``validity_mask``, ``BucketRegistry``, ``ShapeBuckets`` (with
+``seq_edges_from_demand``, which reads ``telemetry/history.py``), the
 ``DataSetIterator`` family (``BenchmarkDataSetIterator`` included),
 ``SuperBatchIterator``, ``AsyncDataSetIterator`` and its
 ``DataSetCallback`` hooks (``deeplearning4j_tpu/datasets/iterator.py``).
@@ -174,6 +175,12 @@ class BucketRegistry:
             return None
         return self._sizes[bisect.bisect_left(self._sizes, n)]
 
+    def round_up_to_multiple(self, m):
+        """A new registry with every bucket rounded up to a multiple of
+        ``m`` (mesh serving: the padded batch splits over the data axis),
+        duplicates collapsed."""
+        return BucketRegistry(-(-s // m) * m for s in self._sizes)
+
     def __iter__(self):
         return iter(self._sizes)
 
@@ -187,13 +194,42 @@ class BucketRegistry:
 class ShapeBuckets:
     """2-D (batch, seq) grid: ``bucket_for(rows, seq)`` is the smallest
     ``(batch_bucket, seq_bucket)`` covering the request, ``None`` past
-    either max. A short sequence runs in a short shape."""
+    either max. A short sequence runs in a short shape. Seq edges come from
+    ``powers_of_two`` or from the demand history's sequence-length
+    distribution (``from_demand``)."""
 
     def __init__(self, batch_sizes, seq_sizes):
         self._batch = (batch_sizes if isinstance(batch_sizes, BucketRegistry)
                        else BucketRegistry(batch_sizes))
         self._seq = (seq_sizes if isinstance(seq_sizes, BucketRegistry)
                      else BucketRegistry(seq_sizes))
+
+    @classmethod
+    def powers_of_two(cls, max_batch, max_seq, *, min_batch=1, min_seq=None):
+        """Power-of-two grid on both axes; ``min_seq`` defaults to
+        ``min(16, max_seq)`` (shorter buckets cost a warmup their padding
+        savings do not pay back)."""
+        if min_seq is None:
+            min_seq = min(16, int(max_seq))
+        return cls(BucketRegistry.powers_of_two(max_batch, min_batch),
+                   BucketRegistry.powers_of_two(max_seq, min_seq))
+
+    @classmethod
+    def from_demand(cls, batch_sizes, max_seq, *, history=None,
+                    series="serving_request_seq_len", quantiles=(0.5, 0.9)):
+        """Seq edges from the sequence-length histogram retained in
+        ``telemetry.history`` (``seq_edges_from_demand``; ``max_seq`` always
+        included); with no retained demand, powers of two, so a cold process
+        still serves."""
+        edges = seq_edges_from_demand(max_seq, history=history, series=series,
+                                      quantiles=quantiles)
+        if edges is None:
+            edges = BucketRegistry.powers_of_two(max_seq, min(16, int(max_seq)))
+        return cls(batch_sizes, edges)
+
+    def with_batch(self, batch_sizes):
+        """Same seq grid, replaced batch axis."""
+        return ShapeBuckets(batch_sizes, self._seq)
 
     @property
     def batch(self):
@@ -220,6 +256,12 @@ class ShapeBuckets:
             return None
         return (b, s)
 
+    def round_up_to_multiple(self, m):
+        """A new grid with every BATCH bucket rounded up to a multiple of
+        ``m`` (mesh serving); the seq axis is untouched, since a mesh splits
+        rows, never timesteps."""
+        return ShapeBuckets(self._batch.round_up_to_multiple(m), self._seq)
+
     def sizes(self):
         """The full grid as ``[(batch, seq), ...]``, seq-major within
         batch (warmup order)."""
@@ -231,9 +273,55 @@ class ShapeBuckets:
     def __len__(self):
         return len(self._batch) * len(self._seq)
 
+    def signature(self):
+        """Stable string identity of the grid."""
+        return ("b=" + ",".join(map(str, self._batch)) +
+                ";s=" + ",".join(map(str, self._seq)))
+
     def __repr__(self):
         return (f"ShapeBuckets(batch={self._batch.sizes()}, "
                 f"seq={self._seq.sizes()})")
+
+
+def seq_edges_from_demand(max_seq, *, history=None, series="serving_request_seq_len",
+                          quantiles=(0.5, 0.9)):
+    """Seq grid edges from the sequence-length histogram retained in the
+    metrics history (``telemetry.history``; the process default unless
+    ``history`` is given): for each demand quantile, the smallest histogram
+    bucket bound covering it (clamped to ``max_seq``), plus ``max_seq``
+    itself. ``None`` when the history holds no samples of the series."""
+    if history is None:
+        from deeplearning4j_tpu_torch.telemetry.history import get_history
+        history = get_history()
+    merged = {}
+    for sample in history.samples():
+        doc = (sample.get("metrics") or {}).get(series)
+        if not isinstance(doc, dict):
+            continue
+        for s in doc.get("series", ()):
+            buckets = (s.get("value") or {}).get("buckets")
+            if not buckets:
+                continue
+            for le, count in buckets.items():
+                # cumulative snapshots: the last retained sample wins
+                merged[le] = max(merged.get(le, 0), int(count))
+    total = sum(merged.values())
+    if not total:
+        return None
+    bounds = sorted((float("inf") if le == "+Inf" else float(le), count)
+                    for le, count in merged.items())
+    edges = set()
+    for q in quantiles:
+        rank = q * total
+        cum = 0
+        for bound, count in bounds:
+            cum += count
+            if cum >= rank:
+                edge = int(max_seq) if bound == float("inf") else min(int(bound), int(max_seq))
+                edges.add(max(1, edge))
+                break
+    edges.add(int(max_seq))
+    return sorted(edges)
 
 
 # ---------------------------------------------------------------------------

@@ -2,7 +2,9 @@
 ``ZooModel``, as in the JAX package)."""
 
 from deeplearning4j_tpu_torch.models.lenet import lenet  # noqa: F401
-from deeplearning4j_tpu_torch.models.resnet import resnet50, resnet50_mln  # noqa: F401
+from deeplearning4j_tpu_torch.models.resnet import (  # noqa: F401
+    resnet50, resnet50_flops_per_example, resnet50_mln,
+)
 from deeplearning4j_tpu_torch.models.vgg import vgg16, vgg19  # noqa: F401
 from deeplearning4j_tpu_torch.models.misc import (  # noqa: F401
     alexnet, darknet19, simple_cnn, text_generation_lstm, tiny_yolo, transformer_lm,

@@ -104,3 +104,12 @@ def resnet50_mln(height=224, width=224, channels=3, n_classes=1000, updater=None
                L.OutputLayer(n_out=n_classes, loss="mcxent", weight_init="xavier")]
     return NeuralNetConfig(seed=seed, updater=updater or U.Adam(learning_rate=1e-3)).list(
         *layers, input_type=I.ConvolutionalType(height, width, channels))
+
+
+def resnet50_flops_per_example(height=224, width=224, channels=3, n_classes=1000):
+    """Approximate forward FLOPs (2 x MACs) of one example, for MFU
+    accounting: 2 x the standard ~4.1 GMAC at 224x224, scaled by the image
+    area. A training step is ~3 x the forward (the goodput ledger's
+    ``set_flops_per_step(3 * resnet50_flops_per_example() * batch)``)."""
+    base = 2 * 4.1e9
+    return base * ((height * width) / (224 * 224))

@@ -9,12 +9,13 @@ an ``InferenceFuture``. ``update_model`` hot-swaps the served model: a
 request in flight finishes on the old one. For continuous batching and
 admission control use ``serving/``.
 
-With a ``mesh`` the maximum batch rounds up to a multiple of the data
-axis, the padded batch splits over ``data`` (each rank runs the forward on
-its rows) and one all-gather brings every answer to every rank, equal to
-the single-process ``output``. Every rank of the mesh calls ``output``
-with the same batch, so the request queue, which coalesces by arrival
-time on each rank, is not used with a mesh.
+With a ``mesh`` the forward is the serving tier's collective
+``BucketedForward(mesh=)``: the maximum batch rounds up to a multiple of
+the data axis, the padded batch splits over ``data`` (each rank runs the
+forward on its rows) and one all-gather brings every answer to every
+rank, equal to the single-process ``output``. Every rank of the mesh calls
+``output`` with the same batch, so the request queue, which coalesces by
+arrival time on each rank, is not used with a mesh.
 
 Telemetry (JAX ``inference.py:59``, ``:91``, ``:215-219``): a direct
 ``output`` runs in a ``serving.output`` span, a coalesced batch in a
@@ -31,12 +32,9 @@ import threading
 import time
 
 import numpy as np
-import torch
 
 from deeplearning4j_tpu_torch import telemetry as _tm
 from deeplearning4j_tpu_torch.datasets.iterator import BucketRegistry
-from deeplearning4j_tpu_torch.parallel import mesh as _mesh
-from deeplearning4j_tpu_torch.utils import collectives as C
 from deeplearning4j_tpu_torch.serving.engine import (BucketedForward, InferenceFuture,
                                                      ServingShutdown)
 
@@ -56,12 +54,11 @@ class ParallelInference:
             raise ValueError(f"inference_mode must be 'batched' or 'sequential', got "
                              f"{inference_mode!r}")
         self.mesh = mesh
-        self._dp = mesh.shape["data"] if mesh is not None else 1
         self.timeout_s = timeout_s
         self.inference_mode = inference_mode
         self._nominal_batch = max_batch_size
         self._serving = self._compile(net)
-        self.max_batch = self._serving[1].buckets.max * self._dp
+        self.max_batch = self._serving[1].buckets.max  # a mesh rounds it up
         self._queue: queue.Queue = queue.Queue()
         self._thread = None
         self._stop = threading.Event()
@@ -78,8 +75,8 @@ class ParallelInference:
     def _compile(self, net):
         """(net, padded forward, batch-1 forward), one tuple so a hot swap
         is atomic."""
-        local = -(-self._nominal_batch // self._dp)  # this rank's rows of the padded batch
-        fwd = BucketedForward(net, BucketRegistry([local]), device=net.device)
+        fwd = BucketedForward(net, BucketRegistry([self._nominal_batch]), device=net.device,
+                              mesh=self.mesh)
         fwd_one = BucketedForward(net, BucketRegistry([1]), device=net.device)
         return (net, fwd, fwd_one)
 
@@ -102,30 +99,9 @@ class ParallelInference:
         return out
 
     def _forward(self, x):
-        x = np.asarray(x)
-        if self.mesh is None:
-            return _single(self._serving[1](x))
-        parts = [self._output_split(x[i:i + self.max_batch])
-                 for i in range(0, x.shape[0], self.max_batch)]
-        if isinstance(parts[0], dict):
-            return {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
-        return np.concatenate(parts)
-
-    def _output_split(self, x):
-        """One padded batch of at most ``max_batch`` rows over the mesh."""
-        n = x.shape[0]
-        padded = np.concatenate([x, np.zeros((self.max_batch - n,) + x.shape[1:], x.dtype)])
-        ys = self._serving[1](_mesh.ensure_data_sharded(self.mesh, padded).numpy())
-
-        def gathered(y):
-            if self._dp == 1:
-                return np.asarray(y)[:n]
-            t = torch.from_numpy(np.ascontiguousarray(y)).to(self.net.device)
-            t = C.gather_dim(t, 0, self.mesh.group("data"))
-            return t.cpu().numpy()[:n]
-        if isinstance(ys, dict):
-            return _single({k: gathered(v) for k, v in ys.items()})
-        return gathered(ys)
+        """The padded chunk loop (over the mesh with one): one atomic model
+        snapshot a call."""
+        return _single(self._serving[1](np.asarray(x)))
 
     def _output_one(self, x):
         return _single(self._serving[2](np.asarray(x)[None]))[0]

@@ -7,7 +7,9 @@ Quickstart::
     engine = reg.register("charnn", net, input_spec=(128, 96),
                           max_batch_size=64, seq_buckets=(32, 64, 128),
                           device="cuda")
-    y = engine.submit(example).get(timeout=10.0)
+    y = engine.submit(example, tenant="acme").get(timeout=10.0)
+    reg.update_model("charnn", retrained)     # atomic hot swap
+    usage = reg.health()["models"]["charnn"]["usage"]
     reg.stop()
 """
 
@@ -17,8 +19,8 @@ from deeplearning4j_tpu_torch.serving.engine import (BucketedForward,
                                                      ServingOverloaded,
                                                      ServingShutdown)
 from deeplearning4j_tpu_torch.serving.registry import (ModelRegistry,
-                                                       get_model_registry)
+                                                       get_model_registry, reset)
 
 __all__ = ["BucketedForward", "InferenceFuture", "ModelRegistry",
            "ServingEngine", "ServingOverloaded", "ServingShutdown",
-           "get_model_registry"]
+           "get_model_registry", "reset"]

@@ -31,10 +31,26 @@ batch's forward, resolve), each device batch a ``serving.batch`` span and
 each forward a ``serving.forward`` span, and the registry carries the
 batch and token fill histograms, the admission queue depth, the
 submit-to-result latency histogram and its rolling p50/p99 gauges, the
-requests by outcome, the shed requests by reason and the warmup seconds.
-Off, each site is one branch. Not ported yet: the warm AOT manifest and
-compile cache, metering, the health and recompile reports (ROADMAP queue
-1 item 7.3), the mesh path and hot swap.
+requests by outcome, the shed requests by reason, the requested sequence
+lengths (the demand ``datasets.iterator.ShapeBuckets.from_demand`` reads)
+and the warmup seconds. Off, each site is one branch.
+
+Operations (JAX ``:72``, ``:83``, ``:752-783``, ``:838-``, ``:1145-1160``,
+``:1250-1276``): ``submit(tenant=, origin=)`` meters every served row into
+``serving/metering.py`` (rows, tokens, real and padded sequence tokens,
+queue and device seconds, estimated FLOPs), and ``origin=`` traffic
+counts into ``origin``-labelled series that the default SLO rules exclude
+and stays out of the p50/p99 ring. ``update_model`` hot-swaps the served
+model: the new ``BucketedForward`` is built and warmed off the serving
+path, then rebound in one assignment, so a batch runs on one model, the
+batches in flight finish on the old one and no queued request is dropped.
+``health()`` is the stats, the recapture counts and this model's usage.
+With a ``mesh`` the buckets round up to a multiple of the data axis and
+each forward splits its padded batch over ``data`` (each rank runs its
+rows, one all-gather brings every answer to every rank): every rank calls
+``output`` with the same batch, so the queued path is refused with a mesh.
+The JAX package's warm AOT manifest and compile-cache events are ROADMAP
+queue 1 item 7.4.
 """
 
 from __future__ import annotations
@@ -49,6 +65,7 @@ import torch
 
 from deeplearning4j_tpu_torch import telemetry as _tm
 from deeplearning4j_tpu_torch.datasets.iterator import BucketRegistry, ShapeBuckets
+from deeplearning4j_tpu_torch.serving import metering as _metering
 from deeplearning4j_tpu_torch.telemetry import tracectx as _tracectx
 from deeplearning4j_tpu_torch.utils import dtypes as _dtypes
 from deeplearning4j_tpu_torch.utils.device import resolve_device
@@ -72,6 +89,25 @@ def _overloaded(msg, reason):
     e = ServingOverloaded(msg)
     e.reason = reason
     return e
+
+
+def shed_reason(exc):
+    """The structured shed reason of a ServingOverloaded: its own, or that
+    of the original it was re-raised ``from`` (``InferenceFuture.get``
+    raises a fresh copy chained to the one that carries it)."""
+    for e in (exc, getattr(exc, "__cause__", None)):
+        r = getattr(e, "reason", None)
+        if r is not None:
+            return r
+    return None
+
+
+def _origin_labels(meta):
+    """Metric labels of a request's meta: synthetic traffic gets
+    ``origin=...`` series (which every default SLO rule excludes), organic
+    traffic keeps the unlabelled series."""
+    origin = (meta or {}).get("origin")
+    return {"origin": str(origin)} if origin else {}
 
 
 class ServingShutdown(RuntimeError):
@@ -188,15 +224,26 @@ def _slice_seq(tree, padded_seq, real_seq):
 class BucketedForward:
     """One model's bucketed forward on one device: chunk by the largest
     batch bucket, pad each chunk to its bucket (both axes on a 2-D grid),
-    run the network, slice real rows and steps back out.
+    run the network, slice real rows and steps back out. A hot swap builds
+    a new one and rebinds it, so a batch runs on one model.
+
+    With a ``mesh`` the batch buckets round up to a multiple of the data
+    axis, and each forward runs this rank's rows of the padded chunk and
+    all-gathers the outputs over ``data``: a collective, so every rank of
+    the data group calls it with the same batch.
 
     ``forwards`` counts device forwards (warmup included): each runs every
     layer once, so a kernel a layer launches once per forward launches
     ``forwards`` times per such layer."""
 
-    def __init__(self, net, buckets, *, device, dtype=np.float32):
+    def __init__(self, net, buckets, *, device, dtype=np.float32, mesh=None):
         self.net = net
         self.device = device
+        self.mesh = mesh
+        #: ranks on the mesh's data axis (1 without a mesh)
+        self.data_ranks = 1 if mesh is None else int(mesh.shape["data"])
+        if self.data_ranks > 1:
+            buckets = buckets.round_up_to_multiple(self.data_ranks)
         #: a graph's input names (requests become dicts), None for a network
         #: of one input
         self.graph_inputs = tuple(getattr(net.conf, "inputs", ())) or None
@@ -204,6 +251,8 @@ class BucketedForward:
         #: 2-D (batch, seq) grid vs the 1-D batch-only registry
         self.seq_aware = isinstance(buckets, ShapeBuckets)
         self.dtype = np.dtype(dtype)
+        #: the served parameters' element count (metering's FLOPs estimate)
+        self.param_count = _param_count(net)
         self._lock = threading.Lock()
         self._counts = {"warmed": 0, "forwards": 0}
         reg = self._reg = _tm.get_registry()
@@ -244,10 +293,21 @@ class BucketedForward:
     def _run(self, x_padded):
         """One forward at the padded shape; the result (an array, or a
         graph's dict of outputs) comes back to the host, which waits for
-        the device."""
-        x = _tree_map(lambda a: torch.from_numpy(a).to(self.device), x_padded)
+        the device. Over a mesh this rank runs its rows of the batch and
+        the outputs are all-gathered over ``data``."""
+        if self.data_ranks > 1:
+            # lazy: parallel/__init__ imports ParallelInference, built on this module
+            from deeplearning4j_tpu_torch.parallel import mesh as _mesh
+            x_padded = _tree_map(lambda a: _mesh.ensure_data_sharded(self.mesh, a).numpy(),
+                                 x_padded)
+        x = _tree_map(lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(self.device),
+                      x_padded)
         with _dtypes.policy_precision(), torch.inference_mode():
             y, _ = self.net.apply_fn(self.net.params, self.net.state, x)
+        if self.data_ranks > 1:
+            from deeplearning4j_tpu_torch.utils import collectives as _C
+            group = self.mesh.group("data")
+            y = _tree_map(lambda t: _C.gather_dim(t, 0, group), y)
         with self._lock:
             self._counts["forwards"] += 1
         return _tree_map(lambda t: t.cpu().numpy(), y)
@@ -256,9 +316,12 @@ class BucketedForward:
         with self._lock:
             return dict(self._counts)
 
-    def __call__(self, x):
+    def __call__(self, x, _usage=None):
         """Padded, bucketed forward of a host batch of any leading size (an
-        array or a dict of arrays with one leading size)."""
+        array or a dict of arrays with one leading size). ``_usage`` (a
+        list) collects one ``{rows, seq, batch_bucket, seq_bucket}`` record
+        per device chunk, so the caller meters padded against real
+        tokens."""
         x = _as_input(x, self.graph_inputs)
         first = _first_leaf(x)
         n = first.shape[0]
@@ -284,6 +347,9 @@ class BucketedForward:
                 bucket, seq_bucket = self.buckets.bucket_for(real), None
             fill = real / bucket
             token_fill = fill if seq_bucket is None else fill * seq_in / seq_bucket
+            if _usage is not None:
+                _usage.append({"rows": real, "seq": seq_in or 1, "batch_bucket": bucket,
+                               "seq_bucket": seq_bucket or 1})
             if self._reg.enabled:
                 self._m_fill.observe(fill)
                 self._m_token_fill.observe(token_fill)
@@ -301,21 +367,25 @@ class ServingEngine:
 
     ``submit()`` is the async request path (bounded admission queue,
     deadline-aware shedding); ``output()`` is the synchronous direct path
-    (same buckets, no queue). ``stats()`` is the status payload.
-    ``device`` is where the forward runs (``"cuda"`` unless the caller
-    asks for ``"cpu"``); the network is moved there.
+    (same buckets, no queue). ``update_model()`` hot-swaps the served
+    model. ``stats()`` is the status payload, ``health()`` the health
+    export. ``device`` is where the forward runs (``"cuda"`` unless the
+    caller asks for ``"cpu"``); the network is moved there. ``mesh``: the
+    collective form (see the module docstring), ``output()`` only.
     """
 
     def __init__(self, net, *, name="default", input_spec=None,
-                 buckets=None, seq_buckets=None, max_batch_size=32,
+                 buckets=None, seq_buckets=None, max_batch_size=32, mesh=None,
                  max_queue=256, default_deadline_s=None, batch_window_s=0.0,
                  dtype=np.float32, warmup=None, device="cuda"):
         self.name = name
         self.device = resolve_device(device)
         net.to(self.device)
+        self.mesh = mesh
         self.batch_window_s = batch_window_s
         self.default_deadline_s = default_deadline_s
         self._input_spec = input_spec
+        self._dtype = np.dtype(dtype)
         if not isinstance(buckets, ShapeBuckets):
             if buckets is None:
                 buckets = BucketRegistry.powers_of_two(max_batch_size)
@@ -323,8 +393,7 @@ class ServingEngine:
                 buckets = BucketRegistry(buckets)
             if seq_buckets is not None:
                 buckets = ShapeBuckets(buckets, seq_buckets)
-        self._fwd = BucketedForward(net, buckets, device=self.device,
-                                    dtype=dtype)
+        self._fwd = BucketedForward(net, buckets, device=self.device, dtype=dtype, mesh=mesh)
         self.max_queue = max_queue
         self._pending_rows = 0  # queued EXAMPLES (a batched entry is n)
         self._stop = threading.Event()
@@ -337,7 +406,7 @@ class ServingEngine:
         self._queues = {}
         self._not_empty = threading.Condition(self._lock)
         self._counts = {"submitted": 0, "served": 0, "shed_queue_full": 0,
-                        "shed_deadline": 0, "errors": 0}
+                        "shed_deadline": 0, "errors": 0, "swaps": 0}
         self._recent_latencies = []  # bounded ring for p50/p99
         self._warmup_s = None
         reg = self._reg = _tm.get_registry()
@@ -364,6 +433,12 @@ class ServingEngine:
         self._m_warm = reg.gauge(
             "serving_warmup_seconds",
             "wall seconds the bucket warmup took at startup, per model")
+        self._m_seq_len = reg.histogram(
+            "serving_request_seq_len",
+            "requested sequence lengths (steps) per model — the demand "
+            "distribution seq grid edges derive from "
+            "(datasets.iterator.seq_edges_from_demand)",
+            buckets=(16, 32, 64, 128, 256, 512, 1024, 2048, 4096, 8192))
         if reg.enabled:
             # every outcome series exists from the start, at zero
             for outcome in ("submitted", "served", "served_direct",
@@ -387,6 +462,9 @@ class ServingEngine:
         return self._warmup_s
 
     def start(self):
+        if self.mesh is not None:
+            raise ValueError("ServingEngine(mesh=) serves collective output() calls (every "
+                             "rank passes the same batch); the request queue needs no mesh")
         self._thread = threading.Thread(target=self._worker, daemon=True,
                                         name=f"serving-{self.name}")
         self._thread.start()
@@ -430,6 +508,35 @@ class ServingEngine:
     def running(self):
         return self._thread is not None and self._thread.is_alive()
 
+    @property
+    def net(self):
+        return self._fwd.net
+
+    @property
+    def buckets(self):
+        return self._fwd.buckets
+
+    def update_model(self, net, warm=None):
+        """Hot-swap the served model. The replacement ``BucketedForward``
+        (same shape grid: a swap changes weights, never shapes) is built
+        and, by default when the engine knows its input spec, warmed off
+        the serving path, then rebound in one assignment: the worker reads
+        the forward once a batch, so batches in flight finish on the old
+        model, later ones run on the new one, and no queued request is
+        dropped or errored by the swap."""
+        net.to(self.device)
+        fwd = self._fwd
+        fresh = BucketedForward(net, fwd.buckets, device=self.device, dtype=self._dtype,
+                                mesh=self.mesh)
+        if warm is None:
+            warm = self._input_spec is not None
+        if warm:
+            if self._input_spec is None:
+                raise ValueError("update_model(warm=True) needs input_spec")
+            fresh.warmup(self._input_spec)
+        self._fwd = fresh
+        self._count("swaps")
+
     # ---- request paths ----
 
     def output(self, x):
@@ -456,7 +563,7 @@ class ServingEngine:
             self._m_requests.inc(n, model=self.name, outcome="served_direct")
         return out
 
-    def submit(self, x, deadline_s=None, *, batched=False):
+    def submit(self, x, deadline_s=None, *, batched=False, tenant=None, origin=None):
         """Queue ONE example (or, with ``batched=True``, one multi-example
         batch, examples on axis 0); returns ONE :class:`InferenceFuture`.
         A batched future resolves to the stacked ``[n, ...]`` outputs. A
@@ -467,9 +574,19 @@ class ServingEngine:
         Admission bounds queued EXAMPLES: a batched submit of n rows spends
         n of the ``max_queue`` slots. A full queue sheds here
         (:class:`ServingOverloaded`); ``deadline_s`` (or the engine
-        default) sheds the request later if it goes stale while queued."""
+        default) sheds the request later if it goes stale while queued.
+
+        ``tenant`` attributes the request in the usage ledger
+        (``serving/metering.py``); ``origin="probe"`` (or any origin) marks
+        synthetic traffic: its counter series carry an ``origin`` label,
+        which every default SLO rule excludes, and it stays out of the
+        p50/p99 ring. It is metered all the same."""
         if self._stop.is_set():
             raise ServingShutdown(f"serving engine {self.name!r} is stopped")
+        meta = None
+        if tenant is not None or origin is not None:
+            meta = {"tenant": tenant, "origin": origin}
+        olab = _origin_labels(meta)
         fut = InferenceFuture()
         # the request's trace starts here; the worker adds its queue wait,
         # the batch's forward and the resolve. Tracing off: None, a branch.
@@ -482,13 +599,15 @@ class ServingEngine:
         deadline = None if deadline_s is None else now + deadline_s
         self._count("submitted")
         if self._reg.enabled:
-            self._m_requests.inc(model=self.name, outcome="submitted")
+            self._m_requests.inc(model=self.name, outcome="submitted", **olab)
         try:
             item, nrows, seq, skey = self._admit_input(x, batched)
         except BaseException:
             if tctx is not None:
                 tctx.abandon()  # never queued: don't leak the trace
             raise
+        if seq is not None and self._reg.enabled:
+            self._m_seq_len.observe(seq, model=self.name, **olab)
         rows = 1 if nrows is None else nrows
         try:
             with self._not_empty:
@@ -496,13 +615,13 @@ class ServingEngine:
                     raise queue.Full
                 self._pending_rows += rows
                 self._queues.setdefault(skey, collections.deque()).append(
-                    (item, fut, now, deadline, nrows, seq, tctx))
+                    (item, fut, now, deadline, nrows, seq, tctx, meta))
                 self._not_empty.notify()
         except queue.Full:
             self._count("shed_queue_full")
             if self._reg.enabled:
-                self._m_shed.inc(model=self.name, reason="queue_full")
-                self._m_requests.inc(model=self.name, outcome="shed_queue_full")
+                self._m_shed.inc(model=self.name, reason="queue_full", **olab)
+                self._m_requests.inc(model=self.name, outcome="shed_queue_full", **olab)
             if tctx is not None:
                 tctx.finish(status="shed")
             raise _overloaded(
@@ -606,12 +725,13 @@ class ServingEngine:
             now = time.perf_counter()
             live = []
             for entry in batch:
-                _x, fut, t_sub, deadline, _n, _seq, tctx = entry
+                _x, fut, t_sub, deadline, _n, _seq, tctx, meta = entry
                 if deadline is not None and now > deadline:
                     self._count("shed_deadline")
                     if self._reg.enabled:
-                        self._m_shed.inc(model=self.name, reason="deadline")
-                        self._m_requests.inc(model=self.name, outcome="shed_deadline")
+                        olab = _origin_labels(meta)
+                        self._m_shed.inc(model=self.name, reason="deadline", **olab)
+                        self._m_requests.inc(model=self.name, outcome="shed_deadline", **olab)
                     if tctx is not None:
                         tctx.add_span("serving.queue_wait", t_sub, now)
                         tctx.add_span("serving.shed", now, now, reason="deadline")
@@ -627,9 +747,12 @@ class ServingEngine:
                 continue
             # a failing forward must fail THESE requests, not the loop
             try:
+                # one read of the forward a batch: a hot swap rebinds it
+                # between batches, never inside one
+                fwd = self._fwd
                 parts = [e[0] for e in live]
                 batch_seq = None
-                if self._fwd.seq_aware:
+                if fwd.seq_aware:
                     # one seq bucket per drain, but real lengths inside it
                     # vary: pad each entry to the batch max so the concat
                     # is rectangular
@@ -637,13 +760,31 @@ class ServingEngine:
                     parts = [_pad_rows_np(p, e[4] or 1, seq_target=batch_seq)
                              for p, e in zip(parts, live)]
                 n_rows = sum(e[4] or 1 for e in live)
+                usage = []
                 t_fwd = time.perf_counter()
                 with _tm.span("serving.batch", model=self.name, size=n_rows):
-                    ys = self._fwd(_concat(parts))
+                    ys = fwd(_concat(parts), _usage=usage)
                 done = time.perf_counter()
-                lats, ctxs, off = [], [], 0
-                for _x, fut, t_sub, _dl, n, seq, tctx in live:
+                # the usage ledger, priced at the padded (batch, seq) shapes
+                # the forward ran; device seconds, FLOPs and padded tokens
+                # prorated by rows (host numbers: no device read)
+                device_s = done - t_fwd
+                padded_rows = sum(u["batch_bucket"] for u in usage)
+                padded_tokens = sum(u["batch_bucket"] * u["seq_bucket"] for u in usage)
+                flops = _metering.estimate_flops(fwd.param_count, padded_rows,
+                                                 padded_tokens=padded_tokens)
+                meter = _metering.get_meter()
+                lats, ctxs, origins, off = [], [], [], 0
+                for x_in, fut, t_sub, _dl, n, seq, tctx, meta in live:
                     width = n or 1
+                    meter.record(
+                        self.name, rows=width,
+                        tokens=sum(int(np.size(a)) for a in
+                                   (x_in.values() if isinstance(x_in, dict) else [x_in])),
+                        seq_tokens=width * (seq or 1),
+                        padded_tokens=padded_tokens * width / n_rows,
+                        queue_s=now - t_sub, device_s=device_s * width / n_rows,
+                        flops=flops * width / n_rows, tenant=(meta or {}).get("tenant"))
                     y = _tree_map(lambda a: a[off:off + width], ys)
                     if batch_seq is not None:
                         y = _slice_seq(y, batch_seq, seq)
@@ -652,6 +793,7 @@ class ServingEngine:
                     off += width
                     lats.append(done - t_sub)
                     ctxs.append(tctx)
+                    origins.append((meta or {}).get("origin"))
                     if tctx is not None:
                         # the device batch is one event shared by its requests
                         tctx.add_span("serving.queue_wait", t_sub, now)
@@ -662,7 +804,7 @@ class ServingEngine:
                     # resolve last: a waiter that wakes here sees a complete trace
                     fut._set(y)
                 self._count("served", off)
-                self._note_latencies(lats, outcome="served", ctxs=ctxs)
+                self._note_latencies(lats, outcome="served", ctxs=ctxs, origins=origins)
             except Exception as e:  # noqa: BLE001 — propagate to waiters
                 for entry in live:
                     if entry[6] is not None:
@@ -670,31 +812,46 @@ class ServingEngine:
                     if not entry[1].done():
                         entry[1]._set_error(e)
                     if self._reg.enabled:
-                        self._m_requests.inc(model=self.name, outcome="error")
+                        self._m_requests.inc(model=self.name, outcome="error",
+                                             **_origin_labels(entry[7]))
                 self._count("errors", len(live))
 
     def _count(self, key, n=1):
         with self._lock:
             self._counts[key] += n
 
-    def _note_latencies(self, lats, outcome=None, ctxs=None):
+    def _note_latencies(self, lats, outcome=None, ctxs=None, origins=None):
         """Record request latencies into the rolling ring; with telemetry
         on, observe each into the latency histogram (under its request's
         trace, so a bucket's exemplar names a trace), count it by
-        ``outcome`` and refresh the p50/p99 gauges."""
+        ``outcome`` and refresh the p50/p99 gauges. ``origins`` (aligned
+        with ``lats``) marks synthetic requests: they observe into
+        origin-labelled series and never enter the ring or the gauges."""
+        organic = [dt for i, dt in enumerate(lats) if not (origins and origins[i])]
         with self._lock:
-            self._recent_latencies.extend(lats)
+            self._recent_latencies.extend(organic)
             del self._recent_latencies[:-512]
             recent = list(self._recent_latencies)
         if self._reg.enabled:
             for i, dt in enumerate(lats):
+                olab = {"origin": str(origins[i])} if origins and origins[i] else {}
                 with _tracectx.attach(ctxs[i] if ctxs else None):
-                    self._m_latency.observe(dt, model=self.name)
+                    self._m_latency.observe(dt, model=self.name, **olab)
                 if outcome is not None:
-                    self._m_requests.inc(model=self.name, outcome=outcome)
+                    self._m_requests.inc(model=self.name, outcome=outcome, **olab)
             if recent:
                 self._m_p50.set(float(np.percentile(recent, 50)), model=self.name)
                 self._m_p99.set(float(np.percentile(recent, 99)), model=self.name)
+
+    def health(self):
+        """The health export: the engine's ``stats()``, the recapture
+        counts by site (``telemetry/devices.py recompile_counts``) and this
+        model's slice of the usage ledger. ``compile_cache_events`` is
+        ``{}``: the compile cache is ROADMAP queue 1 item 7.4."""
+        from deeplearning4j_tpu_torch.telemetry import devices as _devices
+        return {"stats": self.stats(), "compile_cache_events": {},
+                "recompiles": _devices.recompile_counts(),
+                "usage": _metering.get_meter().usage()["models"].get(self.name)}
 
     # ---- status ----
 
@@ -720,6 +877,7 @@ class ServingEngine:
             "device": str(self.device),
             "buckets": fwd.buckets.batch.sizes() if fwd.seq_aware else fwd.buckets.sizes(),
             "seq_buckets": fwd.buckets.seq.sizes() if fwd.seq_aware else None,
+            "mesh": None if self.mesh is None else dict(self.mesh.shape),
             "max_queue": self.max_queue,
             "queue_depth": depth,
             "requests": counts,
@@ -729,3 +887,13 @@ class ServingEngine:
                 "p50": None if p50 is None else round(1e3 * p50, 3),
                 "p99": None if p99 is None else round(1e3 * p99, 3)},
         }
+
+
+def _param_count(net):
+    """Element count of a network's parameters; 0 when it exposes none
+    (metering then records zero FLOPs, never an error)."""
+    from deeplearning4j_tpu_torch.utils.trees import flatten_tree
+    try:
+        return sum(int(t.numel()) for t in flatten_tree(net.params).values())
+    except Exception:
+        return 0

@@ -1,17 +1,21 @@
 """Multi-model serving registry: several named models behind one process.
 
 The port of ``deeplearning4j_tpu/serving/registry.py``: named models,
-each with its own continuous-batching engine, and one status surface (the
-``serve`` CLI verb prints it). Each model's engine kwargs are kept
-(``engine_kwargs``). Hot swap, A/B registration (``update_model``,
-``register_like``), warm manifest gating, per-tenant metering
-(``submit``'s ``tenant=``/``origin=``) and ``health`` wait for the
-serving extras (ROADMAP queue 1, item 7.3).
+each with its own continuous-batching engine, one status surface (the
+``serve`` CLI verb prints it) and one health export. Each model's engine
+kwargs are kept (``engine_kwargs``), so ``register_like`` registers an A/B
+challenger under the incumbent's serving config, shape grid included, and
+``update_model`` hot-swaps a model's weights on its registered grid.
+``submit(tenant=, origin=)`` meters each request
+(``serving/metering.py``). The JAX package's warm manifests and their grid
+gate are ROADMAP queue 1 item 7.4: a manifest given to ``update_model`` is
+dropped with a warning.
 """
 
 from __future__ import annotations
 
 import threading
+import warnings
 
 from deeplearning4j_tpu_torch.serving.engine import ServingEngine
 
@@ -60,6 +64,28 @@ class ModelRegistry:
         with self._lock:
             return dict(self._engine_kw.get(name, {}))
 
+    def register_like(self, src_name, name, net, *, start=True, **overrides):
+        """A/B helper: register ``net`` under ``name`` with the SAME engine
+        kwargs as ``src_name`` (input spec, shape grid, deadlines, device),
+        ``overrides`` on top, so the challenger pads and buckets as the
+        incumbent does."""
+        kw = self.engine_kwargs(src_name)
+        kw.update(overrides)
+        return self.register(name, net, start=start, **kw)
+
+    def update_model(self, name, net, warm=None, *, manifest=None):
+        """Hot swap of one named model (in-flight batches finish on the old
+        model; no queued request is dropped), on the engine's registered
+        shape grid. ``manifest`` (a bundle's warm manifest) is dropped with
+        a ``UserWarning``: warm manifests and their grid gate are ROADMAP
+        queue 1 item 7.4."""
+        engine = self.engine(name)
+        if manifest is not None:
+            warnings.warn("update_model(manifest=): warm manifests are not ported (ROADMAP "
+                          "queue 1 item 7.4); the swap warms from the network instead",
+                          UserWarning, stacklevel=2)
+        engine.update_model(net, warm=warm)
+
     def unregister(self, name):
         """Stop ``name``'s engine and drop it."""
         with self._lock:
@@ -73,13 +99,10 @@ class ModelRegistry:
 
     def submit(self, name, x, deadline_s=None, *, batched=False, tenant=None, origin=None):
         """Enqueue ``x`` on ``name``'s engine; returns its future.
-        ``tenant``/``origin`` are per-tenant metering, which is not ported:
-        they raise rather than be dropped."""
-        if tenant is not None or origin is not None:
-            raise NotImplementedError(
-                "submit(tenant=, origin=) is serving/metering.py, which is not ported yet "
-                "(ROADMAP queue 1, item 7.3)")
-        return self.engine(name).submit(x, deadline_s=deadline_s, batched=batched)
+        ``tenant`` attributes it in the usage ledger, ``origin`` marks
+        synthetic traffic (``ServingEngine.submit``)."""
+        return self.engine(name).submit(x, deadline_s=deadline_s, batched=batched,
+                                        tenant=tenant, origin=origin)
 
     def output(self, name, x):
         """``name``'s engine's synchronous forward of ``x``."""
@@ -90,6 +113,12 @@ class ModelRegistry:
         with self._lock:
             engines = list(self._engines.values())
         return {"models": {e.name: e.stats() for e in engines}}
+
+    def health(self):
+        """Per-model engine health exports."""
+        with self._lock:
+            engines = list(self._engines.values())
+        return {"models": {e.name: e.health() for e in engines}}
 
     def stop(self):
         """Stop and drop every engine."""

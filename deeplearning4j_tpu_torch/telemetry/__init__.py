@@ -31,10 +31,25 @@ first (``scorepipe``, ``health``):
   keeps its own registry and ring; ``timeline.merge`` joins them).
 * ``profiling`` — windowed ``torch.profiler`` capture around exactly one
   round (``profile_round``; a guarded no-op off a card).
+* ``goodput`` — the wall-clock goodput ledger: a training window's seconds
+  classified compute|etl_stall|exchange|checkpoint|rollback_lost|idle
+  from the fit loops' histograms, plus tokens/s and an MFU estimate
+  (``device_peak_flops()`` knows the card by its name).
+* ``slo`` — declarative SloRules (windowed rate/ratio/threshold,
+  multi-window burn rate, EWMA drift) evaluated over the local registry,
+  a federated merge or a history sample, into ok|warning|firing verdicts
+  counted in ``slo_alerts_total{rule,state}``; the flight dumps name the
+  burning rules.
+* ``history`` — a bounded ring of registry snapshots with atomic JSONL
+  segments (``DL4J_TPU_HISTORY_DIR``), range queries and counter-safe
+  ``rate_over``; the demand signal ``datasets.iterator.ShapeBuckets.
+  from_demand`` reads.
+* ``federate`` — several processes' registries merged under stable
+  ``instance`` labels, a dead member counted, never a hang.
 * ``reset()`` — drop all recorded state across the subsystem (tests).
 
-The JAX package's ``federate``, ``slo``, ``goodput`` and ``history``
-modules are ROADMAP queue 1 items 7.2 and 7.3.
+The JAX package's compile-cache events and warm manifest are ROADMAP
+queue 1 item 7.4.
 
 Off by default; switch on per process with ``DL4J_TPU_TELEMETRY=1`` or at
 runtime::
@@ -57,8 +72,9 @@ from deeplearning4j_tpu_torch.telemetry.registry import (DEFAULT_BUCKETS, Counte
                                                          Histogram, MetricsRegistry,
                                                          get_registry, write_jsonl)
 from deeplearning4j_tpu_torch.telemetry.tracing import Tracer, get_tracer, span
-from deeplearning4j_tpu_torch.telemetry import (devices, flight, health, profiling, scorepipe,
-                                                timeline, tracectx)
+from deeplearning4j_tpu_torch.telemetry import (devices, federate, flight, goodput, health,
+                                                history, profiling, scorepipe, slo, timeline,
+                                                tracectx)
 from deeplearning4j_tpu_torch.telemetry.health import NumericsError
 from deeplearning4j_tpu_torch.telemetry.scorepipe import ScorePipeline
 from deeplearning4j_tpu_torch.telemetry.tracectx import TraceContext
@@ -68,7 +84,8 @@ __all__ = ["Counter", "Gauge", "Histogram", "MetricsRegistry", "Tracer",
            "write_jsonl", "enable", "disable", "enabled", "reset",
            "series_map", "train_metrics",
            "health", "devices", "flight", "scorepipe", "ScorePipeline",
-           "NumericsError", "tracectx", "TraceContext", "timeline", "profiling"]
+           "NumericsError", "tracectx", "TraceContext", "federate", "timeline",
+           "profiling", "slo", "goodput", "history"]
 
 
 def enable():
@@ -88,10 +105,11 @@ def enabled():
 def reset():
     """Drop every piece of recorded telemetry state — registry series,
     tracer buffer, watchdog state (back to inactive), recapture baselines,
-    flight-recorder ring, trace ring — without discarding instrument
-    objects. Does not change the registry's enabled flag. (The JAX
-    package's also resets metering, the prober and the compile cache,
-    which the port does not have yet.)"""
+    flight-recorder ring, trace ring, federation targets, the SLO engine,
+    the goodput ledger, the metrics history and the usage meter — without
+    discarding instrument objects. Does not change the registry's enabled
+    flag. (The JAX package's also resets the prober and the compile
+    cache, which the port does not have yet.)"""
     get_registry().reset()
     get_tracer().clear()
     health.get_monitor().reset()
@@ -100,6 +118,13 @@ def reset():
     tracectx.get_ring().clear()
     tracectx.reset_open_count()
     timeline.clear_source_providers()
+    federate.clear_target_providers()
+    slo.reset()
+    goodput.reset()
+    history.reset()
+    # lazy: serving imports telemetry back
+    from deeplearning4j_tpu_torch.serving import metering as _metering
+    _metering.reset()
 
 
 def series_map(name):

@@ -28,6 +28,8 @@ dropout drawing what world 1 draws, ragged batches dropped and counted,
 K=4 against K=1, the world-4 checkpoints of every layout restored into
 every layout at world 2 (the next step's loss within rtol 1e-5 of the
 saving run's), and a single-process bundle adopted by split trainers.
+The serving engine over the mesh (``ServingEngine(mesh=)``) answers as the
+JAX engine over a data=P mesh does, on every rank.
 """
 
 import jax
@@ -48,6 +50,7 @@ from deeplearning4j_tpu.nn.multilayer import MultiLayerNetwork as JNet
 from deeplearning4j_tpu.parallel import MeshSpec as JMeshSpec
 from deeplearning4j_tpu.parallel import ParallelTrainer as JTrainer
 from deeplearning4j_tpu.parallel import make_mesh as j_make_mesh
+from deeplearning4j_tpu.serving import ServingEngine as JEngine
 from deeplearning4j_tpu_torch.parallel import launch as TL
 from deeplearning4j_tpu_torch.utils import serialization as tser
 
@@ -101,7 +104,10 @@ def runs(tmp_path_factory):
         jm, jg = _jax_nets()
         mln = (_np(jm.params), _np(jm.state))
         graph = (_np(jg.params), _np(jg.state))
-        ref = {"mln": _jax_run(jm, p, x, y), "graph": _jax_run(jg, p, gx, gy)}
+        jeng = JEngine(jm, mesh=j_make_mesh(JMeshSpec(data=p), devices=jax.devices()[:p]),
+                       input_spec=(5,), buckets=(3, 6))
+        engine = {"buckets": jeng.stats()["buckets"], "want": np.asarray(jeng.output(x[:11]))}
+        ref = {"engine": engine, "mln": _jax_run(jm, p, x, y), "graph": _jax_run(jg, p, gx, gy)}
         ranks = TL.run_ranks(TDP.trainer_program, p, root / f"ranks{p}", timeout=300,
                              mln=mln, graph=graph, x=x, y=y, gx=gx, gy=gy,
                              ckpt_dir=str(root / "ckpt4"), restore_from=str(root / "ckpt4"),
@@ -226,6 +232,21 @@ def test_bundle_adopted_by_split_trainers(runs):
             _assert_trees(got["opt"], want_o, rtol=0, atol=0)
     b = runs[2][1][0]["bundle"]
     assert b["fsdp"]["bytes"]["param_bytes"] < b["zero1"]["bytes"]["param_bytes"]
+
+
+@pytest.mark.parametrize("p", [2, 4])
+def test_mesh_engine_matches_jax_engine(runs, p):
+    """``ServingEngine(mesh=)``: buckets rounded up to the data axis as
+    the JAX engine rounds them, every rank's answer the JAX engine's over
+    a data=P mesh (one forward a chunk, each rank its rows, all-gathered),
+    and ``start()`` refused (the collective form has no queue)."""
+    ref, ranks = runs[p][0]["engine"], runs[p][1]
+    for r in ranks:
+        got = r["mesh_engine"]
+        assert got["buckets"] == ref["buckets"] == sorted({-(-b // p) * p for b in (3, 6)})
+        np.testing.assert_allclose(got["got"], ref["want"], **F32)
+        assert got["forward"]["forwards"] == got["forward"]["warmed"] + 2
+        assert "collective" in got["start_refusal"]
 
 
 def test_batch_group_is_left_after_the_step(runs):

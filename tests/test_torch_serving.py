@@ -6,10 +6,15 @@ results against the JAX graph's ``apply_fn`` outputs (f32, atol 1e-5); a
 recurrent graph on (batch, seq) buckets; the ``serve`` and ``eval`` verbs
 on graph zips (``eval`` on ``.npy`` arrays and on a labelled CSV); the
 registry's API (``engine_kwargs``, ``names``, ``submit``, ``output``,
-``unregister``, the module's ``reset``)."""
+``unregister``, the module's ``reset``, ``submit``'s metering). Then the
+operations: ``update_model`` in the middle of a request stream (no request
+dropped, none answered by a mix of two models), register/serve/update/
+unregister and ``register_like`` carrying the grid, each against the JAX
+engine's outputs."""
 
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -26,6 +31,7 @@ from deeplearning4j_tpu.nn.graph import ComputationGraph as JGraph
 from deeplearning4j_tpu.nn.graph import GraphBuilder as JGB
 from deeplearning4j_tpu.nn.graph import MergeVertex as JMerge
 from deeplearning4j_tpu.nn.multilayer import MultiLayerNetwork as JNet
+from deeplearning4j_tpu.serving import ServingEngine as JEngine
 from deeplearning4j_tpu.utils import serialization as jser
 from deeplearning4j_tpu_torch.datasets.iterator import BucketRegistry, ShapeBuckets
 from deeplearning4j_tpu_torch.models.misc import text_generation_lstm as t_charnn
@@ -34,8 +40,8 @@ from deeplearning4j_tpu_torch.nn.conf import inputs as TI
 from deeplearning4j_tpu_torch.nn.graph import ComputationGraph as TGraph
 from deeplearning4j_tpu_torch.nn.graph import GraphBuilder as TGB
 from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork as TNet
-from deeplearning4j_tpu_torch.serving import (ModelRegistry, ServingOverloaded,
-                                              ServingShutdown)
+from deeplearning4j_tpu_torch.serving import (ModelRegistry, ServingEngine, ServingOverloaded,
+                                              ServingShutdown, metering)
 from deeplearning4j_tpu_torch.utils import serialization as tser
 
 VOCAB, HIDDEN, SEQ = 11, 32, 8
@@ -175,7 +181,9 @@ def test_registry_names_and_duplicates(model_zip, registry):
 def test_registry_api_matches_jax(jax_net, model_zip, registry):
     """``engine_kwargs``, ``names``, ``submit``, ``output`` and
     ``unregister``, the JAX registry's API (JAX ``serving/registry.py``):
-    results against the JAX network's output."""
+    results against the JAX network's output; ``submit``'s ``tenant=`` and
+    ``origin=`` metered row by row."""
+    metering.reset()
     _register(registry, model_zip, seq_buckets=(4, 8))
     net2 = tser.load_model(model_zip, device="cpu")
     registry.register("second", net2, input_spec=(SEQ, VOCAB), max_batch_size=2, device="cpu")
@@ -190,10 +198,16 @@ def test_registry_api_matches_jax(jax_net, model_zip, registry):
     np.testing.assert_allclose(registry.submit("second", x, batched=True).get(timeout=30), want,
                                atol=1e-5)
     np.testing.assert_allclose(registry.output("charnn", x), want, atol=1e-5)
-    with pytest.raises(NotImplementedError, match="queue 1, item 7"):
-        registry.submit("charnn", x[0], tenant="acme")
-    with pytest.raises(NotImplementedError, match="queue 1, item 7"):
-        registry.submit("charnn", x[0], origin="batch-job")
+    np.testing.assert_allclose(registry.submit("charnn", x[0], tenant="acme").get(timeout=30),
+                               want[0], atol=1e-5)
+    np.testing.assert_allclose(
+        registry.submit("charnn", x[1:], batched=True, origin="batch-job").get(timeout=30),
+        want[1:], atol=1e-5)
+    usage = registry.health()["models"]["charnn"]["usage"]
+    assert usage["rows"] == 4 and usage["tokens"] == 4 * SEQ * VOCAB
+    assert usage["seq_tokens"] == 4 * SEQ and usage["padded_tokens"] == 4 * SEQ
+    assert usage["tenants"]["acme"]["rows"] == 1
+    assert usage["tenants"][metering.NO_TENANT]["rows"] == 3
     engine = registry.engine("second")
     registry.unregister("second")
     assert registry.names() == ["charnn"] and not engine.running
@@ -234,6 +248,104 @@ def test_serve_cli_smoke(model_zip):
     assert proc.returncode == 0, proc.stderr
     assert "warmed buckets [1, 2, 4]" in proc.stdout
     assert '"served": 4' in proc.stdout
+
+
+# ---------------------------------------------------------------------------
+# operations: hot swap and the registry's A/B helpers, against the JAX engine
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def swap_pair(jax_net, model_zip, tmp_path_factory):
+    """A second JAX char-RNN of ANOTHER width (a batch run on one net's
+    weights with the other's layers could match neither), saved beside the
+    first; the JAX engine's answers of both on one row."""
+    j2 = JNet(j_charnn(VOCAB, hidden=HIDDEN // 2, seq_len=SEQ, seed=7))
+    j2.init()
+    path2 = tmp_path_factory.mktemp("swap") / "charnn_b.zip"
+    jser.save_model(j2, str(path2))
+    x1 = _x(1, SEQ, seed=21)[0]
+    refs = [np.asarray(JEngine(j, input_spec=(SEQ, VOCAB), buckets=(1, 2, 4)).output(x1[None]))[0]
+            for j in (jax_net, j2)]
+    assert np.abs(refs[0] - refs[1]).max() > 1e-4
+    return model_zip, path2, x1, refs
+
+
+def test_update_model_mid_stream_never_mixes_and_drops_nothing(swap_pair):
+    """``update_model`` six times while a feeder thread streams requests:
+    every request is answered, each answer equals one of the two models'
+    (the JAX engine's answers, atol 1e-5), and the swaps are counted."""
+    zip1, zip2, x1, refs = swap_pair
+    nets = [tser.load_model(z, device="cpu") for z in (zip2, zip1)]
+    engine = ServingEngine(tser.load_model(zip1, device="cpu"), input_spec=(SEQ, VOCAB),
+                           buckets=(1, 2, 4), max_queue=1024, device="cpu").start()
+    futs, stop_feeding = [], threading.Event()
+
+    def feeder():
+        while not stop_feeding.is_set():
+            futs.append(engine.submit(x1))
+            time.sleep(0.0005)
+
+    t = threading.Thread(target=feeder, daemon=True)
+    t.start()
+    try:
+        for i in range(6):  # back and forth mid-stream
+            time.sleep(0.02)
+            engine.update_model(nets[i % 2])
+        time.sleep(0.02)
+    finally:
+        stop_feeding.set()
+        t.join(timeout=5)
+    results = [f.get(timeout=30) for f in futs]  # nothing dropped
+    engine.stop()
+    assert len(results) > 20
+    matched = [[np.allclose(r, ref, atol=1e-5) for ref in refs] for r in results]
+    assert all(any(m) for m in matched), "an answer matches neither served model"
+    assert any(m[1] for m in matched)  # the second model served some
+    assert engine.stats()["requests"]["swaps"] == 6
+    assert engine.stats()["requests"]["errors"] == 0
+
+
+def test_register_serve_update_unregister(swap_pair, registry):
+    zip1, zip2, x1, refs = swap_pair
+    net = tser.load_model(zip1, device="cpu")
+    registry.register("a", net, input_spec=(SEQ, VOCAB), buckets=(2, 4), device="cpu")
+    np.testing.assert_allclose(registry.output("a", x1[None])[0], refs[0], atol=1e-5)
+    np.testing.assert_allclose(registry.submit("a", x1).get(timeout=30), refs[0], atol=1e-5)
+    with pytest.raises(ValueError):
+        registry.register("a", net, device="cpu")  # duplicate name
+    net2 = tser.load_model(zip2, device="cpu")
+    registry.update_model("a", net2)
+    assert registry.engine("a").net is net2
+    np.testing.assert_allclose(registry.submit("a", x1).get(timeout=30), refs[1], atol=1e-5)
+    # a bundle's warm manifest is the compile cache's: dropped, with a warning
+    with pytest.warns(UserWarning, match="7.4"):
+        registry.update_model("a", net, manifest="warm.zip")
+    assert registry.engine("a").stats()["requests"]["swaps"] == 2
+    assert registry.names() == ["a"]
+    registry.unregister("a")
+    assert registry.names() == []
+    with pytest.raises(KeyError):
+        registry.engine("a")
+
+
+def test_register_like_carries_grid(jax_net, swap_pair, registry):
+    """The challenger takes the champion's engine kwargs, its (batch, seq)
+    grid included, and answers as the JAX engine on that grid does."""
+    zip1, zip2, _, _ = swap_pair
+    e1 = registry.register("champ", tser.load_model(zip1, device="cpu"), input_spec=(SEQ, VOCAB),
+                           buckets=(1, 2), seq_buckets=(4, 8), device="cpu", start=False)
+    e2 = registry.register_like("champ", "challenger", tser.load_model(zip2, device="cpu"),
+                                start=False)
+    j2 = jser.load_model(str(zip2))
+    jeng = JEngine(j2, input_spec=(SEQ, VOCAB), buckets=(1, 2), seq_buckets=(4, 8))
+    assert e2.buckets.signature() == e1.buckets.signature() == jeng._fwd.buckets.signature()
+    kw = registry.engine_kwargs("champ")
+    assert kw["seq_buckets"] == (4, 8)
+    kw["seq_buckets"] = None  # a copy, not the record
+    assert registry.engine_kwargs("challenger")["seq_buckets"] == (4, 8)
+    x = _x(3, 6, seed=23)
+    np.testing.assert_allclose(e2.output(x), np.asarray(jeng.output(x)), atol=1e-5)
+    assert e2.stats()["forward"]["warmed"] == 4  # batch {1, 2} x seq {4, 8}
 
 
 @pytest.mark.parametrize("sizes", [[1, 2, 4, 8], [3, 5, 16], [32]])

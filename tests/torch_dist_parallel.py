@@ -149,6 +149,24 @@ def _fused_stats_check(rank, world, group):
     return out
 
 
+def _mesh_engine(mesh, mln, x):
+    """The serving engine over the mesh (collective ``output``): its
+    buckets rounded to the data axis, 11 rows through buckets 3 and 6 (two
+    chunks), the queued path refused."""
+    from deeplearning4j_tpu_torch.serving import ServingEngine
+
+    eng = ServingEngine(port_mln(*mln), name="mesh", mesh=mesh, input_spec=(5,), buckets=(3, 6),
+                        device="cpu")
+    out = {"buckets": eng.stats()["buckets"], "got": eng.output(x[:11]),
+           "forward": eng.stats()["forward"]}
+    try:
+        eng.start()
+        out["start_refusal"] = ""
+    except ValueError as e:
+        out["start_refusal"] = str(e)
+    return out
+
+
 # ---------------------------------------------------------------------------
 # the trainer's rank program
 # ---------------------------------------------------------------------------
@@ -187,6 +205,7 @@ def trainer_program(rank, world, mln, graph, x, y, gx, gy, ckpt_dir, restore_fro
     except ValueError as e:
         out["graph_stream_refusal"] = str(e)
     out["fused_stats"] = _fused_stats_check(rank, world, mesh.group("data"))
+    out["mesh_engine"] = _mesh_engine(mesh, mln, x)
     if world == 4:
         return out
 
