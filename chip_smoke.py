@@ -193,8 +193,9 @@ nonzero; nothing is caught):
 15. word2vec BASELINE config 3 at the JAX package's ``bench_word2vec``
             production scale: ``Word2Vec`` (``text/word2vec.py``) at
             V=100,000, D=300, window 5, 5 negatives, batch 2048, subsample
-            1e-3, lr 0.025, one epoch over a Zipf corpus of 500,000
-            sentences x 20 int tokens (10M words, from the seed). First one
+            1e-3, lr 0.025, one epoch over a Zipf corpus of 250,000
+            sentences x 20 int tokens (5M words, from the seed; the bench's
+            500,000 cut to half for the time limit). First one
             chunk of 32 SGNS steps at that width from tables installed with
             ``tables_from_numpy`` and fixed indices, twice on the card (one
             capture, two replays), against the plain step in float64 and
@@ -212,10 +213,10 @@ nonzero; nothing is caught):
             orderings, PV-DBOW and ``infer_vector``, GloVe, DeepWalk,
             KMeans, t-SNE. Then ``SequenceVectors(mesh=)`` at the same width
             over 4 gloo ranks on the card (``word2vec.mesh``), every
-            model's vocabulary and tables built on the whole 10M-word
-            corpus (V ~100,000): the replicated-table fit on the corpus's
-            first 62.5k words and the ``shard_tables=True`` fit (V/4 rows a
-            rank) on its first 31.25k, with the same host-drawn negatives,
+            model's vocabulary and tables built on the whole 5M-word
+            corpus (V ~99,000): the replicated-table fit on the corpus's
+            first 31,240 words and the ``shard_tables=True`` fit (V/4 rows a
+            rank) on its first 15,620, with the same host-drawn negatives,
             each against the world-1 fit of the same pairs (replicated
             within 2e-6, sharded within 1e-5 relative + 1e-6, or 3x the
             world-1 fit's distance from itself where that is more), pairs
@@ -440,6 +441,36 @@ nonzero; nothing is caught):
             dump), and ``federate`` over the local registry and a closed
             localhost port: back within its timeout, the dead member
             counted, an SLO rule over it ok, ok, then firing on a real burn.
+24. compile_tune  (a) ``tuning/tune.py`` into a fresh TuningDB at the main
+            paths' shapes: every distinct conv key of the fused ResNet50 at
+            batch 64 (1x1: rows, Cin, Cout; 3x3: B, Ho, Wo, Cin, Cout) in
+            f32 and bf16, the LSTM at T=128 B=64 and B=1 H=512 (f32), B=64
+            H=1024 (f32: persistent rt against step_cluster split) and B=64
+            H=512 bf16, the LM's attention (B=4, T=4096, H=8, D=64, causal)
+            in f32 and bf16 against the naive path, each candidate timed
+            as replays of a CUDA graph of its launches; a line a shape
+            (candidates enumerated, pruned by reason, rejected by parity,
+            timed; the default plan's, the fastest's and the winner's ms
+            and the margin), the default plan a timed valid candidate
+            everywhere and the winner unless beaten by more than the
+            margin, no candidate raising, ``tuning_db_total{tune}`` the
+            shapes tuned; (b) one forward
+            each of the fused ResNet50 (f32, batch 64, train mode), the LM
+            (T 4096) and the char-RNN (64 x 128), without and then with
+            the DB bound (two calls each, the second timed): outputs
+            within SERVE_ATOL, the variants launched those of the plans
+            resolved, ``tuning_db_total{hit}`` the distinct plan keys, no
+            miss; (c) the char-RNN served on the serve phase's grid by the
+            ``serve`` CLI in three processes with ``--compile-cache``: cold
+            (an empty directory: nvcc builds ``lstm_seq.cu`` once, its
+            seconds on a line of their own), persistent (the same
+            directory: no nvcc run) and warm (another empty directory and a
+            manifest this process saved with ``save_warm_manifest``: no
+            nvcc run, a hit for each of the 21 grid entries, no miss), the
+            answers bitwise equal across the legs (their sha256), each leg's
+            ``time_to_first_request_ms``; another grid's manifest refused
+            by ``update_model(manifest=)`` (grid_mismatch), and a manifest
+            saved under the DB missing every entry without it.
 
 Then a ``kernels`` line (every kernel of the paths with its launches on
 its path, error, times and bound), the card's name and power limit, and
@@ -665,10 +696,12 @@ FUSED_NAN_BATCH, FUSED_RESUME_ROUNDS = 5, 2
 # bench_word2vec production scale (BENCH_W2V_SCALE=production): a Zipf
 # corpus of 500,000 sentences x 20 int tokens (10M words) over 100,000
 # ranks; Word2Vec at D=300, window 5, 5 negatives, batch 2048, subsample
-# 1e-3, lr 0.025, 1 epoch. The full-width chunk is held against float64
+# 1e-3, lr 0.025, 1 epoch; here the corpus is cut to 250,000 sentences (5M
+# words) to keep the full script inside its time limit (a full run took
+# 1016.6 s with the compile_tune phase). The full-width chunk is held against float64
 # within W2V_CHECK_FACTOR x the f32 noise (the larger of two card runs'
 # spread and the plain f32 step's own distance from float64)
-W2V_VOCAB, W2V_DIM, W2V_SENT_LEN, W2V_SENTENCES = 100_000, 300, 20, 500_000
+W2V_VOCAB, W2V_DIM, W2V_SENT_LEN, W2V_SENTENCES = 100_000, 300, 20, 250_000
 W2V_WINDOW, W2V_NEGATIVE, W2V_BATCH, W2V_SUBSAMPLE, W2V_LR = 5, 5, 2048, 1e-3, 0.025
 W2V_CHECK_FACTOR, W2V_TIMED_REPLAYS, W2V_PROFILED_REPLAYS, W2V_TOP_KERNELS = 3.0, 20, 3, 12
 # t-SNE keeps the two toy clusters apart: mean silhouette above 0.25 (on the
@@ -685,12 +718,13 @@ W2V_TSNE_SILHOUETTE = 0.25
 # or within W2V_CHECK_FACTOR x the world-1 fit's distance from itself run
 # again where that is more (the card's scatter sums add in no fixed order).
 # Every fit builds its vocabulary on the phase's whole corpus first, so the
-# tables have the production width (V ~100,000 rows x 300, V/4 a rank when
+# tables have the production width (V ~99,000 rows x 300, V/4 a rank when
 # sharded) and only the words fitted are cut: from 1M to the slices, to keep
 # the script inside its time limit (ranks sharing one card over gloo step at
 # ~40-60 ms; cut to a quarter with the operations phase, when full runs took
-# 1142.7 and 1172.7 s of 1200 on slower hosts)
-W2V_MESH_WORDS, W2V_SHARD_WORDS, W2V_MESH_RANKS, W2V_MESH_ATOL = 62_500, 31_250, 4, 2e-6
+# 1142.7 and 1172.7 s of 1200 on slower hosts, and to an eighth with the
+# compile_tune phase, when a full run took 1037.2 s)
+W2V_MESH_WORDS, W2V_SHARD_WORDS, W2V_MESH_RANKS, W2V_MESH_ATOL = 31_240, 15_620, 4, 2e-6
 W2V_SHARD_RTOL, W2V_SHARD_ATOL, W2V_MESH_TIMEOUT_S = 1e-5, 1e-6, 600
 
 
@@ -786,6 +820,15 @@ OPS_RN_BATCHES, OPS_GOODPUT_RTOL = 4, 0.05
 OPS_REQUESTS, OPS_PROBES, OPS_MIN_SEQ, OPS_SWAP_AT, OPS_SAMPLE_EVERY = 256, 16, 32, 128, 32
 OPS_FLOOD, OPS_FLOOD_QUEUE, OPS_FED_TIMEOUT_S, OPS_BURN_ROWS = 512, 8, 1.0, 64
 OPS_FLOOD_SEED = 53
+
+# compile_tune: each candidate timed as CT_REPS replays of a CUDA graph of
+# CT_ITERS launches, its best; the LSTM shapes tuned (T, B, H, dtype); the char-RNN's forward
+# at CT_CHARNN_ROWS rows; the serve legs on the serve phase's grid, each
+# answering CT_REQUESTS smoke requests
+CT_ITERS, CT_REPS = 5, 3
+CT_LSTM = ((128, 64, 512, torch.float32), (128, 1, 512, torch.float32),
+           (128, 64, 1024, torch.float32), (128, 64, 512, torch.bfloat16))
+CT_CHARNN_ROWS, CT_MAX_BATCH, CT_SEQ_BUCKETS, CT_REQUESTS = 64, 64, (32, 64, 128), 16
 
 
 def emit(phase, **fields):
@@ -7717,9 +7760,14 @@ def ops_serving(L, seed, hist, eng_slo, parity):
                              f"({usage['rows']} rows metered, {stats['requests']['served']} "
                              "served)")
     health = reg.health()["models"]["charnn_ops"]
+    # no warm manifest given: every warm-up missed, ran (a capture) and was
+    # written into its engine's own manifest, none served from one
+    events = health["compile_cache_events"]
     if not (health["stats"]["requests"]["served"] == len(reqs)
             and isinstance(health["recompiles"], dict) and health["usage"] == usage
-            and health["compile_cache_events"] == {}):
+            and set(events) <= {"capture", "miss", "serialize"}
+            and events.get("capture", 0) >= events.get("miss", 0)
+            == events.get("serialize", 0) >= health["stats"]["aot"]["warmed"]):
         raise AssertionError(f"health(): {health}")
     lats = sorted(f.latency_s for f in futs)
     row = {"params": N_PARAMS, "requests": len(reqs), "probes": OPS_PROBES,
@@ -7870,6 +7918,351 @@ def phase_operations(C, L, seed):
     return {"conv_launches": conv, "lstm_seq_launches": lstm + lstm_c}
 
 
+# ---------------------------------------------------------------------------
+# the compile-artifact tier: the tuner, the persistent cache, warm manifests
+# ---------------------------------------------------------------------------
+
+def ct_conv_cases():
+    """{(kernel id, DB key shape): (kernel, stride, x shape, Cout)} over the
+    fused ResNet50's conv calls at the smoke's batch: one call a DB key
+    (a 3x3 at stride 2 keys as the stride-1 call of its output size, which
+    stands for both)."""
+    cases = {}
+    for kernel, stride, shape, cout in resnet_conv_calls():
+        b, h, w, cin = shape
+        ho, wo = -(-h // stride[0]), -(-w // stride[1])
+        key = (("conv_matmul", (b * ho * wo, cin, cout)) if kernel == (1, 1)
+               else ("conv3x3", (b, ho, wo, cin, cout)))
+        if key not in cases or stride == (1, 1):
+            cases[key] = (kernel, stride, shape, cout)
+    return cases
+
+
+def ct_tune(T, seed):
+    """(a) Tune every kernel at the main paths' shapes into a fresh DB: the
+    ResNet50's conv keys in f32 and bf16, the char-RNN's LSTM at B=64 and
+    B=1 (and H=1024 at B=64, where persistent meets step_cluster), and the
+    LM's attention in f32 and bf16. Each candidate is timed as replays of
+    a CUDA graph of its launches (device time, no host launch cost), and
+    the default plan stays the winner unless the fastest beats it by more
+    than the margin (either one's spread across windows, at least
+    ``tune.MIN_GAIN`` of its time). Checks: the default plan is a valid
+    candidate at every shape, every winner passed the gate, a winner other
+    than the default beats it by more than the margin, no candidate
+    raised, and ``tuning_db_total{tune}`` equals the shapes tuned."""
+    from deeplearning4j_tpu_torch import telemetry as TT
+    from deeplearning4j_tpu_torch import tuning
+
+    TT.reset()
+    TT.enable()
+    db = tuning.TuningDB()
+    rows = []
+    t0 = time.perf_counter()
+    for dtype in (torch.float32, torch.bfloat16):
+        for (kid, shape), _call in sorted(ct_conv_cases().items()):
+            if kid == "conv_matmul":
+                rows.append(T.tune_conv_matmul(db, n=shape[0], cin=shape[1], cout=shape[2],
+                                               dtype=dtype, iters=CT_ITERS, reps=CT_REPS))
+            else:
+                rows.append(T.tune_conv3x3(db, b=shape[0], hw=shape[1], cin=shape[3],
+                                           cout=shape[4], dtype=dtype, iters=CT_ITERS,
+                                           reps=CT_REPS))
+    for t, b, h, dtype in CT_LSTM:
+        rows.append(T.tune_lstm(db, t=t, b=b, hidden=h, dtype=dtype, iters=CT_ITERS,
+                                reps=CT_REPS))
+    for dtype in (torch.float32, torch.bfloat16):
+        rows.append(T.tune_attention(db, b=LM_BATCH, t=LM_SEQ, h=LM_HEADS,
+                                     d=LM_WIDTH // LM_HEADS, dtype=dtype, iters=CT_ITERS,
+                                     reps=CT_REPS))
+    seconds = time.perf_counter() - t0
+    for r in rows:
+        emit("compile_tune.tune", kernel=r["kernel"], shape=r["shape"], dtype=r["dtype"],
+             enumerated=r["enumerated"], pruned=r["pruned_reasons"],
+             rejected_parity=r["rejected_parity"], timed=r["timed"],
+             default=r["default_config"], default_ms=r["default_ms"], winner=r["winner"],
+             winner_ms=r["winner_ms"], fastest=r["fastest"], fastest_ms=r["fastest_ms"],
+             margin_ms=r["margin_ms"])
+        if not r["default_valid"] or r["default_ms"] is None:
+            raise AssertionError(f"tune {r['kernel']} {r['shape']} {r['dtype']}: the default "
+                                 f"plan {r['default_config']} is not a timed valid candidate")
+        if r["raised"]:
+            raise AssertionError(f"tune {r['kernel']} {r['shape']} {r['dtype']}: candidates "
+                                 f"raised {r['raised']}: static pruning let them through")
+        if r["winner"] is None or r["winner_ms"] > r["default_ms"] or (
+                r["winner"] != r["default_config"]
+                and not r["default_ms"] - r["winner_ms"] > r["margin_ms"]):
+            raise AssertionError(f"tune {r['kernel']} {r['shape']} {r['dtype']}: winner "
+                                 f"{r['winner']} ({r['winner_ms']} ms) against the default's "
+                                 f"{r['default_ms']} ms, margin {r['margin_ms']} ms")
+    tunes = tuning.event_counts().get("tune", 0)
+    if tunes != len(rows):
+        raise AssertionError(f"tuning_db_total{{tune}} is {tunes} for {len(rows)} shapes tuned")
+    TT.disable()
+    TT.reset()
+    by_kernel = {}
+    for r in rows:
+        k = by_kernel.setdefault(r["kernel"], {"shapes": 0, "enumerated": 0, "pruned": 0,
+                                               "rejected_parity": 0, "timed": 0,
+                                               "default_ms": 0.0, "winner_ms": 0.0,
+                                               "winner_not_default": 0,
+                                               "fastest_not_default": 0})
+        k["shapes"] += 1
+        k["enumerated"] += r["enumerated"]
+        k["pruned"] += sum(r["pruned_reasons"].values())
+        k["rejected_parity"] += r["rejected_parity"]
+        k["timed"] += r["timed"]
+        k["default_ms"] += r["default_ms"]
+        k["winner_ms"] += r["winner_ms"]
+        k["winner_not_default"] += r["winner"] != r["default_config"]
+        k["fastest_not_default"] += r["fastest"] != r["default_config"]
+    emit("compile_tune.tuned", shapes=len(rows), tune_events=tunes, entries=len(db),
+         seconds=seconds, by_kernel=by_kernel, card=card_line())
+    return db, rows
+
+
+def ct_forward(A, C, L, fwd):
+    """One forward (``fwd()``, its output) with the plans it resolved
+    recorded: (output, ms of a second call, the recording, launches by
+    library and variant in both calls)."""
+    from deeplearning4j_tpu_torch.ops import _build
+    from deeplearning4j_tpu_torch.utils import dtypes
+
+    reset_all_launches()
+    A.reset_launches()
+    with _build.recording() as rec, torch.no_grad(), dtypes.policy_precision():
+        y = fwd()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fwd()
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+    launched = {"conv_stats": {k: v for k, v in C.launches_by_variant.items() if v},
+                "lstm_seq": {k: v for k, v in L.launches_by_variant.items() if v},
+                "flash_attn": {k: v for k, v in A.launches_by_variant.items() if v}}
+    return y, ms, rec, launched, dict(C.launches)
+
+
+def ct_tuned_vs_default(A, C, L, db, seed):
+    """(b) One forward each of the fused ResNet50 (f32, batch 64, train
+    mode: the conv kernels), the LM (T 4096) and the served char-RNN (64 x
+    128), without and with the DB bound. Checks: the outputs agree within
+    SERVE_ATOL (softmax outputs; the plans change summation orders only);
+    the tuned run launched exactly the variants of the plans it resolved;
+    ``tuning_db_total{hit}`` equals the distinct plan keys resolved (the
+    conv and LSTM plans, and attention's one verdict a shape), with no
+    miss, whatever the launches."""
+    from deeplearning4j_tpu_torch import telemetry as TT
+    from deeplearning4j_tpu_torch import tuning
+    from deeplearning4j_tpu_torch.utils.serialization import params_from_numpy
+
+    def resnet():
+        net = make_resnet(seed)
+        x, _ = resnet_data(seed, RN_BATCH)
+        return net, lambda: net.apply_fn(net.params, net.state, x, train=True)[0]
+
+    def lm():
+        net = make_lm(seed)
+        x, _ = lm_data(np.random.RandomState(seed), LM_BATCH)
+        return net, lambda: net.apply_fn(net.params, net.state, x)[0]
+
+    def charnn():
+        net = make_charnn(seed)
+        params_from_numpy(net, seeded_params(net, np.random.RandomState(SEED)))
+        x = torch.from_numpy(charnn_numpy(seed, CT_CHARNN_ROWS)[0]).cuda()
+        return net, lambda: net.apply_fn(net.params, net.state, x)[0]
+
+    rows, launched_total = {}, {"conv_stats": 0, "lstm_seq": 0, "flash_attn": 0}
+    conv_by_name = dict.fromkeys(C.launches, 0)
+    for name, make, lib in (("resnet50", resnet, "conv_stats"), ("lm", lm, "flash_attn"),
+                            ("charnn", charnn, "lstm_seq")):
+        net, fwd = make()
+        legs = {}
+        for leg in ("default", "tuned"):
+            tuning.set_db(db if leg == "tuned" else None)
+            TT.reset()
+            TT.enable()
+            y, ms, rec, launched, by_name = ct_forward(A, C, L, fwd)
+            events = tuning.event_counts()
+            legs[leg] = {"y": y, "ms": ms, "rec": rec, "launched": launched,
+                         "events": events, "verdicts": len(A._VERDICTS)}
+            for k, v in by_name.items():
+                conv_by_name[k] += v
+            TT.disable()
+        tuning.set_db(None)
+        TT.reset()
+        d, t = legs["default"], legs["tuned"]
+        err = max((a.float() - b.float()).abs().max().item() for a, b in
+                  zip(_leaves_of(d["y"]), _leaves_of(t["y"])))
+        if not err <= SERVE_ATOL:
+            raise AssertionError(f"(b) {name}: the tuned forward differs from the default "
+                                 f"one by {err}")
+        plans = t["rec"].plans
+        keys = sum(1 for kernel, _ in plans if kernel != "flash_attn") + t["verdicts"]
+        if t["events"].get("hit", 0) != keys or t["events"].get("miss", 0):
+            raise AssertionError(f"(b) {name}: tuning_db_total {t['events']} for {keys} "
+                                 "distinct plan keys")
+        variants = {}
+        for (kernel, _key), (_cfg, fields) in plans.items():
+            variants.setdefault(kernel, set()).add(fields["variant"])
+        for kernel, counts in t["launched"].items():
+            if set(counts) != variants.get(kernel, set()):
+                raise AssertionError(f"(b) {name}: {kernel} launched variants {counts}, "
+                                     f"the resolved plans' are {variants.get(kernel)}")
+        if not sum(d["launched"][lib].values()):
+            raise AssertionError(f"(b) {name}: the default forward launched no {lib} kernel")
+        for leg in (d, t):
+            for kernel, counts in leg["launched"].items():
+                launched_total[kernel] += sum(counts.values())
+        rows[name] = {"default_ms": d["ms"], "tuned_ms": t["ms"], "max_abs_err": err,
+                      "hits": t["events"].get("hit", 0), "distinct_plan_keys": keys,
+                      "launches_tuned": t["launched"], "launches_default": d["launched"],
+                      "plans_tuned": sorted({json.dumps(cfg, sort_keys=True)
+                                             for cfg, _f in plans.values()})}
+        emit("compile_tune.forward", model=name, **rows[name], card=card_line())
+        del net, fwd, legs, d, t
+        free_card()
+    return rows, launched_total, conv_by_name
+
+
+def _leaves_of(y):
+    return list(y.values()) if isinstance(y, dict) else [y]
+
+
+def ct_leg(zip_path, cache_dir, manifest=None):
+    """One serve-CLI process on the serve phase's grid with
+    ``--compile-cache``: (its stats JSON, the digest of its smoke answers,
+    wall s)."""
+    cmd = [sys.executable, "-m", "deeplearning4j_tpu_torch", "serve", "--model-path",
+           str(zip_path), "--max-batch", str(CT_MAX_BATCH), "--seq-buckets",
+           ",".join(map(str, CT_SEQ_BUCKETS)), "--input-shape", f"{SEQ},{VOCAB}",
+           "--smoke", str(CT_REQUESTS), "--compile-cache", str(cache_dir)]
+    if manifest is not None:
+        cmd += ["--warm-manifest", str(manifest)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"serve leg exited {proc.returncode}:\n{proc.stdout}\n{proc.stderr}")
+    stats = json.loads(proc.stdout[proc.stdout.index("{"):])
+    return stats, stats["smoke_answers_sha256"], wall
+
+
+def ct_restarts(L, seed, db):
+    """(c) Cold, persistent and warm starts of the served full-width
+    char-RNN in three serve-CLI processes: cold (an empty cache directory:
+    nvcc builds lstm_seq.cu once), persistent (the cold leg's directory: no
+    nvcc run), warm (another empty directory and a manifest this process
+    saved by ``save_warm_manifest``: no nvcc run, a hit for every grid
+    entry, no miss). The three legs' answers must be bitwise equal (the
+    serve smoke's sha256 of its answers). Then,
+    in this process: a manifest of another grid refused by
+    ``update_model(manifest=)`` (grid_mismatch), and one saved under another
+    DB's fingerprint missing every entry."""
+    from deeplearning4j_tpu_torch import telemetry as TT
+    from deeplearning4j_tpu_torch import tuning
+    from deeplearning4j_tpu_torch.serving import ModelRegistry, ServingEngine
+    from deeplearning4j_tpu_torch.utils.serialization import (load_model, params_from_numpy,
+                                                             save_model)
+
+    net = make_charnn(seed)
+    params_from_numpy(net, seeded_params(net, np.random.RandomState(SEED)))
+    zip_path = WORK / "ct_charnn.zip"
+    save_model(net, zip_path)
+    net = load_model(zip_path, device="cuda")
+    grid = {"input_spec": (SEQ, VOCAB), "max_batch_size": CT_MAX_BATCH,
+            "seq_buckets": CT_SEQ_BUCKETS, "device": "cuda"}
+    tuning.set_db(None)
+    eng = ServingEngine(net, name="ct", **grid)
+    entries = eng.stats()["aot"]["warmed"]
+    manifest = eng.save_warm_manifest(WORK / "ct_warm.zip")
+    legs = {}
+    for leg, cache, man in (("cold", "ct_cache_cold", None), ("persistent", "ct_cache_cold", None),
+                            ("warm", "ct_cache_warm", manifest)):
+        stats, answers, wall = ct_leg(zip_path, WORK / cache, man)
+        cc = stats["compile_cache"]
+        legs[leg] = {"answers": answers, "wall_s": wall, "aot": stats["aot"],
+                     "kernel_builds": cc["kernel_builds"],
+                     "kernel_build_seconds": cc["kernel_build_seconds"],
+                     "events": cc["events"],
+                     "time_to_first_request_ms": cc["time_to_first_request_ms"],
+                     "forwards": stats["forward"]["forwards"]}
+    cold, pers, warm = legs["cold"], legs["persistent"], legs["warm"]
+    if cold["kernel_builds"] != {"lstm_seq.cu": 1}:
+        raise AssertionError(f"(c) cold leg: nvcc runs {cold['kernel_builds']}, expected "
+                             "lstm_seq.cu once")
+    emit("compile_tune.nvcc", source="lstm_seq.cu",
+         seconds=cold["kernel_build_seconds"]["lstm_seq.cu"], card=card_line())
+    for leg in ("persistent", "warm"):
+        if legs[leg]["kernel_builds"]:
+            raise AssertionError(f"(c) {leg} leg ran nvcc: {legs[leg]['kernel_builds']}")
+    if not (warm["aot"]["manifest_hits"] == warm["aot"]["warmed"] == entries
+            and warm["aot"]["manifest_misses"] == 0
+            and warm["events"].get("hit") == entries and not warm["events"].get("miss")):
+        raise AssertionError(f"(c) warm leg: aot {warm['aot']}, events {warm['events']} for "
+                             f"{entries} grid entries")
+    for leg in ("persistent", "warm"):
+        if legs[leg]["answers"] != cold["answers"]:
+            raise AssertionError(f"(c) the {leg} leg's answers differ from the cold leg's")
+    # another grid's manifest, refused by the registry's gate
+    TT.reset()
+    TT.enable()
+    reg = ModelRegistry()
+    try:
+        reg.register("ct", net, start=False, **grid)
+        other = ServingEngine(net, name="ct_other", **{**grid, "seq_buckets": (64, 128)})
+        refused = False
+        try:
+            reg.update_model("ct", net, manifest=other.export_warm_manifest())
+        except ValueError:
+            refused = True
+        counted = TT.get_registry().get("serving_bundle_rejected_total").value(
+            model="ct", reason="grid_mismatch")
+        if not refused or counted != 1:
+            raise AssertionError(f"(c) another grid's manifest: refused {refused}, counted "
+                                 f"{counted}")
+        # a manifest saved under another DB's fingerprint misses every entry
+        tuning.set_db(db)
+        tuned_manifest = ServingEngine(net, name="ct_tuned", **grid).export_warm_manifest()
+        tuning.set_db(None)
+        TT.reset()
+        TT.enable()
+        stale = ServingEngine(net, name="ct_stale", warm_manifest=tuned_manifest, **grid)
+        aot = stale.stats()["aot"]
+        if aot["manifest_hits"] or aot["manifest_misses"] != entries:
+            raise AssertionError(f"(c) a manifest saved under another DB: aot {aot}")
+    finally:
+        reg.stop()
+        tuning.set_db(None)
+        TT.disable()
+        TT.reset()
+    row = {"grid_entries": entries, "requests": CT_REQUESTS,
+           **{f"{leg}_{k}": v[k] for leg, v in legs.items()
+              for k in ("time_to_first_request_ms", "wall_s", "kernel_builds", "events")},
+           "warm_aot": warm["aot"], "answers_bitwise_equal": True,
+           "answers_sha256": cold["answers"],
+           "manifest_bytes": os.path.getsize(manifest),
+           "other_grid_refused": "grid_mismatch", "other_db_manifest": aot}
+    emit("compile_tune.restarts", **row, card=card_line())
+    return row, 2 * sum(v["forwards"] for v in legs.values())
+
+
+def phase_compile_tune(A, C, L, seed):
+    """The compile-artifact tier on the card: (a) the tuner at the main
+    paths' shapes, (b) the tuned forwards against the default ones, (c)
+    cold, persistent and warm serving starts (see the module docstring)."""
+    from deeplearning4j_tpu_torch.tuning import tune as T
+
+    t0 = time.perf_counter()
+    db, tuned = ct_tune(T, seed)
+    free_card()
+    forwards, launched, conv = ct_tuned_vs_default(A, C, L, db, seed)
+    restarts, leg_lstm = ct_restarts(L, seed, db)
+    free_card()
+    return {"tuned": tuned, "forwards": forwards, "restarts": restarts,
+            "launches": launched, "conv_launches": conv, "leg_lstm_launches": leg_lstm,
+            "seconds": time.perf_counter() - t0}
+
+
 def cuobjdump():
     """The toolkit's cuobjdump, or the copy Triton's package carries; None
     where neither exists."""
@@ -7921,7 +8314,7 @@ def build_all(libs):
 
 PHASES = ("kernels", "flash", "train", "conv", "resnet", "serve", "charnn", "zoo", "finetune",
           "fused", "word2vec", "mnist", "modelimport", "moe", "sequence", "parallel",
-          "model_parallel", "telemetry", "operations")
+          "model_parallel", "telemetry", "operations", "compile_tune")
 
 
 def main(argv=None):
@@ -8076,6 +8469,14 @@ def main(argv=None):
             ops_out = phase_operations(C, L, args.seed)
         finally:
             shutil.rmtree(WORK, ignore_errors=True)
+    mark("compile_tune")
+    if "compile_tune" in only:
+        shutil.rmtree(WORK, ignore_errors=True)
+        WORK.mkdir()
+        try:
+            ct_out = phase_compile_tune(A, C, L, args.seed)
+        finally:
+            shutil.rmtree(WORK, ignore_errors=True)
     mark("end")
     emit("phase_seconds", **{a[0]: round(b[1] - a[1], 1) for a, b in zip(marks, marks[1:])
                              if a[0] == "build" or a[0] in only})
@@ -8096,8 +8497,13 @@ def main(argv=None):
                                                       for r in charnn_rows.values())
         + sum(fused_rows[("charnn", p)]["launches"]["lstm_seq"] for p in ("f32", "bf16"))
         + imported["lstm_seq_launches"] + mp_out["launches"]["lstm_seq"]
-        + tel_out["lstm_seq_launches"] + ops_out["lstm_seq_launches"],
+        + tel_out["lstm_seq_launches"] + ops_out["lstm_seq_launches"]
+        + ct_out["launches"]["lstm_seq"],
         "launches_serve": served["lstm_seq_launches"],
+        # the compile_tune phase: the char-RNN's default and tuned forwards
+        # (two calls each), in this process; the tuner's candidate launches
+        # and the three serve-CLI legs' are not counted here
+        "launches_compile_tune": ct_out["launches"]["lstm_seq"],
         # the operations phase: the hot-swapped stream (both nets' warm-ups),
         # the flood engine's warm-up and flood, the burn batch
         "launches_operations": ops_out["lstm_seq_launches"],
@@ -8127,7 +8533,10 @@ def main(argv=None):
         # forwards) and the sequence phase's ranks (ring and Ulysses)
         "launches": train_rows[0]["flash_launches"] + moe_out["flash_launches"]
         + seq_out["flash_launches"] + par_out["flash_launches"]
-        + mp_out["launches"]["flash_attn"] + tel_out["flash_launches"],
+        + mp_out["launches"]["flash_attn"] + tel_out["flash_launches"]
+        + ct_out["launches"]["flash_attn"],
+        # the compile_tune phase: the LM's default and tuned forwards
+        "launches_compile_tune": ct_out["launches"]["flash_attn"],
         # the telemetry phase: the LM's steps with telemetry off and on and
         # the profiled round
         "launches_telemetry": tel_out["flash_launches"],
@@ -8165,7 +8574,9 @@ def main(argv=None):
         + sum(ft_rows[p]["conv_launches"][name] for p in ("f32", "bf16"))
         + sum(fused_rows[("resnet", p)]["launches"][name] for p in ("f32", "bf16"))
         + par_out["conv_launches"][name] + mp_out["launches"][name]
-        + ops_out["conv_launches"][name],
+        + ops_out["conv_launches"][name] + ct_out["conv_launches"][name],
+        # the compile_tune phase: the ResNet50's default and tuned forwards
+        "launches_compile_tune": ct_out["conv_launches"][name],
         "launches_resnet": resnet_rows["bf16"]["conv_launches"][name],
         # the operations phase: the goodput cell's timed StepDriver steps,
         # telemetry off and on (10 each)

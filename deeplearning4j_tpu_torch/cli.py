@@ -1,12 +1,16 @@
-"""Command-line entry point of the port. Ported so far: the ``serve`` and
-``eval`` verbs.
+"""Command-line entry point of the port. Ported so far: the ``serve``,
+``eval`` and ``tune`` verbs.
 
     python -m deeplearning4j_tpu_torch serve --model-path ckpt.zip --max-batch 32
     python -m deeplearning4j_tpu_torch serve --model-path ckpt.zip --smoke 64 --device cpu
     python -m deeplearning4j_tpu_torch serve --model-path dl4j.zip --input-shape 128,96 --smoke 4
+    python -m deeplearning4j_tpu_torch serve --model-path ckpt.zip --compile-cache /var/cache/k \
+        --warm-manifest ckpt.warm.zip
     python -m deeplearning4j_tpu_torch eval --model-path ckpt.zip --data x.npy --labels y.npy
     python -m deeplearning4j_tpu_torch eval --model-path ckpt.zip --data test.csv \
         --label-column 784 --n-classes 10
+    python -m deeplearning4j_tpu_torch tune --db tuned.json
+    python -m deeplearning4j_tpu_torch tune --db tuned.json --smoke --device cpu
 
 ``serve`` loads a model file through ``models.zoo.restore_checkpoint``
 (the framework's checkpoint zip written by either package, a DL4J
@@ -17,14 +21,26 @@ where given, else the model's input type; a graph's is one per-example
 shape per input, from its input types. A model whose input type leaves a
 dimension open (a DL4J recurrent zip stores no sequence length) needs
 ``--input-shape``. ``--smoke
-N`` serves N synthetic requests, prints the engine's stats as JSON and
+N`` serves N synthetic requests, prints the engine's stats as JSON (with
+``smoke_answers_sha256``, a digest of the answers in request order) and
 exits. ``eval`` runs a model file (or a freshly initialised zoo model,
 ``--zoo``) over ``.npy`` features and labels, or over one labelled CSV,
 and prints the ``Evaluation`` (or, with ``--regression``, the
 ``RegressionEvaluation``) statistics; flat rows for an image model are
 reshaped to its input image (DL4J's ``InputType.convolutionalFlat``). Both run on
 ``--device`` (default ``cuda``; a missing card raises rather than falling
-back to the CPU). The JAX package's other verbs are not ported yet.
+back to the CPU). ``--compile-cache DIR`` (both; default
+``$DL4J_TPU_COMPILE_CACHE``) builds and keeps the kernel libraries in DIR
+(``utils/compile_cache.enable_persistent_cache``); ``serve
+--warm-manifest PATH`` warms the buckets from PATH where it exists (no
+nvcc run, no tuning lookup) and writes what it warmed back to PATH.
+``tune`` searches the kernels' launch plans at the main paths' shapes on
+the card and merges the winners into the tuning DB (``--db``, default
+``$DL4J_TPU_TUNING_DB``) that the kernels' dispatch seams read from that
+variable; ``--smoke`` runs trimmed shapes. ``--device cpu`` runs the
+plain versions (a check of the search, the gate and the DB, not of the
+kernels), and its winners key under the CPU's backend fingerprint, never
+a card's. The JAX package's other verbs are not ported yet.
 """
 
 from __future__ import annotations
@@ -40,12 +56,26 @@ import numpy as np
 def _build_parser():
     p = argparse.ArgumentParser(
         prog="deeplearning4j_tpu_torch",
-        description="PyTorch/CUDA port of deeplearning4j_tpu: serve, eval")
+        description="PyTorch/CUDA port of deeplearning4j_tpu: serve, eval, tune")
     sub = p.add_subparsers(dest="command", required=True)
+
+    def add_compile_cache(sp):
+        sp.add_argument(
+            "--compile-cache", metavar="DIR",
+            help="persistent kernel cache directory (utils/compile_cache): the CUDA "
+                 "libraries are built into DIR and reused by every later process; "
+                 "defaults to $DL4J_TPU_COMPILE_CACHE when set")
+
     sv = sub.add_parser(
         "serve",
         help="inference server: continuous batching over warmed shape "
              "buckets, bounded admission queue with load shedding")
+    add_compile_cache(sv)
+    sv.add_argument("--warm-manifest", metavar="PATH",
+                    help="warm manifest (utils/compile_cache WarmManifest zip): where PATH "
+                         "exists, each bucket warms from it (its kernel libraries "
+                         "installed, its launch plans seeded: no nvcc run, no tuning "
+                         "lookup); after the warmup the manifest is (re)saved to PATH")
     sv.add_argument("--model-path", required=True,
                     help="model to serve: a checkpoint zip, a DL4J ModelSerializer zip "
                          "or a Keras HDF5 file")
@@ -54,6 +84,9 @@ def _build_parser():
     sv.add_argument("--buckets",
                     help="comma-separated batch buckets to warm "
                          "(default: powers of two up to --max-batch)")
+    sv.add_argument("--seq-buckets",
+                    help="comma-separated sequence buckets: a 2-D (batch, seq) grid "
+                         "(default: batch buckets only)")
     sv.add_argument("--input-shape",
                     help="per-example feature shape, e.g. 128,96 (default: derived from "
                          "the model's input type)")
@@ -69,6 +102,7 @@ def _build_parser():
                     help="device the forward runs on: cuda (default) or cpu")
 
     e = sub.add_parser("eval", help="evaluate a checkpoint on a dataset")
+    add_compile_cache(e)
     esrc = e.add_mutually_exclusive_group(required=True)
     esrc.add_argument("--model-path",
                       help="checkpoint zip, DL4J ModelSerializer zip or Keras HDF5 file")
@@ -86,6 +120,25 @@ def _build_parser():
                    help="report regression metrics instead of classification")
     e.add_argument("--device", default="cuda",
                    help="device the forward runs on: cuda (default) or cpu")
+
+    tn = sub.add_parser(
+        "tune",
+        help="kernel tuner (tuning/): search the Hopper kernels' launch plans, "
+             "parity-gate every candidate against the plain version, and merge the "
+             "winners into the tuning DB the dispatch seams read")
+    tn.add_argument("--db", metavar="PATH",
+                    help="tuning DB JSON to update (default: $DL4J_TPU_TUNING_DB); "
+                         "existing entries merge — a re-tune IS the refresh")
+    tn.add_argument("--kernels",
+                    help="comma-separated kernel subset (attention,conv_matmul,conv3x3,"
+                         "lstm; default all)")
+    tn.add_argument("--smoke", action="store_true",
+                    help="tiny shapes + trimmed candidate sets (a mechanics check)")
+    tn.add_argument("--device", default="cuda",
+                    help="device the candidates run on: cuda (default), or cpu (the "
+                         "plain versions; winners keyed to the CPU)")
+    tn.add_argument("--iters", type=int, help="calls per timing window")
+    tn.add_argument("--reps", type=int, help="timing windows per candidate (best-of)")
     return p
 
 
@@ -124,26 +177,56 @@ def _smoke_requests(input_spec, n):
     return list(rs.rand(n, *input_spec).astype(np.float32))
 
 
+def _enable_compile_cache(args):
+    """Point the kernel builds at --compile-cache (or
+    $DL4J_TPU_COMPILE_CACHE) before any kernel is built."""
+    from deeplearning4j_tpu_torch.utils import compile_cache as _cc
+    cache_dir = _cc.enable_persistent_cache(getattr(args, "compile_cache", None))
+    if cache_dir:
+        print(f"persistent kernel cache: {cache_dir}")
+    return cache_dir
+
+
+def _ints(text):
+    return [int(b) for b in text.split(",") if b.strip()] if text else None
+
+
 def _cmd_serve(args):
+    from deeplearning4j_tpu_torch import telemetry
     from deeplearning4j_tpu_torch.serving import (ServingOverloaded,
                                                   get_model_registry)
+    from deeplearning4j_tpu_torch.utils import compile_cache as _cc
 
+    telemetry.enable()  # the serving and compile-cache counters are the point of a server
+    _enable_compile_cache(args)
     name = "default"
     net = _load_model(args)
     input_spec = _serve_input_spec(args, net)
-    buckets = None
-    if args.buckets:
-        buckets = [int(b) for b in args.buckets.split(",") if b.strip()]
+    # a not-yet-created path is the normal first cold start: the engine
+    # reads it leniently (missing -> None, no warning)
+    warm_manifest = args.warm_manifest or None
     registry = get_model_registry()
     engine = registry.register(
         name, net, input_spec=input_spec, max_batch_size=args.max_batch,
-        buckets=buckets, max_queue=args.max_queue,
+        buckets=_ints(args.buckets), seq_buckets=_ints(args.seq_buckets),
+        max_queue=args.max_queue,
         default_deadline_s=(None if args.deadline_ms is None
                             else args.deadline_ms / 1e3),
-        device=args.device)
+        device=args.device, warm_manifest=warm_manifest)
     st = engine.stats()
+    aot = st["aot"]
+    src = (f"{aot['manifest_hits']} from warm manifest, "
+           f"{aot['warmed'] - aot['manifest_hits']} warmed live" if warm_manifest
+           else "warmed live")
     print(f"model {name!r}: warmed buckets {st['buckets']} in "
-          f"{st['warmup_s']:.2f}s on {st['device']} (input {input_spec})")
+          f"{st['warmup_s']:.2f}s on {st['device']} ({src}; input {input_spec})")
+    if args.warm_manifest:
+        # (re)save after the warmup, so a cold start makes the next one warm
+        manifest = engine.export_warm_manifest()
+        if manifest is not None:
+            manifest.save(args.warm_manifest)
+            print(f"warm manifest: {args.warm_manifest} ({len(manifest)} entries, "
+                  f"{len(manifest.libraries())} kernel libraries)")
     try:
         if args.smoke:
             futs, shed = [], 0
@@ -158,14 +241,17 @@ def _cmd_serve(args):
                         time.sleep(0.001)
                 else:
                     raise SystemExit("smoke: admission queue never drained")
+            answers = []
             for f in futs:
                 try:
-                    f.get(timeout=60)
+                    answers.append(f.get(timeout=60))
                 except ServingOverloaded:
                     shed += 1  # stale-in-queue deadline shed (--deadline-ms)
             if shed:
                 print(f"smoke: {shed} request(s) shed by deadline")
-            print(json.dumps(registry.status()["models"][name], indent=1))
+            print(json.dumps({**registry.status()["models"][name],
+                              "compile_cache": _cc.status(),
+                              "smoke_answers_sha256": _digest(answers)}, indent=1))
             return 0
         import signal
 
@@ -179,6 +265,20 @@ def _cmd_serve(args):
     finally:
         registry.stop()
     return 0
+
+
+def _digest(answers):
+    """sha256 of the answers' bytes in order (a graph's outputs by name):
+    two runs answered alike, bit for bit, when their digests are equal."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for a in answers:
+        for v in ([a[k] for k in sorted(a)] if isinstance(a, dict) else [a]):
+            v = np.ascontiguousarray(v)
+            h.update(f"{v.dtype}{v.shape}".encode())
+            h.update(v.tobytes())
+    return h.hexdigest()
 
 
 def _load_model(args):
@@ -232,6 +332,7 @@ def _image_rows(net, x):
 def _cmd_eval(args):
     """(reference role: Evaluation printed from evaluate(), the examples'
     ``eval.stats()`` tail, as a CLI verb)"""
+    _enable_compile_cache(args)
     net = _load_model(args)
     x, y = _load_xy(args)
     x = _image_rows(net, x)
@@ -264,12 +365,51 @@ def _cmd_eval(args):
     return 0
 
 
+def _cmd_tune(args):
+    """Merge searched launch plans into the tuning DB: every later process
+    with DL4J_TPU_TUNING_DB pointed at it launches the tuned plans, and
+    warm manifests saved under it seed them with no lookup."""
+    import os
+
+    from deeplearning4j_tpu_torch import telemetry, tuning
+
+    telemetry.enable()  # the event counters are part of the output
+    path = args.db or os.environ.get(tuning.ENV_DB)
+    if not path:
+        raise SystemExit(f"tune: no DB path (--db PATH or ${tuning.ENV_DB})")
+    device = args.device
+    if device == "cpu":
+        print("tune: on the CPU every candidate runs the kernel's plain version "
+              "(mechanics only; the times say nothing of the card)")
+    db = tuning.TuningDB.load_lenient(path) or tuning.TuningDB(path)
+    kernels = ([k.strip() for k in args.kernels.split(",") if k.strip()]
+               if args.kernels else None)
+    overrides = {k: v for k, v in (("iters", args.iters), ("reps", args.reps)) if v}
+    try:
+        summaries = tuning.tune_kernels(db, kernels, smoke=args.smoke, device=device,
+                                        log=print, **overrides)
+    except ValueError as e:
+        raise SystemExit(f"tune: {e}")
+    db.save(path)
+    for name, s in summaries.items():
+        print(f"{name}: winner {s['winner']} ({s['winner_ms']} ms/call; default "
+              f"{s['default_config']} {s['default_ms']} ms; {s['timed']} measured, "
+              f"{s['pruned_static']} pruned, {s['rejected_parity']} parity-rejected)")
+    print(f"tuning DB: {path} ({len(db)} entr{'y' if len(db) == 1 else 'ies'}); events "
+          f"{json.dumps(tuning.event_counts())}")
+    print("note: warm manifests key on the DB content — entries saved under the old DB "
+          "warm live on the next start")
+    return 0
+
+
 def main(argv=None):
     args = _build_parser().parse_args(sys.argv[1:] if argv is None else argv)
     if args.command == "serve":
         return _cmd_serve(args)
     if args.command == "eval":
         return _cmd_eval(args)
+    if args.command == "tune":
+        return _cmd_tune(args)
     return 1
 
 

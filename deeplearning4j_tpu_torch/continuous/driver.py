@@ -72,6 +72,7 @@ from deeplearning4j_tpu_torch.telemetry import devices as _devices
 from deeplearning4j_tpu_torch.telemetry import flight as _flight
 from deeplearning4j_tpu_torch.telemetry import health as _health
 from deeplearning4j_tpu_torch.telemetry.scorepipe import ScorePipeline, StepRecordEmitter
+from deeplearning4j_tpu_torch.utils import compile_cache as _cc
 
 __all__ = ["StepDriver", "RoundResult"]
 
@@ -486,6 +487,8 @@ class StepDriver:
             step_start = time.perf_counter() if rec else None
             with _tm.span("fit.step", **span_kw):
                 loss, hb, chunks = eng.dispatch(prep, n_real)
+                # cold-start gauge (compile_cache): stamped once, then a dict read
+                _cc.note_first_step()
                 meta = {"step": step0, "iteration": net.iteration, "etl_time_s": etl,
                         "k": n_real, "chunks": chunks, "rec": rec, "health": self._use_health,
                         "trace": tctx, "trace_id": None if tctx is None else tctx.trace_id}
@@ -520,6 +523,7 @@ class StepDriver:
         out = eng.dispatch(prep, n_real)
         if out is None:
             return 0
+        _cc.note_first_step()
         loss, hb, chunks = out
         meta = {"step": step0, "iteration": net.iteration, "etl_time_s": etl,
                 "k": n_real, "chunks": chunks}

@@ -38,6 +38,12 @@ run under one ``lax.scan``; here they run as one CUDA graph:
   per replay (``replay_launches`` keeps the replays' share).
 * On the CPU (tests) the same step function runs eagerly over the same
   static buffers: the engine's plain version.
+* A signature warms (its capture, or its first eager run) through
+  ``utils/compile_cache.aot_compile`` under the JAX package's kind
+  ``fused:k=<K>:health=<0|1>``: with a warm manifest attached to the net,
+  the kernel libraries come from it and the launch plans are seeded from
+  it (no nvcc run, no tuning lookup); the capture itself still runs and
+  counts in ``captures``.
 
 Caveat (the JAX package's): padding is exact for the loss and gradients,
 but batch-statistics layers (BatchNormalization in train mode) see the
@@ -129,6 +135,7 @@ class _Signature:
         self.out = None
         self.ptrs = None
         self.launches = {}
+        self.warmed = False  # the eager engine's first run done
 
 
 def _by_dtype(leaves):
@@ -261,9 +268,16 @@ class TrainSteps:
             table = net.conf.updater.step_table(range(int(step0), int(step0) + self.k))
             sig.table.copy_(as_device(torch.from_numpy(table), device), non_blocking=True)
         if device.type != "cuda" or self.eager:
+            if not sig.warmed:
+                # the signature's first run is its warm-up
+                sig.warmed = True
+                out, _src = self._warm(lambda: self._steps(params, state, opt_state, sig, seed),
+                                       params, state, opt_state, xs, ys, masks)
+                return self._finish(out)
             return self._finish(self._steps(params, state, opt_state, sig, seed))
         if sig.graph is None:
-            self._capture(params, state, opt_state, sig, seed, device)
+            self._warm(lambda: self._capture(params, state, opt_state, sig, seed, device),
+                       params, state, opt_state, xs, ys, masks)
         sig.graph.replay()
         self.replays += 1
         _add_launches(sig.launches)
@@ -273,6 +287,17 @@ class TrainSteps:
         # copies: the next replay overwrites the graph's outputs
         return self._finish((losses.clone(), None if health is None
                              else {k: v.clone() for k, v in health.items()}))
+
+    def _warm(self, fn, params, state, opt_state, xs, ys, masks):
+        """Warm a new signature through ``utils/compile_cache.aot_compile``
+        under the JAX package's kind: a warm manifest attached to the net
+        (``attach_manifest``, ``load_bundle``) installs its libraries and
+        seeds its plans first; a live warm-up is written back into it."""
+        from deeplearning4j_tpu_torch.utils import compile_cache as _cc
+        return _cc.aot_compile(
+            fn, manifest=getattr(self.net, "_warm_manifest", None),
+            kind=f"fused:k={self.k}:health={int(self.with_health)}",
+            signature=_cc.signature_of((params, state, opt_state, xs, ys, masks)))
 
     def _finish(self, out):
         losses, health = out

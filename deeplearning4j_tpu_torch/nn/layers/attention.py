@@ -3,7 +3,8 @@
 The same configs, parameters and math as
 ``deeplearning4j_tpu/nn/layers/attention.py``. ``dot_product_attention``
 keeps that module's dispatch seam: ``resolve_attention`` sends
-self-attention at ``T >= MIN_SEQ`` to ``ops.attention.flash_attention``
+self-attention at ``T >= MIN_SEQ`` (or where a bound tuning DB says so)
+to ``ops.attention.flash_attention``
 (the Hopper kernel on CUDA tensors, its plain version on CPU tensors) and
 everything else to the naive path, which holds the [B,H,T,T] scores.
 """
@@ -75,9 +76,13 @@ class LayerNormalization(ParamLayer):
 def resolve_attention(q_shape, k_shape, mask, dtype, *, min_seq=None):
     """Whether ``dot_product_attention`` takes the flash path. Structural
     gates first (self-attention shapes only, head_dim <= 128, the kernel's
-    float dtypes, a mask only as [B, Tk] key padding), then the measured
-    length crossover: ``T >= min_seq`` (default ``MIN_SEQ``, or the
-    ``DL4J_TPU_FUSED_ATTENTION_MIN_SEQ`` environment variable)."""
+    float dtypes, a mask only as [B, Tk] key padding), then the length
+    crossover: a bound tuning DB's verdict for the [B, T, H, D] bucket
+    (``{"backend": "plain"}`` is the naive path; ``tuning/tune.py`` times
+    it as a candidate), else ``T >= min_seq`` (default ``MIN_SEQ``, or the
+    ``DL4J_TPU_FUSED_ATTENTION_MIN_SEQ`` environment variable). An explicit
+    ``min_seq`` is the caller's decision and skips the DB, as in the JAX
+    package."""
     if mask is not None and tuple(mask.shape) != (q_shape[0], k_shape[1]):
         return False
     if tuple(q_shape) != tuple(k_shape) or q_shape[-1] > MAX_HEAD_DIM:
@@ -85,6 +90,9 @@ def resolve_attention(q_shape, k_shape, mask, dtype, *, min_seq=None):
     if dtype not in (torch.float32, torch.bfloat16):
         return False
     if min_seq is None:
+        cfg = _flash.tuned_config(q_shape, dtype)
+        if cfg is not None:
+            return cfg.get("backend", "flash") == "flash"
         try:
             min_seq = int(os.environ.get("DL4J_TPU_FUSED_ATTENTION_MIN_SEQ", MIN_SEQ))
         except ValueError:  # malformed override: keep the measured default
@@ -104,7 +112,8 @@ def dot_product_attention(q, k, v, *, mask=None, causal=False, scale=None, min_s
     d = q.shape[-1]
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     logits = torch.einsum("bqhd,bkhd->bhqk", q.to(cd).to(ad), k.to(cd).to(ad)) * scale
-    neg_inf = torch.tensor(-math.inf, dtype=logits.dtype, device=logits.device)
+    # filled on the device: no host copy, so the path captures into a CUDA graph
+    neg_inf = torch.full((), -math.inf, dtype=logits.dtype, device=logits.device)
     if causal:
         tq, tk = logits.shape[-2], logits.shape[-1]
         keep = torch.ones((tq, tk), dtype=torch.bool, device=q.device).tril(tk - tq)

@@ -11,7 +11,8 @@ input dtype with f32 accumulation, fully masked rows emitting 0.
 - ``flash_attention_fwd`` returns ``(out [B,T,H,D], lse [B,H,T] f32)``: on
   CUDA tensors it launches ``csrc/flash_attn.cu`` (f32 or bf16, D <= 128)
   on the variant ``plan()`` names from the shape, strides, dtype and
-  alignment; on CPU tensors it takes ``flash_attention_plain``.
+  alignment (``launch_plan``: a tuning DB's winner where one is bound,
+  ``tuning/``); on CPU tensors it takes ``flash_attention_plain``.
   ``launches`` counts the kernel launches, ``launches_by_variant`` the same
   launches by variant:
 
@@ -55,7 +56,7 @@ from typing import NamedTuple
 
 import torch
 
-from deeplearning4j_tpu_torch.ops import _build
+from deeplearning4j_tpu_torch.ops import _build, _plans
 
 SOURCE = _build.CSRC / "flash_attn.cu"
 
@@ -155,6 +156,28 @@ def _width(d):
     return next(w for w in WIDTHS if d <= w)
 
 
+def _flat_strides(shape, strides):
+    b, t, h, d = shape
+    if strides is None:
+        strides = ((t * h * d, h * d, d),) * 3
+    return strides, [s for triple in strides for s in triple]
+
+
+def _assemble(variant, d, t, b, h):
+    if variant == "bf16_wgmma":
+        dp = _width(d)
+        rows, keys, stages, threads = WG_ROWS, WG_KEYS, WG_STAGES[dp], WG_THREADS
+    elif variant == "f32_3xtf32_wgmma":
+        dp = 64
+        rows, keys, stages, threads = TF_ROWS, TF_KEYS, 2, TF_THREADS
+    else:
+        # f32_3xtf32 is compiled at DP = 128 only: a narrower D rides it zero-filled
+        dp = 128 if variant == "f32_3xtf32" else _width(d)
+        rows, keys, stages, threads = 16 * MMA_WARPS[dp], MMA_KEYS, 2, 32 * MMA_WARPS[dp]
+    return Plan(variant, dp, rows, keys, stages, threads, (-(-t // rows), b * h),
+                smem_bytes(variant, dp))
+
+
 @functools.lru_cache(maxsize=None)
 def plan(shape, dtype, strides=None, aligned=True):
     """The launch of one flash forward: ``shape`` (B, T, H, D), ``dtype``
@@ -166,11 +189,11 @@ def plan(shape, dtype, strides=None, aligned=True):
     (16 bytes), else ``f32_3xtf32_unaligned``;
     bf16 takes ``bf16_wgmma`` where the pointers are aligned and every
     stride is a multiple of 8 elements and the strides nest (head inside
-    time inside batch, as TMA's maps walk them), else ``bf16_unaligned``."""
+    time inside batch, as TMA's maps walk them), else ``bf16_unaligned``.
+    The hand-picked plan: ``launch_plan`` gives a tuned one where a tuning
+    DB is bound."""
     b, t, h, d = shape
-    if strides is None:
-        strides = ((t * h * d, h * d, d),) * 3
-    flat = [s for triple in strides for s in triple]
+    strides, flat = _flat_strides(shape, strides)
     if dtype == torch.float32:
         vec = aligned and d % 4 == 0 and all(s % 4 == 0 for s in flat)
         variant = (("f32_3xtf32_wgmma" if d <= 64 else "f32_3xtf32") if vec
@@ -181,17 +204,103 @@ def plan(shape, dtype, strides=None, aligned=True):
         variant = "bf16_wgmma" if tma else "bf16_unaligned"
     else:
         raise TypeError(f"flash_attn kernel takes float32 or bfloat16, got {dtype}")
+    return _assemble(variant, d, t, b, h)
+
+
+#: the variants of each dtype
+DTYPE_VARIANTS = {torch.float32: ("f32_3xtf32_wgmma", "f32_3xtf32", "f32_3xtf32_unaligned"),
+                  torch.bfloat16: ("bf16_wgmma", "bf16_unaligned")}
+
+
+def config_of(pl):
+    """The tunable field of a plan: its variant (``backend`` flash)."""
+    return {"backend": "flash", "variant": pl.variant}
+
+
+def configured(shape, dtype, strides, aligned, config):
+    """The plan ``config`` ({"backend": "flash", "variant": v}) gives a
+    call, or the reason it is refused: a variant of another dtype or one
+    not compiled for D, or a call that breaks the variant's alignment or
+    stride rule (16-byte pointers and strides for ``f32_3xtf32*`` and
+    ``bf16_wgmma``, D a multiple of 4 for the f32 ones, nested strides for
+    TMA's maps)."""
+    b, t, h, d = shape
+    variant = config.get("variant") if isinstance(config, dict) else None
+    if not isinstance(config, dict) or config.get("backend", "flash") != "flash":
+        return f"config: not a flash config: {config}"
+    if variant not in DTYPE_VARIANTS.get(dtype, ()):
+        return f"dtype: {dtype} takes variants {list(DTYPE_VARIANTS.get(dtype, ()))}, not {variant}"
+    if not 1 <= d <= 128 or (variant == "f32_3xtf32_wgmma" and d > 64):
+        return f"not compiled: {variant} takes D up to {64 if 'wgmma' in variant else 128}, D is {d}"
+    strides, flat = _flat_strides(shape, strides)
+    if variant in ("f32_3xtf32_wgmma", "f32_3xtf32"):
+        if not (aligned and d % 4 == 0 and all(s % 4 == 0 for s in flat)):
+            return f"alignment: {variant} needs 16-byte pointers, D and strides"
     if variant == "bf16_wgmma":
-        dp = _width(d)
-        rows, keys, stages, threads = WG_ROWS, WG_KEYS, WG_STAGES[dp], WG_THREADS
-    elif variant == "f32_3xtf32_wgmma":
-        dp = 64
-        rows, keys, stages, threads = TF_ROWS, TF_KEYS, 2, TF_THREADS
-    else:
-        dp = _width(d)
-        rows, keys, stages, threads = 16 * MMA_WARPS[dp], MMA_KEYS, 2, 32 * MMA_WARPS[dp]
-    return Plan(variant, dp, rows, keys, stages, threads, (-(-t // rows), b * h),
-                smem_bytes(variant, dp))
+        nested = all(sh >= d and st >= h * sh and sb >= t * st for sb, st, sh in strides)
+        if not (aligned and nested and all(s % 8 == 0 for s in flat)):
+            return "alignment: bf16_wgmma needs 16-byte pointers and strides, nested"
+    pl = _assemble(variant, d, t, b, h)
+    if pl.smem_bytes > SMEM_LIMIT:
+        return f"smem: {pl.smem_bytes} B exceeds the {SMEM_LIMIT} B a block may take"
+    return pl
+
+
+#: the tuning DB's verdicts by (shape, dtype, binding): resolve_attention's
+#: and the plan's one lookup
+_VERDICTS = {}
+_plans.register(_VERDICTS)
+
+
+def tuned_config(shape, dtype):
+    """The bound tuning DB's config for attention at [B, T, H, D]
+    ``shape`` (``{"backend": "plain"}`` or ``{"backend": "flash",
+    "variant": ...}``), or None; one lookup per shape, dtype and binding."""
+    db, token = _plans.binding_token()
+    if db is None:
+        return None
+    dtype = _plans.dtype_name(dtype)
+    key = (tuple(int(x) for x in shape), dtype, token)
+    if key not in _VERDICTS:
+        _VERDICTS[key] = db.lookup("attention", key[0], dtype)
+    return _VERDICTS[key]
+
+
+def _resolve(db, key):
+    shape, dtype, strides, aligned = key
+    dt = _plans.DTYPES[dtype]
+    default = plan(shape, dt, strides, aligned)
+    cfg = tuned_config(shape, dtype) if db is not None else None
+    if cfg is not None and cfg.get("backend", "flash") == "flash":
+        pl = configured(shape, dt, strides, aligned, cfg)
+        if isinstance(pl, Plan):
+            return config_of(pl), pl
+    return config_of(default), default
+
+
+def _configured_at(key, config):
+    shape, dtype, strides, aligned = key
+    return configured(shape, _plans.DTYPES[dtype], strides, aligned, config)
+
+
+#: the plans of this library's calls, per call key and tuning-DB binding
+PLANS = _plans.PlanCache("flash_attn", _resolve, _configured_at)
+
+
+def plan_key(shape, dtype, strides=None, aligned=True):
+    """The key ``PLANS`` keeps a call's plan under (``launch_plan``'s
+    arguments)."""
+    return (tuple(int(x) for x in shape), _plans.dtype_name(dtype),
+            None if strides is None else tuple(tuple(int(s) for s in tr) for tr in strides),
+            bool(aligned))
+
+
+def launch_plan(shape, dtype, strides=None, aligned=True):
+    """The plan a launch takes: ``plan()``'s, or with a tuning DB bound the
+    tuned variant of the call's bucket (kernel id ``attention``, shape (B,
+    T, H, D)) where it validates here; resolved once per call key and
+    binding."""
+    return PLANS.get(plan_key(shape, dtype, strides, aligned))
 
 
 # ---------------------------------------------------------------------------
@@ -304,8 +413,8 @@ def flash_attention_fwd(q, k, v, *, mask=None, causal=False, scale=None):
     lib = _LIB.get()
     b, t, h, d = q.shape
     strides = tuple(tuple(x.stride()[:3]) for x in (q, k, v))
-    pl = plan(tuple(q.shape), q.dtype, strides,
-              all(x.data_ptr() % 16 == 0 for x in (q, k, v)))
+    pl = launch_plan(tuple(q.shape), q.dtype, strides,
+                     all(x.data_ptr() % 16 == 0 for x in (q, k, v)))
     out = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
     maskf = None if mask is None else mask.to(torch.float32).contiguous()

@@ -15,7 +15,9 @@ module's ``fused_conv_bn_act``:
   ``conv_mm_stats_plain`` / ``conv3x3_stats_plain``. ``launches`` counts
   the kernel launches of each, ``launches_by_variant`` the same launches
   by kernel variant; ``plan()`` chooses the variant, tile and persistent
-  grid of a call from its shape, before the launch.
+  grid of a call from its shape, before the launch, and ``launch_plan``
+  replaces the tile and grid by a tuning DB's winner where one is bound
+  (``tuning/``).
 - ``fused_conv_bn_act`` is the train-mode fused op (one
   ``torch.autograd.Function``). Forward: the kernel's z and sums, then
   ``var = max(E[z^2] - mean^2, 0)``, the normalize, affine, residual add
@@ -42,7 +44,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from deeplearning4j_tpu_torch.ops import _build
+from deeplearning4j_tpu_torch.ops import _build, _plans
 from deeplearning4j_tpu_torch.utils import collectives as _collectives
 
 SOURCE = _build.CSRC / "conv_stats.cu"
@@ -158,6 +160,37 @@ def smem_bytes(variant, bm, bn):
     return 4 * (F32_STAGES * (bm * (F32_BK + 4) + F32_BK * bn) + threads // 32 * 2 * bn)
 
 
+#: the compiled (bm, bn) tiles of each variant (``compiled()`` of the source)
+TILES = {"bf16_wgmma": ((WG_BM, 64), (WG_BM, 128)),
+         "bf16_unaligned": ((U_BM, U_BN),),
+         "f32_pipelined": ((128, 128), (64, 128), (128, 64)),
+         "f32_unaligned": ((128, 128), (64, 128), (128, 64))}
+#: the blocks an SM a variant's persistent grid may take (0: one tile a block)
+BLOCKS_PER_SM = {"bf16_wgmma": (1, 2), "bf16_unaligned": (0,),
+                 "f32_pipelined": (1, 2, 4), "f32_unaligned": (1, 2, 4)}
+#: shared memory of one SM on sm_90 (bytes): the blocks it holds at once share it
+SM_SMEM = 233_472
+_STAGES = {"bf16_wgmma": WG_STAGES, "bf16_unaligned": 1}
+
+
+def variant_of(dtype, aligned, cin, cout):
+    """The variant a call takes, from its dtype and alignment alone."""
+    if dtype == torch.bfloat16:
+        return "bf16_wgmma" if aligned and cin % 8 == 0 and cout % 8 == 0 else "bf16_unaligned"
+    if dtype == torch.float32:
+        return "f32_pipelined" if aligned and cin % 4 == 0 and cout % 4 == 0 else "f32_unaligned"
+    raise TypeError(f"conv-statistics kernels take float32 or bfloat16, got {dtype}")
+
+
+def _assemble(variant, m, cout, bm, bn, per_sm, sms):
+    col_tiles = -(-cout // bn)
+    row_tiles = -(-m // bm)
+    tiles = row_tiles * col_tiles
+    grid = min(tiles, sms * per_sm) if per_sm else tiles
+    return Plan(variant, bm, bn, _STAGES.get(variant, F32_STAGES), per_sm, grid, row_tiles,
+                col_tiles, smem_bytes(variant, bm, bn))
+
+
 @functools.lru_cache(maxsize=None)
 def plan(kernel, x_shape, cout, stride, dtype, sms=H100_SMS, aligned=True):
     """The launch of one conv-statistics call: ``kernel`` 1 or 3, x_shape
@@ -170,33 +203,100 @@ def plan(kernel, x_shape, cout, stride, dtype, sms=H100_SMS, aligned=True):
     bf16_wgmma tiles are 128 rows tall, f32 tiles 128 rows or, where that
     leaves an SM without a tile, 64. The grid is persistent: at most
     ``blocks_per_sm`` blocks an SM, block i taking tiles i, i + grid, ...
-    (``schedule``)."""
+    (``schedule``). The hand-picked plan: ``launch_plan`` gives a tuned
+    one where a tuning DB is bound."""
     b, h, w, cin = x_shape
     sh, sw = stride
     m = b * -(-h // sh) * -(-w // sw)
     narrow = cout <= 64  # a 64-channel tile: no idle half tile
-    if dtype == torch.bfloat16 and aligned and cin % 8 == 0 and cout % 8 == 0:
+    variant = variant_of(dtype, aligned, cin, cout)
+    if variant == "bf16_wgmma":
         # 128 rows even where fewer tiles than SMs result (the 7x7 stage:
         # 100 tiles): on the H100 they beat 64-row tiles on every SM
-        variant, bn, bms, stages = "bf16_wgmma", 64 if narrow else 128, (WG_BM,), WG_STAGES
-    elif dtype == torch.bfloat16:
-        variant, bn, bms, stages = "bf16_unaligned", U_BN, (U_BM,), 1
-    elif dtype == torch.float32:
-        variant = ("f32_pipelined" if aligned and cin % 4 == 0 and cout % 4 == 0
-                   else "f32_unaligned")
-        bn, bms, stages = (64, (128,), F32_STAGES) if narrow else (128, (128, 64), F32_STAGES)
+        bn, bms = 64 if narrow else 128, (WG_BM,)
+    elif variant == "bf16_unaligned":
+        bn, bms = U_BN, (U_BM,)
     else:
-        raise TypeError(f"conv-statistics kernels take float32 or bfloat16, got {dtype}")
+        bn, bms = (64, (128,)) if narrow else (128, (128, 64))
     col_tiles = -(-cout // bn)
     bm = next((c for c in bms if -(-m // c) * col_tiles >= sms), bms[-1])
-    row_tiles = -(-m // bm)
-    tiles = row_tiles * col_tiles
     # bf16_wgmma: one block an SM; f32: 256 threads an SM (one 128 x 128
     # block or two of 128 threads); bf16_unaligned: one tile a block
     per_sm = {"bf16_wgmma": 1, "bf16_unaligned": 0}.get(variant, 256 * 64 // (bm * bn))
-    grid = min(tiles, sms * per_sm) if per_sm else tiles
-    return Plan(variant, bm, bn, stages, per_sm, grid, row_tiles, col_tiles,
-                smem_bytes(variant, bm, bn))
+    return _assemble(variant, m, cout, bm, bn, per_sm, sms)
+
+
+def config_of(pl):
+    """The tunable fields of a plan: its tile and blocks an SM."""
+    return {"bm": pl.bm, "bn": pl.bn, "blocks_per_sm": pl.blocks_per_sm}
+
+
+def configured(m, cin, cout, dtype, aligned, sms, config):
+    """The plan ``config`` ({bm, bn, blocks_per_sm}) gives a call of ``m``
+    output pixels, ``cin`` and ``cout`` channels, or the reason it is
+    refused: a tile the variant has not compiled, a grid the variant does
+    not take, shared memory above ``SMEM_LIMIT``, or blocks an SM whose
+    shared memory exceeds the SM's. (Two configs whose grids clamp to the
+    same tiles launch alike: ``tuning/space.prune`` keeps one.)"""
+    variant = variant_of(dtype, aligned, cin, cout)
+    try:
+        bm, bn, per_sm = (int(config[k]) for k in ("bm", "bn", "blocks_per_sm"))
+    except (KeyError, TypeError, ValueError):
+        return f"config: needs integer bm, bn and blocks_per_sm, got {config}"
+    if (bm, bn) not in TILES[variant]:
+        return f"not compiled: {variant} has tiles {list(TILES[variant])}, not {(bm, bn)}"
+    options = BLOCKS_PER_SM[variant]
+    if per_sm not in options:
+        return f"grid: {variant} takes blocks_per_sm in {list(options)}, not {per_sm}"
+    smem = smem_bytes(variant, bm, bn)
+    if smem > SMEM_LIMIT:
+        return f"smem: {smem} B exceeds the {SMEM_LIMIT} B a block may take"
+    if per_sm * smem > SM_SMEM:
+        return f"co-residency: {per_sm} blocks of {smem} B exceed an SM's {SM_SMEM} B"
+    return _assemble(variant, m, cout, bm, bn, per_sm, sms)
+
+
+def _resolve(db, key):
+    ks, b, h, w, cin, cout, sh, sw, dtype, sms, aligned = key
+    dt = _plans.DTYPES[dtype]
+    default = plan(ks, (b, h, w, cin), cout, (sh, sw), dt, sms, aligned)
+    if db is not None:
+        ho, wo = -(-h // sh), -(-w // sw)
+        if ks == 1:
+            cfg = db.lookup("conv_matmul", (b * ho * wo, cin, cout), dtype)
+        else:
+            cfg = db.lookup("conv3x3", (b, ho, wo, cin, cout), dtype)
+        if cfg is not None:
+            pl = configured(b * ho * wo, cin, cout, dt, aligned, sms, cfg)
+            if isinstance(pl, Plan):
+                return config_of(pl), pl
+    return config_of(default), default
+
+
+def _configured_at(key, config):
+    ks, b, h, w, cin, cout, sh, sw, dtype, sms, aligned = key
+    return configured(b * -(-h // sh) * -(-w // sw), cin, cout, _plans.DTYPES[dtype], aligned,
+                      sms, config)
+
+
+#: the plans of this library's calls, per call key and tuning-DB binding
+PLANS = _plans.PlanCache("conv_stats", _resolve, _configured_at)
+
+
+def plan_key(kernel, x_shape, cout, stride, dtype, sms=H100_SMS, aligned=True):
+    """The key ``PLANS`` keeps a call's plan under (``launch_plan``'s
+    arguments)."""
+    b, h, w, cin = x_shape
+    return (int(kernel), b, h, w, cin, cout, stride[0], stride[1], _plans.dtype_name(dtype),
+            sms, bool(aligned))
+
+
+def launch_plan(kernel, x_shape, cout, stride, dtype, sms=H100_SMS, aligned=True):
+    """The plan a launch takes: ``plan()``'s, or with a tuning DB bound the
+    tuned config of the call's bucket where it validates here (kernel ids
+    ``conv_matmul`` (rows, Cin, Cout) and ``conv3x3`` (B, Ho, Wo, Cin,
+    Cout)); resolved once per call key and binding (``ops/_plans.py``)."""
+    return PLANS.get(plan_key(kernel, x_shape, cout, stride, dtype, sms, aligned))
 
 
 def schedule(pl):
@@ -281,7 +381,7 @@ def _launch(name, x, w, stride):
     dev = x.device
     idx = _build.device_index(dev)
     aligned = x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0
-    pl = plan(ks, tuple(x.shape), cout, stride, x.dtype, _sm_count(dev), aligned)
+    pl = launch_plan(ks, tuple(x.shape), cout, stride, x.dtype, _sm_count(dev), aligned)
     z = torch.empty((b, -(-h // sh), -(-wd // sw), cout), dtype=x.dtype, device=dev)
     # one allocation: stats [2, Cout], then the partials [row_tiles, 2, Cout]
     scratch = torch.empty((pl.row_tiles + 1) * 2 * cout, dtype=torch.float32, device=dev)
@@ -305,11 +405,11 @@ def conv_mm_stats(x, w2d, stride=(1, 1)):
     Ho = ceil(H / sh). CUDA tensors launch the Hopper kernel, which reads
     the strided input in place; CPU tensors take ``conv_mm_stats_plain``."""
     stride = tuple(stride)
+    w = w2d.reshape(1, 1, *w2d.shape)
     if x.device.type == "cpu":
         return conv_mm_stats_plain(x, w2d, stride)
     if x.device.type != "cuda":
         raise ValueError(f"conv_mm_stats runs on cuda or cpu tensors, got {x.device}")
-    w = w2d.reshape(1, 1, *w2d.shape)
     _check("conv_mm_stats", x, w, 1, stride)
     return _launch("conv_mm_stats", x, w, stride)
 

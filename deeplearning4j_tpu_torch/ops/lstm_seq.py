@@ -58,7 +58,7 @@ from typing import NamedTuple
 
 import torch
 
-from deeplearning4j_tpu_torch.ops import _build
+from deeplearning4j_tpu_torch.ops import _build, _plans
 
 SOURCE = _build.CSRC / "lstm_seq.cu"
 
@@ -120,6 +120,10 @@ H100_SMS = 132
 P_UNITS, P_WARPS, P_RED_LD = 8, 8, 40
 P_ROWS_PER_LANE = (1, 2, 4)
 S_UNITS, S_ROWS, S_MAX_SPLIT, S_MIN_K = 32, 8, 8, 64
+#: shared memory of one step_cluster block (bytes; static in the source)
+STEP_SMEM = 4 * (S_ROWS * 256 + 8 * 4 * S_ROWS * S_UNITS + 4 * S_ROWS * S_UNITS)
+#: the cluster sizes step_cluster is compiled to take
+S_SPLITS = (1, 2, 4, 8)
 
 
 class Plan(NamedTuple):
@@ -179,7 +183,91 @@ def plan(b, h, dtype, sms=H100_SMS, smem_limit=SMEM_LIMIT):
                 return Plan("persistent", rt, groups, 0, units * groups, smem)
     split = step_split(b, h, sms)
     return Plan("step_cluster", 0, 0, split, -(-h // S_UNITS) * -(-b // S_ROWS) * split,
-                4 * (S_ROWS * 256 + 8 * 4 * S_ROWS * S_UNITS + 4 * S_ROWS * S_UNITS))
+                STEP_SMEM)
+
+
+def config_of(pl):
+    """The tunable fields of a plan: the variant and its rows per lane or
+    cluster size."""
+    if pl.variant == "persistent":
+        return {"variant": "persistent", "rt": pl.rt}
+    return {"variant": "step_cluster", "split": pl.split}
+
+
+def configured(b, h, dtype, sms, config, occupancy=None):
+    """The plan ``config`` gives a call at batch ``b`` and width ``h``, or
+    the reason it is refused: a variant or size the library has not
+    compiled, ``persistent`` on H off a multiple of 4, shared memory above
+    ``SMEM_LIMIT``, a ``persistent`` grid that cannot be co-resident (the
+    cooperative launch refuses one: at most ``occupancy(rt)`` blocks an SM
+    where the card is asked, else one, ``plan()``'s arithmetic), or a
+    ``step_cluster`` split that leaves a rank no rows of K."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"lstm_seq kernel takes float32 or bfloat16, got {dtype}")
+    variant = config.get("variant") if isinstance(config, dict) else None
+    try:
+        if variant == "persistent":
+            rt = int(config["rt"])
+            if rt not in P_ROWS_PER_LANE:
+                return f"not compiled: persistent takes rt in {list(P_ROWS_PER_LANE)}, not {rt}"
+            if h % 4:
+                return f"alignment: persistent needs H % 4 == 0, H is {h}"
+            smem = persistent_smem(rt, h)
+            if smem > SMEM_LIMIT:
+                return f"smem: {smem} B exceeds the {SMEM_LIMIT} B a block may take"
+            groups = -(-b // (8 * rt))
+            grid = -(-h // P_UNITS) * groups
+            per_sm = 1 if occupancy is None else int(occupancy(rt))
+            if grid > sms * per_sm:
+                return (f"co-residency: a cooperative grid of {grid} blocks exceeds {sms} SMs "
+                        f"x {per_sm} resident")
+            return Plan("persistent", rt, groups, 0, grid, smem)
+        if variant == "step_cluster":
+            split = int(config["split"])
+            if split not in S_SPLITS:
+                return f"not compiled: step_cluster takes split in {list(S_SPLITS)}, not {split}"
+            if (split - 1) * -(-h // split) >= h:
+                return f"redundant: split {split} leaves a rank no rows of K at H={h}"
+            return Plan("step_cluster", 0, 0, split, -(-h // S_UNITS) * -(-b // S_ROWS) * split,
+                        STEP_SMEM)
+    except (KeyError, TypeError, ValueError):
+        pass
+    return f"config: needs variant persistent (rt) or step_cluster (split), got {config}"
+
+
+def _resolve(db, key, occupancy=None):
+    t, b, h, dtype, sms = key
+    dt = _plans.DTYPES[dtype]
+    default = plan(b, h, dt, sms)
+    if db is not None:
+        cfg = db.lookup("lstm", (t, b, h), dtype)
+        if cfg is not None:
+            pl = configured(b, h, dt, sms, cfg, occupancy)
+            if isinstance(pl, Plan):
+                return config_of(pl), pl
+    return config_of(default), default
+
+
+def _configured_at(key, config):
+    t, b, h, dtype, sms = key
+    return configured(b, h, _plans.DTYPES[dtype], sms, config)
+
+
+#: the plans of this library's calls, per call key and tuning-DB binding
+PLANS = _plans.PlanCache("lstm_seq", _resolve, _configured_at)
+
+
+def plan_key(t, b, h, dtype, sms=H100_SMS):
+    """The key ``PLANS`` keeps a call's plan under."""
+    return (int(t), int(b), int(h), _plans.dtype_name(dtype), int(sms))
+
+
+def launch_plan(t, b, h, dtype, sms=H100_SMS, occupancy=None):
+    """The plan a launch takes: ``plan()``'s, or with a tuning DB bound the
+    tuned config of the call's bucket (kernel id ``lstm``, shape (T, B,
+    H)) where it validates here (``occupancy``: rt -> persistent blocks an
+    SM, from the card); resolved once per call key and binding."""
+    return PLANS.get(plan_key(t, b, h, dtype, sms), occupancy)
 
 
 class SeqOut(NamedTuple):
@@ -276,6 +364,17 @@ def _sm_count(idx):
     return _sm_counts[idx]
 
 
+def _occupancy(lib, rt, h, xz, idx):
+    """Persistent blocks at (rt, H, dtype) that fit on one SM of the card."""
+    blocks = ctypes.c_int(0)
+    err = lib.lstm_seq_occupancy(rt, h, int(xz.dtype == torch.bfloat16), idx,
+                                 ctypes.byref(blocks))
+    if err != 0:
+        raise RuntimeError(f"lstm_seq_occupancy failed: CUDA error {err} "
+                           f"({lib.lstm_seq_error_string(err).decode()})")
+    return blocks.value
+
+
 def lstm_seq_fwd(xz, wh, h0, c0, wp=None, mask=None):
     """The forward alone, outside autograd: CUDA tensors launch the Hopper
     kernel (f32 or bf16 xz/wh/wp, h0/c0 any float dtype), CPU tensors take
@@ -300,7 +399,8 @@ def lstm_seq_fwd(xz, wh, h0, c0, wp=None, mask=None):
     c_state = c0.to(dtype=torch.float32, copy=True).contiguous()
     maskf = None if mask is None else mask.to(torch.float32).contiguous()
     idx = _build.device_index(dev)
-    pl = plan(b, hsz, xz.dtype, _sm_count(idx))
+    sms = _sm_count(idx)
+    pl = launch_plan(t_len, b, hsz, xz.dtype, sms, lambda rt: _occupancy(lib, rt, hsz, xz, idx))
     sync = torch.empty(1, dtype=torch.int32, device=dev)  # the grid barrier's counter
     err = lib.lstm_seq_launch(
         VARIANTS.index(pl.variant), pl.rt, pl.split, int(xz.dtype == torch.bfloat16),

@@ -19,8 +19,9 @@ from deeplearning4j_tpu_torch.serving.engine import (BucketedForward,
                                                      ServingOverloaded,
                                                      ServingShutdown)
 from deeplearning4j_tpu_torch.serving.registry import (ModelRegistry,
-                                                       get_model_registry, reset)
+                                                       get_model_registry,
+                                                       manifest_grid_signatures, reset)
 
 __all__ = ["BucketedForward", "InferenceFuture", "ModelRegistry",
            "ServingEngine", "ServingOverloaded", "ServingShutdown",
-           "get_model_registry", "reset"]
+           "get_model_registry", "manifest_grid_signatures", "reset"]

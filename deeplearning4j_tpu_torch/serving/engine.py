@@ -49,13 +49,27 @@ With a ``mesh`` the buckets round up to a multiple of the data axis and
 each forward splits its padded batch over ``data`` (each rank runs its
 rows, one all-gather brings every answer to every rank): every rank calls
 ``output`` with the same batch, so the queued path is refused with a mesh.
-The JAX package's warm AOT manifest and compile-cache events are ROADMAP
-queue 1 item 7.4.
+
+Warm restarts (JAX ``:219-230``, ``:435``, ``:784-799``): each grid entry
+warms through ``utils/compile_cache.aot_compile`` under the JAX package's
+kind (``serving``, ``serving:grid=<ShapeBuckets.signature()>`` on a 2-D
+grid, the mesh folded in). With ``warm_manifest=`` (a path or a
+``WarmManifest``) an entry's kernel libraries are installed and its launch
+plans seeded from the manifest (no nvcc run, no tuning lookup); the
+warm-up forward itself still runs. A manifest for another model or backend
+is refused (``stats()["aot"]["manifest"] == "mismatch"``), a missing entry
+warms live (``manifest_misses``). ``save_warm_manifest`` writes what this
+engine warmed, for the next process. The first served request stamps
+``time_to_first_request_ms``, and ``health()`` carries the
+compile-cache events.
 """
 
 from __future__ import annotations
 
 import collections
+import json
+import math
+import os
 import queue
 import threading
 import time
@@ -67,6 +81,7 @@ from deeplearning4j_tpu_torch import telemetry as _tm
 from deeplearning4j_tpu_torch.datasets.iterator import BucketRegistry, ShapeBuckets
 from deeplearning4j_tpu_torch.serving import metering as _metering
 from deeplearning4j_tpu_torch.telemetry import tracectx as _tracectx
+from deeplearning4j_tpu_torch.utils import compile_cache as _cc
 from deeplearning4j_tpu_torch.utils import dtypes as _dtypes
 from deeplearning4j_tpu_torch.utils.device import resolve_device
 
@@ -234,12 +249,29 @@ class BucketedForward:
 
     ``forwards`` counts device forwards (warmup included): each runs every
     layer once, so a kernel a layer launches once per forward launches
-    ``forwards`` times per such layer."""
+    ``forwards`` times per such layer.
 
-    def __init__(self, net, buckets, *, device, dtype=np.float32, mesh=None):
+    ``warmup`` warms each grid entry through ``compile_cache.aot_compile``
+    into ``manifest``: with one built for this net on this backend the
+    entries are served from it (libraries installed, plans seeded) and the
+    ones it lacks written back; one built for another is refused at
+    construction (counted ``mismatch_drop``); without one, a fresh manifest
+    for the net takes every entry. ``export_manifest`` returns it."""
+
+    def __init__(self, net, buckets, *, device, dtype=np.float32, mesh=None, manifest=None):
         self.net = net
         self.device = device
         self.mesh = mesh
+        self._manifest_state = "none"
+        if manifest is not None:
+            if manifest.matches(net):
+                self._manifest_state = "attached"
+            else:
+                self._manifest_state = "mismatch"
+                _cc.count_event("mismatch_drop")
+                manifest = None
+        #: the manifest the grid warms from and into
+        self.manifest = manifest if manifest is not None else _cc.WarmManifest.for_net(net)
         #: ranks on the mesh's data axis (1 without a mesh)
         self.data_ranks = 1 if mesh is None else int(mesh.shape["data"])
         if self.data_ranks > 1:
@@ -253,8 +285,17 @@ class BucketedForward:
         self.dtype = np.dtype(dtype)
         #: the served parameters' element count (metering's FLOPs estimate)
         self.param_count = _param_count(net)
+        # the manifest kind, as the JAX package tags it: the mesh's shape
+        # and size, then the 2-D grid (after the mesh's rounding)
+        kind = ("serving" if mesh is None else
+                f"serving:mesh={sorted(mesh.shape.items())}"
+                f":ndev={math.prod(int(v) for v in mesh.shape.values())}")
+        if self.seq_aware:
+            kind += f":grid={buckets.signature()}"
+        self._manifest_kind = kind
         self._lock = threading.Lock()
         self._counts = {"warmed": 0, "forwards": 0}
+        self._aot = {"warmed": 0, "manifest_hits": 0, "manifest_misses": 0}
         reg = self._reg = _tm.get_registry()
         self._m_fill = reg.histogram(
             "serving_batch_fill_ratio",
@@ -284,11 +325,31 @@ class BucketedForward:
         t0 = time.perf_counter()
         shapes = list(self.buckets) if self.seq_aware else [(b, None) for b in self.buckets]
         for b, s in shapes:
-            self._run(_tree_map(lambda spec: zeros(spec, b, s), input_spec)
-                      if isinstance(input_spec, dict) else zeros(input_spec, b, s))
+            x = (_tree_map(lambda spec: zeros(spec, b, s), input_spec)
+                 if isinstance(input_spec, dict) else zeros(input_spec, b, s))
+            _out, src = _cc.aot_compile(self._run, x, manifest=self.manifest,
+                                        kind=self._manifest_kind,
+                                        signature=json.dumps(_signature(x)))
             with self._lock:
                 self._counts["warmed"] += 1
+                self._aot["warmed"] += 1
+                if src == "manifest":
+                    self._aot["manifest_hits"] += 1
+                elif self._manifest_state == "attached":
+                    self._aot["manifest_misses"] += 1
         return time.perf_counter() - t0
+
+    def aot_stats(self):
+        """Grid entries warmed, served from the manifest and missed, and the
+        manifest's state (none, attached or mismatch)."""
+        with self._lock:
+            return dict(self._aot, manifest=self._manifest_state)
+
+    def export_manifest(self):
+        """The warm manifest covering every grid entry this forward warmed,
+        each under the manifest key (tuning DB fingerprint included) it
+        warmed with."""
+        return self.manifest
 
     def _run(self, x_padded):
         """One forward at the padded shape; the result (an array, or a
@@ -372,15 +433,18 @@ class ServingEngine:
     export. ``device`` is where the forward runs (``"cuda"`` unless the
     caller asks for ``"cpu"``); the network is moved there. ``mesh``: the
     collective form (see the module docstring), ``output()`` only.
+    ``warm_manifest``: a ``WarmManifest`` or a path to one (a missing file
+    is a cold start, an unreadable one warns and warms cold).
     """
 
     def __init__(self, net, *, name="default", input_spec=None,
                  buckets=None, seq_buckets=None, max_batch_size=32, mesh=None,
                  max_queue=256, default_deadline_s=None, batch_window_s=0.0,
-                 dtype=np.float32, warmup=None, device="cuda"):
+                 dtype=np.float32, warmup=None, device="cuda", warm_manifest=None):
         self.name = name
         self.device = resolve_device(device)
         net.to(self.device)
+        self._warm_manifest = _load_manifest(warm_manifest)
         self.mesh = mesh
         self.batch_window_s = batch_window_s
         self.default_deadline_s = default_deadline_s
@@ -393,7 +457,8 @@ class ServingEngine:
                 buckets = BucketRegistry(buckets)
             if seq_buckets is not None:
                 buckets = ShapeBuckets(buckets, seq_buckets)
-        self._fwd = BucketedForward(net, buckets, device=self.device, dtype=dtype, mesh=mesh)
+        self._fwd = BucketedForward(net, buckets, device=self.device, dtype=dtype, mesh=mesh,
+                                    manifest=self._warm_manifest)
         self.max_queue = max_queue
         self._pending_rows = 0  # queued EXAMPLES (a batched entry is n)
         self._stop = threading.Event()
@@ -516,18 +581,24 @@ class ServingEngine:
     def buckets(self):
         return self._fwd.buckets
 
-    def update_model(self, net, warm=None):
+    def update_model(self, net, warm=None, *, manifest=None):
         """Hot-swap the served model. The replacement ``BucketedForward``
         (same shape grid: a swap changes weights, never shapes) is built
         and, by default when the engine knows its input spec, warmed off
         the serving path, then rebound in one assignment: the worker reads
         the forward once a batch, so batches in flight finish on the old
         model, later ones run on the new one, and no queued request is
-        dropped or errored by the swap."""
+        dropped or errored by the swap. ``manifest`` (a bundle's warm
+        manifest, or a path) replaces the engine's for this and later
+        swaps; a registry gates its grid first
+        (``serving/registry.py``)."""
         net.to(self.device)
+        manifest = _load_manifest(manifest)
+        if manifest is not None:
+            self._warm_manifest = manifest
         fwd = self._fwd
         fresh = BucketedForward(net, fwd.buckets, device=self.device, dtype=self._dtype,
-                                mesh=self.mesh)
+                                mesh=self.mesh, manifest=self._warm_manifest)
         if warm is None:
             warm = self._input_spec is not None
         if warm:
@@ -536,6 +607,20 @@ class ServingEngine:
             fresh.warmup(self._input_spec)
         self._fwd = fresh
         self._count("swaps")
+
+    def export_warm_manifest(self):
+        """The warm manifest covering every grid entry the served forward
+        warmed, or None when it warmed none."""
+        m = self._fwd.export_manifest()
+        return m if len(m) else None
+
+    def save_warm_manifest(self, path):
+        """Write the served forward's warm manifest to ``path`` (zip): a
+        process that passes ``warm_manifest=path`` then warms every covered
+        grid entry with no nvcc run and no tuning lookup. Returns the path,
+        or None when nothing was warmed."""
+        m = self.export_warm_manifest()
+        return None if m is None else m.save(path)
 
     # ---- request paths ----
 
@@ -554,6 +639,7 @@ class ServingEngine:
                 tctx.finish(status="error")
             raise
         dt = time.perf_counter() - t0
+        _cc.note_first_request()
         if tctx is not None:
             tctx.finish()
         n = _first_leaf(out).shape[0]
@@ -804,6 +890,7 @@ class ServingEngine:
                     # resolve last: a waiter that wakes here sees a complete trace
                     fut._set(y)
                 self._count("served", off)
+                _cc.note_first_request()
                 self._note_latencies(lats, outcome="served", ctxs=ctxs, origins=origins)
             except Exception as e:  # noqa: BLE001 — propagate to waiters
                 for entry in live:
@@ -844,12 +931,13 @@ class ServingEngine:
                 self._m_p99.set(float(np.percentile(recent, 99)), model=self.name)
 
     def health(self):
-        """The health export: the engine's ``stats()``, the recapture
-        counts by site (``telemetry/devices.py recompile_counts``) and this
-        model's slice of the usage ledger. ``compile_cache_events`` is
-        ``{}``: the compile cache is ROADMAP queue 1 item 7.4."""
+        """The health export: the engine's ``stats()``, the compile cache's
+        events (``compile_cache_total``: a supervisor reads from them that
+        this process warm-started), the recapture counts by site
+        (``telemetry/devices.py recompile_counts``) and this model's slice
+        of the usage ledger."""
         from deeplearning4j_tpu_torch.telemetry import devices as _devices
-        return {"stats": self.stats(), "compile_cache_events": {},
+        return {"stats": self.stats(), "compile_cache_events": _cc.event_counts(),
                 "recompiles": _devices.recompile_counts(),
                 "usage": _metering.get_meter().usage()["models"].get(self.name)}
 
@@ -882,11 +970,25 @@ class ServingEngine:
             "queue_depth": depth,
             "requests": counts,
             "forward": fwd.stats(),
+            "aot": fwd.aot_stats(),
             "warmup_s": self._warmup_s,
             "latency_ms": {
                 "p50": None if p50 is None else round(1e3 * p50, 3),
                 "p99": None if p99 is None else round(1e3 * p99, 3)},
         }
+
+
+def _load_manifest(manifest):
+    """A ``WarmManifest`` as given, or read leniently from a path."""
+    if isinstance(manifest, (str, os.PathLike)):
+        return _cc.WarmManifest.load_lenient(manifest, context=f"warm manifest {manifest!r}")
+    return manifest
+
+
+def _signature(x):
+    """A padded input's (shape, dtype) per leaf: one grid entry's key."""
+    leaves = [x[k] for k in sorted(x)] if isinstance(x, dict) else [x]
+    return [[list(np.shape(a)), str(np.asarray(a).dtype)] for a in leaves]
 
 
 def _param_count(net):

@@ -7,17 +7,34 @@ kwargs are kept (``engine_kwargs``), so ``register_like`` registers an A/B
 challenger under the incumbent's serving config, shape grid included, and
 ``update_model`` hot-swaps a model's weights on its registered grid.
 ``submit(tenant=, origin=)`` meters each request
-(``serving/metering.py``). The JAX package's warm manifests and their grid
-gate are ROADMAP queue 1 item 7.4: a manifest given to ``update_model`` is
-dropped with a warning.
+(``serving/metering.py``). A swap bundle that ships a warm manifest is
+gated first: a manifest whose entries were warmed on a DIFFERENT shape
+grid is rejected with a counted ``serving_bundle_rejected_total``
+increment (JAX ``:28-39``, ``:129-153``), never silently attached; one on
+the registered grid is attached to the swap.
 """
 
 from __future__ import annotations
 
+import os
 import threading
-import warnings
 
+from deeplearning4j_tpu_torch import telemetry as _tm
 from deeplearning4j_tpu_torch.serving.engine import ServingEngine
+from deeplearning4j_tpu_torch.utils import compile_cache as _cc
+
+
+def manifest_grid_signatures(manifest):
+    """The set of 2-D grid signatures a warm manifest's SERVING entries
+    were warmed on — ``None`` in the set stands for batch-only (1-D)
+    entries whose kind carries no ``:grid=`` tag. Empty when the manifest
+    holds no serving entries at all."""
+    grids = set()
+    for kind, _sig in manifest.keys():
+        if not str(kind).startswith("serving"):
+            continue
+        grids.add(kind.split(":grid=", 1)[1] if ":grid=" in kind else None)
+    return grids
 
 
 class ModelRegistry:
@@ -27,6 +44,11 @@ class ModelRegistry:
         self._lock = threading.RLock()
         self._engines = {}
         self._engine_kw = {}  # name -> the kwargs register() built it with
+        self._m_rejected = _tm.get_registry().counter(
+            "serving_bundle_rejected_total",
+            "hot-swap bundles refused per model and reason (grid_mismatch: the "
+            "bundle's warm manifest was warmed on a different shape grid than the "
+            "registered engine serves)")
 
     def register(self, name, net, *, start=True, **engine_kw):
         """Build (and by default start) a serving engine for ``net`` under
@@ -76,15 +98,42 @@ class ModelRegistry:
     def update_model(self, name, net, warm=None, *, manifest=None):
         """Hot swap of one named model (in-flight batches finish on the old
         model; no queued request is dropped), on the engine's registered
-        shape grid. ``manifest`` (a bundle's warm manifest) is dropped with
-        a ``UserWarning``: warm manifests and their grid gate are ROADMAP
-        queue 1 item 7.4."""
+        shape grid. ``manifest`` (the replacement bundle's warm manifest, a
+        ``WarmManifest`` or a path) is gated BEFORE the swap: one warmed on
+        another (batch, seq) grid than this engine serves is a config error,
+        rejected with a ``ValueError`` and a
+        ``serving_bundle_rejected_total{reason=grid_mismatch}`` count; one
+        on the grid is attached to the swap. A missing file swaps cold, and
+        silently."""
         engine = self.engine(name)
         if manifest is not None:
-            warnings.warn("update_model(manifest=): warm manifests are not ported (ROADMAP "
-                          "queue 1 item 7.4); the swap warms from the network instead",
-                          UserWarning, stacklevel=2)
-        engine.update_model(net, warm=warm)
+            manifest = self._gate_bundle_grid(engine, manifest)
+        engine.update_model(net, warm=warm, manifest=manifest)
+
+    def _gate_bundle_grid(self, engine, manifest):
+        """``manifest`` (read leniently from a path) once its serving
+        entries' grid is the engine's; None for an unreadable file."""
+        if isinstance(manifest, (str, os.PathLike)):
+            manifest = _cc.WarmManifest.load_lenient(
+                manifest, context=f"swap bundle manifest {manifest!r}")
+            if manifest is None:  # unreadable or missing file: a cold swap, not a gate
+                return None
+        declared = manifest_grid_signatures(manifest)
+        if not declared:
+            return manifest  # no serving entries to disagree with
+        fwd = engine._fwd
+        registered = fwd.buckets.signature() if fwd.seq_aware else None
+        if declared != {registered}:
+            def show(g):
+                return sorted("batch-only" if s is None else s for s in g)
+            if _tm.get_registry().enabled:
+                self._m_rejected.inc(model=engine.name, reason="grid_mismatch")
+            raise ValueError(
+                f"model {engine.name!r}: swap bundle's warm manifest was warmed on shape "
+                f"grid(s) {show(declared)} but the registered engine serves "
+                f"{show({registered})} — re-export the manifest on the registered grid "
+                "(counted in serving_bundle_rejected_total)")
+        return manifest
 
     def unregister(self, name):
         """Stop ``name``'s engine and drop it."""

@@ -48,8 +48,12 @@ first (``scorepipe``, ``health``):
   ``instance`` labels, a dead member counted, never a hang.
 * ``reset()`` — drop all recorded state across the subsystem (tests).
 
-The JAX package's compile-cache events and warm manifest are ROADMAP
-queue 1 item 7.4.
+The compile-artifact tier's events and cold-start gauges
+(``compile_cache_total``, ``time_to_first_step_ms``,
+``time_to_first_request_ms``: ``utils/compile_cache.py``), the kernel
+builds (``kernel_builds_total``: ``ops/_build.py``) and the tuning DB's
+lookups (``tuning_db_total``: ``tuning/db.py``) record into the same
+registry.
 
 Off by default; switch on per process with ``DL4J_TPU_TELEMETRY=1`` or at
 runtime::
@@ -106,10 +110,11 @@ def reset():
     """Drop every piece of recorded telemetry state — registry series,
     tracer buffer, watchdog state (back to inactive), recapture baselines,
     flight-recorder ring, trace ring, federation targets, the SLO engine,
-    the goodput ledger, the metrics history and the usage meter — without
-    discarding instrument objects. Does not change the registry's enabled
-    flag. (The JAX package's also resets the prober and the compile
-    cache, which the port does not have yet.)"""
+    the goodput ledger, the metrics history, the usage meter and the
+    compile cache's first-step/first-request marks — without discarding
+    instrument objects. Does not change the registry's enabled flag. (The
+    JAX package's also resets the prober, which the port does not have
+    yet.)"""
     get_registry().reset()
     get_tracer().clear()
     health.get_monitor().reset()
@@ -125,6 +130,8 @@ def reset():
     # lazy: serving imports telemetry back
     from deeplearning4j_tpu_torch.serving import metering as _metering
     _metering.reset()
+    from deeplearning4j_tpu_torch.utils import compile_cache as _cc
+    _cc.reset_marks()
 
 
 def series_map(name):

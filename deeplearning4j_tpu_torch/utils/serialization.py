@@ -22,11 +22,15 @@ taken mid-training in either package resumes in the other with its
 moments. The step RNG chain (``rng``) is kept as the raw array it is.
 
 A bundle (``save_bundle``/``load_bundle``) is the same zip plus
-``buckets.json``, the batch-size buckets the job ran with: one resumable
-unit for ``continuous.StepDriver``. A bundle written by the JAX package
-may also embed ``warm_manifest.zip``, serialized XLA executables; a CUDA
-graph cannot be serialized, so the port drops that entry with a warning,
-as the JAX package drops a manifest built for another backend.
+``buckets.json``, the batch-size buckets the job ran with, and
+``warm_manifest.zip``, the warm manifest (``utils/compile_cache.py``: the
+kernel libraries and launch plans a warm-up used; a CUDA graph cannot be
+serialized, so the port's manifest holds no graph): one resumable unit
+for ``continuous.StepDriver``. ``load_bundle`` attaches a manifest built
+for the net on this backend; a foreign one (the JAX package's serialized
+XLA executables, or another model's) is dropped with a warning and a
+``mismatch_drop``, a corrupt one with a warning and a
+``deserialize_fail``, as the JAX package does.
 
 A fitted input normalizer rides in the same zip as ``normalizer.json``
 (``add_normalizer_to_model``, ``restore_normalizer``).
@@ -36,7 +40,6 @@ from __future__ import annotations
 
 import io
 import json
-import warnings
 import zipfile
 from dataclasses import dataclass
 
@@ -156,7 +159,7 @@ def load_model(path, *, device="cuda"):
         return _read_model(z, device)
 
 
-def _bucket_sizes(buckets):
+def bucket_sizes(buckets):
     """A BucketRegistry or an iterable of sizes as the sorted int list of
     ``buckets.json``."""
     if hasattr(buckets, "sizes"):
@@ -167,42 +170,62 @@ def _bucket_sizes(buckets):
 @dataclass
 class Bundle:
     """One resumable unit: the restored network (params, state, updater
-    state, step RNG chain, iteration and epoch) and the bucket registry the
-    job ran with."""
+    state, step RNG chain, iteration and epoch), the bucket registry the
+    job ran with, and the warm manifest its signatures warm from (already
+    attached to the net when it was built for it on this backend)."""
 
     net: object
-    buckets: object = None   # datasets.iterator.BucketRegistry | None
+    buckets: object = None    # datasets.iterator.BucketRegistry | None
+    manifest: object = None   # utils.compile_cache.WarmManifest | None
 
 
-def save_bundle(net, path, *, buckets=None, save_updater=True):
-    """Write the checkpoint, updater state and step RNG chain, and with
-    ``buckets`` (a BucketRegistry or sizes) ``buckets.json``, into one zip
-    that ``load_bundle`` (either package's) resumes from."""
+def save_bundle(net, path, *, buckets=None, manifest=None, save_updater=True):
+    """Write the checkpoint, updater state and step RNG chain, with
+    ``buckets`` (a BucketRegistry or sizes) ``buckets.json``, and the warm
+    manifest (``manifest``, by default the net's attached one) as
+    ``warm_manifest.zip``, into one zip that ``load_bundle`` (either
+    package's) resumes from. An empty manifest is not written."""
     if net.params is None:
         raise ValueError("save_bundle needs an initialized network")
+    if manifest is None:
+        manifest = getattr(net, "_warm_manifest", None)
     with zipfile.ZipFile(path, "w", zipfile.ZIP_DEFLATED) as z:
         _write_model(z, net, save_updater)
         if buckets is not None:
-            z.writestr("buckets.json", json.dumps(_bucket_sizes(buckets)))
+            z.writestr("buckets.json", json.dumps(bucket_sizes(buckets)))
+        if manifest is not None and len(manifest):
+            z.writestr("warm_manifest.zip", manifest.to_bytes())
     return path
 
 
 def load_bundle(path, *, device="cuda"):
     """Restore a ``Bundle`` onto ``device``. An embedded warm manifest
-    (the JAX package's serialized executables) is dropped with a warning:
-    the port captures its CUDA graphs at the first dispatch instead."""
+    built for the net on this backend is attached to it; one built for
+    another (the JAX package's XLA executables, another architecture) is
+    dropped with a warning and a ``mismatch_drop``, and a corrupt one with
+    a warning and a ``deserialize_fail``: the checkpoint still restores,
+    and the first fit warms live. The manifest's kernel libraries are
+    installed only into a build directory the caller chose
+    (``compile_cache.enable_persistent_cache`` or
+    ``$DL4J_TPU_COMPILE_CACHE``), never into the default ``_build/``:
+    without one, an entry whose libraries are not built here warms live."""
     from deeplearning4j_tpu_torch.datasets.iterator import BucketRegistry
+    from deeplearning4j_tpu_torch.ops import _build
+    from deeplearning4j_tpu_torch.utils import compile_cache as _cc
 
     with zipfile.ZipFile(path) as z:
         net = _read_model(z, device)
         names = set(z.namelist())
         buckets = (BucketRegistry(json.loads(z.read("buckets.json")))
                    if "buckets.json" in names else None)
-    if "warm_manifest.zip" in names:
-        warnings.warn(f"bundle {path}: the embedded warm manifest holds XLA executables, "
-                      "which the port cannot run; dropped (the first dispatch captures "
-                      "its CUDA graph instead)", stacklevel=2)
-    return Bundle(net=net, buckets=buckets)
+        manifest = None
+        if "warm_manifest.zip" in names:
+            manifest = _cc.WarmManifest.load_lenient(
+                z.read("warm_manifest.zip"), context=f"bundle {path}: embedded warm manifest")
+    if manifest is not None:
+        manifest.install_libraries = _build.cache_enabled()
+    manifest = _cc.attach_if_matches(net, manifest, f"bundle {path}")
+    return Bundle(net=net, buckets=buckets, manifest=manifest)
 
 
 def add_normalizer_to_model(path, normalizer):

@@ -251,9 +251,9 @@ def save_trainer(path, trainer, *, buckets=None):
                                  "epoch": int(trainer.epoch), "layout": trainer.layout})
     rank, _ = _rank_world(trainer.group)
     if buckets is not None and rank == 0 and (mgroup is None or _rank_world(mgroup)[0] == 0):
-        from deeplearning4j_tpu_torch.utils.serialization import _bucket_sizes
+        from deeplearning4j_tpu_torch.utils.serialization import bucket_sizes
         with zipfile.ZipFile(os.path.join(path, _EXTRAS_NAME), "w", zipfile.ZIP_DEFLATED) as z:
-            z.writestr("buckets.json", json.dumps(_bucket_sizes(buckets)))
+            z.writestr("buckets.json", json.dumps(bucket_sizes(buckets)))
     _barrier(trainer.group)
     _barrier_model(mgroup)
     return path

@@ -232,13 +232,25 @@ def test_a_jax_bundle_loads_in_the_port(tmp_path):
 
 
 def test_a_warm_manifest_is_dropped_with_a_warning(tmp_path):
+    """A bundle's unreadable warm manifest is dropped with the JAX
+    package's warning and counted ``deserialize_fail``; the net restores."""
+    from deeplearning4j_tpu_torch import telemetry
+    from deeplearning4j_tpu_torch.utils import compile_cache as cc
+
     jnet, path = _jax_trained(tmp_path)
     with zipfile.ZipFile(path, "a") as z:
         z.writestr("warm_manifest.zip", b"serialized executables")
-    with pytest.warns(UserWarning, match="warm manifest"):
-        b = tser.load_bundle(path, device="cpu")
+    telemetry.reset()
+    telemetry.enable()
+    try:
+        with pytest.warns(UserWarning, match="warm manifest"):
+            b = tser.load_bundle(path, device="cpu")
+        assert cc.event_counts().get("deserialize_fail") == 1
+    finally:
+        telemetry.reset()
+        telemetry.disable()
     _assert_same(b.net, jnet)
-    assert not hasattr(b, "manifest")
+    assert b.manifest is None
 
 
 def test_a_port_bundle_loads_in_jax(tmp_path):

@@ -16,6 +16,7 @@ import subprocess
 import sys
 import threading
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -305,7 +306,7 @@ def test_update_model_mid_stream_never_mixes_and_drops_nothing(swap_pair):
     assert engine.stats()["requests"]["errors"] == 0
 
 
-def test_register_serve_update_unregister(swap_pair, registry):
+def test_register_serve_update_unregister(swap_pair, registry, tmp_path):
     zip1, zip2, x1, refs = swap_pair
     net = tser.load_model(zip1, device="cpu")
     registry.register("a", net, input_spec=(SEQ, VOCAB), buckets=(2, 4), device="cpu")
@@ -317,9 +318,26 @@ def test_register_serve_update_unregister(swap_pair, registry):
     registry.update_model("a", net2)
     assert registry.engine("a").net is net2
     np.testing.assert_allclose(registry.submit("a", x1).get(timeout=30), refs[1], atol=1e-5)
-    # a bundle's warm manifest is the compile cache's: dropped, with a warning
-    with pytest.warns(UserWarning, match="7.4"):
-        registry.update_model("a", net, manifest="warm.zip")
+    # a missing warm manifest swaps cold, and silently
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        registry.update_model("a", net, manifest=str(tmp_path / "warm.zip"))
+    assert registry.engine("a").stats()["requests"]["swaps"] == 2
+    # a manifest warmed on another grid is refused, and counted
+    from deeplearning4j_tpu_torch import telemetry
+    from deeplearning4j_tpu_torch.ops import _build
+    from deeplearning4j_tpu_torch.utils import compile_cache as cc
+    other = cc.WarmManifest.for_net(net)
+    other.put("serving:grid=" + ShapeBuckets([2, 4], [4]).signature(), "sig", _build.Recording())
+    telemetry.enable()
+    try:
+        with pytest.raises(ValueError, match="grid"):
+            registry.update_model("a", net, manifest=other)
+        rejected = telemetry.get_registry().get("serving_bundle_rejected_total")
+        assert rejected.value(model="a", reason="grid_mismatch") == 1
+    finally:
+        telemetry.reset()
+        telemetry.disable()
     assert registry.engine("a").stats()["requests"]["swaps"] == 2
     assert registry.names() == ["a"]
     registry.unregister("a")
