@@ -193,9 +193,9 @@ nonzero; nothing is caught):
 15. word2vec BASELINE config 3 at the JAX package's ``bench_word2vec``
             production scale: ``Word2Vec`` (``text/word2vec.py``) at
             V=100,000, D=300, window 5, 5 negatives, batch 2048, subsample
-            1e-3, lr 0.025, one epoch over a Zipf corpus of 250,000
-            sentences x 20 int tokens (5M words, from the seed; the bench's
-            500,000 cut to half for the time limit). First one
+            1e-3, lr 0.025, one epoch over a Zipf corpus of 125,000
+            sentences x 20 int tokens (2.5M words, from the seed; the bench's
+            500,000 cut to a quarter for the time limit). First one
             chunk of 32 SGNS steps at that width from tables installed with
             ``tables_from_numpy`` and fixed indices, twice on the card (one
             capture, two replays), against the plain step in float64 and
@@ -213,8 +213,8 @@ nonzero; nothing is caught):
             orderings, PV-DBOW and ``infer_vector``, GloVe, DeepWalk,
             KMeans, t-SNE. Then ``SequenceVectors(mesh=)`` at the same width
             over 4 gloo ranks on the card (``word2vec.mesh``), every
-            model's vocabulary and tables built on the whole 5M-word
-            corpus (V ~99,000): the replicated-table fit on the corpus's
+            model's vocabulary and tables built on the whole 2.5M-word
+            corpus (V ~97,000): the replicated-table fit on the corpus's
             first 31,240 words and the ``shard_tables=True`` fit (V/4 rows a
             rank) on its first 15,620, with the same host-drawn negatives,
             each against the world-1 fit of the same pairs (replicated
@@ -472,6 +472,42 @@ nonzero; nothing is caught):
             by ``update_model(manifest=)`` (grid_mismatch), and a manifest
             saved under the DB missing every entry without it.
 
+25. continuous  (a) the full-width char-RNN trained by a
+            ``ContinuousTrainer`` at K=4 from a ``StreamingBroker`` topic fed
+            by the chaos publisher subprocess (37 batches of 64 x 128
+            one-hot rows, one snapshot a round): the NaN batch ends in one
+            counted rollback of its dispatch (4 steps), the batch published
+            600 s old in one counted stale drop, the first publisher
+            SIGKILLed after 20 batches and a replacement resuming there in
+            counted ingest retries (retried, then one recovered, none
+            fatal); no batch dropped by the broker or the subscriber; the
+            final digest (``chaos.state_digest``) bit-equal to a clean
+            offline ``ContinuousTrainer`` run on the card over the batches
+            the chaos run kept; its snapshot after the first dispatch
+            against ``fit`` of the same 4 batches at the charnn phase's f32
+            parameter tolerance; 2 ``lstm_seq`` launches a step from the
+            replays; steps a second, snapshot seconds. (b)
+            ``registry_updater`` swapping a ``ModelRegistry`` at every
+            published snapshot: a probe batch
+            answered within SERVE_ATOL of the snapshot's forward after each
+            swap, and every answer of a client thread asking all along
+            within SERVE_ATOL of one snapshot's forward (none dropped or
+            mixed). (c) a ``FleetSupervisor`` of 2 worker processes on the
+            card from the first round's snapshot and the registry engine's
+            warm manifest, in an empty kernel cache directory (every grid
+            entry from the manifest, no nvcc run), a ``FleetRouter`` sweep
+            of 200 requests of 1-8 rows from 4 clients in a closed loop,
+            w0 SIGKILLed at the 60th: all served within SERVE_ATOL of the
+            snapshot's forward, the failover counted, the replacement warm with no nvcc build, then
+            ``fleet_updater`` pushing the final snapshot to both workers,
+            each answering within SERVE_ATOL of it and reporting
+            ``lstm_seq`` launches; p50/p99, respawn and swap seconds. (d) a
+            world-1 ``ParallelTrainer`` (NCCL) over the char-RNN saved by
+            ``save_trainer`` with its net's warm manifest and restored into
+            a fresh trainer: parameters bitwise the saved ones, its first
+            K=4 dispatch a manifest hit with no nvcc build and no plan
+            lookup.
+
 Then a ``kernels`` line (every kernel of the paths with its launches on
 its path, error, times and bound), the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``.
@@ -598,6 +634,7 @@ import torch
 
 ROOT = pathlib.Path(__file__).resolve().parent
 WORK = ROOT / "_smoke_work"
+_T0 = time.perf_counter()
 
 # published H100 SXM peaks (NVIDIA data sheet, dense, at 700 W)
 PEAK_BYTES_S = 3.35e12
@@ -696,12 +733,14 @@ FUSED_NAN_BATCH, FUSED_RESUME_ROUNDS = 5, 2
 # bench_word2vec production scale (BENCH_W2V_SCALE=production): a Zipf
 # corpus of 500,000 sentences x 20 int tokens (10M words) over 100,000
 # ranks; Word2Vec at D=300, window 5, 5 negatives, batch 2048, subsample
-# 1e-3, lr 0.025, 1 epoch; here the corpus is cut to 250,000 sentences (5M
-# words) to keep the full script inside its time limit (a full run took
-# 1016.6 s with the compile_tune phase). The full-width chunk is held against float64
+# 1e-3, lr 0.025, 1 epoch; here the corpus is cut to 125,000 sentences
+# (2.5M words; ~97,000 of the 100,000 ranks drawn at least once) to keep the
+# full script inside its time limit: cut to 5M words when a full run took
+# 1016.6 s with the compile_tune phase, and to 2.5M with the continuous
+# phase (~90 s), when a full run would have passed 1100 s. The full-width chunk is held against float64
 # within W2V_CHECK_FACTOR x the f32 noise (the larger of two card runs'
 # spread and the plain f32 step's own distance from float64)
-W2V_VOCAB, W2V_DIM, W2V_SENT_LEN, W2V_SENTENCES = 100_000, 300, 20, 250_000
+W2V_VOCAB, W2V_DIM, W2V_SENT_LEN, W2V_SENTENCES = 100_000, 300, 20, 125_000
 W2V_WINDOW, W2V_NEGATIVE, W2V_BATCH, W2V_SUBSAMPLE, W2V_LR = 5, 5, 2048, 1e-3, 0.025
 W2V_CHECK_FACTOR, W2V_TIMED_REPLAYS, W2V_PROFILED_REPLAYS, W2V_TOP_KERNELS = 3.0, 20, 3, 12
 # t-SNE keeps the two toy clusters apart: mean silhouette above 0.25 (on the
@@ -830,9 +869,30 @@ CT_LSTM = ((128, 64, 512, torch.float32), (128, 1, 512, torch.float32),
            (128, 64, 1024, torch.float32), (128, 64, 512, torch.bfloat16))
 CT_CHARNN_ROWS, CT_MAX_BATCH, CT_SEQ_BUCKETS, CT_REQUESTS = 64, 64, (32, 64, 128), 16
 
+# continuous: the full-width char-RNN (f32 policy) trained by a
+# ContinuousTrainer at K=CONT_K from a stream of CONT_BATCHES batches of
+# CHARNN_BATCH x SEQ one-hot rows (6.3 MB a batch) made from CONT_GEN_SEED
+# and published every CONT_INTERVAL_S by the chaos publisher, one snapshot
+# a round; the faults: the NaN batch CONT_POISON, the batch CONT_STALE
+# published CONT_DELAY_S old against a staleness bound of CONT_STALENESS_S,
+# the first publisher stalled after CONT_STALL batches and SIGKILLed once
+# they are taken, its replacement started after the stream was quiet for
+# 2.5 x CONT_QUIET_S; a client asking the registry every
+# CONT_CLIENT_EVERY_S; the fleet: CONT_WORKERS workers, CONT_REQUESTS
+# requests of 1..CONT_MAX_ROWS rows from CONT_OUTSTANDING clients in a
+# closed loop, w0 SIGKILLed at request CONT_KILL_AT
+CONT_K, CONT_BATCHES, CONT_POISON, CONT_STALE, CONT_STALL, CONT_GEN_SEED = 4, 37, 13, 6, 20, 71
+CONT_INTERVAL_S, CONT_STALENESS_S, CONT_DELAY_S, CONT_QUIET_S, CONT_RETRIES = \
+    0.05, 60.0, 600.0, 1.0, 8
+CONT_CLIENT_EVERY_S, CONT_WORKERS, CONT_REQUESTS, CONT_MAX_ROWS = 0.05, 2, 200, 8
+CONT_OUTSTANDING, CONT_KILL_AT = 4, 60
+
 
 def emit(phase, **fields):
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One JSON line; ``t_s`` is the seconds since the script started, so
+    the gap between two lines is what the later one's work took."""
+    print(json.dumps({"phase": phase, **fields,
+                      "t_s": round(time.perf_counter() - _T0, 2)}), flush=True)
 
 
 def card_line():
@@ -8263,6 +8323,479 @@ def phase_compile_tune(A, C, L, seed):
             "seconds": time.perf_counter() - t0}
 
 
+# ---------------------------------------------------------------------------
+# continuous learning and the serving fleet: the char-RNN trained from a
+# stream, served by a registry and by worker processes
+# ---------------------------------------------------------------------------
+
+def cont_stream_plan():
+    """The indices of the stream's batches the chaos run trains on: every
+    batch but the stale one, in order, less the K-step dispatch that holds
+    the poisoned batch (rolled back whole)."""
+    admitted = [i for i in range(CONT_BATCHES) if i != CONT_STALE]
+    at = admitted.index(CONT_POISON)
+    lost = admitted[at - at % CONT_K: at - at % CONT_K + CONT_K]
+    return [i for i in admitted if i not in lost], lost
+
+
+def cont_publisher(port, start=0, stall=None):
+    cmd = [sys.executable, "-m", "deeplearning4j_tpu_torch.continuous.chaos", "--port", str(port),
+           "--n", str(CONT_BATCHES), "--batch", str(CHARNN_BATCH), "--seq-len", str(SEQ),
+           "--classes", str(VOCAB), "--gen-seed", str(CONT_GEN_SEED),
+           "--poison", str(CONT_POISON), "--delay-index", str(CONT_STALE),
+           "--delay-s", str(CONT_DELAY_S), "--interval-s", str(CONT_INTERVAL_S),
+           "--start", str(start), "--device", "cuda"]
+    if stall is not None:
+        cmd += ["--stall-after", str(stall)]
+    return subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+
+
+def cont_step_check(seed, batches, first_snapshot):
+    """The streaming run's first K-step dispatch (its snapshot after round
+    1) against ``MultiLayerNetwork.fit`` of the same CONT_K batches one step
+    a dispatch, under the charnn phase's f32 step tolerance (parameters
+    atol CHARNN_PARAM_ATOL)."""
+    from deeplearning4j_tpu_torch.utils.serialization import load_bundle
+    from deeplearning4j_tpu_torch.utils.trees import tree_leaves
+
+    snap = load_bundle(first_snapshot, device="cuda").net
+    ref = make_charnn(seed)
+    ref.fit(iter(batches[:CONT_K]))
+    if not snap.iteration == ref.iteration == CONT_K:
+        raise AssertionError(f"step check: iterations {snap.iteration}, {ref.iteration}")
+    param = max((a - b).abs().max().item()
+                for a, b in zip(tree_leaves(snap.params), tree_leaves(ref.params)))
+    if not param <= CHARNN_PARAM_ATOL:
+        raise AssertionError(f"step check: the K={CONT_K} dispatch against fit differs by "
+                             f"{param} in the parameters")
+    del snap, ref
+    free_card()
+    return {"steps": CONT_K, "max_abs_param_diff": param, "param_atol": CHARNN_PARAM_ATOL}
+
+
+def cont_train(L, seed, batches, probe):
+    """(a) and (b): the streaming run with its faults, the registry fed
+    from every published snapshot while a client thread keeps asking it.
+    Returns (row, the trainer's net, the first round's snapshot, the final
+    snapshot, the registry)."""
+    import threading
+
+    from deeplearning4j_tpu_torch import telemetry as TT
+    from deeplearning4j_tpu_torch.continuous.trainer import (ContinuousTrainer,
+                                                             StreamingTrainSource,
+                                                             registry_updater)
+    from deeplearning4j_tpu_torch.nn import fused
+    from deeplearning4j_tpu_torch.serving import ModelRegistry
+    from deeplearning4j_tpu_torch.streaming.pubsub import NDArraySubscriber, StreamingBroker
+
+    trained, lost = cont_stream_plan()
+    net = make_charnn(seed)
+    registry = ModelRegistry()
+    registry.register("charnn", make_charnn(seed), buckets=[1, CONT_MAX_ROWS],
+                      input_spec=(SEQ, VOCAB), device="cuda")
+    # the client: one probe row at a time, every CONT_CLIENT_EVERY_S, from
+    # the host as a user's request comes
+    stop_client = threading.Event()
+    futs = []
+    row0 = probe[0].cpu().numpy()
+
+    def client():
+        while not stop_client.wait(CONT_CLIENT_EVERY_S):
+            futs.append(registry.submit("charnn", row0))
+
+    snaps, swap_checks, snap_s = [], [], []
+    to_registry = registry_updater(registry, "charnn")
+    first_snapshot = WORK / "cont_snap_round1.zip"
+
+    def serve_update(path):
+        to_registry(path)
+        direct = net.output(probe).float()
+        served = torch.as_tensor(registry.output("charnn", probe)).float().cuda()
+        swap_checks.append((served - direct).abs().max().item())
+        snaps.append(direct[0].cpu())
+        if len(snaps) == 2:  # the snapshot after the first round
+            shutil.copy(path, first_snapshot)
+
+    TT.reset()  # the watchdog too: the trainer arms it with the raise policy
+    TT.enable()
+    broker = StreamingBroker(subscriber_buffer=CONT_BATCHES + 4).start()
+    sub = NDArraySubscriber("train", port=broker.port, buffer=CONT_BATCHES + 4)
+    source = StreamingTrainSource(sub, max_staleness_s=CONT_STALENESS_S,
+                                  quiet_timeout_s=CONT_QUIET_S)
+    trainer = ContinuousTrainer(net, source, snapshot_path=str(WORK / "cont_snap.zip"),
+                                k=CONT_K, batch_size=CHARNN_BATCH, serve_update=serve_update,
+                                ingest_retries=CONT_RETRIES, ingest_backoff_s=0.25)
+    checkpoint = trainer.driver.checkpoint
+
+    def timed_checkpoint(*a, **kw):
+        t0 = time.perf_counter()
+        try:
+            return checkpoint(*a, **kw)
+        finally:
+            snap_s.append(time.perf_counter() - t0)
+    trainer.driver.checkpoint = timed_checkpoint
+
+    # the producer: stalls after CONT_STALL batches, is SIGKILLed once the
+    # trainer has taken them and the stream has been quiet, and a
+    # replacement resumes at CONT_STALL
+    events, procs = {}, []
+
+    def producer():
+        first = cont_publisher(broker.port, stall=CONT_STALL)
+        procs.append(first)
+        line = first.stdout.readline()
+        if json.loads(line) != {"stalled": CONT_STALL}:
+            raise AssertionError(f"the first publisher said {line!r}")
+        deadline = time.monotonic() + 600
+        while source.admitted + source.stale_dropped < CONT_STALL:
+            if time.monotonic() > deadline:
+                raise AssertionError("the trainer never took the first publisher's batches")
+            time.sleep(0.05)
+        first.kill()  # SIGKILL: no close frames
+        first.wait(timeout=30)
+        events["killed_rc"] = first.returncode
+        time.sleep(2.5 * CONT_QUIET_S)  # the stream goes quiet: counted retries
+        procs.append(cont_publisher(broker.port, start=CONT_STALL))
+
+    L.reset_launches()
+    fused.reset_replay_launches()
+    t_client = threading.Thread(target=client, daemon=True)
+    t_prod = threading.Thread(target=producer, daemon=True)
+    t_client.start()
+    t_prod.start()
+    try:
+        # the stream is live before the trainer asks for it: the only quiet
+        # spell is the producer's death
+        deadline = time.monotonic() + 300
+        while sub.queue.empty():
+            if time.monotonic() > deadline or not t_prod.is_alive():
+                raise AssertionError("the first publisher never published")
+            time.sleep(0.02)
+        t0 = time.perf_counter()
+        summary = trainer.run(until_steps=len(trained))
+        wall = time.perf_counter() - t0
+    finally:
+        stop_client.set()
+        t_client.join(timeout=30)
+        t_prod.join(timeout=60)
+        sub.close()
+        broker_dropped = broker.dropped_total()
+        broker.close()
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.communicate(timeout=30)
+    launches = L.launches
+    replays = dict(fused.replay_launches)
+    answers = []
+    for f in futs:  # every client request answered, none dropped
+        answers.append(torch.as_tensor(f.get(timeout=60)).float().cpu())
+    counters = {n: TT.series_map(n) for n in (
+        "continuous_rounds_total", "continuous_rollback_total",
+        "continuous_rolled_back_steps_total", "continuous_dropped_total",
+        "continuous_snapshots_total", "continuous_serve_updates_total", "etl_retry_total",
+        "stream_dropped_total")}
+    retries = counters["etl_retry_total"]
+    if summary["status"] != "target_steps" or net.iteration != len(trained):
+        raise AssertionError(f"(a) the run ended {summary['status']} at iteration "
+                             f"{net.iteration}, expected {len(trained)}")
+    if not (summary["rollbacks"] == 1 and counters["continuous_rollback_total"]
+            == {"reason=numerics": 1.0}
+            and counters["continuous_rolled_back_steps_total"] == {"": float(CONT_K)}):
+        raise AssertionError(f"(a) rollback: {summary['rollbacks']}, {counters}")
+    if summary["stale_dropped"] != 1 or counters["continuous_dropped_total"] != {
+            "reason=stale": 1.0} or summary["admitted"] != CONT_BATCHES - 1:
+        raise AssertionError(f"(a) staleness: {summary}, {counters['continuous_dropped_total']}")
+    if not (retries.get("outcome=retried", 0) >= 1 and retries.get("outcome=recovered") == 1
+            and not retries.get("outcome=fatal")) or events.get("killed_rc") != -9:
+        raise AssertionError(f"(a) producer death: retries {retries}, events {events}")
+    if broker_dropped or sub.dropped or counters["stream_dropped_total"]:
+        raise AssertionError(f"(a) the stream dropped batches: broker {broker_dropped}, "
+                             f"subscriber {sub.dropped}")
+    steps = len(trained) + CONT_K  # the rolled-back dispatch ran too
+    if launches < 2 * steps or replays.get("lstm_seq", 0) != 2 * steps:
+        raise AssertionError(f"(a) lstm_seq launched {launches} times ({replays} from replays) "
+                             f"for {steps} steps: 2 a step from the K-step replays expected")
+    if max(swap_checks) > SERVE_ATOL or len(swap_checks) != summary["snapshots_published"]:
+        raise AssertionError(f"(b) served answers after a swap differ from the snapshot's "
+                             f"forward by {max(swap_checks)} ({len(swap_checks)} checks)")
+    # no request mixed: each answer is one snapshot's forward (the registry
+    # starts on the round-0 snapshot's weights)
+    ref_rows = torch.stack(snaps)
+    nearest = [(ref_rows - a[0]).abs().amax(-1).min().item() for a in answers]
+    # consecutive snapshots' answers apart (the final snapshot repeats the
+    # last round's): how far a mixed answer would land from both
+    gaps = [g for g in ((ref_rows[i] - ref_rows[i + 1]).abs().max().item()
+                        for i in range(len(ref_rows) - 1)) if g > 0]
+    if not answers or max(nearest) > SERVE_ATOL:
+        raise AssertionError(f"(b) {len(answers)} client answers, the farthest "
+                             f"{max(nearest, default=None)} from every snapshot's forward")
+    final = WORK / "cont_snap_final.zip"
+    shutil.copy(trainer.snapshot_path, final)
+    row = {"batches": CONT_BATCHES, "k": CONT_K, "batch": CHARNN_BATCH, "seq": SEQ,
+           "vocab": VOCAB, "rounds": summary["rounds"], "iteration": net.iteration,
+           "steps_run": steps, "wall_s": wall, "steps_per_s": steps / wall,
+           "snapshots": summary["snapshots_published"], "snapshot_s_mean": statistics.mean(snap_s),
+           "snapshot_s_max": max(snap_s), "status": summary["status"],
+           "rollbacks": summary["rollbacks"], "rolled_back_steps": CONT_K,
+           "rolled_back_batches": lost, "stale_dropped": summary["stale_dropped"],
+           "producer_retries": retries, "producer_killed_rc": events["killed_rc"],
+           "captures": summary["captures"], "lstm_seq_launches": launches,
+           "lstm_seq_launches_from_replays": replays.get("lstm_seq", 0),
+           "registry_swaps": len(swap_checks), "swap_max_abs_err": max(swap_checks),
+           "client_requests": len(futs), "client_answered": len(answers),
+           "client_max_abs_err": max(nearest), "snapshot_min_gap": min(gaps),
+           "serve_atol": SERVE_ATOL, "counters": counters}
+    return row, net, first_snapshot, final, registry
+
+
+def cont_clean(seed, batches, trained, want):
+    """The chaos run's digest against a clean offline run on the card over
+    the batches it kept."""
+    from deeplearning4j_tpu_torch.continuous import chaos
+    from deeplearning4j_tpu_torch.continuous.trainer import ContinuousTrainer
+
+    clean = make_charnn(seed)
+    t0 = time.perf_counter()
+    ContinuousTrainer(clean, [batches[i] for i in trained],
+                      snapshot_path=str(WORK / "cont_clean.zip"), k=CONT_K,
+                      batch_size=CHARNN_BATCH, snapshot_every=10 ** 6).run()
+    wall = time.perf_counter() - t0
+    got = chaos.state_digest(clean)
+    if got != want or clean.iteration != len(trained):
+        raise AssertionError(f"(a) the rolled-back run's digest {want} differs from the clean "
+                             f"run's {got} (iteration {clean.iteration})")
+    del clean
+    free_card()
+    return {"digest": want, "clean_digest": got, "bit_equal": True, "clean_wall_s": wall}
+
+
+def cont_fleet(seed, first_snapshot, final_net, final_snapshot, registry, pool):
+    """(c): the fleet of CONT_WORKERS worker processes on the card."""
+    from deeplearning4j_tpu_torch.continuous.trainer import fleet_updater
+    from deeplearning4j_tpu_torch.fleet import FleetRouter, FleetSupervisor
+    from deeplearning4j_tpu_torch.fleet.router import _http_json
+    from deeplearning4j_tpu_torch.utils.serialization import load_bundle
+
+    manifest = registry.engine("charnn").save_warm_manifest(WORK / "cont_wm.zip")
+    registry.stop()
+    rs = np.random.RandomState(seed + 31)
+    sizes = rs.randint(1, CONT_MAX_ROWS + 1, size=CONT_REQUESTS)
+    starts = rs.randint(0, len(pool) - CONT_MAX_ROWS, size=CONT_REQUESTS)
+    snap_a = load_bundle(first_snapshot, device="cuda").net
+    want = [snap_a.output(pool[s:s + n]).float().cpu() for s, n in zip(starts, sizes)]
+    del snap_a
+    sup = FleetSupervisor(CONT_WORKERS, model_path=str(first_snapshot), name="charnn",
+                          buckets=[1, CONT_MAX_ROWS], warm_manifest=str(manifest),
+                          compile_cache=str(WORK / "cont_kernel_cache"), device="cuda",
+                          probe_interval_s=0.5, max_missed_probes=2, spawn_timeout_s=300)
+    router = FleetRouter(name="charnn", max_queue=4096, max_dispatch_rows=CONT_MAX_ROWS,
+                         max_inflight_rows=2 * CONT_MAX_ROWS, request_timeout_s=120.0)
+    sup.attach(router)
+    t0 = time.perf_counter()
+    try:
+        sup.start()
+        start_s = time.perf_counter() - t0
+        for wid, w in sup._workers.items():
+            if not FleetSupervisor.replacement_is_warm(w.ready_doc) or \
+                    not str(w.ready_doc.get("device", "")).startswith("cuda"):
+                raise AssertionError(f"(c) worker {wid} did not start warm on the card: "
+                                     f"{w.ready_doc}")
+        # a closed loop of CONT_OUTSTANDING clients: the load the fleet
+        # sustains, not a queue growing behind it
+        rows = [pool[s:s + n].cpu().numpy() for s, n in zip(starts, sizes)]
+        futs, errs = [], []
+        t_sweep = time.perf_counter()
+        for i, x in enumerate(rows):
+            if i == CONT_KILL_AT:
+                killed = sup.kill_worker("w0")
+            if len(futs) - len(errs) >= CONT_OUTSTANDING:
+                j = len(errs)
+                errs.append((torch.as_tensor(futs[j].get(timeout=120)).float()
+                             - want[j]).abs().max().item())
+            futs.append(router.submit(x, batched=True))
+        errs += [(torch.as_tensor(f.get(timeout=120)).float() - w).abs().max().item()
+                 for f, w in zip(futs[len(errs):], want[len(errs):])]
+        sweep_s = time.perf_counter() - t_sweep
+        counts = router.stats()["requests"]
+        lost = (counts["submitted"] - counts["served"] - counts["shed_queue_full"]
+                - counts["shed_deadline"] - counts["shed_no_worker"] - counts["shed_worker"]
+                - counts["errors"])
+        if lost or counts["served"] != CONT_REQUESTS or max(errs) > SERVE_ATOL \
+                or counts["failovers"] < 1:
+            raise AssertionError(f"(c) the sweep across the kill: {counts}, max |err| "
+                                 f"{max(errs)}")
+        deadline = time.monotonic() + 300
+        while time.monotonic() < deadline:
+            evs = sup.status()["respawns"]
+            if evs and evs[-1].get("spawn_s") is not None:
+                break
+            time.sleep(0.2)
+        ev = sup.status()["respawns"][-1]
+        if not (ev["worker_id"] == "w0" and ev["warm"] is True and ev["kernel_builds"] == {}):
+            raise AssertionError(f"(c) the replacement did not start warm: {ev}")
+        t1 = time.perf_counter()
+        swaps = fleet_updater(sup)(str(final_snapshot))
+        swap_s = time.perf_counter() - t1
+        x = pool[:CONT_MAX_ROWS]
+        direct = final_net.output(x).float().cpu()
+        per_worker = {}
+        for wid, addr in sup.addresses():
+            code, doc = _http_json(addr + "/submit", {"rows": x.cpu().numpy().tolist()},
+                                   timeout=120)
+            err = (torch.tensor(doc["outputs"]) - direct).abs().max().item()
+            _c, health = _http_json(addr + "/health", timeout=30)
+            per_worker[wid] = {"code": code, "max_abs_err": err,
+                               "lstm_seq_launches": health["kernel_launches"]["lstm_seq"],
+                               "kernel_builds": health["kernel_builds"],
+                               "swaps": health["swaps"], "pid": health["pid"]}
+            if code != 200 or err > SERVE_ATOL or health["kernel_launches"]["lstm_seq"] <= 0 \
+                    or health["kernel_builds"]:
+                raise AssertionError(f"(c) worker {wid} after the swap: {per_worker[wid]}")
+        st = router.stats()
+    finally:
+        router.stop()
+        sup.stop()
+    row = {"workers": CONT_WORKERS, "requests": CONT_REQUESTS, "rows": int(sizes.sum()),
+           "max_rows": CONT_MAX_ROWS, "outstanding": CONT_OUTSTANDING, "start_s": start_s,
+           "sweep_s": sweep_s, "rows_per_s": int(sizes.sum()) / sweep_s, "killed_pid": killed,
+           "served": counts["served"], "failovers": counts["failovers"],
+           "retries": counts["retries"], "lost": lost, "max_abs_err": max(errs),
+           "latency_ms": st["latency_ms"], "respawn_s": ev["spawn_s"],
+           "respawn_warm": ev["warm"], "respawn_kernel_builds": ev["kernel_builds"],
+           "respawn_aot": ev["aot"], "swap_s": swap_s,
+           "swap": {w: {k: d.get(k) for k in ("ok", "swaps")} for w, d in swaps.items()},
+           "after_swap": per_worker, "serve_atol": SERVE_ATOL}
+    return row
+
+
+def cont_trainer_restart(L, seed, batches):
+    """(d): a world-1 ParallelTrainer over the char-RNN, saved with its
+    net's warm manifest and restored into a fresh trainer, whose first
+    K-step dispatch runs no nvcc build and no plan lookup."""
+    import torch.distributed as dist
+
+    from deeplearning4j_tpu_torch import telemetry as TT
+    from deeplearning4j_tpu_torch.nn import fused
+    from deeplearning4j_tpu_torch.ops import _build, _plans
+    from deeplearning4j_tpu_torch.parallel import ParallelTrainer, make_mesh
+    from deeplearning4j_tpu_torch.utils import compile_cache as cc
+    from deeplearning4j_tpu_torch.utils import sharded_checkpoint as SC
+    from deeplearning4j_tpu_torch.utils.trees import flatten_tree
+
+    def xy(part):
+        return (np.concatenate([batches[i][0] for i in part]),
+                np.concatenate([batches[i][1] for i in part]))
+
+    work = WORK / "cont_nccl"
+    work.mkdir(parents=True)
+    dist.init_process_group("nccl", init_method=f"file://{work / 'rendezvous'}", rank=0,
+                            world_size=1)
+    try:
+        mesh = make_mesh()
+        net = make_charnn(seed)
+        tr = ParallelTrainer(net, mesh).adopt_net_state()
+        cc.attach_manifest(net, cc.WarmManifest.for_net(net))
+        x, y = xy(range(CONT_K))
+        tr.fit(x, y, batch_size=CHARNN_BATCH, steps_per_dispatch=CONT_K)
+        path = SC.save_trainer(WORK / "cont_trainer", tr, manifest=net._warm_manifest)
+        saved = {k: v.clone() for k, v in flatten_tree(tr.sync_to_net().params).items()}
+        del tr, net
+        free_card()
+        TT.reset()
+        TT.enable()
+        _plans.clear_all()
+        _build.reset_counts()
+        resolves = []
+        originals = [(cache, cache._resolve) for cache in _plans._caches
+                     if isinstance(cache, _plans.PlanCache)]
+
+        def counted(resolve):
+            def wrapper(db, key, *extra):
+                resolves.append(key)  # a plan resolved, not seeded: a lookup
+                return resolve(db, key, *extra)
+            return wrapper
+        for cache, resolve in originals:
+            cache._resolve = counted(resolve)
+        try:
+            back = SC.restore_trainer(path, ParallelTrainer(make_charnn(seed + 1),
+                                                            mesh).adopt_net_state())
+            mine = flatten_tree(back.sync_to_net().params)
+            if back.net._warm_manifest is None or \
+                    not all(torch.equal(mine[k], saved[k]) for k in saved):
+                raise AssertionError("(d) the restored trainer's parameters (or manifest) are "
+                                     "not the saved ones")
+            L.reset_launches()
+            x, y = xy(range(CONT_K, 2 * CONT_K))
+            t0 = time.perf_counter()
+            back.fit(x, y, batch_size=CHARNN_BATCH, steps_per_dispatch=CONT_K)
+            torch.cuda.synchronize()
+            first_s = time.perf_counter() - t0
+            launches = L.launches
+        finally:
+            for cache, resolve in originals:
+                cache._resolve = resolve
+        events = cc.event_counts()
+        if _build.builds or resolves or events.get("miss") or events.get("hit") != 1 \
+                or events.get("capture") != 1 \
+                or launches != 2 * CONT_K * (fused.WARMUP_RUNS + 1):
+            raise AssertionError(f"(d) the restored trainer's first dispatch: nvcc "
+                                 f"{_build.builds}, plan lookups {resolves}, events {events}, "
+                                 f"lstm_seq {launches}")
+        row = {"k": CONT_K, "params_bitwise_equal": True, "nvcc_builds": dict(_build.builds),
+               "plan_lookups": len(resolves), "events": events, "first_dispatch_s": first_s,
+               # the capture's warm-up runs (WARMUP_RUNS x K steps) and the
+               # first replay's K steps, 2 launches a step
+               "lstm_seq_launches": launches,
+               "manifest_entries": len(back.net._warm_manifest)}
+        del back
+    finally:
+        TT.disable()
+        TT.reset()
+        dist.destroy_process_group()
+    free_card()
+    return row
+
+
+def phase_continuous(L, seed):
+    """Continuous learning and the serving fleet on the card (see the module
+    docstring): (a) the streaming run with its faults and its digest against
+    a clean run, (b) the registry fed from its snapshots, (c) the fleet of
+    worker processes, (d) the trainer's instant restart."""
+    from deeplearning4j_tpu_torch import telemetry as TT
+    from deeplearning4j_tpu_torch.continuous import chaos
+
+    t_phase = time.perf_counter()
+    batches = chaos.gen_batches(CONT_GEN_SEED, CONT_BATCHES, batch=CHARNN_BATCH,
+                                classes=VOCAB, seq_len=SEQ,
+                                poison=(CONT_POISON,))
+    trained, _lost = cont_stream_plan()
+    probe_x, _ = charnn_data(np.random.RandomState(seed + 29), CONT_MAX_ROWS, SEQ)
+    try:
+        row, net, first, final, registry = cont_train(L, seed, batches, probe_x)
+    finally:
+        TT.disable()
+        TT.reset()
+    step = cont_step_check(seed, [batches[i] for i in trained], first)
+    digest = cont_clean(seed, batches, trained, chaos.state_digest(net))
+    emit("continuous.train", **row, step_check=step, **digest, card=card_line())
+    pool, _ = charnn_data(np.random.RandomState(seed + 37), 4 * CONT_MAX_ROWS, SEQ)
+    try:
+        fleet = cont_fleet(seed, first, net, final, registry, pool)
+    finally:
+        registry.stop()
+    emit("continuous.fleet", **fleet, card=card_line())
+    del net
+    free_card()
+    restart = cont_trainer_restart(L, seed, batches)
+    emit("continuous.trainer_restart", **restart, seconds=time.perf_counter() - t_phase,
+         card=card_line())
+    return {"lstm_seq_launches": row["lstm_seq_launches"] + restart["lstm_seq_launches"],
+            "worker_lstm_seq_launches": {w: d["lstm_seq_launches"]
+                                         for w, d in fleet["after_swap"].items()}}
+
+
 def cuobjdump():
     """The toolkit's cuobjdump, or the copy Triton's package carries; None
     where neither exists."""
@@ -8314,7 +8847,7 @@ def build_all(libs):
 
 PHASES = ("kernels", "flash", "train", "conv", "resnet", "serve", "charnn", "zoo", "finetune",
           "fused", "word2vec", "mnist", "modelimport", "moe", "sequence", "parallel",
-          "model_parallel", "telemetry", "operations", "compile_tune")
+          "model_parallel", "telemetry", "operations", "compile_tune", "continuous")
 
 
 def main(argv=None):
@@ -8477,6 +9010,14 @@ def main(argv=None):
             ct_out = phase_compile_tune(A, C, L, args.seed)
         finally:
             shutil.rmtree(WORK, ignore_errors=True)
+    mark("continuous")
+    if "continuous" in only:
+        shutil.rmtree(WORK, ignore_errors=True)
+        WORK.mkdir()
+        try:
+            cont_out = phase_continuous(L, args.seed)
+        finally:
+            shutil.rmtree(WORK, ignore_errors=True)
     mark("end")
     emit("phase_seconds", **{a[0]: round(b[1] - a[1], 1) for a, b in zip(marks, marks[1:])
                              if a[0] == "build" or a[0] in only})
@@ -8498,8 +9039,16 @@ def main(argv=None):
         + sum(fused_rows[("charnn", p)]["launches"]["lstm_seq"] for p in ("f32", "bf16"))
         + imported["lstm_seq_launches"] + mp_out["launches"]["lstm_seq"]
         + tel_out["lstm_seq_launches"] + ops_out["lstm_seq_launches"]
-        + ct_out["launches"]["lstm_seq"],
+        + ct_out["launches"]["lstm_seq"] + cont_out["lstm_seq_launches"]
+        + sum(cont_out["worker_lstm_seq_launches"].values()),
         "launches_serve": served["lstm_seq_launches"],
+        # the continuous phase: in this process the streaming run's K=4
+        # replays (the rolled-back dispatch's included), its snapshots'
+        # forwards and the registry's warm-ups and answers, and the restored
+        # trainer's first dispatch; in each fleet worker process its
+        # warm-ups and answers, read from its /health
+        "launches_continuous": {"trainer": cont_out["lstm_seq_launches"],
+                                "workers": cont_out["worker_lstm_seq_launches"]},
         # the compile_tune phase: the char-RNN's default and tuned forwards
         # (two calls each), in this process; the tuner's candidate launches
         # and the three serve-CLI legs' are not counted here

@@ -1,5 +1,5 @@
 """Command-line entry point of the port. Ported so far: the ``serve``,
-``eval`` and ``tune`` verbs.
+``eval``, ``tune`` and ``continuous`` verbs.
 
     python -m deeplearning4j_tpu_torch serve --model-path ckpt.zip --max-batch 32
     python -m deeplearning4j_tpu_torch serve --model-path ckpt.zip --smoke 64 --device cpu
@@ -11,6 +11,7 @@
         --label-column 784 --n-classes 10
     python -m deeplearning4j_tpu_torch tune --db tuned.json
     python -m deeplearning4j_tpu_torch tune --db tuned.json --smoke --device cpu
+    python -m deeplearning4j_tpu_torch continuous --snapshot s.zip --offline-n 8 --device cpu
 
 ``serve`` loads a model file through ``models.zoo.restore_checkpoint``
 (the framework's checkpoint zip written by either package, a DL4J
@@ -40,7 +41,11 @@ the card and merges the winners into the tuning DB (``--db``, default
 variable; ``--smoke`` runs trimmed shapes. ``--device cpu`` runs the
 plain versions (a check of the search, the gate and the DB, not of the
 kernels), and its winners key under the CPU's backend fingerprint, never
-a card's. The JAX package's other verbs are not ported yet.
+a card's. ``continuous`` forwards every argument after it, unparsed, to
+``continuous/runner.py`` (``continuous --help-runner`` prints the runner's
+own reference): streaming training with bounded staleness, rollback to the
+last good bundle and snapshot hand-off, on ``--device`` (default
+``cuda``). The JAX package's other verbs are not ported yet.
 """
 
 from __future__ import annotations
@@ -56,7 +61,7 @@ import numpy as np
 def _build_parser():
     p = argparse.ArgumentParser(
         prog="deeplearning4j_tpu_torch",
-        description="PyTorch/CUDA port of deeplearning4j_tpu: serve, eval, tune")
+        description="PyTorch/CUDA port of deeplearning4j_tpu: serve, eval, tune, continuous")
     sub = p.add_subparsers(dest="command", required=True)
 
     def add_compile_cache(sp):
@@ -120,6 +125,16 @@ def _build_parser():
                    help="report regression metrics instead of classification")
     e.add_argument("--device", default="cuda",
                    help="device the forward runs on: cuda (default) or cpu")
+
+    cn = sub.add_parser(
+        "continuous",
+        help="continuous-learning loop (continuous/): streaming ingest with bounded "
+             "staleness -> watchdog-policed StepDriver rounds with rollback to the last "
+             "good bundle -> periodic snapshot and serving hot-swap hand-off; every "
+             "argument forwards to continuous.runner (`continuous --help-runner`)")
+    cn.add_argument("--help-runner", action="store_true",
+                    help="print the runner's own argument reference")
+    cn.add_argument("runner_args", nargs=argparse.REMAINDER)
 
     tn = sub.add_parser(
         "tune",
@@ -403,7 +418,18 @@ def _cmd_tune(args):
 
 
 def main(argv=None):
-    args = _build_parser().parse_args(sys.argv[1:] if argv is None else argv)
+    argv = sys.argv[1:] if argv is None else list(argv)
+    if argv and argv[0] == "continuous":
+        # forwarded before argparse: REMAINDER cannot capture leading
+        # option-style arguments (`continuous --snapshot ...`)
+        rest = argv[1:]
+        if rest and rest[0] == "--":
+            rest = rest[1:]
+        if "--help-runner" in rest:
+            rest = ["--help"]
+        from deeplearning4j_tpu_torch.continuous import runner
+        return runner.main(rest)
+    args = _build_parser().parse_args(argv)
     if args.command == "serve":
         return _cmd_serve(args)
     if args.command == "eval":

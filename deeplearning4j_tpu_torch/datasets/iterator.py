@@ -441,9 +441,24 @@ class AsyncDataSetIterator(DataSetIterator):
     producer's work runs in ``etl.prefetch`` spans (the placement in
     ``etl.device_put``), and with telemetry on the consumer's wait on the
     queue lands in ``etl_fetch_stall_seconds``, the queue's depth in
-    ``etl_queue_depth`` and each delivered batch in ``etl_batches_total``."""
+    ``etl_queue_depth`` and each delivered batch in ``etl_batches_total``.
 
-    def __init__(self, base, queue_size=2, device=None, callback=None):
+    Transient producer errors (JAX ``iterator.py:447-466``, ``:599-629``):
+    an error in ``RETRY_ON`` (the connection and timeout family a
+    streaming source throws while it heals) is retried
+    with capped exponential backoff up to ``retry_transient`` times per
+    batch, counted ``etl_retry_total{outcome=retried|recovered|fatal}``;
+    past the budget it surfaces on the consumer as any producer error
+    does. Opt-in (``retry_transient=0``, fail on the first): a plain
+    generator closes on its first raise, so retrying its ``next()`` would
+    read as a clean but truncated epoch."""
+
+    #: errors worth retrying: ConnectionError is an OSError; TimeoutError
+    #: is the quiet-stream timeout continuous ingest raises
+    RETRY_ON = (OSError, TimeoutError)
+
+    def __init__(self, base, queue_size=2, device=None, callback=None,
+                 retry_transient=0, retry_backoff_s=0.05):
         if callback is not None and device is not None:
             raise ValueError("callback and device are mutually exclusive: the callback "
                              "owns device placement (e.g. InterleavedDataSetCallback)")
@@ -451,6 +466,8 @@ class AsyncDataSetIterator(DataSetIterator):
         self.queue_size = queue_size
         self.device = None if device is None else torch.device(device)
         self.callback = callback  # a DataSetCallback run on the producer thread
+        self.retry_transient = int(retry_transient)
+        self.retry_backoff_s = float(retry_backoff_s)
         self._queue = None
         self._thread = None
         self._error = None
@@ -465,6 +482,16 @@ class AsyncDataSetIterator(DataSetIterator):
             "etl_batches_total", "batches delivered by async prefetch")
         self._m_depth = reg.gauge(
             "etl_queue_depth", "prefetched batches ready in the queue")
+        self._m_retry = reg.counter(
+            "etl_retry_total",
+            "transient producer errors, by outcome (retried = one backoff "
+            "attempt, recovered = a batch arrived after retries, fatal = "
+            "the retry budget ran out and the error surfaced)")
+        if reg.enabled:
+            # every outcome series exists from the start, at zero (the SLO
+            # delta discipline ignores a series' first appearance)
+            for outcome in ("retried", "recovered", "fatal"):
+                self._m_retry.inc(0, outcome=outcome)
 
     @property
     def batch_size(self):
@@ -508,7 +535,7 @@ class AsyncDataSetIterator(DataSetIterator):
             while not stop.is_set():
                 with _tm.span("etl.prefetch"):
                     try:
-                        ds = next(self.base)
+                        ds = self._next_with_retry(stop)
                     except StopIteration:
                         break
                     item = self._place(ds)
@@ -518,6 +545,32 @@ class AsyncDataSetIterator(DataSetIterator):
                 self._error = e
         finally:
             q.put(_SENTINEL)
+
+    def _next_with_retry(self, stop):
+        """``next(self.base)`` under the transient-retry policy (producer
+        thread only): a retryable error waits a capped exponential backoff
+        (a ``close()`` ends the wait) and tries again up to the budget,
+        then re-raises, counted fatal."""
+        attempts = 0
+        while True:
+            try:
+                ds = next(self.base)
+            except self.RETRY_ON:
+                attempts += 1
+                if stop.is_set():
+                    raise  # closing, not a verdict on the stream
+                if attempts > self.retry_transient:
+                    if self._reg.enabled:
+                        self._m_retry.inc(outcome="fatal")
+                    raise
+                if self._reg.enabled:
+                    self._m_retry.inc(outcome="retried")
+                if stop.wait(min(self.retry_backoff_s * (2 ** (attempts - 1)), 2.0)):
+                    raise
+            else:
+                if attempts and self._reg.enabled:
+                    self._m_retry.inc(outcome="recovered")
+                return ds
 
     def __next__(self):
         if self._queue is None:

@@ -34,8 +34,12 @@ run under one ``lax.scan``; here they run as one CUDA graph:
   builds). The outputs are copied out of the graph's memory after each
   replay, since the next replay overwrites them.
 * The kernel wrappers count launches in Python, which a replay does not
-  run: the launches counted while capturing are taken back and added once
-  per replay (``replay_launches`` keeps the replays' share).
+  run: the launches the capturing thread counted (``ops/_build.py
+  launch_tally``) are taken back and added once per replay
+  (``replay_launches`` keeps the replays' share). The capture is
+  thread-local (``capture_error_mode="thread_local"``), so another thread
+  of the process, a serving engine answering beside a continuous trainer,
+  may use the card while a signature is captured.
 * On the CPU (tests) the same step function runs eagerly over the same
   static buffers: the engine's plain version.
 * A signature warms (its capture, or its first eager run) through
@@ -57,6 +61,7 @@ import importlib
 import torch
 
 from deeplearning4j_tpu_torch.nn.layers.base import step_seed
+from deeplearning4j_tpu_torch.ops import _build
 from deeplearning4j_tpu_torch.utils.device import as_device
 from deeplearning4j_tpu_torch.utils.trees import tree_leaves
 
@@ -84,15 +89,6 @@ def _counters():
         for k in mod.launches_by_variant:
             out[f"{name}.variant.{k}"] = (mod, "launches_by_variant", k)
     return out
-
-
-def _read(c):
-    mod, d, k = c
-    return getattr(mod, d)[k] if d else getattr(mod, k)
-
-
-def _snapshot():
-    return {n: _read(c) for n, c in _counters().items()}
 
 
 def _add_launches(delta, sign=1):
@@ -316,13 +312,16 @@ class TrainSteps:
                 self._steps(params, state, opt_state, sig, seed)
         cur.wait_stream(side)
         sig.sv.copy_(valid)
-        before = _snapshot()
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            out = self._steps(params, state, opt_state, sig, seed)
-        after = _snapshot()
+        # thread-local capture: another thread of the process (a serving
+        # engine answering while a continuous trainer captures) may use the
+        # card meanwhile without invalidating the capture, and only this
+        # thread's launches are the graph's
+        with _build.launch_tally() as tally:
+            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                out = self._steps(params, state, opt_state, sig, seed)
         # the wrappers counted the captured launches, which have not run
-        sig.launches = {n: after[n] - before[n] for n in after if after[n] != before[n]}
+        sig.launches = dict(tally)
         _add_launches(sig.launches, -1)
         sig.graph, sig.out = graph, out
 

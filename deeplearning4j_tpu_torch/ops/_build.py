@@ -260,6 +260,33 @@ def recording():
             outer.plans.update(rec.plans)
 
 
+@contextlib.contextmanager
+def launch_tally():
+    """Count this thread's kernel launches by counter name (``note_launch``)
+    while the block runs: a CUDA-graph capture's own launches, apart from
+    those other threads of the process make meanwhile. Nests, the inner
+    tally also counting into the outer."""
+    outer = getattr(_local, "tally", None)
+    tally = {}
+    _local.tally = tally
+    try:
+        yield tally
+    finally:
+        _local.tally = outer
+        if outer is not None:
+            for name, n in tally.items():
+                outer[name] = outer.get(name, 0) + n
+
+
+def note_launch(*names):
+    """Count one launch under each of ``names`` on this thread's tally, if
+    one is open (the wrappers call it beside their own counts)."""
+    tally = getattr(_local, "tally", None)
+    if tally is not None:
+        for name in names:
+            tally[name] = tally.get(name, 0) + 1
+
+
 def note_plan(kernel, key, config, plan):
     """Note one resolved launch plan (a NamedTuple) on this thread's
     recording, if any."""

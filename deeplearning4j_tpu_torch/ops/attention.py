@@ -430,6 +430,7 @@ def flash_attention_fwd(q, k, v, *, mask=None, causal=False, scale=None):
     with _count_lock:
         launches += 1
         launches_by_variant[pl.variant] += 1
+    _build.note_launch("attention", f"attention.variant.{pl.variant}")
     return out, lse
 
 

@@ -396,6 +396,7 @@ def _launch(name, x, w, stride):
     with _count_lock:
         launches[name] += 1
         launches_by_variant[pl.variant] += 1
+    _build.note_launch(f"conv_stats.{name}", f"conv_stats.variant.{pl.variant}")
     return z, stats
 
 

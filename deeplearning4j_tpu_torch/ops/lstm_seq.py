@@ -415,6 +415,7 @@ def lstm_seq_fwd(xz, wh, h0, c0, wp=None, mask=None):
     with _count_lock:
         launches += 1
         launches_by_variant[pl.variant] += 1
+    _build.note_launch("lstm_seq", f"lstm_seq.variant.{pl.variant}")
     # both variants leave the final f32 state in h_state[T % 2] and c_state
     return SeqOut(hs, cs, h_last, c_last, h_state[t_len % 2], c_state)
 

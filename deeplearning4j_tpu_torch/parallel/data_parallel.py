@@ -906,13 +906,18 @@ class ParallelTrainer:
         and return ``{"layout", "peak_bytes", "param_bytes",
         "opt_state_bytes"}`` for this rank; None off a card. The step's
         ledger also goes to ``step_peak_bytes{site="parallel_trainer"}``
-        (JAX ``data_parallel.py:842``)."""
+        (JAX ``data_parallel.py:842``). The step runs through
+        ``utils/compile_cache.aot_compile`` under the JAX package's kind,
+        ``trainer_step:<layout>`` (JAX ``:835-838``)."""
         from deeplearning4j_tpu_torch.telemetry import devices as _devices
+        from deeplearning4j_tpu_torch.utils import compile_cache as _cc
         if self.params is None:
             self.init()
         if self.device.type != "cuda":
             return None
-        stats = _devices.step_peak_stats(lambda: self.step(x, y, mask), self.device)
+        stats, _src = _cc.aot_compile(
+            lambda: _devices.step_peak_stats(lambda: self.step(x, y, mask), self.device),
+            kind=f"trainer_step:{self.layout}", signature=_cc.signature_of((x, y, mask)))
         _devices.note_step_peak_bytes("parallel_trainer", stats, layout=self.layout)
         return {"layout": self.layout, "peak_bytes": stats["peak_bytes"], **self.tree_bytes()}
 

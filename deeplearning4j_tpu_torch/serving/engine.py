@@ -649,7 +649,7 @@ class ServingEngine:
             self._m_requests.inc(n, model=self.name, outcome="served_direct")
         return out
 
-    def submit(self, x, deadline_s=None, *, batched=False, tenant=None, origin=None):
+    def submit(self, x, deadline_s=None, *, batched=False, tenant=None, origin=None, tctx=None):
         """Queue ONE example (or, with ``batched=True``, one multi-example
         batch, examples on axis 0); returns ONE :class:`InferenceFuture`.
         A batched future resolves to the stacked ``[n, ...]`` outputs. A
@@ -666,7 +666,10 @@ class ServingEngine:
         (``serving/metering.py``); ``origin="probe"`` (or any origin) marks
         synthetic traffic: its counter series carry an ``origin`` label,
         which every default SLO rule excludes, and it stays out of the
-        p50/p99 ring. It is metered all the same."""
+        p50/p99 ring. It is metered all the same. ``tctx``: a trace context
+        already rooted elsewhere (a fleet worker's remote-parented trace,
+        JAX ``engine.py:855``) that this request records into instead of
+        starting its own."""
         if self._stop.is_set():
             raise ServingShutdown(f"serving engine {self.name!r} is stopped")
         meta = None
@@ -676,7 +679,8 @@ class ServingEngine:
         fut = InferenceFuture()
         # the request's trace starts here; the worker adds its queue wait,
         # the batch's forward and the resolve. Tracing off: None, a branch.
-        tctx = _tracectx.maybe_start("serving.request", model=self.name)
+        if tctx is None:
+            tctx = _tracectx.maybe_start("serving.request", model=self.name)
         if tctx is not None:
             fut.trace_id = tctx.trace_id
         now = time.perf_counter()

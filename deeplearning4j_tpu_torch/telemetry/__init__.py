@@ -110,11 +110,10 @@ def reset():
     """Drop every piece of recorded telemetry state — registry series,
     tracer buffer, watchdog state (back to inactive), recapture baselines,
     flight-recorder ring, trace ring, federation targets, the SLO engine,
-    the goodput ledger, the metrics history, the usage meter and the
-    compile cache's first-step/first-request marks — without discarding
-    instrument objects. Does not change the registry's enabled flag. (The
-    JAX package's also resets the prober, which the port does not have
-    yet.)"""
+    the goodput ledger, the metrics history, the usage meter, the
+    process-default fleet prober and the compile cache's
+    first-step/first-request marks — without discarding instrument
+    objects. Does not change the registry's enabled flag."""
     get_registry().reset()
     get_tracer().clear()
     health.get_monitor().reset()
@@ -130,6 +129,8 @@ def reset():
     # lazy: serving imports telemetry back
     from deeplearning4j_tpu_torch.serving import metering as _metering
     _metering.reset()
+    from deeplearning4j_tpu_torch.fleet import prober as _prober
+    _prober.reset()
     from deeplearning4j_tpu_torch.utils import compile_cache as _cc
     _cc.reset_marks()
 

@@ -29,12 +29,16 @@ level rides ``slo_rule_state{rule}`` (0/1/2), and the process-default
 engine registers the flight recorder's ``"slo"`` dump section, so a
 postmortem dump names the rules that were burning.
 
-``default_rules()`` are the JAX package's. Those over series the port
-emits (``serving_shed_total``/``serving_model_requests_total``,
-``recompiles_total``, ``train_numerics_anomalies_total``,
-``train_step_seconds``, ``train_etl_seconds``) judge its runs; the fleet,
-continuous, hostfleet and probe rules read series of modules the port does
-not have yet and stay inert (no data: state held at ok). Every rule
+``default_rules()`` are the JAX package's, and the port emits the series
+of all but one: ``serving_shed_total``/``serving_model_requests_total``,
+``recompiles_total``, ``train_numerics_anomalies_total`` (a continuous
+trainer's rollback starts from one), ``train_step_seconds`` and
+``train_etl_seconds`` from the training and serving tiers,
+``fleet_failover_total`` from ``fleet/router.py``,
+``continuous_dropped_total`` from ``continuous/trainer.py`` and
+``probe_total``/``probe_bad_total`` from ``fleet/prober.py``. The
+hostfleet rule reads a series of a tier the port does not have yet and
+stays inert (no data: state held at ok). Every rule
 excludes ``origin=probe`` series, so synthetic traffic never fires an
 organic SLI. Evaluation is host-only: it reads registry snapshots and
 never touches a tensor.

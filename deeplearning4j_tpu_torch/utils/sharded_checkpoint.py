@@ -234,11 +234,14 @@ def _restore_named(path, trainer, index):
     return trainer
 
 
-def save_trainer(path, trainer, *, buckets=None):
+def save_trainer(path, trainer, *, buckets=None, manifest=None):
     """Checkpoint a ``ParallelTrainer`` in its layout (every rank calls
     it): parameters, updater state, layer state, iteration and epoch, and
-    with ``buckets`` (a BucketRegistry or sizes) ``buckets.json`` in the
-    extras zip. A pipelined trainer (``PipelinedNetwork``, ``PipelinedGraph``,
+    in the extras zip ``buckets.json`` with ``buckets`` (a BucketRegistry
+    or sizes) and ``warm_manifest.zip`` with ``manifest`` (a
+    ``utils/compile_cache.WarmManifest``; by default the one attached to
+    the trainer's net), the JAX package's instant-restart unit (JAX
+    ``sharded_checkpoint.py:82-103``). A pipelined trainer (``PipelinedNetwork``, ``PipelinedGraph``,
     ``PipelineParallelLM``, ``ComposedParallelLM``) writes the tensors
     each rank holds by their global names. Returns the path."""
     if hasattr(trainer, "checkpoint_leaves"):
@@ -250,10 +253,17 @@ def save_trainer(path, trainer, *, buckets=None):
                         scalars={"iteration": int(trainer.iteration),
                                  "epoch": int(trainer.epoch), "layout": trainer.layout})
     rank, _ = _rank_world(trainer.group)
-    if buckets is not None and rank == 0 and (mgroup is None or _rank_world(mgroup)[0] == 0):
+    if manifest is None:
+        manifest = getattr(trainer.net, "_warm_manifest", None)
+    has_manifest = manifest is not None and len(manifest) > 0
+    if ((buckets is not None or has_manifest) and rank == 0
+            and (mgroup is None or _rank_world(mgroup)[0] == 0)):
         from deeplearning4j_tpu_torch.utils.serialization import bucket_sizes
         with zipfile.ZipFile(os.path.join(path, _EXTRAS_NAME), "w", zipfile.ZIP_DEFLATED) as z:
-            z.writestr("buckets.json", json.dumps(bucket_sizes(buckets)))
+            if buckets is not None:
+                z.writestr("buckets.json", json.dumps(bucket_sizes(buckets)))
+            if has_manifest:
+                z.writestr("warm_manifest.zip", manifest.to_bytes())
     _barrier(trainer.group)
     _barrier_model(mgroup)
     return path
@@ -262,8 +272,13 @@ def save_trainer(path, trainer, *, buckets=None):
 def restore_trainer(path, trainer):
     """Restore into ``trainer`` (initialised first if it is not) in ITS
     layout and world size, whatever wrote the checkpoint: the tensors are
-    copied in place, the counters set, and a bucket registry lands on
-    ``trainer.buckets``. Returns the trainer."""
+    copied in place, the counters set, a bucket registry lands on
+    ``trainer.buckets``, and an embedded warm manifest built for this net
+    on this backend is attached to ``trainer.net`` (JAX
+    ``sharded_checkpoint.py:170-185``; another one is dropped with a
+    warning, ``compile_cache.attach_if_matches``), so the first K-step
+    dispatch installs its libraries and seeds its plans from it. Returns
+    the trainer."""
     if trainer.params is None:
         trainer.init()
     index = read_index(path)
@@ -281,9 +296,17 @@ def restore_trainer(path, trainer):
     extras = pathlib.Path(path) / _EXTRAS_NAME
     if extras.exists():
         from deeplearning4j_tpu_torch.datasets.iterator import BucketRegistry
+        from deeplearning4j_tpu_torch.utils import compile_cache as _cc
         with zipfile.ZipFile(extras) as z:
-            if "buckets.json" in z.namelist():
+            names = z.namelist()
+            if "buckets.json" in names:
                 trainer.buckets = BucketRegistry(json.loads(z.read("buckets.json")))
+            if "warm_manifest.zip" in names:
+                manifest = _cc.WarmManifest.load_lenient(
+                    z.read("warm_manifest.zip"),
+                    context=f"checkpoint {path}: embedded warm manifest")
+                if manifest is not None:
+                    _cc.attach_if_matches(trainer.net, manifest, f"checkpoint {path}")
     # the HBM ledger of the restored layout (JAX sharded_checkpoint.py:154)
     from deeplearning4j_tpu_torch.telemetry import devices as _devices
     _devices.note_train_tree_bytes(params=trainer.params, opt_state=trainer.opt_state,

@@ -23,6 +23,17 @@ def tree_leaves(tree):
         yield from tree_leaves(v)
 
 
+def tree_map(fn, *trees):
+    """``fn`` over the leaves of ``trees`` (one structure), as plain lists
+    and dicts shaped as the first."""
+    first = trees[0]
+    if _is_leaf(first):
+        return fn(*trees)
+    if isinstance(first, (list, tuple)):
+        return [tree_map(fn, *(t[i] for t in trees)) for i in range(len(first))]
+    return {k: tree_map(fn, *(t[k] for t in trees)) for k in first.keys()}
+
+
 def tree_like(template, leaves):
     """Plain lists and dicts shaped as ``template``, filled in order from
     the ``leaves`` iterator."""

@@ -717,3 +717,113 @@ def test_no_module_of_the_tier_can_unpickle(module):
         elif isinstance(node, ast.ImportFrom) and node.module:
             names.add(node.module.split(".")[0])
     assert not names & {"pickle", "cPickle", "dill", "cloudpickle", "shelve", "marshal"}
+
+
+# ---------------------------------------------------------------------------
+# the ParallelTrainer's instant restart (save_trainer(manifest=),
+# restore_trainer's attach), on a world-1 gloo group in this process
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def world1():
+    import tempfile
+
+    import torch.distributed as dist
+    from deeplearning4j_tpu_torch.parallel import make_mesh
+    d = tempfile.mkdtemp()
+    dist.init_process_group("gloo", init_method=f"file://{d}/rendezvous", rank=0, world_size=1)
+    try:
+        yield make_mesh()
+    finally:
+        dist.destroy_process_group()
+
+
+def _trainer(world1, net=None):
+    from deeplearning4j_tpu_torch.parallel import ParallelTrainer
+    return ParallelTrainer(net if net is not None else _mlp(), world1,
+                           shard_optimizer_state=True).adopt_net_state()
+
+
+class TestTrainerInstantRestart:
+    def test_the_k_step_engine_warms_through_the_nets_manifest(self, world1):
+        """The trainer's K-step engine is ``nn/fused.py``'s: a manifest
+        attached to the trainer's net takes its signature."""
+        telemetry.enable()
+        tr = _trainer(world1)
+        cc.attach_manifest(tr.net, cc.WarmManifest.for_net(tr.net))
+        x, y = _data(n=32)
+        tr.fit(x, y, batch_size=8, steps_per_dispatch=2)
+        assert [k for k, _sig in tr.net._warm_manifest.keys()] == ["fused:k=2:health=0"]
+        assert cc.event_counts() == {"miss": 1.0, "capture": 1.0, "serialize": 1.0}
+
+    def test_save_and_restore_carry_the_manifest_and_the_first_dispatch_is_warm(
+            self, world1, tmp_path):
+        from deeplearning4j_tpu_torch.ops import _plans
+        from deeplearning4j_tpu_torch.utils import sharded_checkpoint as SC
+        telemetry.enable()
+        x, y = _data(n=32)
+        tr = _trainer(world1)
+        manifest = cc.WarmManifest.for_net(tr.net)
+        cc.attach_manifest(tr.net, manifest)
+        tr.fit(x, y, batch_size=8, steps_per_dispatch=2)
+        path = SC.save_trainer(tmp_path / "ckpt", tr, buckets=[1, 8])  # the net's manifest
+        with zipfile.ZipFile(tmp_path / "ckpt" / SC._EXTRAS_NAME) as z:
+            assert sorted(z.namelist()) == ["buckets.json", "warm_manifest.zip"]
+            assert cc.WarmManifest.from_bytes(z.read("warm_manifest.zip")).keys() == \
+                manifest.keys()
+        saved = {k: v.clone() for k, v in flatten_tree(tr.sync_to_net().params).items()}
+        # a fresh trainer: telemetry, plan caches and build counts start over
+        telemetry.reset()
+        telemetry.enable()
+        _plans.clear_all()
+        _build.reset_counts()
+        back = SC.restore_trainer(path, _trainer(world1))  # fresh, untrained tensors
+        assert back.net._warm_manifest is not None
+        assert back.net._warm_manifest.keys() == manifest.keys()
+        mine = flatten_tree(back.sync_to_net().params)
+        assert all(torch.equal(mine[k], saved[k]) for k in saved)  # bitwise the saved ones
+        back.fit(x, y, batch_size=8, steps_per_dispatch=2)
+        # the first dispatch: served from the manifest, captured, no nvcc
+        # build, no tuning lookup
+        assert cc.event_counts() == {"hit": 1.0, "capture": 1.0}
+        assert _build.builds == {}
+        assert telemetry.series_map("tuning_db_total") == {}
+
+    def test_an_explicit_manifest_wins_and_a_foreign_one_is_dropped(self, world1, tmp_path):
+        from deeplearning4j_tpu_torch.utils import sharded_checkpoint as SC
+        telemetry.enable()
+        tr = _trainer(world1)
+        other = cc.WarmManifest.for_net(_mlp(n_in=5))  # another architecture
+        other.put("fused:k=2:health=0", "sig", _build.Recording())
+        path = SC.save_trainer(tmp_path / "ckpt", tr, manifest=other)
+        with pytest.warns(UserWarning, match="not this net/backend"):
+            back = SC.restore_trainer(path, _trainer(world1))
+        assert getattr(back.net, "_warm_manifest", None) is None
+        assert cc.event_counts().get("mismatch_drop") == 1.0
+        # without buckets or a manifest there is no extras zip at all
+        SC.save_trainer(tmp_path / "bare", _trainer(world1))
+        assert not (tmp_path / "bare" / SC._EXTRAS_NAME).exists()
+
+    def test_step_memory_analysis_runs_under_the_trainer_step_kind(self, world1, monkeypatch):
+        """On a card the analysed step goes through ``aot_compile`` under
+        the JAX package's kind, ``trainer_step:<layout>``."""
+        from deeplearning4j_tpu_torch.parallel import ParallelTrainer
+        from deeplearning4j_tpu_torch.telemetry import devices
+        tr = _trainer(world1)
+        kinds = []
+        real = cc.aot_compile
+
+        def spy(fn, *args, **kw):
+            kinds.append(kw.get("kind"))
+            return real(fn, *args, **kw)
+
+        monkeypatch.setattr(cc, "aot_compile", spy)
+        monkeypatch.setattr(ParallelTrainer, "device", property(lambda self: torch.device("cuda")),
+                            raising=False)
+        # the card's peak counter stands in: the step itself is not run here
+        monkeypatch.setattr(devices, "step_peak_stats", lambda fn, dev: {"peak_bytes": 7})
+        monkeypatch.setattr(devices, "note_step_peak_bytes", lambda *a, **k: None)
+        x, y = _data(n=8)
+        out = tr.step_memory_analysis(x, y)
+        assert kinds == ["trainer_step:zero1"]
+        assert out["layout"] == "zero1" and out["peak_bytes"] == 7

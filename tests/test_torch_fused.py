@@ -709,3 +709,35 @@ class TestAsyncPrefetch:
         assert torch.is_tensor(sbs[0].features) and sbs[0].features.shape == (2, 8, 4)
         np.testing.assert_array_equal(sbs[1].step_valid, [1, 0])
         it.close()
+
+
+def test_launch_tally_counts_this_thread_only():
+    """A capture's launches are the capturing thread's: ``launch_tally``
+    counts what ``note_launch`` reports on its own thread (another
+    thread's launches meanwhile stay out), and a nested tally also counts
+    into the outer one."""
+    import threading
+
+    from deeplearning4j_tpu_torch.ops import _build
+
+    ready, done = threading.Event(), threading.Event()
+
+    def other():
+        ready.wait(10)
+        for _ in range(5):
+            _build.note_launch("lstm_seq", "lstm_seq.variant.persistent")
+        done.set()
+
+    t = threading.Thread(target=other)
+    t.start()
+    with _build.launch_tally() as outer:
+        _build.note_launch("lstm_seq", "lstm_seq.variant.persistent")
+        ready.set()
+        done.wait(10)
+        with _build.launch_tally() as inner:
+            _build.note_launch("conv_stats.conv_mm_stats")
+    t.join(10)
+    assert inner == {"conv_stats.conv_mm_stats": 1}
+    assert outer == {"lstm_seq": 1, "lstm_seq.variant.persistent": 1,
+                     "conv_stats.conv_mm_stats": 1}
+    _build.note_launch("lstm_seq")  # no tally open: nothing to count into

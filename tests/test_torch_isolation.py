@@ -115,3 +115,34 @@ def test_the_native_sources_are_the_ports_own_copy():
     assert sorted(p.name for p in src.glob("*.cc")) == sorted(native._SOURCES)
     assert native._SRC_DIR == src
     assert native.library_path().parent == ROOT / "deeplearning4j_tpu_torch" / "_build"
+
+
+@pytest.mark.parametrize("module", [
+    "deeplearning4j_tpu_torch/streaming/__init__.py",
+    "deeplearning4j_tpu_torch/streaming/codec.py",
+    "deeplearning4j_tpu_torch/streaming/pubsub.py",
+    "deeplearning4j_tpu_torch/continuous/__init__.py",
+    "deeplearning4j_tpu_torch/continuous/chaos.py",
+    "deeplearning4j_tpu_torch/continuous/trainer.py",
+    "deeplearning4j_tpu_torch/continuous/runner.py",
+    "deeplearning4j_tpu_torch/fleet/__init__.py",
+    "deeplearning4j_tpu_torch/fleet/worker.py",
+    "deeplearning4j_tpu_torch/fleet/router.py",
+    "deeplearning4j_tpu_torch/fleet/prober.py",
+    "deeplearning4j_tpu_torch/fleet/supervisor.py"])
+def test_the_sweep_covers_streaming_continuous_and_fleet(module):
+    """The streaming tier, the continuous trainer and the serving fleet are
+    AST-checked and imported with JAX blocked, the runner and worker
+    subprocesses' entry points among them."""
+    assert module in SOURCES
+
+
+def test_the_fake_fleet_worker_imports_neither_jax_nor_torch():
+    """The tests' fake fleet worker speaks the wire protocol with the
+    standard library alone, so supervisor lifecycle tests cost
+    milliseconds per spawn."""
+    source = "tests/torch_fake_fleet_worker.py"
+    tree = ast.parse((ROOT / source).read_text(), filename=source)
+    bad = [m for m in _imported_modules(tree)
+           if m.split(".")[0] in FORBIDDEN + ("torch", "deeplearning4j_tpu_torch")]
+    assert not bad, f"{source} imports {bad}"

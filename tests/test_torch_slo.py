@@ -10,7 +10,9 @@ default rules over random traffic), the counted transitions, the flight
 dump's ``"slo"`` section; the goodput block for the same histogram deltas
 and clock, ``device_peak_flops()`` (None on the CPU in both); federation's
 merge, instance labels and dead member, and the SLO engine over a merge
-with a dead member. Then the wiring: a port ``StepDriver`` fit opens the
+with a dead member. The fleet and continuous rules read real series: a
+router's failovers and a continuous trainer's rollbacks reach their
+default rules, judged alike by both packages' engines. Then the wiring: a port ``StepDriver`` fit opens the
 ledger, whose categories sum to its window, and ``checkpoint`` notes its
 seconds; ``resnet50_flops_per_example`` is the JAX package's.
 """
@@ -375,3 +377,55 @@ def test_slo_over_a_federation_with_a_dead_member_neither_fires_nor_masks():
         states[S] = seen
         assert T.series_map("federate_scrape_total")["instance=dead|outcome=error"] == 3
     assert states[TS] == states[JS] == ["ok", "ok", "firing"]
+
+
+def test_fleet_failover_and_continuous_rollback_reach_their_default_rules(tmp_path):
+    """A ``FleetRouter`` failing over from a dead worker feeds
+    ``fleet_failover_total`` (``fleet_failover_rate``), and a
+    ``ContinuousTrainer`` rolling back from a NaN batch feeds
+    ``train_numerics_anomalies_total`` (``numerics_anomalies``, a gate
+    rule) beside ``continuous_rollback_total``. The port's registry
+    snapshots go to both packages' default engines, which agree at every
+    sample; each rule fires once its series existed at an earlier sample
+    (the delta discipline)."""
+    from deeplearning4j_tpu_torch.continuous import chaos
+    from deeplearning4j_tpu_torch.continuous.trainer import ContinuousTrainer
+    from deeplearning4j_tpu_torch.fleet import FleetRouter
+    from deeplearning4j_tpu_torch.serving import ServingOverloaded
+
+    TT.enable()
+    with socket.socket() as s:  # a port nothing listens on: a dead worker
+        s.bind(("127.0.0.1", 0))
+        dead = f"http://127.0.0.1:{s.getsockname()[1]}"
+    router = FleetRouter([("w0", dead)], name="slofleet", no_worker_grace_s=0.2)
+    engines = (TS.SloEngine(), JS.SloEngine())
+    seen = []
+
+    def sample(t):
+        doc = TT.get_registry().snapshot()
+        states = [{r["name"]: (r["state"], r["value"]) for r in e.evaluate(doc, now=t)["rules"]}
+                  for e in engines]
+        assert states[0] == states[1]
+        seen.append(states[0])
+
+    try:
+        sample(0.0)
+        for i in range(4):
+            router.mark_alive("w0")
+            with pytest.raises(ServingOverloaded):
+                router.submit(np.zeros(3, np.float32)).get(timeout=10)
+            ContinuousTrainer(chaos.smoke_net(device="cpu"),
+                              chaos.gen_batches(i, 4, poison={2}),
+                              snapshot_path=str(tmp_path / f"s{i}.zip")).run()
+            sample(30.0 * (i + 1))
+    finally:
+        router.stop()
+    assert TT.series_map("fleet_failover_total") == {"worker=w0": 4.0}
+    assert TT.series_map("continuous_rollback_total") == {"reason=numerics": 4.0}
+    assert TT.series_map("train_numerics_anomalies_total") == {"kind=nonfinite": 4.0}
+    assert seen[1]["fleet_failover_rate"] == ("ok", 0.0)  # born this interval
+    assert seen[1]["numerics_anomalies"] == ("ok", 0.0)
+    assert seen[-1]["numerics_anomalies"][0] == "firing"
+    # three counted failovers (the first was the series' birth) over the
+    # 120 s of samples: past the rule's warn (1/60 s), short of its fire (3/60 s)
+    assert seen[-1]["fleet_failover_rate"] == ("warning", pytest.approx(3 / 120))
