@@ -2,6 +2,7 @@
 ``chip_smoke.py`` imports jax, jaxlib or the JAX package."""
 
 import ast
+import os
 import subprocess
 import sys
 from pathlib import Path
@@ -135,6 +136,42 @@ def test_the_sweep_covers_streaming_continuous_and_fleet(module):
     AST-checked and imported with JAX blocked, the runner and worker
     subprocesses' entry points among them."""
     assert module in SOURCES
+
+
+@pytest.mark.parametrize("module", [
+    "deeplearning4j_tpu_torch/ui/__init__.py",
+    "deeplearning4j_tpu_torch/ui/storage.py",
+    "deeplearning4j_tpu_torch/ui/components.py",
+    "deeplearning4j_tpu_torch/ui/stats.py",
+    "deeplearning4j_tpu_torch/ui/visualization.py",
+    "deeplearning4j_tpu_torch/ui/server.py",
+    "deeplearning4j_tpu_torch/hostfleet/__init__.py",
+    "deeplearning4j_tpu_torch/hostfleet/exchange.py",
+    "deeplearning4j_tpu_torch/hostfleet/worker.py",
+    "deeplearning4j_tpu_torch/hostfleet/supervisor.py",
+    "deeplearning4j_tpu_torch/mlpipeline.py"])
+def test_the_sweep_covers_the_dashboard_hostfleet_and_mlpipeline(module):
+    """The training dashboard, the elastic training fleet and the sklearn
+    adapters (the jax-free storage, components and exchange copied, not
+    imported) are AST-checked and imported with JAX blocked."""
+    assert module in SOURCES
+
+
+def test_the_hostfleet_worker_runs_as_a_module_with_jax_blocked(tmp_path):
+    """The supervisor's subprocess entry, ``-m
+    deeplearning4j_tpu_torch.hostfleet.worker``, with JAX and its package
+    made unimportable: a one-round job runs to its done line."""
+    code = ("import runpy, sys\n"
+            "for name in ('jax', 'jaxlib', 'deeplearning4j_tpu'):\n"
+            "    sys.modules[name] = None\n"
+            "sys.argv = ['worker', '--process-id', '0', '--num-processes', '1', '--bundle',\n"
+            f"            {str(tmp_path / 'b.zip')!r}, '--total-rounds', '1',\n"
+            f"            '--heartbeat-dir', {str(tmp_path / 'hb')!r}, '--device', 'cpu']\n"
+            "runpy.run_module('deeplearning4j_tpu_torch.hostfleet.worker', run_name='__main__')\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                          text=True, timeout=120, env=dict(os.environ, OMP_NUM_THREADS="1"))
+    assert proc.returncode == 0, proc.stderr
+    assert '"hostfleet_done": true' in proc.stdout
 
 
 def test_the_fake_fleet_worker_imports_neither_jax_nor_torch():

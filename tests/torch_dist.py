@@ -94,7 +94,10 @@ def sequence_program(rank, world, q, k, v, g):
 
 
 def rank_one_fails(rank, world):
-    """Rank 1 raises; every other rank returns its rank and the world."""
+    """Rank 1 raises; every other rank returns its rank and the world. All
+    ranks meet at a barrier first, so rank 1 cannot leave while another is
+    still connecting to it (gloo's full mesh)."""
+    dist.barrier()
     if rank == 1:
         raise ValueError("rank 1 fails on purpose")
     return {"rank": rank, "world": dist.get_world_size()}
