@@ -93,7 +93,13 @@ nonzero; nothing is caught):
             ``persistent``.
 9. profile  one char-RNN forward at the largest bucket under
             ``torch.profiler``: device time by kernel family and busy share.
-10. cli     ``python -m deeplearning4j_tpu_torch serve --smoke 64``.
+10. cli     ``python -m deeplearning4j_tpu_torch serve --smoke 64``; then
+            64 more requests through a fresh registry under the port's
+            runtime sanitizer (``analysis/sanitizer.py``), each answer
+            against the plain forward: no lock inversion, leaked thread or
+            unresolved future, and its report merged clean with the static
+            R9 lock graph of ``serving/`` and ``telemetry/`` through ``lint
+            --san-report`` (the ``serve.sanitizer`` line, with its seconds).
 11. charnn  the same char-RNN (3,398,752 params, random weights from the
             seed) trained by ``MultiLayerNetwork.fit`` on one-hot
             sequences of ids[t+1] = (5 ids[t] + 3) mod 96 from random
@@ -175,8 +181,11 @@ nonzero; nothing is caught):
             RmsProp 1e-3) under both policies, on host (numpy) data: 10
             batches less half a batch (3 dispatches, the last with 2 real
             steps and a padded batch) trained at K=4 and at K=1 with
-            ``pad_ragged`` from identical weights, held within 3x the card's
-            f32 noise (the K=1 run on each batch's rows reordered), one
+            ``pad_ragged`` from identical weights, bit-identical (and
+            within 3x the card's f32 noise, the K=1 run on each batch's
+            rows reordered); the f32 ResNet50's K=1 fit twice more and
+            its timed steps once more on cuDNN's default algorithms (the
+            repeat the port's deterministic choice buys, and its cost), one
             build a model run restored in place for each fit; one
             capture over 2 epochs; 5 timed dispatches (20 steps) against
             5 timed K=1 steps with their peak memory; 1 profiled
@@ -697,6 +706,8 @@ PEAK_TF32_OPS_S = 495e12
 F32_ATOL = 1e-4
 BF16_ATOL = BF16_RTOL = 2e-2
 SERVE_ATOL = 1e-4
+# the serve phase's extra burst under the runtime sanitizer
+SAN_REQUESTS = 64
 
 VOCAB, HIDDEN, SEQ = 96, 512, 128
 N_PARAMS = 3_398_752
@@ -1824,6 +1835,72 @@ def phase_serve(L, zip_path):
         "max_abs_err_vs_plain": max_err, "atol": SERVE_ATOL, "card": card_line()}
     emit("serve", **result)
     return result, net
+
+
+def serve_sanitized(L, net):
+    """After the serve phase's measured burst: SAN_REQUESTS more requests
+    through a fresh registry and engine under the port's runtime
+    sanitizer (``analysis/sanitizer.py``: the locks the port's modules
+    allocate record their acquisition order, every InferenceFuture is
+    tracked, threads left alive are swept), each answer held against the
+    plain forward. The sanitizer must report nothing, and its report,
+    merged with the static R9 lock graph of ``serving/`` and
+    ``telemetry/`` through ``lint --san-report``, must merge clean."""
+    import contextlib
+    import io
+
+    from deeplearning4j_tpu_torch import cli
+    from deeplearning4j_tpu_torch.analysis.sanitizer import Sanitizer
+    from deeplearning4j_tpu_torch.serving import ModelRegistry
+
+    rs = np.random.RandomState(SEED + 7)
+    reqs = [np.eye(VOCAB, dtype=np.float32)[rs.randint(0, VOCAB, size=(
+        int(rs.randint(1, 4)), int(rs.randint(1, SEQ + 1))))] for _ in range(SAN_REQUESTS)]
+    params = [{k: v.detach() for k, v in p.items()} for p in net.params]
+    t0 = time.perf_counter()
+    with Sanitizer() as san:
+        registry = ModelRegistry()
+        try:
+            engine = registry.register("charnn", net, input_spec=(SEQ, VOCAB),
+                                       max_batch_size=64, seq_buckets=(32, 64, 128),
+                                       device="cuda")
+            futs = [engine.submit(x, batched=True) for x in reqs]
+            outs = [f.get(timeout=300) for f in futs]
+        finally:
+            registry.stop()
+        findings = san.check()
+        report = san.report(findings)
+        tracked = {"locks": len(report["locks"]), "futures": len(san._futures)}
+    served_s = time.perf_counter() - t0
+    if findings:
+        raise AssertionError("the sanitizer reported: " + "; ".join(f.human() for f in findings))
+    if not tracked["locks"] or tracked["futures"] < len(reqs):
+        raise AssertionError(f"the sanitizer tracked {tracked}: it did not see the engine")
+    max_err = 0.0
+    for x, y in zip(reqs, outs):
+        want = plain_forward(L, params, torch.from_numpy(x).cuda()).cpu().numpy()
+        if y.shape != want.shape or not np.isfinite(y).all():
+            raise AssertionError(f"sanitized burst: output {y.shape} for input {x.shape}")
+        max_err = max(max_err, float(np.abs(y - want).max()))
+    if max_err > SERVE_ATOL:
+        raise AssertionError(f"sanitized burst differs from the plain forward by {max_err}")
+    path = WORK / "graftsan.json"
+    path.write_text(json.dumps(report))
+    t1 = time.perf_counter()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(["lint", "--san-report", str(path),
+                       str(ROOT / "deeplearning4j_tpu_torch" / "serving"),
+                       str(ROOT / "deeplearning4j_tpu_torch" / "telemetry")])
+    merge_s = time.perf_counter() - t1
+    if rc != 0 or "merge clean" not in out.getvalue():
+        raise AssertionError(f"lint --san-report exited {rc}:\n{out.getvalue()}")
+    row = {"requests": len(reqs), "findings": [], "observed_edges": len(report["lock_order_edges"]),
+           "tracked": tracked, "max_abs_err_vs_plain": max_err, "served_s": served_s,
+           "merge_s": merge_s, "seconds": time.perf_counter() - t0,
+           "merge": out.getvalue().strip().splitlines()[-1], "card": card_line()}
+    emit("serve.sanitizer", **row)
+    return row
 
 
 def phase_profile(net):
@@ -3603,11 +3680,8 @@ def fused_diff(a, b):
 def fused_within_noise(k, p, noise_runs, what):
     """Hold the K-step run ``k`` against the K=1 run ``p`` within
     FUSED_NOISE_FACTOR x the card's own f32 noise: for each metric, the
-    farthest from ``p`` of the K=1 reruns in ``noise_runs`` (by name: ``p``'s
-    rows again, or each batch's rows in another order; the same steps
-    mathematically). Where the f32 step does not repeat itself to the bit,
-    one rerun is one draw of a heavy-tailed distance (the largest step-loss
-    gap of a chaotic fit), so more than one is drawn."""
+    farthest from ``p`` of the K=1 reruns in ``noise_runs`` (by name: each
+    batch's rows in another order; the same steps mathematically)."""
     kp = fused_diff(k, p)
     noise = {run: fused_diff(q, p) for run, q in noise_runs.items()}
     for m in ("loss_max_rel", "params_rel", "state_rel", "opt_rel"):
@@ -3665,43 +3739,68 @@ def replay_kernel_counts(prof):
     return names
 
 
+@contextlib.contextmanager
+def cudnn_default_algorithms():
+    """Within this block a fit runs on cuDNN's default algorithm choice:
+    the port's f32 precision block is entered first with its
+    deterministic flag turned back off, so the fit's own block (nested)
+    leaves it so."""
+    from deeplearning4j_tpu_torch.utils import dtypes
+
+    with dtypes.policy_precision():
+        torch.backends.cudnn.deterministic = False
+        yield
+
+
 def fused_model_run(name, make, x, y, xt, yt, batch, per_step, variant, profiled_kernels,
-                    family, family_tags, policy):
+                    family, family_tags, policy, cudnn_default=False):
     """One model under one policy: K=1 (``pad_ragged``) and K=FUSED_K fits
-    from identical weights over the ragged (x, y), and the K=1 fit again and
-    on the batches' rows in two other orders (the noise); the K-step net trained
+    from identical weights over the ragged (x, y), which must agree to the
+    bit (every step repeats itself: under the f32 policy cuDNN's algorithms
+    are deterministic, ``utils/dtypes.policy_precision``), and the K=1 fit
+    on the batches' rows in another order (the noise, reported); the K-step net trained
     FUSED_EPOCHS - 1 more epochs (one capture in all); then
     FUSED_TIMED_DISPATCHES timed dispatches over (xt, yt) against as many
     K=1 steps, each with its peak memory and one profiled dispatch (the
     replay's kernels counted). ``per_step`` maps each launch counter to its
     launches a step, ``profiled_kernels`` each device kernel to its events a
-    step. Returns the row."""
+    step. With ``cudnn_default`` the K=1 fit runs twice more on cuDNN's
+    default (non-deterministic) algorithms, to show what the port's
+    deterministic choice repeats, and the timed K=1 steps once more there
+    (the choice's cost). Returns the row."""
     from torch.profiler import ProfilerActivity, profile
 
     from deeplearning4j_tpu_torch.nn import fused
 
     k = FUSED_K
     perm = within_batch_permutation(len(x), batch, SEED)
-    perm_2 = within_batch_permutation(len(x), batch, SEED + 1)
     runs = {}
-    # one build shared by the five fits: each starts from its initial
+    # one build shared by the three fits: each starts from its initial
     # weights and state, restored in place (the K-step fit comes last, so
     # its engine captures the net once)
     net = make()
     initial = fused_initial(net)
     k1 = {"pad_ragged": True}
-    for run, xx, yy, kw in (("k1", x, y, k1), ("k1_again", x, y, k1),
-                            ("k1_permuted", x[perm], y[perm], k1),
-                            ("k1_permuted_2", x[perm_2], y[perm_2], k1),
-                            ("k", x, y, {"steps_per_dispatch": k})):
+    fits = [("k1", x, y, k1), ("k1_permuted", x[perm], y[perm], k1)]
+    if cudnn_default:
+        fits += [("k1_cudnn_default", x, y, k1), ("k1_cudnn_default_again", x, y, k1)]
+    for run, xx, yy, kw in fits + [("k", x, y, {"steps_per_dispatch": k})]:
         fused_restore(net, initial)
-        net.fit(xx, yy, batch_size=batch, **kw)
+        with cudnn_default_algorithms() if run.startswith("k1_cudnn") else \
+                contextlib.nullcontext():
+            net.fit(xx, yy, batch_size=batch, **kw)
         runs[run] = fused_snapshot(net)
     del initial
     free_card()
-    check = fused_within_noise(runs["k"], runs["k1"],
-                               {r: runs[r] for r in ("k1_again", "k1_permuted", "k1_permuted_2")},
+    check = fused_within_noise(runs["k"], runs["k1"], {"k1_permuted": runs["k1_permuted"]},
                                f"{name} {policy}")
+    if cudnn_default:
+        check["k1_cudnn_default_repeat"] = fused_diff(runs["k1_cudnn_default_again"],
+                                                      runs["k1_cudnn_default"])
+    del runs
+    if not check["k_vs_k1"]["bit_identical"]:
+        raise AssertionError(f"{name} {policy}: K={k} is not bit-identical to K=1: "
+                             f"{check['k_vs_k1']}")
     engine = net._train_steps_fused[(k, False)]
     net.fit(x, y, batch_size=batch, steps_per_dispatch=k, epochs=FUSED_EPOCHS - 1)
     if engine.captures != 1:
@@ -3753,6 +3852,14 @@ def fused_model_run(name, make, x, y, xt, yt, batch, per_step, variant, profiled
             batch_size=batch)
     torch.cuda.synchronize()
     wall_1 = time.perf_counter() - t0
+    wall_1_default = None
+    if cudnn_default:
+        with cudnn_default_algorithms():
+            t0 = time.perf_counter()
+            net.fit(xt[:FUSED_TIMED_DISPATCHES * batch], yt[:FUSED_TIMED_DISPATCHES * batch],
+                    batch_size=batch)
+            torch.cuda.synchronize()
+            wall_1_default = time.perf_counter() - t0
     peak_1 = torch.cuda.max_memory_allocated(), torch.cuda.max_memory_reserved()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -3765,6 +3872,10 @@ def fused_model_run(name, make, x, y, xt, yt, batch, per_step, variant, profiled
     row = {"model": name, "policy": policy, "k": k, "batch": batch,
            "check": check, "captures": engine.captures, "epochs_ragged": FUSED_EPOCHS,
            "k_step_ms": 1e3 * wall_k / steps, "k1_step_ms": 1e3 * wall_1 / FUSED_TIMED_DISPATCHES,
+           # the same timed K=1 steps on cuDNN's default algorithms (the
+           # port's f32 block makes them deterministic; null: not run)
+           "k1_step_ms_cudnn_default": None if wall_1_default is None
+           else 1e3 * wall_1_default / FUSED_TIMED_DISPATCHES,
            "k_dispatches": FUSED_TIMED_DISPATCHES, "k1_steps": FUSED_TIMED_DISPATCHES,
            "k_examples_per_s": steps * batch / wall_k,
            "k1_examples_per_s": FUSED_TIMED_DISPATCHES * batch / wall_1,
@@ -3973,7 +4084,7 @@ def phase_fused(seed):
                 f"conv.{'bf16_wgmma' if policy == 'bf16' else 'f32_pipelined'}",
                 {"conv_stats_wgmma_kernel" if policy == "bf16" else "conv_stats_f32_kernel": 52},
                 resnet_family,
-                (("updater.step", "optimizer"),), policy)
+                (("updater.step", "optimizer"),), policy, cudnn_default=policy == "f32")
             del xr, yr, xt, yt
             xr, yr = charnn_numpy(seed + 3, FUSED_RAGGED_N)
             xt, yt = charnn_numpy(seed + 5, FUSED_TIMED_DISPATCHES * FUSED_K * CHARNN_BATCH)
@@ -9742,6 +9853,7 @@ def main(argv=None):
             served, net = phase_serve(L, zip_path)
             phase_profile(net)
             phase_cli(zip_path)
+            serve_sanitized(L, net)
         finally:
             shutil.rmtree(WORK, ignore_errors=True)
     mark("charnn")

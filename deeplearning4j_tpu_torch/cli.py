@@ -1,5 +1,5 @@
 """Command-line entry point of the port: the JAX package's verbs but
-``lint`` and ``bench``.
+``bench``.
 
     python -m deeplearning4j_tpu_torch train --model-path ckpt.zip --data x.npy --labels y.npy \
         --epochs 2 --averaging-frequency 5 --model-output-path out.zip --ui-port 9000
@@ -22,6 +22,11 @@
     python -m deeplearning4j_tpu_torch slo --history /var/lib/dl4j/history --gate
     python -m deeplearning4j_tpu_torch traces --cluster --file postmortem_gen0/
     python -m deeplearning4j_tpu_torch flightrec dump.json --last 20
+    python -m deeplearning4j_tpu_torch lint --strict-baseline
+    python -m deeplearning4j_tpu_torch lint --rules R1,R7 deeplearning4j_tpu_torch/nn
+    python -m deeplearning4j_tpu_torch lint --emit-schema
+    python -m deeplearning4j_tpu_torch lint --san-report graftsan.json \
+        deeplearning4j_tpu_torch/serving deeplearning4j_tpu_torch/telemetry
 
 ``train`` resumes a model file (``--model-path``) or builds a zoo model
 (``--zoo``) and trains it on ``.npy`` features and labels or a labelled
@@ -78,8 +83,21 @@ engine's verdicts (live, from a server's ``/slo`` or replayed from a
 metrics-history directory), ``traces`` the slow-trace ring (a server's,
 flight dumps, a dead generation's post-mortem directory; ``--cluster``
 merges them onto one timeline) and ``flightrec`` a flight-recorder dump.
-Not ported: ``lint`` (the JAX package's static analysis, whose rules
-encode JAX idioms) and ``bench`` (the port's benchmark comes on its own).
+``lint`` runs graftlint (``analysis/``) over the port's package, or over
+the given paths, on the CPU: it imports no torch and needs no card. Its
+rules R1-R13 are the JAX package's, re-derived for the port's idioms
+(host syncs in the step loops, CUDA-graph capture hazards, collectives'
+groups, lock order, the wire and metric contracts); the committed
+baseline is ``analysis/graftlint.baseline.json`` (empty), ``--emit-schema``
+writes ``analysis/schema/SCHEMA.json`` and ``METRICS.md`` inside the
+package unless ``--schema-dir`` says otherwise (never the repo root's,
+which are the JAX package's), and ``--san-report`` merges a graftsan
+runtime report (``analysis/sanitizer.py``) with the static lock graph.
+On the card, ``python3 chip_smoke.py --only serve`` run through the chip
+tool prints a ``serve.sanitizer`` line: a burst served under the
+sanitizer, merged with the static lock graph of ``serving/`` and
+``telemetry/``. Not ported: ``bench`` (the port's benchmark comes on its
+own).
 """
 
 from __future__ import annotations
@@ -95,7 +113,7 @@ import numpy as np
 def _build_parser():
     p = argparse.ArgumentParser(
         prog="deeplearning4j_tpu_torch",
-        description="PyTorch/CUDA port of deeplearning4j_tpu: train / UI / serve / fleet")
+        description="PyTorch/CUDA port of deeplearning4j_tpu: train / UI / serve / fleet / lint")
     sub = p.add_subparsers(dest="command", required=True)
 
     def add_compile_cache(sp):
@@ -350,6 +368,56 @@ def _build_parser():
                          "0 = all)")
     fr.add_argument("--json", action="store_true",
                     help="raw JSON passthrough instead of the table")
+
+    ln = sub.add_parser(
+        "lint",
+        help="graftlint: static analysis of the port's step path (hidden "
+             "host syncs, CUDA-graph capture hazards, lock order, wire and "
+             "metric contracts) — see analysis/")
+    ln.add_argument("paths", nargs="*",
+                    help="files/directories to lint (default: the "
+                         "deeplearning4j_tpu_torch package)")
+    ln.add_argument("--rules",
+                    help="comma-separated rule subset (e.g. R1,R4); "
+                         "default all")
+    ln.add_argument("--list-rules", action="store_true",
+                    help="print the rule catalog and exit")
+    ln.add_argument("--format", choices=("human", "json"), default="human")
+    ln.add_argument("--baseline",
+                    help="baseline file (default: "
+                         "deeplearning4j_tpu_torch/analysis/graftlint.baseline.json)")
+    ln.add_argument("--no-baseline", action="store_true",
+                    help="ignore the baseline: report every finding")
+    ln.add_argument("--update-baseline", action="store_true",
+                    help="rewrite the baseline from the current findings "
+                         "and exit 0")
+    ln.add_argument("--strict-baseline", action="store_true",
+                    help="CI mode: stale baseline entries (fixed debt "
+                         "still in the ledger) also fail")
+    ln.add_argument("--verbose", action="store_true",
+                    help="also print baselined findings")
+    ln.add_argument("--diff", metavar="REF",
+                    help="pre-commit mode: analyse everything (project "
+                         "rules need the whole tree) but only REPORT "
+                         "findings whose statement touches a line changed "
+                         "vs this git ref (e.g. HEAD, origin/main)")
+    ln.add_argument("--emit-schema", action="store_true",
+                    help="instead of linting, write the harvested wire+"
+                         "metric contract (routes, headers, response "
+                         "keys, metric series with label sets) to "
+                         "SCHEMA.json and METRICS.md — the same registry "
+                         "rules R10/R11/R13 enforce")
+    ln.add_argument("--schema-dir", metavar="DIR",
+                    help="where --emit-schema writes (default: the port's "
+                         "deeplearning4j_tpu_torch/analysis/schema/, never "
+                         "the repo root)")
+    ln.add_argument("--san-report", metavar="JSON",
+                    help="merge a graftsan runtime report (Sanitizer.dump) "
+                         "with the static R9 lock graph: maps observed "
+                         "acquisition orders onto static lock identities "
+                         "and fails on cycles in the MERGED graph — orders "
+                         "only runtime saw compose with orders only the "
+                         "code declares")
     return p
 
 
@@ -1192,6 +1260,207 @@ def _cmd_flightrec(args):
     return 0
 
 
+def _cmd_lint(args):
+    """graftlint CLI: exit 0 when every finding is fixed/suppressed/
+    baselined, non-zero otherwise — the gating contract. Imports no torch."""
+    import os
+
+    from deeplearning4j_tpu_torch import analysis
+    from deeplearning4j_tpu_torch.analysis import reporters
+
+    if args.list_rules:
+        for name, rule in analysis.all_rules().items():
+            print(f"{name} [{rule.slug}]\n    {rule.description}")
+        return 0
+
+    pkg_dir = os.path.dirname(os.path.abspath(__file__))
+    root = os.path.dirname(pkg_dir)
+    paths = args.paths or [pkg_dir]
+    rules = args.rules.split(",") if args.rules else None
+
+    if args.emit_schema:
+        mods, errors = analysis.parse_paths(paths, root=root)
+        if errors:
+            for f in errors:
+                print(f.human(), file=sys.stderr)
+            raise SystemExit("graftlint: cannot emit a schema over "
+                             "unparseable sources")
+        schema = analysis.build_schema(mods)
+        jp, mp = reporters.write_schema(schema, args.schema_dir)
+        print(f"graftlint: schema written: {jp}, {mp}", file=sys.stderr)
+        return 0
+    if args.san_report:
+        return _lint_san_report(args, paths, root)
+    if args.diff and args.update_baseline:
+        raise SystemExit("graftlint: --diff filters findings to changed "
+                         "lines; rewriting the baseline from that subset "
+                         "would drop real debt — run --update-baseline "
+                         "without --diff")
+
+    try:
+        findings = analysis.lint_paths(paths, rules=rules, root=root)
+    except analysis.LintError as e:
+        raise SystemExit(f"graftlint: {e}")
+
+    if args.diff:
+        changed = _git_changed_lines(args.diff, root)
+        # a finding's statement spans sup_start (decorators included:
+        # editing only a decorator line must still surface the finding it
+        # causes on the def) through end_line
+        findings = [f for f in findings
+                    if any(ln in changed.get(f.path, ())
+                           for ln in range(min(f.sup_start or f.line,
+                                               f.line),
+                                           max(f.end_line, f.line) + 1))]
+
+    if args.no_baseline:
+        baseline = {}
+    else:
+        bpath = args.baseline or analysis.default_baseline_path()
+        if args.update_baseline:
+            analysis.save_baseline(bpath, findings)
+            print(f"graftlint: baseline rewritten with {len(findings)} "
+                  f"finding(s): {bpath}", file=sys.stderr)
+            return 0
+        baseline = analysis.load_baseline(bpath)
+    new, known, stale = analysis.apply_baseline(findings, baseline)
+    if args.diff:
+        # off-diff baselined debt is invisible here, so "stale" is
+        # meaningless: the full (non-diff) run owns that check
+        stale = []
+
+    if args.format == "json":
+        reporters.report_json(new, known, stale)
+    else:
+        reporters.report_human(new, known, stale, verbose=args.verbose)
+    if new:
+        return 1
+    if stale and args.strict_baseline:
+        return 1
+    return 0
+
+
+def _git_changed_lines(ref, root):
+    """{repo-relative posix path: set of NEW-side line numbers} changed vs
+    ``ref`` (committed AND working-tree changes: pre-commit wants both).
+    Hunk headers only (-U0): pure deletions contribute no lines."""
+    import re
+    import subprocess
+    from pathlib import Path
+
+    try:
+        out = subprocess.run(
+            ["git", "-C", root, "diff", "--unified=0", ref, "--", "*.py"],
+            capture_output=True, text=True, check=True).stdout
+    except (OSError, subprocess.CalledProcessError) as e:
+        detail = getattr(e, "stderr", "") or str(e)
+        raise SystemExit(f"graftlint: git diff {ref} failed: "
+                         f"{detail.strip()}")
+    changed, cur = {}, None
+    hunk = re.compile(r"^@@ -\d+(?:,\d+)? \+(\d+)(?:,(\d+))? @@")
+    for line in out.splitlines():
+        if line.startswith("+++ b/"):
+            cur = line[6:]
+        elif line.startswith("+++"):
+            cur = None                      # /dev/null: file deleted
+        elif cur is not None and line.startswith("@@"):
+            m = hunk.match(line)
+            if m:
+                start = int(m.group(1))
+                count = int(m.group(2)) if m.group(2) is not None else 1
+                if count:
+                    changed.setdefault(cur, set()).update(
+                        range(start, start + count))
+    # untracked files never appear in `git diff` hunks but ARE pending
+    # changes: every line of them counts
+    untracked = subprocess.run(
+        ["git", "-C", root, "ls-files", "--others", "--exclude-standard",
+         "--", "*.py"],
+        capture_output=True, text=True).stdout
+    for path in untracked.splitlines():
+        if not path:
+            continue
+        try:
+            with open(Path(root) / path, encoding="utf-8",
+                      errors="replace") as fh:
+                n = sum(1 for _ in fh)
+        except OSError:
+            continue
+        changed.setdefault(path, set()).update(range(1, n + 1))
+    return changed
+
+
+def _lint_san_report(args, paths, root):
+    """lint --san-report: one lock graph from both prongs. Static R9
+    edges come in lock-id space; observed graftsan edges come keyed by
+    allocation site (file:line) and map onto the SAME identity via the
+    lock registry, so an order only runtime saw composes with an order
+    only the code declares, and the merged cycle is reported even though
+    neither prong alone had it."""
+    from pathlib import Path, PurePosixPath
+
+    from deeplearning4j_tpu_torch import analysis
+    from deeplearning4j_tpu_torch.analysis.dataflow import project_facts, reaches
+
+    with open(args.san_report, encoding="utf-8") as fh:
+        report = json.load(fh)
+    mods, parse_errors = analysis.parse_paths(paths, root=root)
+    static = analysis.lint_modules(mods, rules=["R9"])
+    facts = project_facts(mods)
+
+    site_to_id = {f"{info['path']}:{info['line']}": lid
+                  for lid, info in facts.locks.items()}
+
+    def norm(site):
+        fname, _, line = site.rpartition(":")
+        try:
+            rel = Path(fname).resolve().relative_to(Path(root).resolve())
+        except ValueError:
+            rel = Path(fname)
+        return f"{PurePosixPath(rel)}:{line}"
+
+    def ident(site):
+        n = norm(site)
+        return site_to_id.get(n, n)        # unmapped sites keep file:line
+
+    merged = {}
+    for src, dst, _mod, _node, _via in facts.lock_edges:
+        if src != dst:          # self-edges are static R9's own call
+            merged.setdefault(src, set()).add(dst)  # (RLock re-entry legal)
+    observed = []
+    for e in report.get("lock_order_edges", ()):
+        a, b = ident(e["from"]), ident(e["to"])
+        observed.append((a, b, e.get("count", 1)))
+        if a != b:
+            merged.setdefault(a, set()).add(b)
+
+    cycles = set()
+    for a in sorted(merged):
+        for b in sorted(merged[a]):
+            if reaches(merged, b, a):
+                cycles.add(tuple(sorted((a, b))))
+
+    runtime_findings = report.get("findings", ())
+    print(f"graftsan report: {len(observed)} observed lock-order edge(s), "
+          f"{len(runtime_findings)} runtime finding(s)")
+    for a, b, count in observed:
+        print(f"  observed {a} -> {b} (x{count})")
+    for f in runtime_findings:
+        tail = f" [{f['site']}]" if f.get("site") else ""
+        print(f"RUNTIME {f['kind']}: {f['message']}{tail}")
+    for f in static:
+        print(f"STATIC {f.human()}")
+    for f in parse_errors:
+        print(f"STATIC {f.human()}")
+    for cyc in sorted(cycles):
+        print("MERGED lock-order cycle: "
+              + " -> ".join(cyc + (cyc[0],)))
+    bad = bool(runtime_findings or static or parse_errors or cycles)
+    if not bad:
+        print("graftsan: static + observed lock graphs merge clean")
+    return 1 if bad else 0
+
+
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else list(argv)
     if argv and argv[0] == "continuous":
@@ -1225,6 +1494,8 @@ def main(argv=None):
         return _cmd_traces(args)
     if args.command == "slo":
         return _cmd_slo(args)
+    if args.command == "lint":
+        return _cmd_lint(args)
     return 1
 
 

@@ -65,7 +65,7 @@ class KMeans:
         prev_inertia = np.inf
         for it in range(self.max_iterations):
             centroids, assign, inertia = _lloyd_step(pts, centroids, self.k)
-            inertia = float(inertia)  # the convergence test is a host decision each iteration
+            inertia = float(inertia)  # graftlint: disable=R1 -- the convergence test is a host decision each iteration (Lloyd's tolerance), as in the convex solvers
             if abs(prev_inertia - inertia) < self.tol * max(abs(prev_inertia), 1.0):
                 break
             prev_inertia = inertia

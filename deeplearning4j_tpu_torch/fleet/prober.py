@@ -205,7 +205,7 @@ class FleetProber:
                 if self._stop.wait(self.interval_s):
                     return
 
-        self._stop.clear()  # an Event is its own lock; self._lock guards the probe state
+        self._stop.clear()  # graftlint: disable=R6 -- threading.Event is internally synchronized; self._lock guards probe state, not lifecycle
         self._thread = threading.Thread(target=loop, name="fleet-prober",
                                         daemon=True)
         self._thread.start()

@@ -360,7 +360,8 @@ BWD_SPLIT_K = 16
 
 def _sm_count(idx):
     if idx not in _sm_counts:
-        _sm_counts[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+        props = torch.cuda.get_device_properties(idx)  # graftlint: disable=R5 -- only the kernel launch path calls it, for a CUDA tensor's device
+        _sm_counts[idx] = props.multi_processor_count
     return _sm_counts[idx]
 
 

@@ -135,7 +135,10 @@ class InferenceFuture:
     from the original (re-raising one shared instance across waiter
     threads would mutate its traceback concurrently)."""
 
-    __slots__ = ("_event", "_value", "_error", "latency_s", "trace_id")
+    # __weakref__ so graftsan (analysis/sanitizer.py) can track instances
+    # without keeping them alive
+    __slots__ = ("_event", "_value", "_error", "latency_s", "trace_id",
+                 "__weakref__")
 
     def __init__(self):
         self._event = threading.Event()
@@ -548,7 +551,7 @@ class ServingEngine:
         """Pop one entry off ``dq`` (caller holds the lock), releasing its
         admission rows."""
         entry = dq.popleft()
-        self._pending_rows -= entry[4] or 1
+        self._pending_rows -= entry[4] or 1  # graftlint: disable=R6 -- every caller holds self._not_empty (the _locked contract)
         return entry
 
     def _fail_pending(self):

@@ -273,7 +273,7 @@ class MetricsHistory:
         if self._thread is not None:
             return self
         self.interval_s = float(interval_s)
-        self._stop.clear()
+        self._stop.clear()  # graftlint: disable=R6 -- threading.Event is internally synchronized; self._lock guards the ring/segments, not lifecycle
 
         def loop():
             while not self._stop.wait(self.interval_s):

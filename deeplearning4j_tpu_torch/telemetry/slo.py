@@ -339,7 +339,7 @@ class SloEngine:
             self._values[rule.name] = value
             return _level(value, rule)
         if rule.kind == "ewma_drift":
-            tr = self._tracks.setdefault(rule.name, _EwmaTrack())
+            tr = self._tracks.setdefault(rule.name, _EwmaTrack())  # graftlint: disable=R6 -- _eval_rule runs only under evaluate()'s `with self._lock`
             tr.sample(now,
                       _select(metrics, rule.metric, rule.labels, "sum",
                               rule.exclude_labels),
@@ -352,9 +352,9 @@ class SloEngine:
             self._values[rule.name] = value
             return _level(value, rule)
         if rule.kind == "ratio":
-            num = self._tracks.setdefault(
+            num = self._tracks.setdefault(  # graftlint: disable=R6 -- _eval_rule runs only under evaluate()'s `with self._lock`
                 (rule.name, "num"), _DeltaTrack())
-            den = self._tracks.setdefault(
+            den = self._tracks.setdefault(  # graftlint: disable=R6 -- _eval_rule runs only under evaluate()'s `with self._lock`
                 (rule.name, "den"), _DeltaTrack())
             num.sample(now, _select(metrics, rule.metric, rule.labels,
                                     rule.field, rule.exclude_labels))
@@ -369,7 +369,7 @@ class SloEngine:
             self._values[rule.name] = value
             return _level(value, rule)
         # rate / burn_rate share one accumulator
-        tr = self._tracks.setdefault(rule.name, _DeltaTrack(
+        tr = self._tracks.setdefault(rule.name, _DeltaTrack(  # graftlint: disable=R6 -- _eval_rule runs only under evaluate()'s `with self._lock`
             keep_s=max(2 * rule.long_window_s, 2 * rule.window_s)))
         tr.sample(now, _select(metrics, rule.metric, rule.labels,
                                rule.field, rule.exclude_labels))
@@ -447,7 +447,7 @@ class SloEngine:
         ``lambda: federate.federate_default()``); None = local registry."""
         if self._thread is not None:
             return self
-        self._stop.clear()
+        self._stop.clear()  # graftlint: disable=R6 -- threading.Event is internally synchronized; self._lock guards rule state, not lifecycle
 
         def loop():
             while not self._stop.wait(interval_s):

@@ -6,7 +6,11 @@ accumulation with bfloat16 matmul operands. float64 inputs stay float64.
 ``policy_precision`` is the context the networks' entry points run in: under
 a float32 compute dtype it turns cuDNN's TF32 off (PyTorch leaves it on by
 default), so a float32 convolution runs in full float32 as the JAX
-package's do; under bf16 it leaves the flag as it is.
+package's do, and makes cuDNN choose deterministic algorithms: in full
+float32 its heuristics otherwise pick backward-data and backward-filter
+algorithms that accumulate in a different order from run to run, and a
+training step would not repeat itself to the bit. Under bf16 it leaves
+both flags as they are.
 """
 
 from __future__ import annotations
@@ -69,19 +73,20 @@ _tf32_saved = None
 
 @contextlib.contextmanager
 def policy_precision():
-    """Within this block cuDNN's TF32 is off when the policy computes in
-    float32; the value it had comes back when the outermost such block
-    ends (blocks nest and may run on several threads at once).
-    ``torch.backends.cudnn.flags`` is not used: it also resets
-    ``benchmark`` and ``deterministic`` to its own defaults."""
+    """Within this block cuDNN's TF32 is off and its algorithms are
+    deterministic when the policy computes in float32; the values the two
+    flags had come back when the outermost such block ends (blocks nest
+    and may run on several threads at once). ``torch.backends.cudnn.flags``
+    is not used: it also resets ``benchmark`` to its own default."""
     global _tf32_depth, _tf32_saved
     if get_policy().compute_dtype != torch.float32:
         yield
         return
+    cudnn = torch.backends.cudnn
     with _tf32_lock:
         if _tf32_depth == 0:
-            _tf32_saved = torch.backends.cudnn.allow_tf32
-            torch.backends.cudnn.allow_tf32 = False
+            _tf32_saved = cudnn.allow_tf32, cudnn.deterministic
+            cudnn.allow_tf32, cudnn.deterministic = False, True
         _tf32_depth += 1
     try:
         yield
@@ -89,4 +94,4 @@ def policy_precision():
         with _tf32_lock:
             _tf32_depth -= 1
             if _tf32_depth == 0:
-                torch.backends.cudnn.allow_tf32 = _tf32_saved
+                cudnn.allow_tf32, cudnn.deterministic = _tf32_saved

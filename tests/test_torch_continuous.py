@@ -309,11 +309,20 @@ def test_stale_batch_dropped_fresh_admitted():
     broker = StreamingBroker().start()
     try:
         sub = NDArraySubscriber("t", port=broker.port)
+        # the broker fans a frame out only to subscriptions it has already
+        # registered: publish once it holds this one (under load its
+        # handshake thread may run after the publisher's)
+        deadline = time.time() + 60
+        while not broker._subs["t"] and time.time() < deadline:
+            time.sleep(0.02)
+        assert broker._subs["t"], "the broker never registered the subscription"
         pub = NDArrayPublisher("t", port=broker.port)
-        src = StreamingTrainSource(sub, max_staleness_s=0.3, quiet_timeout_s=2.0)
+        # ages far from the bound both ways: no scheduler delay under a
+        # loaded test run can make the fresh batch stale or the stale fresh
+        src = StreamingTrainSource(sub, max_staleness_s=60.0, quiet_timeout_s=30.0)
         x, y = chaos.gen_batches(1, 1)[0]
-        pub.publish_dataset(x, y, ts=time.time() - 5.0)  # born stale
-        pub.publish_dataset(x, y)                        # fresh
+        pub.publish_dataset(x, y, ts=time.time() - 3600.0)  # born stale
+        pub.publish_dataset(x, y)                           # fresh
         ds = next(src)
         assert isinstance(ds, DataSet)
         assert src.stale_dropped == 1 and src.admitted == 1

@@ -183,3 +183,33 @@ def test_the_fake_fleet_worker_imports_neither_jax_nor_torch():
     bad = [m for m in _imported_modules(tree)
            if m.split(".")[0] in FORBIDDEN + ("torch", "deeplearning4j_tpu_torch")]
     assert not bad, f"{source} imports {bad}"
+
+
+ANALYSIS = sorted(s for s in SOURCES if s.startswith("deeplearning4j_tpu_torch/analysis/"))
+
+
+@pytest.mark.parametrize("source", ANALYSIS)
+def test_the_linter_imports_no_accelerator_stack(source):
+    """graftlint and graftsan are pure stdlib: no module of the port's
+    ``analysis/`` imports torch (nor jax, nor the JAX package), so the
+    linter runs on a host without either."""
+    tree = ast.parse((ROOT / source).read_text(), filename=source)
+    bad = [m for m in _imported_modules(tree)
+           if m.split(".")[0] in FORBIDDEN + ("torch", "numpy")]
+    assert not bad, f"{source} imports {bad}"
+
+
+def test_the_lint_verb_runs_with_torch_blocked(tmp_path):
+    """``python -m deeplearning4j_tpu_torch lint`` on a file, with torch,
+    jax and the JAX package unimportable: the verb needs none of them."""
+    bad = tmp_path / "bad.py"
+    bad.write_text("import threading\nt = threading.Thread(target=print)\n")
+    code = ("import sys\n"
+            "for name in ('torch', 'jax', 'jaxlib', 'deeplearning4j_tpu'):\n"
+            "    sys.modules[name] = None\n"
+            "from deeplearning4j_tpu_torch.cli import main\n"
+            f"sys.exit(main(['lint', '--no-baseline', {str(bad)!r}]))\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 1, proc.stderr
+    assert "R6[thread-discipline]" in proc.stderr

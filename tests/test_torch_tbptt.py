@@ -412,3 +412,41 @@ def test_graph_entry_points_turn_cudnn_tf32_off_under_f32():
         assert torch.backends.cudnn.allow_tf32 is True
     finally:
         torch.backends.cudnn.allow_tf32 = old
+
+
+class _DetRecorder(TL.LastTimeStep):
+    """LastTimeStep that records cuDNN's deterministic flag each time it runs."""
+
+    seen = []
+
+    def apply(self, params, state, x, *, train=False, mask=None):
+        _DetRecorder.seen.append(torch.backends.cudnn.deterministic)
+        return super().apply(params, state, x, train=train, mask=mask)
+
+
+@pytest.mark.parametrize("policy", ["f32", "bf16"])
+def test_entry_points_make_cudnn_deterministic_under_f32(policy):
+    """fit, output and score run with cuDNN's algorithms deterministic
+    under the f32 policy (in full float32 cuDNN otherwise picks backward
+    algorithms whose sums change order from run to run, so a step would
+    not repeat itself to the bit) and leave the flag as it was under
+    bf16_policy; the old value is back after each call."""
+    net = TNet(TNetConf(seed=4).list(
+        TL.GravesLSTM(n_out=4), _DetRecorder(), TL.OutputLayer(n_out=3, loss="mcxent"),
+        input_type=TI.RecurrentType(5, 3)), device="cpu")
+    rs = np.random.RandomState(1)
+    x = rs.randn(2, 3, 5).astype(np.float32)
+    y = np.eye(3, dtype=np.float32)[[0, 2]]
+    old = torch.backends.cudnn.deterministic
+    (TD.bf16_policy if policy == "bf16" else TD.f32_policy)()
+    try:
+        torch.backends.cudnn.deterministic = False
+        _DetRecorder.seen = []
+        net.fit((x, y))
+        net.output(x)
+        net.score(x, y)
+        assert _DetRecorder.seen == [policy == "f32"] * 3
+        assert torch.backends.cudnn.deterministic is False
+    finally:
+        torch.backends.cudnn.deterministic = old
+        TD.f32_policy()
