@@ -7,11 +7,11 @@ Phases, each printing one JSON line (any failure raises and exits
 nonzero; nothing is caught):
 
 1. env      torch/CUDA versions, the card's name and power limit.
-2. build    nvcc builds of ``csrc/lstm_seq.cu``, ``csrc/flash_attn.cu`` and
-            ``csrc/conv_stats.cu``, started together, with their ptxas
-            reports; the count of HGMMA (wgmma) instructions in the conv
-            and flash libraries' SASS and of HMMA (mma.sync) in the flash
-            library's, where a cuobjdump exists.
+2. build    nvcc builds of ``csrc/lstm_seq.cu``, ``csrc/flash_attn.cu``,
+            ``csrc/flash_attn_bwd.cu`` and ``csrc/conv_stats.cu``, started
+            together, with their ptxas reports; the count of HGMMA (wgmma)
+            instructions in the conv and flash libraries' SASS and of HMMA
+            (mma.sync) in the flash libraries', where a cuobjdump exists.
 3. kernels  ``lstm_seq`` held against ``lstm_seq_plain`` on the card, f32
             and bf16, with and without peepholes and mask, at the served
             shapes (T=128, H=512, B in {1, 8, 64}), at H=1024 (B=8 and 64)
@@ -42,9 +42,14 @@ nonzero; nothing is caught):
             causal) beside the bound, the plain version and
             ``scaled_dot_product_attention`` as a yardstick, back to back
             and on the card, forward and forward + backward (with the
-            backward's bound); then the kernel against the port's naive
-            attention, forward and backward, at T in {256, ..., 4096}: the
-            length crossover.
+            backward's bound); the backward kernel (``flash_attn_bwd``, the
+            variant its ``plan_bwd()`` names in every grid case; exactly zero
+            gradient on the fully masked row) alone, back to back and on the
+            card, beside its bounds, the plain backward and SDPA's backward,
+            two calls bit-identical in f32 and bf16, and per call at a TP
+            4-head slice and at a one-sequence pipelined microbatch; then
+            the kernels against the port's naive attention, forward and
+            backward, at T in {256, ..., 4096}: the length crossover.
 5. train    ``transformer_lm`` at the width of the JAX package's long-context
             bench (vocab 8192, 6 x 512, 8 heads, seq 4096; 29,408,256
             params, random weights from the seed) trained by
@@ -1300,11 +1305,11 @@ def flash_bound(b, t, h, d, dtype, causal, backward=False):
     return roofline(*flash_work(b, t, h, d, dtype, causal, backward), dtype)
 
 
-def flash_bound_3xtf32(b, t, h, d, causal):
-    """Least time (ms) for one f32 flash forward on the route it takes, the
-    tensor cores: three TF32 products for each f32 product, over the TF32
-    peak, against the bytes over the memory rate."""
-    nbytes, ops = flash_work(b, t, h, d, torch.float32, causal)
+def flash_bound_3xtf32(b, t, h, d, causal, backward=False):
+    """Least time (ms) for one f32 flash forward (or backward) on the route
+    it takes, the tensor cores: three TF32 products for each f32 product,
+    over the TF32 peak, against the bytes over the memory rate."""
+    nbytes, ops = flash_work(b, t, h, d, torch.float32, causal, backward)
     return max(1e3 * nbytes / PEAK_BYTES_S, 1e3 * 3 * ops / PEAK_TF32_OPS_S)
 
 
@@ -1349,6 +1354,33 @@ def odd_views(rs, b, t, h, d, dtype, grad=False):
     return qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], base
 
 
+def flash_bwd_timing(A, q, k, v, g, causal, g_lse=None, plain=True):
+    """The backward kernel alone from the forward's residuals: back to back
+    (``ms``) and on the card (``device_ms``), beside its bound and (with
+    ``plain``) the plain backward's time; two calls must agree to the bit."""
+    b, t, h, d = q.shape
+    scale = 1.0 / math.sqrt(d)
+    with torch.no_grad():
+        out, lse = A.flash_attention_fwd(q, k, v, causal=causal)
+
+        def kern():
+            return A.flash_attention_bwd(q, k, v, None, out, lse, g, causal=causal, scale=scale,
+                                         g_lse=g_lse)
+        first, second = kern(), kern()
+        if not all(torch.equal(x, y) for x, y in zip(first, second)):
+            raise AssertionError(f"flash_attn_bwd {q.dtype} {tuple(q.shape)}: two calls on the "
+                                 "same inputs differ")
+        row = {"ms": time_ms(kern, iters=10, reps=5),
+               "device_ms": device_ms(kern, iters=10, reps=5), "bit_identical": True}
+        if plain:
+            row["plain_ms"] = time_ms(lambda: A.flash_attention_bwd_plain(
+                q, k, v, None, out, lse, g, causal=causal, scale=scale, g_lse=g_lse),
+                iters=3, reps=3)
+    row["bound_ms"], row["bound_by"] = flash_bound(b, t, h, d, q.dtype, causal, backward=True)
+    del out, lse, first, second
+    return row
+
+
 def phase_flash(A):
     rs = np.random.RandomState(SEED + 1)
     b, h = LM_BATCH, LM_HEADS
@@ -1368,6 +1400,8 @@ def phase_flash(A):
             raise AssertionError(f"flash T={t} D={d} {dtype} odd={odd} planned on {pl.variant}")
         m = key_mask(rs, b, t) if masked else None
         what = f"flash_attn T={t} D={d} {dtype} causal={causal} mask={masked} {pl.variant}"
+        want_bwd = "bf16_tf32" if not f32 else (
+            "f32_3xtf32_unaligned" if odd else "f32_3xtf32")
         before = dict(A.launches_by_variant)
         with torch.no_grad():
             out_k, lse_k = A.flash_attention_fwd(q, k, v, mask=m, causal=causal)
@@ -1380,8 +1414,12 @@ def phase_flash(A):
                 "lse": check_close(f"{what} lse", lse_k, lse_p,
                                    FLASH_LSE_ATOL, FLASH_LSE_RTOL)}
         g = torch.from_numpy(rs.randn(b, t, h, d).astype(np.float32)).to("cuda", dtype)
+        before = dict(A.launches_bwd_by_variant)
         got = torch.autograd.grad(
             A.flash_attention(q, k, v, mask=m, causal=causal), (q, k, v), g)
+        ran = {n: c - before[n] for n, c in A.launches_bwd_by_variant.items() if c != before[n]}
+        if ran != {want_bwd: 1}:
+            raise AssertionError(f"{what}: the backward ran {ran}, expected one {want_bwd}")
         want = torch.autograd.grad(
             A.flash_attention_plain(q, k, v, mask=m, causal=causal)[0], (q, k, v), g)
         gtol = (FLASH_GRAD_ATOL, FLASH_GRAD_RTOL) if f32 else (FLASH_BF16_TOL, FLASH_BF16_TOL)
@@ -1389,11 +1427,14 @@ def phase_flash(A):
             errs[name] = check_close(f"{what} {name}", a, w, *gtol)
         if masked and (out_k[-1].any() or (lse_k[-1] != A.NEG_INF).any()):
             raise AssertionError(f"{what}: the fully masked row is not 0 with the lse sentinel")
+        if masked and any(x[-1].any() for x in got):
+            raise AssertionError(f"{what}: the fully masked row's dq, dk, dv are not exactly 0")
         cases.append({"T": t, "D": d, "dtype": str(dtype).split(".")[-1], "causal": causal,
-                      "mask": masked, "variant": pl.variant, **errs})
+                      "mask": masked, "variant": pl.variant, "bwd_variant": want_bwd, **errs})
         if (t, d, f32, causal, masked, odd) == (LM_SEQ, LM_WIDTH // LM_HEADS, True, True, False,
                                                 False):
             path_err = max(errs.values())
+            bwd_err = max(errs[n] for n in ("dq", "dk", "dv"))
         del q, k, v, got, want, out_k, out_p, lse_k, lse_p
     torch.cuda.empty_cache()
     emit("flash", cases=len(cases), f32_atol=FLASH_F32_ATOL, lse_atol=FLASH_LSE_ATOL,
@@ -1403,7 +1444,9 @@ def phase_flash(A):
                           for k in ("out", "lse", "dq", "dk", "dv")},
          max_abs_err_bf16={k: max(c[k] for c in cases if c["dtype"] == "bfloat16")
                            for k in ("out", "lse", "dq", "dk", "dv")},
-         cases_by_variant={v: sum(c["variant"] == v for c in cases) for v in A.VARIANTS})
+         cases_by_variant={v: sum(c["variant"] == v for c in cases) for v in A.VARIANTS},
+         cases_by_bwd_variant={v: sum(c["bwd_variant"] == v for c in cases)
+                               for v in A.BWD_VARIANTS})
 
     timings = {}
     d = LM_WIDTH // LM_HEADS
@@ -1433,6 +1476,11 @@ def phase_flash(A):
             torch.nn.functional.scaled_dot_product_attention(qhg, khg, vhg, is_causal=True),
             (qhg, khg, vhg), gh), iters=3, reps=5)
         bwd_bound_ms, bwd_bound_by = flash_bound(b, LM_SEQ, h, d, dtype, True, backward=True)
+        bwd = flash_bwd_timing(A, q, k, v, g, True)
+        # SDPA's backward alone: autograd over one kept graph
+        sdpa_out = torch.nn.functional.scaled_dot_product_attention(qhg, khg, vhg, is_causal=True)
+        library_bwd_ms = time_ms(lambda: torch.autograd.grad(
+            sdpa_out, (qhg, khg, vhg), gh, retain_graph=True), iters=10, reps=5)
         pl = A.plan(tuple(q.shape), dtype, tuple(tuple(x.stride()[:3]) for x in (q, k, v)))
         row = {"B": b, "T": LM_SEQ, "H": h, "D": d, "causal": True,
                "dtype": str(dtype).split(".")[-1], "plan": pl._asdict(), "ms": ms,
@@ -1442,15 +1490,27 @@ def phase_flash(A):
                "bwd_ms_by_difference": fwd_bwd_ms - ms,
                "library_bwd_ms_by_difference": library_fwd_bwd_ms - library_ms,
                "bwd_bound_ms": bwd_bound_ms, "bwd_bound_by": bwd_bound_by,
-               "card": card_line()}
+               "bwd": {**bwd, "library_ms": library_bwd_ms}, "card": card_line()}
         if dtype == torch.float32:
             # the route taken: three TF32 products per f32 product
             row["bound_3xtf32_ms"] = flash_bound_3xtf32(b, LM_SEQ, h, d, True)
+            row["bwd"]["bound_3xtf32_ms"] = flash_bound_3xtf32(b, LM_SEQ, h, d, True,
+                                                               backward=True)
+            # one call at the shapes the split models give it: a TP rank's
+            # 4-head slice and a pipelined one-sequence microbatch
+            row["bwd_slices"] = {}
+            slices = (("tp_slice", MP_STREAM_BATCH // MP_DATA, h // MP_TP),
+                      ("pipeline_microbatch", MP_LM_BATCH // MP_DATA // MP_MICRO, h))
+            for name, sb, sh in slices:
+                sq, sk, sv, _ = qkv_views(rs, sb, LM_SEQ, sh, d, dtype)
+                row["bwd_slices"][name] = {"B": sb, "H": sh, **flash_bwd_timing(
+                    A, sq, sk, sv, torch.randn_like(sq), True, plain=False)}
+                del sq, sk, sv
         timings[dtype] = row
         emit("flash.timing", **row)
-        del q, k, v, qh, kh, vh, qg, kg, vg, qhg, khg, vhg, g, gh
+        del q, k, v, qh, kh, vh, qg, kg, vg, qhg, khg, vhg, g, gh, sdpa_out
     torch.cuda.empty_cache()
-    return timings, path_err
+    return timings, path_err, bwd_err
 
 
 def phase_crossover(TA):
@@ -1515,14 +1575,15 @@ def make_lm(seed):
 @contextlib.contextmanager
 def plain_attention_forward(A):
     """Within this block the flash autograd.Function computes its forward
-    with ``flash_attention_plain`` on the card instead of the kernel (the
-    blockwise backward is the same)."""
-    saved = A.flash_attention_fwd
+    with ``flash_attention_plain`` and its backward with
+    ``flash_attention_bwd_plain`` on the card instead of the kernels."""
+    saved = A.flash_attention_fwd, A.flash_attention_bwd
     A.flash_attention_fwd = lambda q, k, v, **kw: A.flash_attention_plain(q, k, v, **kw)
+    A.flash_attention_bwd = A.flash_attention_bwd_plain
     try:
         yield
     finally:
-        A.flash_attention_fwd = saved
+        A.flash_attention_fwd, A.flash_attention_bwd = saved
 
 
 def one_step(net, x, y):
@@ -1592,13 +1653,12 @@ def step_check(A, x, y, seed, policy, make=None, by_leaf=False):
 def lm_family(name):
     return ("flash_fwd" if any(k in name for k in ("flash_mma_kernel", "flash_wgmma_kernel",
                                                     "flash_tf32_wgmma_kernel")) else
+            "flash_bwd" if "flash_bwd_" in name else
             "gemm" if any(s in name for s in ("gemm", "cutlass", "xmma", "sm90"))
             else "elementwise_other")
 
 
-def device_families(prof, wall_ms, family=lm_family,
-                    tags=(("flash_attn.backward", "attention_backward"),
-                          ("updater.step", "optimizer"))):
+def device_families(prof, wall_ms, family=lm_family, tags=(("updater.step", "optimizer"),)):
     """Device time by family from a profile: every device event is named
     by ``family(kernel name)``, except kernels launched inside a range
     listed in ``tags`` (found through their CPU op), which count under the
@@ -1637,6 +1697,23 @@ def device_families(prof, wall_ms, family=lm_family,
     return by_family, busy_us / 1e3, (busy_us / 1e3 / wall_ms) if spans else None
 
 
+#: the backward's f32 variants: the rank cells' tensors come through
+#: collectives and reshapes, whose alignment the path's views do not set
+BWD_F32 = ("f32_3xtf32", "f32_3xtf32_unaligned")
+
+
+def bwd_launched(A, what, n, variants=("f32_3xtf32",)):
+    """The backward kernel's launches since ``reset_launches``: all on
+    ``variants`` and, where ``n`` is given, exactly ``n`` (else at least
+    one). Returns (count, by variant)."""
+    count = A.launches_bwd
+    by_variant = {k: c for k, c in A.launches_bwd_by_variant.items() if c}
+    if (count != n if n is not None else count < 1) or not set(by_variant) <= set(variants):
+        raise AssertionError(f"{what}: flash_attn_bwd launched {by_variant}, expected "
+                             f"{n if n is not None else 'some'} on {variants}")
+    return count, by_variant
+
+
 def phase_train(A, policy, seed):
     """Warm-up, then TIMED_STEPS timed fit steps at full width under the
     named dtype policy; the step check; one profiled step."""
@@ -1663,6 +1740,7 @@ def phase_train(A, policy, seed):
         wall = time.perf_counter() - t0
         launches = A.launches
         by_variant = dict(A.launches_by_variant)
+        bwd, bwd_by_variant = bwd_launched(A, f"LM {policy}", LM_LAYERS * TIMED_STEPS)
         peak = torch.cuda.max_memory_allocated()
         losses = net.score_history
         if launches != LM_LAYERS * TIMED_STEPS:
@@ -1683,6 +1761,7 @@ def phase_train(A, policy, seed):
                "tokens_per_s": tokens / wall, "peak_mem_gb": peak / 1e9,
                "loss_first": first_loss, "loss_last": losses[-1], "losses": losses,
                "flash_launches": launches, "flash_launches_by_variant": by_variant,
+               "flash_bwd_launches": bwd, "flash_bwd_launches_by_variant": bwd_by_variant,
                "step_check": check, "card": card_line()}
         emit("train", **row)
 
@@ -6050,10 +6129,10 @@ def moe_routing(A, net, x, policy):
 
 
 # the MoE block's forward ranges, and the autograd nodes of its backward
-MOE_TAGS = (("flash_attn.backward", "attention_backward"), ("updater.step", "optimizer"),
-            ("moe.router", "router"), ("moe.dispatch", "dispatch_combine"),
-            ("moe.combine", "dispatch_combine"), ("moe.experts", "expert_bmm"),
-            ("BmmBackward0", "expert_bmm"), ("IndexAddBackward0", "dispatch_combine"),
+MOE_TAGS = (("updater.step", "optimizer"), ("moe.router", "router"),
+            ("moe.dispatch", "dispatch_combine"), ("moe.combine", "dispatch_combine"),
+            ("moe.experts", "expert_bmm"), ("BmmBackward0", "expert_bmm"),
+            ("IndexAddBackward0", "dispatch_combine"),
             ("IndexSelectBackward0", "dispatch_combine"), ("SoftmaxBackward0", "router"))
 
 
@@ -6086,6 +6165,7 @@ def phase_moe_train(A, policy, seed):
             wall = time.perf_counter() - t0
             launches = A.launches
             by_variant = dict(A.launches_by_variant)
+            bwd, bwd_by_variant = bwd_launched(A, f"MoE LM {policy}", LM_LAYERS * TIMED_STEPS)
         peak = torch.cuda.max_memory_allocated()
         losses = net.score_history
         if launches != LM_LAYERS * TIMED_STEPS:
@@ -6113,6 +6193,7 @@ def phase_moe_train(A, policy, seed):
                "loss_first": first_loss, "loss_last": losses[-1], "losses": losses,
                "aux_popped": len(popped), "aux_by_step_and_block": aux,
                "flash_launches": launches, "flash_launches_by_variant": by_variant,
+               "flash_bwd_launches": bwd, "flash_bwd_launches_by_variant": bwd_by_variant,
                "step_check": check, "routing_at_init": routing_init,
                "routing_after": moe_routing(A, net, x[:LM_BATCH], policy), "card": card_line()}
         emit("moe.train", **row)
@@ -6153,7 +6234,7 @@ def moe_sync_check(A, net):
         return torch.autograd.grad((y * g).sum() + state["aux_loss"], leaves + [x])
     run()
     torch.cuda.synchronize()
-    before = A.launches
+    before, before_bwd = A.launches, A.launches_bwd
     torch.cuda.set_sync_debug_mode("error")
     try:
         grads = run()
@@ -6164,7 +6245,8 @@ def moe_sync_check(A, net):
     if not finite:
         raise AssertionError("the MoE block's gradients are not finite")
     return {"layer": i, "host_syncs": 0, "sync_debug_mode": "error", "grads": len(grads),
-            "flash_launches": A.launches - before}
+            "flash_launches": A.launches - before,
+            "flash_bwd_launches": A.launches_bwd - before_bwd}
 
 
 def moe_fused(A, seed):
@@ -6193,6 +6275,10 @@ def moe_fused(A, seed):
     if launches != LM_LAYERS * steps or replayed != launches:
         raise AssertionError(f"flash_attn launched {launches} times ({replayed} from replays) "
                              f"in {steps} K={k} steps (expected {LM_LAYERS} a step)")
+    bwd, _ = bwd_launched(A, f"MoE LM K={k}", LM_LAYERS * steps)
+    if fused.replay_launches.get("attention_bwd", 0) != bwd:
+        raise AssertionError(f"flash_attn_bwd: {bwd} launches, "
+                             f"{fused.replay_launches.get('attention_bwd', 0)} from replays")
     if engine.captures != 1:
         raise AssertionError(f"{engine.captures} captures for one signature")
     losses = net.score_history
@@ -6204,6 +6290,7 @@ def moe_fused(A, seed):
            "tokens_per_s": steps * LM_BATCH * LM_SEQ / wall,
            "peak_reserved_gb": torch.cuda.max_memory_reserved() / 1e9,
            "flash_launches": launches, "flash_launches_from_replays": replayed,
+           "flash_bwd_launches": bwd, "flash_bwd_launches_from_replays": bwd,
            "loss_first_dispatch": first, "loss_last_dispatch": last, "losses": losses,
            "card": card_line()}
     del net, engine, x, y
@@ -6274,9 +6361,11 @@ def phase_moe(A, seed):
     emit("moe.fused", **fused_row)
     out = {"train": rows, "sync": sync, "serve": served, "fused": fused_row,
            "flash_launches": sum(r["flash_launches"] for r in rows.values())
-           + fused_row["flash_launches"] + served["flash_launches"]}
+           + fused_row["flash_launches"] + served["flash_launches"],
+           "flash_bwd_launches": sum(r["flash_bwd_launches"] for r in rows.values())
+           + fused_row["flash_bwd_launches"] + sync["flash_bwd_launches"]}
     emit("moe", seconds=time.perf_counter() - t0, flash_launches=out["flash_launches"],
-         card=card_line())
+         flash_bwd_launches=out["flash_bwd_launches"], card=card_line())
     return out
 
 
@@ -6306,7 +6395,12 @@ def seq_block_checks(A, rs):
                 "lse": check_close(f"{what} lse", lse, lse_p, FLASH_LSE_ATOL, FLASH_LSE_RTOL)}
         g_out = torch.from_numpy(rs.randn(b, t, h, d).astype(np.float32)).to("cuda", dtype)
         g_lse = torch.from_numpy(rs.randn(b, h, t).astype(np.float32)).cuda()
+        before = dict(A.launches_bwd_by_variant)
         got = torch.autograd.grad((out, lse), (q, k, v), (g_out, g_lse))
+        ran = {n: c - before[n] for n, c in A.launches_bwd_by_variant.items() if c != before[n]}
+        want_bwd = "f32_3xtf32" if f32 else "bf16_tf32"
+        if ran != {want_bwd: 1}:
+            raise AssertionError(f"{what}: the backward ran {ran}, expected one {want_bwd}")
         want = torch.autograd.grad((out_p, lse_p), (q, k, v), (g_out, g_lse))
         gtol = (FLASH_GRAD_ATOL, FLASH_GRAD_RTOL) if f32 else (FLASH_BF16_TOL, FLASH_BF16_TOL)
         for name, a, w in zip(("dq", "dk", "dv"), got, want):
@@ -6349,10 +6443,14 @@ def seq_block_timing(A, rs):
         rows[dtype] = {"B": b, "T": t, "H": h, "D": d, "causal": False,
                        "dtype": str(dtype).split(".")[-1], "ms": ms, "device_ms": dev_ms,
                        "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
-                       "bound_by": bound_by, "fwd_bwd_ms": fwd_bwd_ms, "card": card_line()}
+                       "bound_by": bound_by, "fwd_bwd_ms": fwd_bwd_ms,
+                       "bwd": flash_bwd_timing(A, q, k, v, g_out, False, g_lse=g_lse),
+                       "card": card_line()}
         if dtype == torch.float32:
             # the route taken: three TF32 products per f32 product
             rows[dtype]["bound_3xtf32_ms"] = flash_bound_3xtf32(b, t, h, d, False)
+            rows[dtype]["bwd"]["bound_3xtf32_ms"] = flash_bound_3xtf32(b, t, h, d, False,
+                                                                       backward=True)
         emit("sequence.block_timing", **rows[dtype])
         del q, k, v, qh, kh, vh, qg, kg, vg
     crossover = []
@@ -6441,9 +6539,11 @@ def sequence_rank(rank, world, seed):
         if launches != world or by_variant != {planned: world}:
             raise AssertionError(f"rank {rank} ring causal={causal}: flash launches "
                                  f"{by_variant}, expected {world} on {planned}")
+        bwd, _ = bwd_launched(A, f"rank {rank} ring causal={causal}", None, BWD_F32)
         errs = seq_compare(f"rank {rank} ring causal={causal}", [out.detach(), *grads],
                            seq_reference(A, q, k, v, g, causal))
-        row[f"ring_causal{int(causal)}"] = {"flash_launches": launches, "max_abs_err": errs,
+        row[f"ring_causal{int(causal)}"] = {"flash_launches": launches,
+                                            "flash_bwd_launches": bwd, "max_abs_err": errs,
                                             "fwd_ms": 1e3 * (t1 - t0),
                                             "fwd_bwd_ms": 1e3 * (t2 - t0)}
         del qq, kk, vv, out, grads
@@ -6459,11 +6559,12 @@ def sequence_rank(rank, world, seed):
     launches = A.launches
     if launches != 1:
         raise AssertionError(f"rank {rank} Ulysses: {launches} flash launches, expected 1")
+    bwd, _ = bwd_launched(A, f"rank {rank} Ulysses", 1, BWD_F32)
     ref = seq_reference(A, q, k, v, g, False)
     errs = seq_compare(f"rank {rank} Ulysses", [out.detach(), *grads],
                        [x[:, sl] for x in ref])
-    row["ulysses"] = {"flash_launches": launches, "max_abs_err": errs,
-                      "fwd_bwd_ms": 1e3 * wall}
+    row["ulysses"] = {"flash_launches": launches, "flash_bwd_launches": bwd,
+                      "max_abs_err": errs, "fwd_bwd_ms": 1e3 * wall}
     del ql, kl, vl, out, grads, ref
     # one K/V hop through the host and one flash block, timed on every rank at once
     kv = torch.stack((k[:, sl], v[:, sl]))
@@ -6612,12 +6713,13 @@ def phase_sequence(A, seed):
              H=LM_HEADS, D=LM_WIDTH // LM_HEADS, dtype="float32", ranks=ranks,
              fwd_rtol=SEQ_FWD_RTOL, fwd_atol=SEQ_FWD_ATOL, grad_rtol=SEQ_GRAD_RTOL,
              grad_atol=SEQ_GRAD_ATOL, card=card_line())
-        launches = sum(r[key]["flash_launches"] for r in ranks
-                       for key in ("ring_causal0", "ring_causal1", "ulysses"))
+        launches, bwd = (sum(r[key][name] for r in ranks
+                             for key in ("ring_causal0", "ring_causal1", "ulysses"))
+                         for name in ("flash_launches", "flash_bwd_launches"))
         emit("sequence", seconds=prep_s + ranks_s, ranks_seconds=ranks_s,
-             flash_launches_in_ranks=launches, card=card_line())
+             flash_launches_in_ranks=launches, flash_bwd_launches_in_ranks=bwd, card=card_line())
         return {"cases": cases, "timing": timing, "crossover": crossover, "backend": backend,
-                "ranks": ranks, "flash_launches": launches,
+                "ranks": ranks, "flash_launches": launches, "flash_bwd_launches": bwd,
                 "max_abs_err": max(max(c[k] for k in ("out", "lse", "dq", "dk", "dv"))
                                    for c in cases if c["dtype"] == "float32")}
 
@@ -6942,6 +7044,7 @@ def dp_rank(rank, world, seed, refs):
         step_ms = 1e3 * (time.perf_counter() - t0)
         peak = torch.cuda.max_memory_allocated()
         flash = A.launches
+        bwd, _ = bwd_launched(A, f"rank {rank} LM {layout}", None, BWD_F32)
         tr.sync_to_net()
         held = dp_hold(f"rank {rank} LM {layout} step vs world 1",
                        dp_diff(dp_snapshot(net, loss), r["lm_ref"]), r["lm_noise"],
@@ -6954,7 +7057,7 @@ def dp_rank(rank, world, seed, refs):
                                  f"expected {want}")
         row["lm"][layout] = {"loss": float(loss), "step_ms": step_ms, "peak_bytes": peak,
                              "collective_ms": tr.collective_ms[-1], "flash_launches": flash,
-                             "check": held, **tr.tree_bytes()}
+                             "flash_bwd_launches": bwd, "check": held, **tr.tree_bytes()}
         del tr, net
         torch.cuda.empty_cache()
 
@@ -7061,13 +7164,15 @@ def parallel_finish(C, prep_s, rows, launched, serve, ranks, ranks_s):
     rank_conv = {k: sum(rk["resnet"][lay]["conv_launches"][k] for rk in ranks
                         for lay in DP_LAYOUTS) + sum(rk["shared"]["conv_launches"][k]
                                                      for rk in ranks) for k in C.launches}
-    flash = sum(rk["lm"][lay]["flash_launches"] for rk in ranks for lay in DP_LM_LAYOUTS)
+    flash, bwd = (sum(rk["lm"][lay][name] for rk in ranks for lay in DP_LM_LAYOUTS)
+                  for name in ("flash_launches", "flash_bwd_launches"))
     seconds = prep_s + ranks_s + time.perf_counter() - t0
     emit("parallel", seconds=seconds, ranks_seconds=ranks_s, conv_launches_world1=launched,
-         conv_launches_ranks=rank_conv, flash_launches_ranks=flash, card=card_line())
+         conv_launches_ranks=rank_conv, flash_launches_ranks=flash,
+         flash_bwd_launches_ranks=bwd, card=card_line())
     return {"rows": rows, "serve": serve, "ranks": ranks,
             "conv_launches": {k: launched[k] + rank_conv[k] for k in C.launches},
-            "flash_launches": flash}
+            "flash_launches": flash, "flash_bwd_launches": bwd}
 
 
 # ---------------------------------------------------------------------------
@@ -7076,7 +7181,8 @@ def parallel_finish(C, prep_s, rows, launched, serve, ranks, ranks_s):
 
 def mp_launches(A, C, L):
     """Every kernel's launch count so far in this process."""
-    return {"flash_attn": A.launches, "conv_mm_stats": C.launches["conv_mm_stats"],
+    return {"flash_attn": A.launches, "flash_attn_bwd": A.launches_bwd,
+            "conv_mm_stats": C.launches["conv_mm_stats"],
             "conv3x3_stats": C.launches["conv3x3_stats"], "lstm_seq": L.launches}
 
 
@@ -7764,7 +7870,7 @@ def tel_profile_window(A, net, x, y):
     logdir = WORK / "tel_profile"
     drv = StepDriver(net, lambda: iter([(x, y, None)] * 2))
     drv.profile_round(2, str(logdir))
-    flash0 = A.launches
+    flash0, bwd0 = A.launches, A.launches_bwd
     with dtypes.policy_precision():
         drv.run_round(1)   # not profiled
         drv.run_round(1)   # the window
@@ -7774,7 +7880,9 @@ def tel_profile_window(A, net, x, y):
     evs = doc["traceEvents"]
     cpu_ranges = [e for e in evs if e.get("name") == "fit.step" and e.get("ph") == "X"
                   and e.get("cat") != "gpu_user_annotation"]
-    kernels = [e for e in evs if e.get("cat") == "kernel" and "flash" in e.get("name", "")]
+    # the forward's kernels (the backward's, flash_bwd_*, launch 2 a block)
+    kernels = [e for e in evs if e.get("cat") == "kernel" and "flash" in e.get("name", "")
+               and "flash_bwd" not in e.get("name", "")]
     launch_ts = {e.get("args", {}).get("correlation"): e["ts"] for e in evs
                  if e.get("cat") in ("cuda_runtime", "cuda_driver")
                  and "Launch" in e.get("name", "")}
@@ -7804,7 +7912,8 @@ def tel_profile_window(A, net, x, y):
             "flash_launched_in_range": sum(inside), "complete": not check["missing"],
             "lost_in_step_ms": lost, "launch_check": {k: v for k, v in check.items()
                                                       if k != "missing_ts"},
-            "dispatch_launches": A.launches - flash0, "top_ops_flash_rank": flash_rank,
+            "dispatch_launches": A.launches - flash0,
+            "dispatch_bwd_launches": A.launches_bwd - bwd0, "top_ops_flash_rank": flash_rank,
             "top_ops": [{"name": (r["expression"] or "")[:80], "us": r["total_self_us"],
                          "n": r["occurrences"]} for r in top]}
 
@@ -7892,7 +8001,7 @@ def phase_telemetry(A, L, seed):
     TT.disable()
     net = make_lm(seed)
     x, y = lm_data(np.random.RandomState(seed + 41), LM_BATCH)
-    flash0 = A.launches
+    flash0, bwd0 = A.launches, A.launches_bwd
     tel_lm_fit(net, x, y, 2)  # warm-up
     rows = {"off": [], "on": []}
     for _ in range(TEL_ROUNDS):
@@ -7913,7 +8022,10 @@ def phase_telemetry(A, L, seed):
         raise AssertionError(f"telemetry on added host syncs to the LM step: {syncs}")
     if not ms["on"] <= TEL_OVERHEAD * ms["off"]:
         raise AssertionError(f"telemetry on: {ms['on']} ms a step against {ms['off']} off")
-    lm_launches = A.launches - flash0
+    lm_launches, lm_bwd = A.launches - flash0, A.launches_bwd - bwd0
+    if lm_bwd != lm_launches:
+        raise AssertionError(f"telemetry LM steps: {lm_launches} flash launches, {lm_bwd} "
+                             "of the backward")
     window = tel_profile_window(A, net, x, y)
     del net
     free_card()
@@ -7938,6 +8050,7 @@ def phase_telemetry(A, L, seed):
                   "step_ms_all": {m: [r[0] for r in rows[m]] for m in rows},
                   "host_syncs": syncs, "train_step_seconds_count": step_count,
                   "score_gauge": score, "flash_launches": lm_launches,
+                  "flash_bwd_launches": lm_bwd,
                   "watchdog": "off"},
            "profile_window": window,
            "hbm": {"bytes_in_use": allocated, "gauge": gauge, "peak_bytes": peak,
@@ -7946,6 +8059,7 @@ def phase_telemetry(A, L, seed):
            "card": card_line()}
     emit("telemetry", **out)
     return {"flash_launches": lm_launches + window["dispatch_launches"],
+            "flash_bwd_launches": lm_bwd + window["dispatch_bwd_launches"],
             "lstm_seq_launches": served["lstm_seq_launches"]}
 
 
@@ -9747,39 +9861,40 @@ def cuobjdump():
     return next((c for c in candidates if c and pathlib.Path(c).exists()), None)
 
 
-def sass_count(so, opcode):
-    """How many ``opcode`` instructions the library's SASS holds, or "not
-    found" without a cuobjdump."""
+def sass_counts(so, opcodes=("HGMMA", "HMMA")):
+    """How many instructions of each of ``opcodes`` the library's SASS
+    holds (one disassembly), or "not found" for each without a cuobjdump."""
     tool = cuobjdump()
     if tool is None:
-        return "not found"
+        return dict.fromkeys(opcodes, "not found")
     sass = subprocess.run([tool, "-sass", str(so)], capture_output=True, text=True, check=True,
                           timeout=300).stdout
-    return len(re.findall(rf"\b{opcode}\b", sass))
+    return {op: len(re.findall(rf"\b{op}\b", sass)) for op in opcodes}
 
 
-def build_all(libs):
-    """Build every kernel library at once (one nvcc each, started together)."""
+def build_all(build_fns):
+    """Build every kernel library at once (one nvcc each, started together):
+    ``build_fns`` are the wrappers' build functions."""
     from concurrent.futures import ThreadPoolExecutor
 
-    def one(mod):
+    def one(build):
         t0 = time.perf_counter()
-        so = mod.build()
+        so = build()
         return so, time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(libs)) as pool:
-        built = list(pool.map(one, libs))
+    with ThreadPoolExecutor(len(build_fns)) as pool:
+        built = list(pool.map(one, build_fns))
     emit("build", seconds=time.perf_counter() - t0, libraries=[{
         "library": str(so.relative_to(ROOT)), "seconds": secs,
         "ptxas": [ln.strip() for ln in so.with_suffix(".log").read_text().splitlines()
                   if "Used" in ln or "spill" in ln or "Compiling entry" in ln]}
         for so, secs in built])
-    for so, _ in built:
-        if so.name.startswith(("conv_stats", "flash_attn")):
+    counted = [so for so, _ in built if so.name.startswith(("conv_stats", "flash_attn"))]
+    with ThreadPoolExecutor(len(counted)) as pool:  # the disassemblies side by side
+        for so, counts in zip(counted, pool.map(sass_counts, counted)):
             emit("build.sass", library=str(so.relative_to(ROOT)),
-                 cuobjdump=cuobjdump() or "not found", HGMMA=sass_count(so, "HGMMA"),
-                 HMMA=sass_count(so, "HMMA"))
+                 cuobjdump=cuobjdump() or "not found", **counts)
 
 
 RANK_BODIES.update({"word2vec.mesh": w2v_mesh_rank, "sequence": sequence_rank,
@@ -9823,7 +9938,7 @@ def main(argv=None):
     def mark(name):
         marks.append((name, time.perf_counter()))
 
-    build_all([L, A, C])
+    build_all([L.build, A.build, A.build_bwd, C.build])
 
     mark("kernels")
     if "kernels" in only:
@@ -9832,7 +9947,7 @@ def main(argv=None):
     mark("flash")
     if "flash" in only:
         with library_precision():
-            flash_timings, flash_err = phase_flash(A)
+            flash_timings, flash_err, flash_bwd_err = phase_flash(A)
         phase_crossover(TA)
     mark("train")
     if "train" in only:
@@ -10079,7 +10194,43 @@ def main(argv=None):
         "bound_by": fpath["bound_by"], "library_ms": fpath["library_ms"],
         "device_ms": fpath["device_ms"], "library_device_ms": fpath["library_device_ms"],
         "bound_3xtf32_ms": fpath["bound_3xtf32_ms"],
-        "launches_by_variant": train_rows[0]["flash_launches_by_variant"]}] + [{
+        "launches_by_variant": train_rows[0]["flash_launches_by_variant"]}, {
+        # the backward of every flash call above that trains: times at the
+        # training path's shape (B=4, H=8, T=4096, D=64, causal), the bf16
+        # ones as *_bf16; library_ms SDPA's backward alone (autograd over a
+        # kept graph), TF32 off
+        "name": "flash_attn_bwd", "route": "cuda",
+        "source": "deeplearning4j_tpu_torch/csrc/flash_attn_bwd.cu",
+        "replaces": "deeplearning4j_tpu/ops/attention_pallas.py:321",
+        # launches over the train phase's 10 timed steps under each policy,
+        # the moe phase (timed steps under both policies, the K=4 replays,
+        # the sync check's block), the sequence phase's ranks (ring blocks
+        # and Ulysses), the parallel phase's fsdp and fsdp_stream LM steps,
+        # the model_parallel phase's LMs and the telemetry phase's LM steps
+        "launches": sum(r["flash_bwd_launches"] for r in train_rows)
+        + moe_out["flash_bwd_launches"] + seq_out["flash_bwd_launches"]
+        + par_out["flash_bwd_launches"] + mp_out["launches"]["flash_attn_bwd"]
+        + tel_out["flash_bwd_launches"],
+        "launches_train": {r["policy"]: r["flash_bwd_launches"] for r in train_rows},
+        "launches_moe": {"train": {p: r["flash_bwd_launches"] for p, r in moe_out["train"].items()},
+                         "fused": moe_out["fused"]["flash_bwd_launches"],
+                         "sync": moe_out["sync"]["flash_bwd_launches"]},
+        "launches_sequence": seq_out["flash_bwd_launches"],
+        "launches_parallel": par_out["flash_bwd_launches"],
+        "launches_model_parallel": mp_out["launches"]["flash_attn_bwd"],
+        "launches_telemetry": tel_out["flash_bwd_launches"],
+        "launches_by_variant": train_rows[0]["flash_bwd_launches_by_variant"],
+        "max_abs_err": flash_bwd_err,
+        "ms": fpath["bwd"]["ms"], "plain_ms": fpath["bwd"]["plain_ms"],
+        "bound_ms": fpath["bwd"]["bound_ms"], "bound_by": fpath["bwd"]["bound_by"],
+        "library_ms": fpath["bwd"]["library_ms"], "device_ms": fpath["bwd"]["device_ms"],
+        "bound_3xtf32_ms": fpath["bwd"]["bound_3xtf32_ms"],
+        **{f"{k}_bf16": flash_timings[torch.bfloat16]["bwd"][k]
+           for k in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        "slices": fpath["bwd_slices"],
+        # flash_attention_block's backward with the lse cotangent at one ring
+        # block's shape (B=2, T=4096, not causal, f32)
+        "block_entry": seq_out["timing"][torch.float32]["bwd"]}] + [{
         # per forward of the fused ResNet50 at batch 64 in f32 (the *_bf16
         # keys: in bf16): the sums over the kernel's calls; launches over the
         # 10 timed bf16_policy steps of the resnet phase, the 10 timed steps

@@ -88,6 +88,10 @@ def _counters():
             out[name] = (mod, None, "launches")
         for k in mod.launches_by_variant:
             out[f"{name}.variant.{k}"] = (mod, "launches_by_variant", k)
+        if hasattr(mod, "launches_bwd"):  # attention's backward kernel
+            out[f"{name}_bwd"] = (mod, None, "launches_bwd")
+            for k in mod.launches_bwd_by_variant:
+                out[f"{name}_bwd.variant.{k}"] = (mod, "launches_bwd_by_variant", k)
     return out
 
 

@@ -22,7 +22,9 @@ none at all (a host that only loads libraries built elsewhere).
 
 While a warm-up records (``recording()``), every library loaded for a
 launch and every launch plan resolved is noted on the recording
-(``Library.get``, ``note_plan``): what a warm manifest's entry holds.
+(``Library.get``, ``note_plan``): what a warm manifest's entry holds. A
+backward that autograd runs on its worker thread notes into the recording
+and launch tally its forward saw (``thread_state``, ``adopted``).
 """
 
 from __future__ import annotations
@@ -276,6 +278,27 @@ def launch_tally():
         if outer is not None:
             for name, n in tally.items():
                 outer[name] = outer.get(name, 0) + n
+
+
+def thread_state():
+    """This thread's open recording and launch tally (each None where none
+    is open): what a backward adopts from its forward (``adopted``)."""
+    return getattr(_local, "rec", None), getattr(_local, "tally", None)
+
+
+@contextlib.contextmanager
+def adopted(state):
+    """Run the block with ``state`` (a ``thread_state()``) as this thread's
+    recording and tally, this thread's own put back after it. Autograd runs
+    a CUDA backward on its own worker thread: a kernel's backward adopts
+    the state its forward saw, so a capture's or a warm-up's own launches
+    and libraries include the backward's."""
+    saved = thread_state()
+    _local.rec, _local.tally = state
+    try:
+        yield
+    finally:
+        _local.rec, _local.tally = saved
 
 
 def note_launch(*names):

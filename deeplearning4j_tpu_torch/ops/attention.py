@@ -31,19 +31,27 @@ input dtype with f32 accumulation, fully masked rows emitting 0.
 
   ``tf32_round`` and ``matmul_3xtf32`` emulate the split on the CPU, for
   the tests that hold its accuracy.
+- ``flash_attention_bwd`` is the backward: dq, dk, dv, the port of the
+  JAX package's ``_bwd_core`` (which XLA compiles there; it is not a Pallas
+  kernel). On CUDA tensors it launches ``csrc/flash_attn_bwd.cu`` (two
+  passes: dq, then dk and dv; bit-identical from call to call) on the
+  variant ``plan_bwd()`` names: ``f32_3xtf32`` (the 3xTF32 split on
+  ``mma.sync``, 16-byte copies), ``f32_3xtf32_unaligned`` (4-byte copies,
+  for views off 16 bytes), ``bf16_tf32`` (bf16 widened, one TF32 pass).
+  ``launches_bwd`` counts its calls, ``launches_bwd_by_variant`` the same
+  by variant. On CPU tensors it takes ``flash_attention_bwd_plain``:
+  PyTorch over blocks of ``BLOCK_K`` keys, recomputing the probabilities
+  from ``lse``, memory O(B·H·T·Bk), never O(T²).
 - ``flash_attention`` is the differentiable entry point (one
   ``torch.autograd.Function``, whose ``out`` it returns): its forward is
-  ``flash_attention_fwd`` and keeps ``lse``; its backward is the port of the JAX package's
-  ``_bwd_core``, which XLA compiles there (it is not a Pallas kernel), so
-  here it is PyTorch over blocks of ``BLOCK_K`` keys, recomputing the
-  probabilities from ``lse``: memory O(B·H·T·Bk), never O(T²). The mask
-  gets no gradient.
+  ``flash_attention_fwd`` and keeps ``lse``; its backward is
+  ``flash_attention_bwd``. The mask gets no gradient.
 - ``flash_attention_block`` is the block entry of ring attention
   (``parallel/sequence.py``): the same Function, returning ``lse`` too as
   a second differentiable output whose cotangent the backward takes.
 
-What bounds the kernel on an H100, and its design, are in the CUDA
-source's header.
+What bounds the kernels on an H100, and their designs, are in the CUDA
+sources' headers.
 """
 
 from __future__ import annotations
@@ -59,6 +67,7 @@ import torch
 from deeplearning4j_tpu_torch.ops import _build, _plans
 
 SOURCE = _build.CSRC / "flash_attn.cu"
+BWD_SOURCE = _build.CSRC / "flash_attn_bwd.cu"
 
 #: the masked-score sentinel and the lse of a fully masked row
 NEG_INF = -1e30
@@ -71,6 +80,11 @@ launches = 0
 VARIANTS = ("f32_3xtf32", "f32_3xtf32_unaligned", "bf16_wgmma", "bf16_unaligned",
             "f32_3xtf32_wgmma")
 launches_by_variant = dict.fromkeys(VARIANTS, 0)
+#: backward kernel calls (each launches the dq pass, then the dk/dv pass)
+launches_bwd = 0
+#: the same calls by backward variant (``plan_bwd().variant``)
+BWD_VARIANTS = ("f32_3xtf32", "f32_3xtf32_unaligned", "bf16_tf32")
+launches_bwd_by_variant = dict.fromkeys(BWD_VARIANTS, 0)
 _count_lock = threading.Lock()
 
 
@@ -87,7 +101,21 @@ def _declare(lib):
     lib.flash_attn_error_string.restype = ctypes.c_char_p
 
 
+def _declare_bwd(lib):
+    lib.flash_attn_bwd_launch.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 12
+                                          + [ctypes.c_longlong] * 9 + [ctypes.c_int] * 5
+                                          + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    lib.flash_attn_bwd_launch.restype = ctypes.c_int
+    lib.flash_attn_bwd_smem_bytes.argtypes = [ctypes.c_int] * 2
+    lib.flash_attn_bwd_smem_bytes.restype = ctypes.c_int
+    lib.flash_attn_bwd_occupancy.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+    lib.flash_attn_bwd_occupancy.restype = ctypes.c_int
+    lib.flash_attn_bwd_error_string.argtypes = [ctypes.c_int]
+    lib.flash_attn_bwd_error_string.restype = ctypes.c_char_p
+
+
 _LIB = _build.Library(SOURCE, _declare)
+_BWD_LIB = _build.Library(BWD_SOURCE, _declare_bwd)
 
 
 def build():
@@ -95,11 +123,17 @@ def build():
     return _LIB.build()
 
 
+def build_bwd():
+    """Compile ``csrc/flash_attn_bwd.cu`` unless built; returns the library path."""
+    return _BWD_LIB.build()
+
+
 def reset_launches():
-    global launches
-    launches = 0
-    for k in launches_by_variant:
-        launches_by_variant[k] = 0
+    global launches, launches_bwd
+    launches = launches_bwd = 0
+    for counts in (launches_by_variant, launches_bwd_by_variant):
+        for k in counts:
+            counts[k] = 0
 
 
 # ---------------------------------------------------------------------------
@@ -303,6 +337,68 @@ def launch_plan(shape, dtype, strides=None, aligned=True):
     return PLANS.get(plan_key(shape, dtype, strides, aligned))
 
 
+#: columns each swept tile of the backward holds (csrc/flash_attn_bwd.cu's
+#: kCols), and by feature width the rows a block keeps (query rows in the dq
+#: pass, keys in the dk/dv pass) in warps of 16: at DP = 64 eight warps, the
+#: swept tiles split into TF32 halves once in shared memory; at DP = 128
+#: four, splitting what they read
+BWD_COLS = 64
+BWD_ROWS = {64: 128, 128: 64}
+
+
+class BwdPlan(NamedTuple):
+    """How one backward call runs: the variant, the feature width ``dp`` it
+    is compiled for (D rides it zero-filled), rows a block keeps and
+    columns a swept tile holds, threads a block, the grids (row tiles, B*H)
+    of the dq pass and of the dk/dv pass, and a block's shared memory (the
+    same in both)."""
+    variant: str
+    dp: int
+    block_rows: int
+    block_cols: int
+    threads: int
+    grid_dq: tuple
+    grid_dkdv: tuple
+    smem_bytes: int
+
+
+def bwd_smem_bytes(dp):
+    """Shared memory (bytes) of one backward block at feature width ``dp``,
+    as ``csrc/flash_attn_bwd.cu`` lays it out (rows of dp + 4 floats): the
+    kept rows' two tiles, a double-buffered pair of swept tiles, at DP = 64
+    the current pair's lo halves, three column vectors a stage and the dq
+    pass's delta."""
+    rows = BWD_ROWS[dp]
+    tiles = 2 * rows + (6 if dp == 64 else 4) * BWD_COLS
+    return 4 * (tiles * (dp + 4) + 2 * 3 * BWD_COLS + rows)
+
+
+@functools.lru_cache(maxsize=None)
+def plan_bwd(shape, dtype, strides=None, aligned=True):
+    """The launch of one flash backward: ``shape`` (B, T, H, D), ``dtype``
+    float32 or bfloat16, ``strides`` the (batch, time, head) element
+    strides of q, k and v (three triples; None: each contiguous), and
+    ``aligned`` whether q, k, v, out and the output cotangent start on 16
+    bytes. f32 takes ``f32_3xtf32`` where they are aligned and D and every
+    stride are multiples of 4 elements, else ``f32_3xtf32_unaligned``
+    (4-byte copies: the views are read in place all the same); bf16 takes
+    ``bf16_tf32`` (element loads, whatever the alignment). No tuning DB is
+    consulted: the backward has no tuner space."""
+    b, t, h, d = shape
+    strides, flat = _flat_strides(shape, strides)
+    if dtype == torch.float32:
+        vec = aligned and d % 4 == 0 and all(s % 4 == 0 for s in flat)
+        variant = "f32_3xtf32" if vec else "f32_3xtf32_unaligned"
+    elif dtype == torch.bfloat16:
+        variant = "bf16_tf32"
+    else:
+        raise TypeError(f"flash_attn_bwd kernel takes float32 or bfloat16, got {dtype}")
+    dp = _width(d)
+    rows = BWD_ROWS[dp]
+    grid = (-(-t // rows), b * h)
+    return BwdPlan(variant, dp, rows, BWD_COLS, 2 * rows, grid, grid, bwd_smem_bytes(dp))
+
+
 # ---------------------------------------------------------------------------
 # plain versions
 # ---------------------------------------------------------------------------
@@ -440,9 +536,10 @@ def _mm(a, b, dtype):
     return torch.matmul(a.to(dtype).float(), b.to(dtype).float())
 
 
-def flash_attention_bwd(q, k, v, mask, out, lse, g, *, causal, scale, block_k=BLOCK_K,
-                        g_lse=None):
-    """dq, dk, dv for ``flash_attention``: the port of ``_bwd_core``. Key
+def flash_attention_bwd_plain(q, k, v, mask, out, lse, g, *, causal, scale, block_k=BLOCK_K,
+                              g_lse=None):
+    """dq, dk, dv for ``flash_attention`` in plain PyTorch: the port of
+    ``_bwd_core``, the backward kernel's plain version. Key
     blocks of ``block_k`` recompute P = exp(S - lse) one [B,H,T,Bk] tile at
     a time; invalid entries are set to exactly 0 before use (on a fully
     masked row lse is the sentinel and exp(S - lse) would be ~1). Under
@@ -479,10 +576,74 @@ def flash_attention_bwd(q, k, v, mask, out, lse, g, *, causal, scale, block_k=BL
     return tuple(x.permute(0, 2, 1, 3).to(dt) for x in (dq, dk, dv))
 
 
+def _check_bwd(q, k, v, mask, out, lse, g, g_lse):
+    """``_check`` of q, k, v and the mask, and the residuals' and
+    cotangents' shapes and devices: out and g [B,T,H,D], lse and g_lse
+    [B,H,T]."""
+    _check(q, k, v, mask)
+    b, t, h, d = q.shape
+    for name, x, want in (("out", out, (b, t, h, d)), ("g", g, (b, t, h, d)),
+                          ("lse", lse, (b, h, t)), ("g_lse", g_lse, (b, h, t))):
+        if x is not None and (tuple(x.shape) != want or x.device != q.device):
+            raise ValueError(f"{name} must be {want} on {q.device}, got {tuple(x.shape)} "
+                             f"on {x.device}")
+        if x is not None and not x.is_floating_point():
+            raise TypeError(f"{name} must be a float tensor, got {x.dtype}")
+
+
+def flash_attention_bwd(q, k, v, mask, out, lse, g, *, causal, scale, block_k=BLOCK_K,
+                        g_lse=None):
+    """dq, dk, dv ([B,T,H,D] in q's dtype) for ``flash_attention``, from the
+    forward's ``out`` and ``lse`` and the cotangent ``g`` of ``out`` (and
+    ``g_lse`` [B,H,T] of ``lse``, optional): the Hopper kernel on CUDA
+    tensors, ``flash_attention_bwd_plain`` on CPU tensors (``block_k`` is
+    the plain version's key block; the kernel's tiles are ``plan_bwd``'s)."""
+    global launches_bwd
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, mask, out, lse, g, causal=causal, scale=scale,
+                                         block_k=block_k, g_lse=g_lse)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention runs on cuda or cpu tensors, got {q.device}")
+    _check_bwd(q, k, v, mask, out, lse, g, g_lse)
+    b, t, h, d = q.shape
+    dt = q.dtype
+    out_c, g_c = out.to(dt).contiguous(), g.to(dt).contiguous()
+    lse_c = lse.to(torch.float32).contiguous()
+    glse = None if g_lse is None else g_lse.to(torch.float32).contiguous()
+    maskf = None if mask is None else mask.to(torch.float32).contiguous()
+    strides = tuple(tuple(x.stride()[:3]) for x in (q, k, v))
+    pl = plan_bwd(tuple(q.shape), dt, strides,
+                  all(x.data_ptr() % 16 == 0 for x in (q, k, v, out_c, g_c)))
+    lib = _BWD_LIB.get()
+    dq, dk, dv = (torch.empty((b, t, h, d), dtype=dt, device=q.device) for _ in range(3))
+    delta = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
+    err = lib.flash_attn_bwd_launch(
+        BWD_VARIANTS.index(pl.variant), pl.dp, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        out_c.data_ptr(), g_c.data_ptr(), lse_c.data_ptr(),
+        None if glse is None else glse.data_ptr(),
+        None if maskf is None else maskf.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), *(s for triple in strides for s in triple),
+        b, h, t, d, int(bool(causal)), float(scale), _build.device_index(q.device),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        msg = lib.flash_attn_bwd_error_string(err).decode()
+        raise RuntimeError(f"flash_attn_bwd kernel launch failed ({pl}): CUDA error {err} "
+                           f"({msg})")
+    with _count_lock:
+        launches_bwd += 1
+        launches_bwd_by_variant[pl.variant] += 1
+    _build.note_launch("attention_bwd", f"attention_bwd.variant.{pl.variant}")
+    return dq, dk, dv
+
+
 class _FlashAttention(torch.autograd.Function):
     """(out, lse), both differentiable; an output that takes no part in the
     loss passes None to the backward (grads are not materialised), so
-    ``flash_attention``'s backward never sees an lse cotangent."""
+    ``flash_attention``'s backward never sees an lse cotangent. The
+    backward, which autograd runs on its worker thread for CUDA tensors,
+    notes its launch and library into the launch tally and recording its
+    forward saw (``_build.adopted``): a K-step capture counts it, a warm
+    manifest ships its library."""
 
     @staticmethod
     def forward(ctx, q, k, v, mask, causal, scale):
@@ -490,6 +651,7 @@ class _FlashAttention(torch.autograd.Function):
         out, lse = flash_attention_fwd(q, k, v, mask=mask, causal=causal, scale=scale)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.mask, ctx.causal, ctx.scale = mask, causal, scale
+        ctx.launch_state = _build.thread_state()
         return out, lse
 
     @staticmethod
@@ -497,8 +659,9 @@ class _FlashAttention(torch.autograd.Function):
         q, k, v, out, lse = ctx.saved_tensors
         if g_out is None:
             g_out = torch.zeros_like(out)
-        dq, dk, dv = flash_attention_bwd(q, k, v, ctx.mask, out, lse, g_out, causal=ctx.causal,
-                                         scale=ctx.scale, g_lse=g_lse)
+        with _build.adopted(ctx.launch_state):
+            dq, dk, dv = flash_attention_bwd(q, k, v, ctx.mask, out, lse, g_out,
+                                             causal=ctx.causal, scale=ctx.scale, g_lse=g_lse)
         return dq, dk, dv, None, None, None
 
 
@@ -508,7 +671,8 @@ def flash_attention_block(q, k, v, causal, scale):
     both outputs are differentiable, so a caller may combine blocks by
     log-sum-exp. The forward is ``flash_attention_fwd`` (the kernel on CUDA
     tensors, the plain version on CPU tensors); the backward is
-    ``flash_attention_bwd`` with the lse cotangent. A fully masked row's
+    ``flash_attention_bwd`` with the lse cotangent (the kernel on CUDA
+    tensors). A fully masked row's
     lse is the ``NEG_INF`` sentinel, not -inf."""
     return _FlashAttention.apply(q, k, v, None, bool(causal), _scale(scale, q.shape[-1]))
 

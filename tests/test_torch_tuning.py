@@ -462,7 +462,7 @@ class TestSeams:
         assert A.launch_plan((1, 256, 2, 64), F32, odd).variant == "f32_3xtf32_unaligned"
 
     def test_resolve_attention_db_over_env_over_min_seq(self, monkeypatch):
-        long_, short = (1, 4096, 2, 32), (1, 256, 2, 32)
+        long_, short = (1, 4096, 2, 32), (1, TA.MIN_SEQ - 1, 2, 32)
         assert TA.resolve_attention(long_, long_, None, F32)
         assert not TA.resolve_attention(short, short, None, F32)
         monkeypatch.setenv("DL4J_TPU_FUSED_ATTENTION_MIN_SEQ", "128")
@@ -483,7 +483,8 @@ class TestSeams:
     def test_the_crossover_verdict_matches_the_jax_seam(self):
         """The same DB verdicts (the JAX package's ``xla`` is the port's
         ``plain``) give the same dispatch decisions in both packages."""
-        long_, short = (1, 2048, 2, 32), (1, 256, 2, 32)
+        # below both packages' crossovers (the port's measured on the H100)
+        long_, short = (1, 2048, 2, 32), (1, TA.MIN_SEQ - 1, 2, 32)
         jd, mine = jtuning.TuningDB(), tuning.TuningDB()
         jd.record("attention", long_, jnp.float32, {"backend": "xla"})
         jd.record("attention", short, jnp.float32, {"backend": "flash", "block_q": 128,
