@@ -8,8 +8,9 @@ nonzero; nothing is caught):
 
 1. env      torch/CUDA versions, the card's name and power limit.
 2. build    nvcc builds of ``csrc/lstm_seq.cu``, ``csrc/flash_attn.cu``,
-            ``csrc/flash_attn_bwd.cu`` and ``csrc/conv_stats.cu``, started
-            together, with their ptxas reports; the count of HGMMA (wgmma)
+            ``csrc/flash_attn_bwd.cu``, ``csrc/flash_attn_bwd_wgmma.cu`` and
+            ``csrc/conv_stats.cu``, started together, with their ptxas
+            reports; the count of HGMMA (wgmma)
             instructions in the conv and flash libraries' SASS and of HMMA
             (mma.sync) in the flash libraries', where a cuobjdump exists.
 3. kernels  ``lstm_seq`` held against ``lstm_seq_plain`` on the card, f32
@@ -43,11 +44,17 @@ nonzero; nothing is caught):
             ``scaled_dot_product_attention`` as a yardstick, back to back
             and on the card, forward and forward + backward (with the
             backward's bound); the backward kernel (``flash_attn_bwd``, the
-            variant its ``plan_bwd()`` names in every grid case; exactly zero
+            variant its ``plan_bwd()`` names in every grid case:
+            ``f32_3xtf32_wgmma`` at D=64, ``f32_3xtf32`` at D=128,
+            ``bf16_wgmma``, the unaligned ones on odd views, each plan's
+            shared memory checked against the built library; exactly zero
             gradient on the fully masked row) alone, back to back and on the
-            card, beside its bounds, the plain backward and SDPA's backward,
-            two calls bit-identical in f32 and bf16, and per call at a TP
-            4-head slice and at a one-sequence pipelined microbatch; then
+            card, each of its two passes alone on the card, beside their
+            bounds, the plain backward and SDPA's backward, the earlier
+            ``mma.sync`` design on the same inputs, two calls bit-identical
+            in f32 and bf16, and per call at a TP 4-head slice and at a
+            one-sequence pipelined microbatch beside SDPA's backward and
+            the forward beside SDPA's forward there; then
             the kernels against the port's naive attention, forward and
             backward, at T in {256, ..., 4096}: the length crossover.
 5. train    ``transformer_lm`` at the width of the JAX package's long-context
@@ -1345,6 +1352,27 @@ def check_flash_plan(A, q, k, v):
     return pl
 
 
+def check_bwd_plan(A, q, k, v, want):
+    """The backward plan of the call (out and dO contiguous, as the
+    autograd.Function hands them over) is ``want``, and its shared memory
+    is what the built library counts, with a block of each pass fitting on
+    an SM."""
+    import ctypes
+
+    strides = tuple(tuple(x.stride()[:3]) for x in (q, k, v))
+    pl = A.plan_bwd(tuple(q.shape), q.dtype, strides,
+                    all(x.data_ptr() % 16 == 0 for x in (q, k, v)))
+    lib = A.bwd_library(pl.variant)
+    v_idx = A.BWD_VARIANTS.index(pl.variant)
+    blocks = ctypes.c_int(0)
+    err = lib.occupancy(v_idx, pl.dp, 0, ctypes.byref(blocks))
+    smem = lib.smem_bytes(v_idx, pl.dp)
+    if pl.variant != want or err != 0 or smem != pl.smem_bytes or blocks.value < 1:
+        raise AssertionError(f"flash backward plan {pl} (expected {want}): the library counts "
+                             f"{smem} bytes and fits {blocks.value} blocks an SM (error {err})")
+    return pl
+
+
 def odd_views(rs, b, t, h, d, dtype, grad=False):
     """q, k, v as views of a [B,T,3,H,D+1] tensor cut to D: strides off 16
     bytes, so the plan takes an unaligned variant."""
@@ -1354,31 +1382,83 @@ def odd_views(rs, b, t, h, d, dtype, grad=False):
     return qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], base
 
 
-def flash_bwd_timing(A, q, k, v, g, causal, g_lse=None, plain=True):
+def flash_bwd_pass_bounds(b, t, h, d, dtype, causal, g_lse=False):
+    """Least time (ms) of each backward pass and what sets it: the dq pass
+    reads q, k, v, out, dO and lse and writes dq and delta, three products
+    (S, dP, dQ); the dk/dv pass reads q, k, v, dO, lse and delta and writes
+    dk and dv, four products (S, dP, dV, dK). f32 adds each pass's bound on
+    its route, three TF32 products each (``_3xtf32``)."""
+    elt = torch.finfo(dtype).bits // 8
+    n, vec = b * t * h * d, 4 * b * h * t * (2 if g_lse else 1)
+    pairs = t * (t + 1) // 2 if causal else t * t
+    out = {}
+    for name, nbytes, products in (("dq_pass", elt * 6 * n + vec + 4 * b * h * t, 3),
+                                   ("dkdv_pass", elt * 6 * n + vec + 4 * b * h * t, 4)):
+        ops = products * 2 * b * h * d * pairs
+        out[f"{name}_bound_ms"], out[f"{name}_bound_by"] = roofline(nbytes, ops, dtype)
+        if dtype == torch.float32:
+            out[f"{name}_bound_3xtf32_ms"] = max(1e3 * nbytes / PEAK_BYTES_S,
+                                                 1e3 * 3 * ops / PEAK_TF32_OPS_S)
+    return out
+
+
+def flash_bwd_timing(A, q, k, v, g, causal, g_lse=None, plain=True, variants=None):
     """The backward kernel alone from the forward's residuals: back to back
-    (``ms``) and on the card (``device_ms``), beside its bound and (with
-    ``plain``) the plain backward's time; two calls must agree to the bit."""
+    (``ms``) and on the card (``device_ms``), each pass alone on the card
+    (``dq_pass_device_ms``, ``dkdv_pass_device_ms``), beside their bounds
+    and (with ``plain``) the plain backward's time; two calls must agree to
+    the bit. ``variants`` adds the same times for each variant named (in
+    place of the plan's), as ``by_variant``: the designs side by side."""
     b, t, h, d = q.shape
     scale = 1.0 / math.sqrt(d)
     with torch.no_grad():
         out, lse = A.flash_attention_fwd(q, k, v, causal=causal)
 
-        def kern():
-            return A.flash_attention_bwd(q, k, v, None, out, lse, g, causal=causal, scale=scale,
-                                         g_lse=g_lse)
-        first, second = kern(), kern()
-        if not all(torch.equal(x, y) for x, y in zip(first, second)):
-            raise AssertionError(f"flash_attn_bwd {q.dtype} {tuple(q.shape)}: two calls on the "
-                                 "same inputs differ")
-        row = {"ms": time_ms(kern, iters=10, reps=5),
-               "device_ms": device_ms(kern, iters=10, reps=5), "bit_identical": True}
+        def timed(variant=None):
+            def kern(passes=A.BOTH_PASSES):
+                return A.flash_attention_bwd(q, k, v, None, out, lse, g, causal=causal,
+                                             scale=scale, g_lse=g_lse, passes=passes,
+                                             variant=variant)
+            first, second = kern(), kern()
+            if not all(torch.equal(x, y) for x, y in zip(first, second)):
+                raise AssertionError(f"flash_attn_bwd {q.dtype} {tuple(q.shape)} "
+                                     f"{variant or 'planned'}: two calls on the same inputs "
+                                     "differ")
+            del first, second
+            return {"ms": time_ms(kern, iters=10, reps=5),
+                    "device_ms": device_ms(kern, iters=10, reps=5),
+                    **{f"{name}_pass_device_ms": device_ms(lambda: kern(bit), iters=10, reps=5)
+                       for name, bit in A.BWD_PASSES.items()},
+                    "bit_identical": True}
+        row = timed()
+        if variants:
+            row["by_variant"] = {vn: timed(vn) for vn in variants}
         if plain:
             row["plain_ms"] = time_ms(lambda: A.flash_attention_bwd_plain(
                 q, k, v, None, out, lse, g, causal=causal, scale=scale, g_lse=g_lse),
                 iters=3, reps=3)
     row["bound_ms"], row["bound_by"] = flash_bound(b, t, h, d, q.dtype, causal, backward=True)
-    del out, lse, first, second
+    row.update(flash_bwd_pass_bounds(b, t, h, d, q.dtype, causal, g_lse is not None))
+    del out, lse
     return row
+
+
+def slice_library_times(A, q, k, v, g):
+    """At a split model's slice shape (causal): SDPA's backward alone
+    (``library_ms``, autograd over one kept graph), and the forward kernel's
+    time per call beside SDPA's forward (``fwd_ms``, ``fwd_library_ms``),
+    back to back."""
+    qh, kh, vh = (x.transpose(1, 2).contiguous().requires_grad_(True) for x in (q, k, v))
+    gh = g.transpose(1, 2).contiguous()
+    with torch.no_grad():
+        fwd_ms = time_ms(lambda: A.flash_attention_fwd(q, k, v, causal=True), iters=10, reps=5)
+        fwd_library_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            qh, kh, vh, is_causal=True), iters=10, reps=5)
+    out = torch.nn.functional.scaled_dot_product_attention(qh, kh, vh, is_causal=True)
+    library_ms = time_ms(lambda: torch.autograd.grad(out, (qh, kh, vh), gh, retain_graph=True),
+                         iters=10, reps=5)
+    del qh, kh, vh, gh, out
+    return {"library_ms": library_ms, "fwd_ms": fwd_ms, "fwd_library_ms": fwd_library_ms}
 
 
 def phase_flash(A):
@@ -1400,8 +1480,10 @@ def phase_flash(A):
             raise AssertionError(f"flash T={t} D={d} {dtype} odd={odd} planned on {pl.variant}")
         m = key_mask(rs, b, t) if masked else None
         what = f"flash_attn T={t} D={d} {dtype} causal={causal} mask={masked} {pl.variant}"
-        want_bwd = "bf16_tf32" if not f32 else (
-            "f32_3xtf32_unaligned" if odd else "f32_3xtf32")
+        want_bwd = {(True, False): "f32_3xtf32_wgmma" if d <= 64 else "f32_3xtf32",
+                    (False, False): "bf16_wgmma", (True, True): "f32_3xtf32_unaligned",
+                    (False, True): "bf16_tf32"}[(f32, odd)]
+        check_bwd_plan(A, q, k, v, want_bwd)
         before = dict(A.launches_by_variant)
         with torch.no_grad():
             out_k, lse_k = A.flash_attention_fwd(q, k, v, mask=m, causal=causal)
@@ -1476,7 +1558,12 @@ def phase_flash(A):
             torch.nn.functional.scaled_dot_product_attention(qhg, khg, vhg, is_causal=True),
             (qhg, khg, vhg), gh), iters=3, reps=5)
         bwd_bound_ms, bwd_bound_by = flash_bound(b, LM_SEQ, h, d, dtype, True, backward=True)
-        bwd = flash_bwd_timing(A, q, k, v, g, True)
+        # the plan's design and, beside it, the earlier mma.sync one at this shape
+        planned = A.plan_bwd(tuple(q.shape), dtype, tuple(tuple(x.stride()[:3]) for x in (q, k, v)))
+        earlier = {torch.float32: "f32_3xtf32", torch.bfloat16: "bf16_tf32"}[dtype]
+        bwd = flash_bwd_timing(A, q, k, v, g, True,
+                               variants=[earlier] if planned.variant != earlier else None)
+        bwd["variant"] = planned.variant
         # SDPA's backward alone: autograd over one kept graph
         sdpa_out = torch.nn.functional.scaled_dot_product_attention(qhg, khg, vhg, is_causal=True)
         library_bwd_ms = time_ms(lambda: torch.autograd.grad(
@@ -1503,9 +1590,11 @@ def phase_flash(A):
                       ("pipeline_microbatch", MP_LM_BATCH // MP_DATA // MP_MICRO, h))
             for name, sb, sh in slices:
                 sq, sk, sv, _ = qkv_views(rs, sb, LM_SEQ, sh, d, dtype)
+                sg = torch.randn_like(sq)
                 row["bwd_slices"][name] = {"B": sb, "H": sh, **flash_bwd_timing(
-                    A, sq, sk, sv, torch.randn_like(sq), True, plain=False)}
-                del sq, sk, sv
+                    A, sq, sk, sv, sg, True, plain=False)}
+                row["bwd_slices"][name].update(slice_library_times(A, sq, sk, sv, sg))
+                del sq, sk, sv, sg
         timings[dtype] = row
         emit("flash.timing", **row)
         del q, k, v, qh, kh, vh, qg, kg, vg, qhg, khg, vhg, g, gh, sdpa_out
@@ -1697,12 +1786,12 @@ def device_families(prof, wall_ms, family=lm_family, tags=(("updater.step", "opt
     return by_family, busy_us / 1e3, (busy_us / 1e3 / wall_ms) if spans else None
 
 
-#: the backward's f32 variants: the rank cells' tensors come through
+#: the backward's f32 variants at D=64: the rank cells' tensors come through
 #: collectives and reshapes, whose alignment the path's views do not set
-BWD_F32 = ("f32_3xtf32", "f32_3xtf32_unaligned")
+BWD_F32 = ("f32_3xtf32_wgmma", "f32_3xtf32_unaligned")
 
 
-def bwd_launched(A, what, n, variants=("f32_3xtf32",)):
+def bwd_launched(A, what, n, variants=("f32_3xtf32_wgmma",)):
     """The backward kernel's launches since ``reset_launches``: all on
     ``variants`` and, where ``n`` is given, exactly ``n`` (else at least
     one). Returns (count, by variant)."""
@@ -6398,7 +6487,7 @@ def seq_block_checks(A, rs):
         before = dict(A.launches_bwd_by_variant)
         got = torch.autograd.grad((out, lse), (q, k, v), (g_out, g_lse))
         ran = {n: c - before[n] for n, c in A.launches_bwd_by_variant.items() if c != before[n]}
-        want_bwd = "f32_3xtf32" if f32 else "bf16_tf32"
+        want_bwd = "f32_3xtf32_wgmma" if f32 else "bf16_wgmma"
         if ran != {want_bwd: 1}:
             raise AssertionError(f"{what}: the backward ran {ran}, expected one {want_bwd}")
         want = torch.autograd.grad((out_p, lse_p), (q, k, v), (g_out, g_lse))
@@ -9938,7 +10027,7 @@ def main(argv=None):
     def mark(name):
         marks.append((name, time.perf_counter()))
 
-    build_all([L.build, A.build, A.build_bwd, C.build])
+    build_all([L.build, A.build, A.build_bwd, A.build_bwd_wgmma, C.build])
 
     mark("kernels")
     if "kernels" in only:
@@ -10200,7 +10289,10 @@ def main(argv=None):
         # ones as *_bf16; library_ms SDPA's backward alone (autograd over a
         # kept graph), TF32 off
         "name": "flash_attn_bwd", "route": "cuda",
-        "source": "deeplearning4j_tpu_torch/csrc/flash_attn_bwd.cu",
+        # the main path's variants (f32_3xtf32_wgmma, bf16_wgmma); the
+        # mma.sync ones (D > 64, unaligned views) in the other source
+        "source": "deeplearning4j_tpu_torch/csrc/flash_attn_bwd_wgmma.cu",
+        "other_source": "deeplearning4j_tpu_torch/csrc/flash_attn_bwd.cu",
         "replaces": "deeplearning4j_tpu/ops/attention_pallas.py:321",
         # launches over the train phase's 10 timed steps under each policy,
         # the moe phase (timed steps under both policies, the K=4 replays,
@@ -10219,14 +10311,21 @@ def main(argv=None):
         "launches_parallel": par_out["flash_bwd_launches"],
         "launches_model_parallel": mp_out["launches"]["flash_attn_bwd"],
         "launches_telemetry": tel_out["flash_bwd_launches"],
-        "launches_by_variant": train_rows[0]["flash_bwd_launches_by_variant"],
+        "launches_by_variant": {
+            vn: sum(r["flash_bwd_launches_by_variant"].get(vn, 0) for r in train_rows)
+            for vn in A.BWD_VARIANTS},
         "max_abs_err": flash_bwd_err,
         "ms": fpath["bwd"]["ms"], "plain_ms": fpath["bwd"]["plain_ms"],
         "bound_ms": fpath["bwd"]["bound_ms"], "bound_by": fpath["bwd"]["bound_by"],
         "library_ms": fpath["bwd"]["library_ms"], "device_ms": fpath["bwd"]["device_ms"],
         "bound_3xtf32_ms": fpath["bwd"]["bound_3xtf32_ms"],
-        **{f"{k}_bf16": flash_timings[torch.bfloat16]["bwd"][k]
-           for k in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        # each pass alone on the card beside its bound, and the same times
+        # of the earlier mma.sync design at this shape (by_variant)
+        **{k: fpath["bwd"][k] for k in fpath["bwd"] if k.startswith(("dq_pass", "dkdv_pass"))},
+        "variant": fpath["bwd"]["variant"], "by_variant": fpath["bwd"].get("by_variant"),
+        **{f"{k}_bf16": flash_timings[torch.bfloat16]["bwd"].get(k)
+           for k in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                     "dq_pass_device_ms", "dkdv_pass_device_ms", "variant", "by_variant")},
         "slices": fpath["bwd_slices"],
         # flash_attention_block's backward with the lse cotangent at one ring
         # block's shape (B=2, T=4096, not causal, f32)

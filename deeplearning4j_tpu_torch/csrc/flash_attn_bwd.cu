@@ -1,4 +1,8 @@
-// Flash-attention backward for NVIDIA Hopper (sm_90a), plain C interface.
+// Flash-attention backward for NVIDIA Hopper (sm_90a), plain C interface:
+// the mma.sync variants of ops/attention.py plan_bwd(), which f32 calls
+// with 64 < D <= 128 (f32_3xtf32) and views off 16 bytes
+// (f32_3xtf32_unaligned, bf16_tf32) take; aligned calls at D <= 64 in f32
+// and aligned bf16 calls take csrc/flash_attn_bwd_wgmma.cu.
 //
 // Replaces the JAX package's _bwd_core of
 // deeplearning4j_tpu/ops/attention_pallas.py:321 (reached through
@@ -76,6 +80,10 @@
 namespace {
 
 enum Variant { kF32Tf32x3 = 0, kF32Tf32x3Unaligned = 1, kBf16Tf32 = 2 };
+// the passes a launch runs (a bit each): both on every call of the port;
+// one alone only where a pass is timed apart (the dk/dv pass reads the delta
+// the dq pass wrote)
+enum Pass { kDqPass = 1, kDkDvPass = 2 };
 
 constexpr int kCols = 64;  // columns a swept tile holds: keys (dq pass) or queries (dkdv pass)
 
@@ -627,7 +635,7 @@ cudaError_t allow_smem(K kernel, int bytes, bool& done) {
 }
 
 template <typename T, int DP>
-cudaError_t launch(const Params& p, cudaStream_t s) {
+cudaError_t launch(const Params& p, int passes, cudaStream_t s) {
   static bool dq_set = false, dkdv_set = false;
   constexpr int smem = smem_of<DP>();
   auto dq_kernel = flash_bwd_dq_kernel<T, DP>;
@@ -636,17 +644,21 @@ cudaError_t launch(const Params& p, cudaStream_t s) {
   if (err != cudaSuccess) return err;
   if ((err = allow_smem(dkdv_kernel, smem, dkdv_set)) != cudaSuccess) return err;
   constexpr int rows = Layout<DP>::ROWS;
-  const dim3 grid_q((p.T + rows - 1) / rows, p.B * p.H);
-  dq_kernel<<<grid_q, Layout<DP>::THREADS, smem, s>>>(p);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  const dim3 grid_k((p.T + rows - 1) / rows, p.B * p.H);
-  dkdv_kernel<<<grid_k, Layout<DP>::THREADS, smem, s>>>(p);
-  return cudaGetLastError();
+  const dim3 grid((p.T + rows - 1) / rows, p.B * p.H);
+  if (passes & kDqPass) {
+    dq_kernel<<<grid, Layout<DP>::THREADS, smem, s>>>(p);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  if (passes & kDkDvPass) {
+    dkdv_kernel<<<grid, Layout<DP>::THREADS, smem, s>>>(p);
+    err = cudaGetLastError();
+  }
+  return err;
 }
 
 template <typename T>
-cudaError_t dispatch(const Params& p, int dp, cudaStream_t s) {
-  return dp == 64 ? launch<T, 64>(p, s) : launch<T, 128>(p, s);
+cudaError_t dispatch(const Params& p, int dp, int passes, cudaStream_t s) {
+  return dp == 64 ? launch<T, 64>(p, passes, s) : launch<T, 128>(p, passes, s);
 }
 
 bool compiled(int variant, int dp) {
@@ -682,26 +694,28 @@ bool aligned(const void* ptr) { return reinterpret_cast<uintptr_t>(ptr) % 16 == 
 
 }  // namespace
 
-// One flash backward (both passes, on `stream`) on the variant and feature
-// width of the plan from ops/attention.py plan_bwd(): 0 f32_3xtf32 (q, k,
+// One flash backward (the passes `passes` names, a Pass bit each: 3 for
+// both, on `stream`) on the variant and feature width of the plan from
+// ops/attention.py plan_bwd(): 0 f32_3xtf32 (q, k,
 // v, out, dO on 16 bytes; strides and D multiples of 4), 1
 // f32_3xtf32_unaligned, 2 bf16_tf32. q, k, v [B,T,H,D] through element
 // strides; out, dO [B,T,H,D] contiguous in their dtype; lse [B,H,T] f32;
 // g_lse [B,H,T] f32 or null; mask [B,T] f32 or null; delta [B,H,T] f32
 // scratch; dq, dk, dv [B,T,H,D] contiguous. Returns the first cudaError_t
 // met (0 on success); nothing is launched on a refusal.
-extern "C" int flash_attn_bwd_launch(int variant, int dp, const void* q, const void* k,
-                                     const void* v, const void* o, const void* g, const void* lse,
-                                     const void* glse, const void* mask, void* delta, void* dq,
-                                     void* dk, void* dv, long long q_sb, long long q_st,
-                                     long long q_sh, long long k_sb, long long k_st,
-                                     long long k_sh, long long v_sb, long long v_st,
-                                     long long v_sh, int B, int H, int T, int D, int causal,
-                                     float scale, int device, void* stream) {
+extern "C" int flash_attn_bwd_launch(int variant, int dp, int passes, const void* q,
+                                     const void* k, const void* v, const void* o, const void* g,
+                                     const void* lse, const void* glse, const void* mask,
+                                     void* delta, void* dq, void* dk, void* dv, long long q_sb,
+                                     long long q_st, long long q_sh, long long k_sb,
+                                     long long k_st, long long k_sh, long long v_sb,
+                                     long long v_st, long long v_sh, int B, int H, int T, int D,
+                                     int causal, float scale, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int inval = static_cast<int>(cudaErrorInvalidValue);
-  if (B < 1 || H < 1 || T < 1 || D < 1 || D > dp || B * H > 65535 || !compiled(variant, dp)) {
+  if (B < 1 || H < 1 || T < 1 || D < 1 || D > dp || B * H > 65535 || !compiled(variant, dp) ||
+      passes < 1 || passes > (kDqPass | kDkDvPass)) {
     return inval;
   }
   if (variant == kF32Tf32x3) {
@@ -719,7 +733,8 @@ extern "C" int flash_attn_bwd_launch(int variant, int dp, const void* q, const v
            q_sb, q_st, q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh,
            B, H, T, D, causal, variant == kF32Tf32x3, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  err = variant == kBf16Tf32 ? dispatch<__nv_bfloat16>(p, dp, s) : dispatch<float>(p, dp, s);
+  err = variant == kBf16Tf32 ? dispatch<__nv_bfloat16>(p, dp, passes, s)
+                             : dispatch<float>(p, dp, passes, s);
   return static_cast<int>(err);
 }
 

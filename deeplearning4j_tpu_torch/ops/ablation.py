@@ -10,12 +10,20 @@ are wrong and only its time is read:
   body on the same inputs (``f32_3xtf32_unaligned``, reached through a view
   4 bytes off alignment) and the bf16 forward;
 - the persistent ``lstm_seq`` (f32, peepholes, T=128, H=512, B in 1, 8, 64)
-  without its grid barrier, without its copy of h_prev, or without both.
+  without its grid barrier, without its copy of h_prev, or without both;
+- the f32 flash backward (``f32_3xtf32_wgmma``, each pass alone) at the
+  same shape without the per-tile TF32 split of the swept tiles, without
+  the split of the kept rows' register fragments, with one TF32 product in
+  place of three, or with each group of 16 features waited out before the
+  next is issued; it and the bf16 backward without exp in P or without the
+  dQ, dV and dK products; beside them the ``mma.sync`` design
+  (``f32_3xtf32``, ``bf16_tf32``) on the same inputs.
 
 The variants are built beside the real kernels into ``_build/ablation/``
 and timed on the card (calls queued behind a sleep, median of 5 x 10).
-Run on an H100: ``python -m deeplearning4j_tpu_torch.ops.ablation``. It
-prints one JSON line a variant, then the card's name and power limit.
+Run on an H100: ``python -m deeplearning4j_tpu_torch.ops.ablation [--only
+flash,lstm,flash_bwd]``. It prints one JSON line a variant, then the card's
+name and power limit.
 """
 
 from __future__ import annotations
@@ -52,6 +60,35 @@ FLASH = {
                          (S_LINES[1], ""), (S_LINES[2], ""),
                          (PV_LINES[0], PV_LINES[0].replace("pl[kk]", "ph[kk]")),
                          (PV_LINES[1], ""), (PV_LINES[2], "")],
+}
+SPLIT_Y = ("    split_rows(rawt, sb + tf_copy(0, 0), sb + tf_copy(0, 1), tid);\n"
+           "    split_rows(rawt + kTCols * 64, sb + tf_copy(1, 0), sb + tf_copy(1, 1), tid);\n"
+           "    split_t(rawt, sb + tf_copy(2, 0), sb + tf_copy(2, 1), tid);\n"
+           "    if constexpr (!DQ) split_t(rawt + kTCols * 64, sb + tf_copy(3, 0), "
+           "sb + tf_copy(3, 1), tid);\n")
+KEPT_SPLIT = [(f"      split({x}, ah[s2][{i}], al[s2][{i}]);",
+               f"      ah[s2][{i}] = al[s2][{i}] = __float_as_uint({x});")
+              for i, x in enumerate(("xr[c0]", "xr[512 + c0]", "xr[c1]", "xr[512 + c1]"))]
+# (old, new) replacements in csrc/flash_attn_bwd_wgmma.cu (the f32 kernel's
+# helpers and body; the bf16 kernel is timed as it is)
+FLASH_BWD = {
+    "base": [],
+    "no_swept_split": [(SPLIT_Y, "")],
+    "no_kept_split": KEPT_SPLIT,
+    "one_tf32_product": [("      wgmma_tf32_rs(a, ah[s2], tf_at(yl, kk), 1);\n", ""),
+                         ("      wgmma_tf32_rs(a, ah[s2], tf_at(yh, kk), 1);\n", ""),
+                         ("    wgmma_tf32_rs(part, xh[kk], tf_at(ytl, kk), 1);\n", ""),
+                         ("    wgmma_tf32_rs(part, xh[kk], tf_at(yth, kk), 1);\n", "")],
+    "serial_groups": [("    wgmma_commit();\n    if (grp > 0) {",
+                       "    wgmma_commit();\n    wgmma_wait<0>();\n    if (grp > 0) {")],
+    # both kernels: P without exp (the SFU), or no dQ / dV / dK products
+    "no_exp": [(f"exp_ftz(s[i] * p.scale - {y})", f"(s[i] * p.scale - {y})")
+               for y in ("lse_r[r]", "lse")],
+    "no_last_products": [(f"        {call}(acc{a}, {x}", f"        if (0) {call}(acc{a}, {x}")
+                         for call, pairs in (("product_xb", (("0", "s"), ("1", "s"), ("0", "dp"))),
+                                             ("wgmma_bf16_rs", (("0", "xa"), ("1", "xa"),
+                                                                ("0", "za"))))
+                         for a, x in pairs],
 }
 BARRIER = "if (t + 1 < p.T) grid_barrier(p.sync, blocks, target);"
 COPY = "cp_async16(smem_u32(h_s + r * S + k)"
@@ -102,25 +139,45 @@ def device_ms(fn, iters=10, reps=5):
     return statistics.median(out)
 
 
-def timed_with(mod, lib, fn):
-    """``fn``'s time with ``mod`` launching from ``lib`` in place of its own."""
-    own = mod._LIB
-    mod._LIB = lib
+def timed_with(mod, lib, fn, attr="_LIB"):
+    """``fn``'s time with ``mod`` launching from ``lib`` in place of its own
+    (the library at ``attr``)."""
+    own = getattr(mod, attr)
+    setattr(mod, attr, lib)
     try:
         return device_ms(fn)
     finally:
-        mod._LIB = own
+        setattr(mod, attr, own)
 
 
-def main():
-    flash = write_variants(A.SOURCE, FLASH, after=TF32_KERNEL)
-    lstm = write_variants(L.SOURCE, LSTM)
-    libs = {("flash", n): _build.Library(p, A._declare) for n, p in flash.items()}
-    libs.update({("lstm", n): _build.Library(p, L._declare) for n, p in lstm.items()})
-    with ThreadPoolExecutor(len(libs)) as pool:
-        list(pool.map(lambda lib: lib.get(), libs.values()))
+def flash_bwd(libs, rs):
+    """The backward's ablations at the LM shape, each pass alone (``passes``
+    1 and 2) and both, with the mma.sync design and the bf16 backward
+    beside."""
+    b, t, h, d = 4, 4096, 8, 64
+    for dtype in (torch.float32, torch.bfloat16):
+        base = torch.from_numpy(rs.randn(b, t, 3, h, d).astype(np.float32)).to("cuda", dtype)
+        q, k, v = base[:, :, 0], base[:, :, 1], base[:, :, 2]
+        with torch.no_grad():
+            out, lse = A.flash_attention_fwd(q, k, v, causal=True)
+        g = torch.randn_like(out)
+        earlier = "f32_3xtf32" if dtype == torch.float32 else "bf16_tf32"
+        runs = [(n, None) for n in FLASH_BWD]
+        for name, variant in runs + [("base", earlier)]:
+            ms = {}
+            for passes, key in ((3, "device_ms"), (1, "dq_pass_device_ms"),
+                                (2, "dkdv_pass_device_ms")):
+                ms[key] = timed_with(A, libs["flash_bwd", name], lambda: A.flash_attention_bwd(
+                    q, k, v, None, out, lse, g, causal=True, scale=d ** -0.5, passes=passes,
+                    variant=variant), attr="_BWD_WGMMA_LIB")
+            pl = A.plan_bwd((b, t, h, d), dtype, tuple(tuple(x.stride()[:3]) for x in (q, k, v)))
+            print(json.dumps({"kernel": "flash_attn_bwd", "variant": variant or pl.variant,
+                              "ablation": name, "B": b, "T": t, "H": h, "D": d, **ms}), flush=True)
 
-    rs = np.random.RandomState(0)
+
+def flash(libs, rs):
+    """The f32 forward's ablations at the LM shape, the mma.sync body and
+    the bf16 forward beside."""
     b, t, h, d = 4, 4096, 8, 64
     base = torch.from_numpy(rs.randn(b * t * 3 * h * d + 1).astype(np.float32)).cuda()
     for offset, dtype in ((0, torch.float32), (1, torch.float32), (0, torch.bfloat16)):
@@ -135,6 +192,10 @@ def main():
                                 lambda: A.flash_attention_fwd(q, k, v, causal=True))
                 print(json.dumps({"kernel": "flash_attn", "variant": pl.variant, "ablation": name,
                                   "B": b, "T": t, "H": h, "D": d, "device_ms": ms}), flush=True)
+
+
+def lstm(libs, rs):
+    """The LSTM's ablations at T=128, H=512, B in 1, 8, 64."""
     for batch in (1, 8, 64):
         hsz = 512
         f = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32)).cuda()  # noqa: E731
@@ -146,6 +207,28 @@ def main():
             print(json.dumps({"kernel": "lstm_seq", "variant": L.plan(batch, hsz, torch.float32)
                               .variant, "ablation": name, "T": 128, "B": batch, "H": hsz,
                               "device_ms": ms}), flush=True)
+
+
+def main(argv=None):
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--only", default="flash,lstm,flash_bwd",
+                    help="comma-separated kernels to ablate (flash, lstm, flash_bwd)")
+    only = ap.parse_args(argv).only.split(",")
+    sources = {"flash": (A.SOURCE, FLASH, TF32_KERNEL, A._declare, flash),
+               "lstm": (L.SOURCE, LSTM, None, L._declare, lstm),
+               "flash_bwd": (A.BWD_WGMMA_SOURCE, FLASH_BWD, None,
+                             A._declare_bwd_as("flash_attn_bwd_wgmma"), flash_bwd)}
+    paths = {kind: write_variants(*sources[kind][:3]) for kind in only}
+    libs = {(kind, n): _build.Library(path, sources[kind][3])
+            for kind in only for n, path in paths[kind].items()}
+    # the real libraries too: the backward's forward and the mma.sync design
+    with ThreadPoolExecutor(len(libs) + 2) as pool:
+        list(pool.map(lambda lib: lib.get(), list(libs.values()) + [A._LIB, A._BWD_LIB]))
+    rs = np.random.RandomState(0)
+    for kind in only:
+        sources[kind][-1](libs, rs)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip())
 

@@ -33,13 +33,17 @@ input dtype with f32 accumulation, fully masked rows emitting 0.
   the tests that hold its accuracy.
 - ``flash_attention_bwd`` is the backward: dq, dk, dv, the port of the
   JAX package's ``_bwd_core`` (which XLA compiles there; it is not a Pallas
-  kernel). On CUDA tensors it launches ``csrc/flash_attn_bwd.cu`` (two
-  passes: dq, then dk and dv; bit-identical from call to call) on the
-  variant ``plan_bwd()`` names: ``f32_3xtf32`` (the 3xTF32 split on
-  ``mma.sync``, 16-byte copies), ``f32_3xtf32_unaligned`` (4-byte copies,
-  for views off 16 bytes), ``bf16_tf32`` (bf16 widened, one TF32 pass).
-  ``launches_bwd`` counts its calls, ``launches_bwd_by_variant`` the same
-  by variant. On CPU tensors it takes ``flash_attention_bwd_plain``:
+  kernel). On CUDA tensors it launches two passes (dq, then dk and dv;
+  bit-identical from call to call) on the variant ``plan_bwd()`` names:
+  ``f32_3xtf32_wgmma`` (D <= 64: the 3xTF32 split on ``wgmma``, the swept
+  tiles split into shared memory as they stand and transposed) and
+  ``bf16_wgmma`` (a producer warp's TMA ring, ``wgmma`` with P and dS from
+  registers) in ``csrc/flash_attn_bwd_wgmma.cu``; ``f32_3xtf32`` (64 < D
+  <= 128, ``mma.sync``), ``f32_3xtf32_unaligned`` (4-byte copies, for
+  views off 16 bytes) and ``bf16_tf32`` (unaligned bf16 widened, one TF32
+  pass) in ``csrc/flash_attn_bwd.cu``. ``launches_bwd`` counts its calls,
+  ``launches_bwd_by_variant`` the same by variant. On CPU tensors it takes
+  ``flash_attention_bwd_plain``:
   PyTorch over blocks of ``BLOCK_K`` keys, recomputing the probabilities
   from ``lse``, memory O(B·H·T·Bk), never O(T²).
 - ``flash_attention`` is the differentiable entry point (one
@@ -68,6 +72,7 @@ from deeplearning4j_tpu_torch.ops import _build, _plans
 
 SOURCE = _build.CSRC / "flash_attn.cu"
 BWD_SOURCE = _build.CSRC / "flash_attn_bwd.cu"
+BWD_WGMMA_SOURCE = _build.CSRC / "flash_attn_bwd_wgmma.cu"
 
 #: the masked-score sentinel and the lse of a fully masked row
 NEG_INF = -1e30
@@ -80,11 +85,20 @@ launches = 0
 VARIANTS = ("f32_3xtf32", "f32_3xtf32_unaligned", "bf16_wgmma", "bf16_unaligned",
             "f32_3xtf32_wgmma")
 launches_by_variant = dict.fromkeys(VARIANTS, 0)
-#: backward kernel calls (each launches the dq pass, then the dk/dv pass)
+#: backward kernel calls (each launches the dq pass, then the dk/dv pass, or
+#: the one of them its ``passes`` names)
 launches_bwd = 0
 #: the same calls by backward variant (``plan_bwd().variant``)
-BWD_VARIANTS = ("f32_3xtf32", "f32_3xtf32_unaligned", "bf16_tf32")
+BWD_VARIANTS = ("f32_3xtf32", "f32_3xtf32_unaligned", "bf16_tf32", "f32_3xtf32_wgmma",
+                "bf16_wgmma")
+#: the backward variants ``csrc/flash_attn_bwd_wgmma.cu`` compiles (the
+#: others are ``csrc/flash_attn_bwd.cu``'s)
+BWD_WGMMA_VARIANTS = ("f32_3xtf32_wgmma", "bf16_wgmma")
 launches_bwd_by_variant = dict.fromkeys(BWD_VARIANTS, 0)
+#: the backward's passes, a bit each (``flash_attention_bwd``'s ``passes``):
+#: every call of the port runs both; one alone is for timing a pass apart
+BWD_PASSES = {"dq": 1, "dkdv": 2}
+BOTH_PASSES = BWD_PASSES["dq"] | BWD_PASSES["dkdv"]
 _count_lock = threading.Lock()
 
 
@@ -101,21 +115,31 @@ def _declare(lib):
     lib.flash_attn_error_string.restype = ctypes.c_char_p
 
 
-def _declare_bwd(lib):
-    lib.flash_attn_bwd_launch.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 12
-                                          + [ctypes.c_longlong] * 9 + [ctypes.c_int] * 5
-                                          + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-    lib.flash_attn_bwd_launch.restype = ctypes.c_int
-    lib.flash_attn_bwd_smem_bytes.argtypes = [ctypes.c_int] * 2
-    lib.flash_attn_bwd_smem_bytes.restype = ctypes.c_int
-    lib.flash_attn_bwd_occupancy.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
-    lib.flash_attn_bwd_occupancy.restype = ctypes.c_int
-    lib.flash_attn_bwd_error_string.argtypes = [ctypes.c_int]
-    lib.flash_attn_bwd_error_string.restype = ctypes.c_char_p
+def _declare_bwd_as(prefix):
+    """The declaration of a backward library whose entry points are
+    ``<prefix>_launch``, ``_smem_bytes``, ``_occupancy``, ``_error_string``;
+    the library is then reached through those four names unprefixed."""
+    def declare(lib):
+        launch = getattr(lib, f"{prefix}_launch")
+        launch.argtypes = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 12
+                           + [ctypes.c_longlong] * 9 + [ctypes.c_int] * 5
+                           + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+        launch.restype = ctypes.c_int
+        smem = getattr(lib, f"{prefix}_smem_bytes")
+        smem.argtypes, smem.restype = [ctypes.c_int] * 2, ctypes.c_int
+        occupancy = getattr(lib, f"{prefix}_occupancy")
+        occupancy.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+        occupancy.restype = ctypes.c_int
+        error = getattr(lib, f"{prefix}_error_string")
+        error.argtypes, error.restype = [ctypes.c_int], ctypes.c_char_p
+        lib.launch, lib.smem_bytes, lib.occupancy, lib.error_string = (
+            launch, smem, occupancy, error)
+    return declare
 
 
 _LIB = _build.Library(SOURCE, _declare)
-_BWD_LIB = _build.Library(BWD_SOURCE, _declare_bwd)
+_BWD_LIB = _build.Library(BWD_SOURCE, _declare_bwd_as("flash_attn_bwd"))
+_BWD_WGMMA_LIB = _build.Library(BWD_WGMMA_SOURCE, _declare_bwd_as("flash_attn_bwd_wgmma"))
 
 
 def build():
@@ -126,6 +150,17 @@ def build():
 def build_bwd():
     """Compile ``csrc/flash_attn_bwd.cu`` unless built; returns the library path."""
     return _BWD_LIB.build()
+
+
+def build_bwd_wgmma():
+    """Compile ``csrc/flash_attn_bwd_wgmma.cu`` unless built; returns the library path."""
+    return _BWD_WGMMA_LIB.build()
+
+
+def bwd_library(variant):
+    """The loaded library that compiles backward ``variant`` (its entry
+    points ``launch``, ``smem_bytes``, ``occupancy``, ``error_string``)."""
+    return (_BWD_WGMMA_LIB if variant in BWD_WGMMA_VARIANTS else _BWD_LIB).get()
 
 
 def reset_launches():
@@ -337,21 +372,28 @@ def launch_plan(shape, dtype, strides=None, aligned=True):
     return PLANS.get(plan_key(shape, dtype, strides, aligned))
 
 
-#: columns each swept tile of the backward holds (csrc/flash_attn_bwd.cu's
-#: kCols), and by feature width the rows a block keeps (query rows in the dq
-#: pass, keys in the dk/dv pass) in warps of 16: at DP = 64 eight warps, the
-#: swept tiles split into TF32 halves once in shared memory; at DP = 128
-#: four, splitting what they read
+#: columns each swept tile of the backward holds (both sources' kCols,
+#: kTCols, kBCols), and by variant and feature width the rows a block keeps
+#: (query rows in the dq pass, keys in the dk/dv pass) and its threads. The
+#: mma.sync variants (csrc/flash_attn_bwd.cu) keep warps of 16 rows: at DP =
+#: 64 eight, the swept tiles split into TF32 halves once in shared memory;
+#: at DP = 128 four, splitting what they read. f32_3xtf32_wgmma keeps two
+#: warpgroups of 64; bf16_wgmma one, beside its producer warp.
 BWD_COLS = 64
 BWD_ROWS = {64: 128, 128: 64}
+BWD_WGMMA_ROWS = {"f32_3xtf32_wgmma": 128, "bf16_wgmma": 64}
+BWD_WGMMA_THREADS = {"f32_3xtf32_wgmma": 256, "bf16_wgmma": 160}
+#: bf16_wgmma's ring of swept tiles (csrc/flash_attn_bwd_wgmma.cu BfLayout::S)
+BWD_BF16_STAGES = 4
 
 
 class BwdPlan(NamedTuple):
     """How one backward call runs: the variant, the feature width ``dp`` it
     is compiled for (D rides it zero-filled), rows a block keeps and
-    columns a swept tile holds, threads a block, the grids (row tiles, B*H)
-    of the dq pass and of the dk/dv pass, and a block's shared memory (the
-    same in both)."""
+    columns a swept tile holds, threads a block, the grids of the dq pass
+    and of the dk/dv pass ((row tiles, B*H); the wgmma variants' (B*H, row
+    tiles)), and the shared memory of the larger of the two passes'
+    blocks."""
     variant: str
     dp: int
     block_rows: int
@@ -362,12 +404,24 @@ class BwdPlan(NamedTuple):
     smem_bytes: int
 
 
-def bwd_smem_bytes(dp):
-    """Shared memory (bytes) of one backward block at feature width ``dp``,
-    as ``csrc/flash_attn_bwd.cu`` lays it out (rows of dp + 4 floats): the
-    kept rows' two tiles, a double-buffered pair of swept tiles, at DP = 64
-    the current pair's lo halves, three column vectors a stage and the dq
-    pass's delta."""
+def bwd_smem_bytes(variant, dp):
+    """Shared memory (bytes) of the larger block of the backward's two
+    passes (the dk/dv pass's) for ``variant`` at feature width ``dp``, as
+    its CUDA source lays it out. mma.sync variants (rows of dp + 4 floats):
+    the kept rows' two tiles, a double-buffered pair of swept tiles, at DP
+    = 64 the current pair's lo halves, three column vectors a stage and the
+    dq pass's delta. ``f32_3xtf32_wgmma``: Q, Q^T, dO and dO^T as TF32 halves
+    (16 KB a copy), the kept K and V raw (128 rows), the raw swept pair,
+    two stages of three column vectors, 1 KB of alignment slack.
+    ``bf16_wgmma``: the kept K and V, the ring's 4 stages of Q and dO (64
+    x 64 bf16 boxes), three column vectors a stage, 64 delta rows, the
+    mbarriers and the slack."""
+    if variant == "f32_3xtf32_wgmma":
+        return 4 * 2 * 16384 + 2 * 128 * 256 + 2 * 64 * 256 + 2 * 3 * 64 * 4 + 1024
+    if variant == "bf16_wgmma":
+        nb = dp // 64
+        return ((2 + 2 * BWD_BF16_STAGES) * nb * 8192 + BWD_BF16_STAGES * 3 * 64 * 4 + 64 * 4
+                + (1 + 2 * BWD_BF16_STAGES) * 8 + 1024)
     rows = BWD_ROWS[dp]
     tiles = 2 * rows + (6 if dp == 64 else 4) * BWD_COLS
     return 4 * (tiles * (dp + 4) + 2 * 3 * BWD_COLS + rows)
@@ -379,24 +433,36 @@ def plan_bwd(shape, dtype, strides=None, aligned=True):
     float32 or bfloat16, ``strides`` the (batch, time, head) element
     strides of q, k and v (three triples; None: each contiguous), and
     ``aligned`` whether q, k, v, out and the output cotangent start on 16
-    bytes. f32 takes ``f32_3xtf32`` where they are aligned and D and every
-    stride are multiples of 4 elements, else ``f32_3xtf32_unaligned``
-    (4-byte copies: the views are read in place all the same); bf16 takes
-    ``bf16_tf32`` (element loads, whatever the alignment). No tuning DB is
-    consulted: the backward has no tuner space."""
+    bytes. f32 takes ``f32_3xtf32_wgmma`` (D <= 64) or ``f32_3xtf32`` (D >
+    64) where they are aligned and D and every stride are multiples of 4
+    elements, else ``f32_3xtf32_unaligned`` (4-byte copies: the views are
+    read in place all the same); bf16 takes ``bf16_wgmma`` where they are
+    aligned, D and every stride are multiples of 8 elements and the strides
+    nest (head inside time inside batch, as TMA's maps walk them), else
+    ``bf16_tf32`` (element loads). No tuning DB is consulted: the backward
+    has no tuner space."""
     b, t, h, d = shape
     strides, flat = _flat_strides(shape, strides)
     if dtype == torch.float32:
         vec = aligned and d % 4 == 0 and all(s % 4 == 0 for s in flat)
-        variant = "f32_3xtf32" if vec else "f32_3xtf32_unaligned"
+        variant = (("f32_3xtf32_wgmma" if d <= 64 else "f32_3xtf32") if vec
+                   else "f32_3xtf32_unaligned")
     elif dtype == torch.bfloat16:
-        variant = "bf16_tf32"
+        nested = all(sh >= d and st >= h * sh and sb >= t * st for sb, st, sh in strides)
+        tma = aligned and nested and d % 8 == 0 and all(s % 8 == 0 for s in flat)
+        variant = "bf16_wgmma" if tma else "bf16_tf32"
     else:
         raise TypeError(f"flash_attn_bwd kernel takes float32 or bfloat16, got {dtype}")
-    dp = _width(d)
-    rows = BWD_ROWS[dp]
-    grid = (-(-t // rows), b * h)
-    return BwdPlan(variant, dp, rows, BWD_COLS, 2 * rows, grid, grid, bwd_smem_bytes(dp))
+    dp = 64 if variant == "f32_3xtf32_wgmma" else _width(d)
+    if variant in BWD_WGMMA_VARIANTS:
+        rows, threads = BWD_WGMMA_ROWS[variant], BWD_WGMMA_THREADS[variant]
+    else:
+        rows = BWD_ROWS[dp]
+        threads = 2 * rows
+    # the wgmma variants' grids run over (b, h) fastest, their row blocks
+    # ranked longest first on y
+    grid = (b * h, -(-t // rows)) if variant in BWD_WGMMA_VARIANTS else (-(-t // rows), b * h)
+    return BwdPlan(variant, dp, rows, BWD_COLS, threads, grid, grid, bwd_smem_bytes(variant, dp))
 
 
 # ---------------------------------------------------------------------------
@@ -592,13 +658,19 @@ def _check_bwd(q, k, v, mask, out, lse, g, g_lse):
 
 
 def flash_attention_bwd(q, k, v, mask, out, lse, g, *, causal, scale, block_k=BLOCK_K,
-                        g_lse=None):
+                        g_lse=None, passes=BOTH_PASSES, variant=None):
     """dq, dk, dv ([B,T,H,D] in q's dtype) for ``flash_attention``, from the
     forward's ``out`` and ``lse`` and the cotangent ``g`` of ``out`` (and
     ``g_lse`` [B,H,T] of ``lse``, optional): the Hopper kernel on CUDA
     tensors, ``flash_attention_bwd_plain`` on CPU tensors (``block_k`` is
-    the plain version's key block; the kernel's tiles are ``plan_bwd``'s)."""
+    the plain version's key block; the kernel's tiles are ``plan_bwd``'s).
+    ``passes`` (``BWD_PASSES`` bits) and ``variant`` (a variant of q's
+    dtype in place of ``plan_bwd``'s) are for timing a pass or a design
+    apart on the card: a call with one pass leaves the other's outputs
+    unwritten, and the dk/dv pass alone reads a zero delta."""
     global launches_bwd
+    if passes not in (1, 2, BOTH_PASSES):
+        raise ValueError(f"passes must be 1 (dq), 2 (dk/dv) or 3 (both), got {passes}")
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, mask, out, lse, g, causal=causal, scale=scale,
                                          block_k=block_k, g_lse=g_lse)
@@ -614,11 +686,14 @@ def flash_attention_bwd(q, k, v, mask, out, lse, g, *, causal, scale, block_k=BL
     strides = tuple(tuple(x.stride()[:3]) for x in (q, k, v))
     pl = plan_bwd(tuple(q.shape), dt, strides,
                   all(x.data_ptr() % 16 == 0 for x in (q, k, v, out_c, g_c)))
-    lib = _BWD_LIB.get()
+    if variant is not None:
+        pl = pl._replace(variant=variant, dp=64 if variant == "f32_3xtf32_wgmma" else _width(d))
+    lib = bwd_library(pl.variant)
     dq, dk, dv = (torch.empty((b, t, h, d), dtype=dt, device=q.device) for _ in range(3))
-    delta = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
-    err = lib.flash_attn_bwd_launch(
-        BWD_VARIANTS.index(pl.variant), pl.dp, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+    delta = (torch.empty if passes & BWD_PASSES["dq"] else torch.zeros)(
+        (b, h, t), dtype=torch.float32, device=q.device)
+    err = lib.launch(
+        BWD_VARIANTS.index(pl.variant), pl.dp, passes, q.data_ptr(), k.data_ptr(), v.data_ptr(),
         out_c.data_ptr(), g_c.data_ptr(), lse_c.data_ptr(),
         None if glse is None else glse.data_ptr(),
         None if maskf is None else maskf.data_ptr(), delta.data_ptr(), dq.data_ptr(),
@@ -626,7 +701,7 @@ def flash_attention_bwd(q, k, v, mask, out, lse, g, *, causal, scale, block_k=BL
         b, h, t, d, int(bool(causal)), float(scale), _build.device_index(q.device),
         torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
-        msg = lib.flash_attn_bwd_error_string(err).decode()
+        msg = lib.error_string(err).decode()
         raise RuntimeError(f"flash_attn_bwd kernel launch failed ({pl}): CUDA error {err} "
                            f"({msg})")
     with _count_lock:

@@ -1,11 +1,12 @@
-"""The flash-attention backward kernel's plan, wrapper and arithmetic.
+"""The flash-attention backward kernels' plan, wrapper and arithmetic.
 
-``csrc/flash_attn_bwd.cu`` cannot run here (no nvcc, no card); chip_smoke
-holds it against ``flash_attention_bwd_plain`` on the card. Here:
+``csrc/flash_attn_bwd_wgmma.cu`` and ``csrc/flash_attn_bwd.cu`` cannot run
+here (no nvcc, no card); chip_smoke holds them against
+``flash_attention_bwd_plain`` on the card. Here:
 
-- ``plan_bwd``: variants by dtype and alignment, the two passes' grids,
-  shared memory within ``SMEM_LIMIT``, and the constants the CUDA source
-  compiles in;
+- ``plan_bwd``: variants by dtype, width and alignment, the two passes'
+  grids, shared memory within ``SMEM_LIMIT``, and the constants the CUDA
+  sources compile in;
 - the wrapper: CPU tensors take the plain version and count no launch;
   ``_check_bwd`` refuses shapes, dtypes and strides the kernel does not take;
 - the kernel's arithmetic, emulated on the CPU (``kernel_bwd`` below: the
@@ -53,12 +54,16 @@ def _mask(rs, b, t):
 
 
 def kernel_bwd(q, k, v, mask, out, lse, g, *, causal, scale, g_lse=None):
-    """dq, dk, dv as ``csrc/flash_attn_bwd.cu`` computes them, in f32 on the
+    """dq, dk, dv as the f32 backward kernels compute them, in f32 on the
     CPU: the dq pass (delta per row; per key tile S and dP from 16-feature
     fresh sums, P, dS, the tile's dS.K added to dq) and the dk/dv pass (per
     query tile from the diagonal, S^T and dP^T with the keys as rows, the
     tile's P^T.dO and dS^T.Q added to dv and dk), every product through
-    ``matmul_3xtf32``. [B,T,H,D] in and out."""
+    ``matmul_3xtf32``. ``f32_3xtf32_wgmma`` (two warpgroups of 64 kept rows)
+    and ``f32_3xtf32`` (warps of 16) keep the same sums in the same order:
+    the kept rows a block holds do not enter them, and the order within one
+    tensor-core product (mma.sync's 8-deep, wgmma's 8-deep steps) is not
+    modelled. [B,T,H,D] in and out."""
     b, t, h, d = q.shape
     qh, kh, vh, oh, gh = (x.permute(0, 2, 1, 3).float() for x in (q, k, v, out, g))
     delta = (gh * oh).sum(-1)                                          # [B,H,T]
@@ -187,39 +192,68 @@ LM_STRIDES = ((4096 * 3 * 512, 3 * 512, 64),) * 3  # views of one [B,T,3,H,D] pr
 
 
 @pytest.mark.parametrize("shape,dtype,strides,aligned,variant,dp", [
-    ((4, 4096, 8, 64), torch.float32, LM_STRIDES, True, "f32_3xtf32", 64),
-    ((4, 4096, 8, 64), torch.float32, None, True, "f32_3xtf32", 64),
+    ((4, 4096, 8, 64), torch.float32, LM_STRIDES, True, "f32_3xtf32_wgmma", 64),
+    ((4, 4096, 8, 64), torch.float32, None, True, "f32_3xtf32_wgmma", 64),
+    ((4, 1000, 8, 32), torch.float32, None, True, "f32_3xtf32_wgmma", 64),
     ((4, 1000, 8, 128), torch.float32, None, True, "f32_3xtf32", 128),
     ((4, 1000, 8, 100), torch.float32, None, True, "f32_3xtf32", 128),
     ((4, 1000, 8, 64), torch.float32, None, False, "f32_3xtf32_unaligned", 64),
     ((4, 1000, 8, 64), torch.float32, ((1000 * 3 * 8 * 65, 3 * 8 * 65, 65),) * 3, True,
      "f32_3xtf32_unaligned", 64),
     ((4, 1000, 8, 30), torch.float32, None, True, "f32_3xtf32_unaligned", 64),
-    ((4, 4096, 8, 64), torch.bfloat16, LM_STRIDES, True, "bf16_tf32", 64),
+    ((4, 4096, 8, 64), torch.bfloat16, LM_STRIDES, True, "bf16_wgmma", 64),
+    ((4, 1000, 8, 128), torch.bfloat16, None, True, "bf16_wgmma", 128),
     ((4, 1000, 8, 128), torch.bfloat16, None, False, "bf16_tf32", 128),
+    ((4, 1000, 8, 100), torch.bfloat16, None, True, "bf16_tf32", 128),
+    ((4, 1000, 8, 64), torch.bfloat16, ((1000 * 3 * 8 * 65, 3 * 8 * 65, 65),) * 3, True,
+     "bf16_tf32", 64),
+    ((4, 1000, 8, 64), torch.bfloat16, ((1000 * 8 * 64, 64, 1000 * 64),) * 3, True,
+     "bf16_tf32", 64),
 ])
 def test_plan_bwd_variants(shape, dtype, strides, aligned, variant, dp):
+    """LM strides and aligned calls at D <= 64 (f32) or any D (bf16, D a
+    multiple of 8) take the wgmma variants; D > 64 in f32 keeps
+    ``f32_3xtf32``, unaligned views, odd strides and strides that do not
+    nest keep ``f32_3xtf32_unaligned`` and ``bf16_tf32``."""
     pl = tfa.plan_bwd(shape, dtype, strides, aligned)
     assert (pl.variant, pl.dp) == (variant, dp)
     b, t, h, _ = shape
-    rows = {64: 128, 128: 64}[dp]
-    assert pl.grid_dq == pl.grid_dkdv == (-(-t // rows), b * h)
-    assert (pl.block_rows, pl.block_cols, pl.threads) == (rows, 64, 2 * rows)
-    assert pl.smem_bytes == tfa.bwd_smem_bytes(dp) <= tfa.SMEM_LIMIT
+    rows, threads = {"f32_3xtf32_wgmma": (128, 256), "bf16_wgmma": (64, 160)}.get(
+        variant, ({64: 128, 128: 64}[dp], 2 * {64: 128, 128: 64}[dp]))
+    grid = (-(-t // rows), b * h)
+    assert pl.grid_dq == pl.grid_dkdv == (grid[::-1] if "wgmma" in variant else grid)
+    assert (pl.block_rows, pl.block_cols, pl.threads) == (rows, 64, threads)
+    assert pl.smem_bytes == tfa.bwd_smem_bytes(variant, dp) <= tfa.SMEM_LIMIT
 
 
-@pytest.mark.parametrize("dp,want", [(64, 176_128), (128, 204_544)])
-def test_plan_bwd_shared_memory(dp, want):
-    """One block an SM at either width (1 KB reserved a block of the SM's
-    228 KB): DP = 64 holds 128 kept rows, the swept pair and its lo halves;
-    DP = 128 64 kept rows and the swept pair."""
-    assert tfa.bwd_smem_bytes(dp) == want
-    assert want <= tfa.SMEM_LIMIT < 2 * (want + 1024)
+@pytest.mark.parametrize("variant,dp,want,blocks", [
+    ("f32_3xtf32", 64, 176_128, 1), ("f32_3xtf32", 128, 204_544, 1),
+    ("f32_3xtf32_wgmma", 64, 231_936, 1), ("bf16_wgmma", 64, 86_344, 2),
+    ("bf16_wgmma", 128, 168_264, 1)])
+def test_plan_bwd_shared_memory(variant, dp, want, blocks):
+    """Blocks an SM by shared memory (1 KB reserved a block of the SM's 228
+    KB): the mma.sync variants and f32_3xtf32_wgmma one (DP = 64 holds 128
+    kept rows, the swept pair and its lo halves; DP = 128 64 kept rows and
+    the swept pair; the wgmma dk/dv pass 128 kept keys raw, Q, Q^T, dO,
+    dO^T as TF32 halves and the raw swept pair, 512 bytes under the limit),
+    bf16_wgmma two at DP = 64 (64 kept keys, a 4-stage ring)."""
+    assert tfa.bwd_smem_bytes(variant, dp) == want
+    assert want <= tfa.SMEM_LIMIT and (233_472 // (want + 1024)) == blocks
 
 
 def test_plan_bwd_refuses_other_dtypes():
     with pytest.raises(TypeError):
         tfa.plan_bwd((1, 8, 1, 8), torch.float16)
+
+
+@pytest.mark.parametrize("passes", [0, 4, -1])
+def test_backward_refuses_other_pass_masks(passes):
+    """``passes`` is a mask of the dq (1) and dk/dv (2) passes: anything
+    else is refused before any launch, on the CPU too."""
+    q = torch.zeros(1, 8, 1, 8)
+    with pytest.raises(ValueError, match="passes"):
+        tfa.flash_attention_bwd(q, q, q, None, q, torch.zeros(1, 1, 8), q, causal=False,
+                                scale=1.0, passes=passes)
 
 
 def test_bwd_constants_mirror_the_cuda_source():
@@ -228,8 +262,38 @@ def test_bwd_constants_mirror_the_cuda_source():
     assert "PRESPLIT = DP == 64;" in src
     assert "ROWS = PRESPLIT ? 128 : 64;" in src and tfa.BWD_ROWS == {64: 128, 128: 64}
     assert "THREADS = 2 * ROWS;" in src
-    enum = re.search(r"enum Variant \{([^}]*)\}", src).group(1)
-    assert [int(x) for x in re.findall(r"= (\d+)", enum)] == list(range(len(tfa.BWD_VARIANTS)))
+    wsrc = tfa.BWD_WGMMA_SOURCE.read_text()
+    # the variants' indices: BWD_VARIANTS' order across the two sources
+    enums = [dict(re.findall(r"(k\w+) = (\d+)", re.search(r"enum Variant \{([^}]*)\}", x)
+                                                          .group(1))) for x in (src, wsrc)]
+    assert sorted(int(i) for e in enums for i in e.values()) == list(range(len(tfa.BWD_VARIANTS)))
+    assert enums[1] == {"kF32Tf32x3Wgmma": str(tfa.BWD_VARIANTS.index("f32_3xtf32_wgmma")),
+                        "kBf16Wgmma": str(tfa.BWD_VARIANTS.index("bf16_wgmma"))}
+    for x in (src, wsrc):  # the pass bits
+        assert "enum Pass { kDqPass = 1, kDkDvPass = 2 };" in x
+    assert tfa.BWD_PASSES == {"dq": 1, "dkdv": 2} and tfa.BOTH_PASSES == 3
+    # the wgmma variants' blocks
+    for name, want in (("kTRows", tfa.BWD_WGMMA_ROWS["f32_3xtf32_wgmma"]),
+                       ("kTCols", tfa.BWD_COLS), ("kTThreads",
+                                                 tfa.BWD_WGMMA_THREADS["f32_3xtf32_wgmma"]),
+                       ("kBRows", tfa.BWD_WGMMA_ROWS["bf16_wgmma"]), ("kBCols", tfa.BWD_COLS)):
+        found = re.search(rf"constexpr int {name} = (\d+);", wsrc).group(1)
+        assert found == str(want), name
+    assert "constexpr int kBThreads = 128 + 32;" in wsrc
+    assert tfa.BWD_WGMMA_THREADS["bf16_wgmma"] == 160
+    assert f"static constexpr int S = {tfa.BWD_BF16_STAGES};" in wsrc
+    for line in ("uint32_t kept = (2 + NTR) * 2 * kTCopy;",
+                 "uint32_t raw = kept + 2 * kTRows * 256;",
+                 "uint32_t vec = raw + 2 * kTCols * 256;",
+                 "uint32_t rowv = vec + 2 * NV * kTCols * 4;",
+                 "int bytes = rowv + (DQ ? kTRows * 4 : 0) + 1024;",
+                 "uint32_t ring = 2 * NB * kBBox;", "uint32_t vec = ring + S * stage_bytes;",
+                 "uint32_t rowv = vec + S * NV * kBCols * 4;",
+                 "uint32_t bars = rowv + kBRows * 4;",
+                 "int bytes = bars + (1 + 2 * S) * 8 + 1024;"):
+        assert f"static constexpr {line}" in wsrc, line
+    assert "constexpr uint32_t kTCopy = 2 * kTBox;" in wsrc and "kTBox = 64 * 128;" in wsrc
+    assert "kBBox = 64 * 128;" in wsrc
     # the layout bwd_smem_bytes counts
     for line in ("ring = 2 * ROWS * LD;", "lo = ring + 4 * tile;",
                  "vec = lo + (PRESPLIT ? 2 * tile : 0);", "rowv = vec + 2 * 3 * kCols;",

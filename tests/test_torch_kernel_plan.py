@@ -228,14 +228,15 @@ def test_cpu_tensors_count_no_launch_of_any_variant():
         assert not any(mod.launches_by_variant.values()) and mod.launches == 0
 
 
-@pytest.mark.parametrize("kind", ["flash", "lstm"])
+@pytest.mark.parametrize("kind", ["flash", "lstm", "flash_bwd"])
 def test_ablation_edits_find_their_code(kind):
     # ops/ablation.py switches parts of the kernels off by editing their
     # sources: every edit must still find its text, and only base is unedited
     from deeplearning4j_tpu_torch.ops import ablation as X
 
-    source, variants, after = ((A.SOURCE, X.FLASH, X.TF32_KERNEL) if kind == "flash"
-                               else (L.SOURCE, X.LSTM, None))
+    source, variants, after = {"flash": (A.SOURCE, X.FLASH, X.TF32_KERNEL),
+                               "lstm": (L.SOURCE, X.LSTM, None),
+                               "flash_bwd": (A.BWD_WGMMA_SOURCE, X.FLASH_BWD, None)}[kind]
     src = source.read_text()
     for name, edits in variants.items():
         assert (X.variant_source(src, edits, after) == src) == (name == "base")
